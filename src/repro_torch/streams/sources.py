@@ -1,0 +1,164 @@
+"""Stream data sources (numpy), copied from the reference so the port draws
+the same series from the same seeds.
+
+* ``wind_turbine_series`` — a stationary 5-channel temperature-like series
+  standing in for the ENGIE La Haute Borne turbine data the paper uses
+  (Db1t_avg, Db2t_avg, Gb1t_avg, Gb2t_avg, Ot_avg; 10-minute cadence,
+  ~50k observations).  Daily + seasonal harmonics, cross-correlated AR(1)
+  noise, mean-reverting — ADF-stationary like the paper's (Sec. 6.1.1).
+
+* ``gradual_drift`` / ``abrupt_drift`` — the paper's Eq. 6 / Eq. 7 drift
+  simulators: GD_i(t) = a_i*t + Y_i(t) + eps;  AD_i(t) = a_i*t*lambda + Y_i(t)
+  + eps with a random abrupt parameter lambda (piecewise-constant regime
+  switches).  ``seasonal_drift`` extends the menu beyond the paper: a slow
+  periodic component the history never saw, which drifts away and comes
+  back.
+
+* ``apply_scenario`` — name-keyed dispatch over the drift scenarios
+  ({"none", "gradual", "abrupt"} from the paper's Sec. 6.1.3, plus
+  "seasonal").
+
+The multi-stream sources (``turbine_fleet``, ``fleet_windowed_streams``)
+come with the fleet slice, ``token_stream`` with the model zoo.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+N_TURBINE_CHANNELS = 5
+CHANNEL_NAMES = ("Db1t_avg", "Db2t_avg", "Gb1t_avg", "Gb2t_avg", "Ot_avg")
+
+
+def wind_turbine_series(
+    n: int = 50_000, seed: int = 0, dt_minutes: float = 10.0
+) -> np.ndarray:
+    """(n, 5) float32 stationary series."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    day = 24 * 60 / dt_minutes  # samples per day
+    year = 365 * day
+
+    base_temp = np.array([45.0, 44.0, 55.0, 54.0, 12.0])  # bearing/gearbox/outdoor
+    daily_amp = np.array([2.0, 2.2, 3.0, 2.8, 5.0])
+    # mild seasonal term: strong enough to exist, weak enough that a model
+    # trained on history stays competitive on the (stationary) stream — the
+    # paper's no-drift scenario has batch ~ speed (Fig. 8a)
+    seasonal_amp = np.array([1.2, 1.2, 1.6, 1.6, 3.0])
+    noise_scale = np.array([0.8, 0.8, 1.2, 1.2, 1.5])
+
+    daily = np.sin(2 * np.pi * t / day)[:, None] * daily_amp[None]
+    seasonal = np.sin(2 * np.pi * t / year + 0.5)[:, None] * seasonal_amp[None]
+
+    # cross-correlated AR(1) noise (shared ambient component)
+    shared = np.zeros(n)
+    eps_s = rng.normal(0, 0.3, n)
+    for i in range(1, n):
+        shared[i] = 0.98 * shared[i - 1] + eps_s[i]
+    own = np.zeros((n, N_TURBINE_CHANNELS))
+    eps_o = rng.normal(0, 1.0, (n, N_TURBINE_CHANNELS))
+    for i in range(1, n):
+        own[i] = 0.95 * own[i - 1] + eps_o[i]
+    noise = (own + shared[:, None]) * noise_scale[None] * 0.5
+
+    series = base_temp[None] + daily + seasonal + noise
+    return series.astype(np.float32)
+
+
+def gradual_drift(
+    series: np.ndarray,
+    alphas: Optional[np.ndarray] = None,
+    eps_scale: float = 0.2,
+    seed: int = 1,
+    start: int = 0,
+) -> np.ndarray:
+    """Paper Eq. 6: GD_i(t) = alpha_i * t + Y_i(t) + eps (after ``start``)."""
+    rng = np.random.default_rng(seed)
+    n, f = series.shape
+    if alphas is None:
+        alphas = np.full(f, 5e-4)
+    t = np.maximum(np.arange(n, dtype=np.float64) - start, 0.0)
+    eps = rng.normal(0, eps_scale, (n, f))
+    return (series + alphas[None] * t[:, None] + eps).astype(np.float32)
+
+
+def abrupt_drift(
+    series: np.ndarray,
+    alphas: Optional[np.ndarray] = None,
+    eps_scale: float = 0.2,
+    seed: int = 2,
+    n_switches: int = 4,
+    start: int = 0,
+) -> np.ndarray:
+    """Paper Eq. 7: AD_i(t) = alpha_i * t * lambda + Y_i(t) + eps, with
+    lambda a random abrupt parameter — piecewise-constant regime levels that
+    switch at random change points (sudden concept switches)."""
+    rng = np.random.default_rng(seed)
+    n, f = series.shape
+    if alphas is None:
+        alphas = np.full(f, 8e-4)
+    switch_points = np.sort(rng.choice(np.arange(start + 1, n - 1), n_switches,
+                                       replace=False))
+    lam = np.zeros(n)
+    prev = 0
+    levels = rng.uniform(-1.5, 1.5, n_switches + 1)
+    for i, sp in enumerate(list(switch_points) + [n]):
+        lam[prev:sp] = levels[i]
+        prev = sp
+    t = np.maximum(np.arange(n, dtype=np.float64) - start, 0.0)
+    eps = rng.normal(0, eps_scale, (n, f))
+    drift = alphas[None] * (t * lam)[:, None]
+    return (series + drift + eps).astype(np.float32)
+
+
+def seasonal_drift(
+    series: np.ndarray,
+    amp_scale: float = 1.0,
+    period: Optional[int] = None,
+    eps_scale: float = 0.2,
+    seed: int = 3,
+    start: int = 0,
+) -> np.ndarray:
+    """Seasonal drift: SD_i(t) = A_i * sin(2*pi*(t - start)/P + phi_i)
+    + Y_i(t) + eps — a slow periodic component the history never saw, per
+    channel with its own random phase.  Unlike Eq. 6's monotone ramp it
+    drifts away and comes *back*.  ``period`` defaults to half the
+    post-``start`` length (one full cycle over the live stream)."""
+    rng = np.random.default_rng(seed)
+    n, f = series.shape
+    if period is None:
+        period = max((n - start) // 2, 1)
+    amps = amp_scale * series.std(axis=0)
+    phases = rng.uniform(0.0, 2 * np.pi, f)
+    t = np.maximum(np.arange(n, dtype=np.float64) - start, 0.0)
+    wave = np.sin(2 * np.pi * t[:, None] / period + phases[None])
+    # the drift only exists after start (wave(0) != 0 unless phi is 0)
+    wave *= (t > 0)[:, None]
+    eps = rng.normal(0, eps_scale, (n, f))
+    return (series + amps[None] * wave + eps).astype(np.float32)
+
+
+SCENARIOS = ("none", "gradual", "abrupt", "seasonal")
+
+
+def apply_scenario(
+    series: np.ndarray,
+    scenario: str,
+    seed: int = 1,
+    alphas: Optional[np.ndarray] = None,
+    start: int = 0,
+) -> np.ndarray:
+    """Apply one of the drift scenarios to a (stationary) series:
+    ``"none"`` returns it untouched, ``"gradual"`` applies Eq. 6,
+    ``"abrupt"`` applies Eq. 7, ``"seasonal"`` adds the periodic
+    excursion-and-return component of :func:`seasonal_drift`."""
+    if scenario == "none":
+        return series
+    if scenario == "gradual":
+        return gradual_drift(series, alphas=alphas, seed=seed, start=start)
+    if scenario == "abrupt":
+        return abrupt_drift(series, alphas=alphas, seed=seed, start=start)
+    if scenario == "seasonal":
+        return seasonal_drift(series, seed=seed, start=start)
+    raise ValueError(f"unknown scenario {scenario!r}; pick from {SCENARIOS}")

@@ -6,6 +6,7 @@ from repro_torch.core.hybrid import (  # noqa: F401
     HybridStreamAnalytics,
     WindowRecord,
     lstm_forecaster,
+    pretrain_batch_model,
 )
 from repro_torch.core.stages import PipelineStages  # noqa: F401
 from repro_torch.core.weighting import (  # noqa: F401

@@ -9,12 +9,17 @@ Per time window t (paper Fig. 4):
 
   training phase: speed training of M^s_t on window t's records.
 
-The port so far serves: ``lstm_forecaster`` predicts on the card, and its
-``train`` raises until the training slice.  A caller that installs speed
-models trained elsewhere — the edge's view of the paper's edge-cloud
-integrated deployment, where the cloud publishes them — replaces ``train``
-with a trainer that hands out the published models in order
-(``dataclasses.replace(forecaster, train=...)``).
+``lstm_forecaster`` builds the paper's setup on the card: it predicts
+through the LSTM serving kernel and trains through the LSTM training
+kernels (``repro_torch.training.compiled.CompiledForecaster``).  A caller
+may replace ``train`` (``dataclasses.replace(forecaster, train=...)``): with
+a trainer that installs speed models published elsewhere, the edge's view of
+the paper's edge-cloud deployment, or with one that hands the engine draws
+made elsewhere.
+
+The per-window work lives in ``repro_torch.core.stages`` as pipeline
+stages; ``HybridStreamAnalytics.run`` drives them through
+``repro_torch.runtime.executor.InProcessExecutor``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.windows import WindowedStream
 from repro_torch.models import lstm as lstm_mod
+from repro_torch.models.model import get_model
+from repro_torch.training.compiled import CompiledForecaster
 
 Params = Any
 
@@ -36,11 +43,14 @@ Params = Any
 class Forecaster:
     """train(data, params, key) -> (params, wall_s); predict(params, x) -> y.
 
-    ``key`` is an integer seed for the window's training."""
+    ``key`` is an integer seed for the window's training.  ``engine``
+    exposes the backing trainer, for ``lstm_forecaster`` the
+    ``CompiledForecaster`` with its counters and ``fit_window``."""
 
     train: Callable[[Dict[str, np.ndarray], Optional[Params], int],
                     Tuple[Params, float]]
     predict: Callable[[Params, np.ndarray], np.ndarray]
+    engine: Any = None
 
 
 def lstm_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
@@ -49,9 +59,9 @@ def lstm_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
                     ) -> Forecaster:
     """The paper's LSTM forecaster on ``device`` (the current CUDA device by
     default).  ``predict`` takes params on that device and host inputs, and
-    returns host predictions.  ``epochs``, ``batch_size``, ``lr`` and
-    ``warm_start`` are the training settings the training slice's ``train``
-    will honour; until then ``train`` raises."""
+    returns host predictions.  ``train`` runs ``CompiledForecaster``:
+    windows padded to a fixed shape bucket, the epoch permutations drawn up
+    front, no host sync inside the step loop."""
     dev = resolve_device(device)
 
     def predict(params: Params, x: np.ndarray) -> np.ndarray:
@@ -59,15 +69,11 @@ def lstm_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
             xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
             return lstm_mod.predict(cfg, params, xt).cpu().numpy()
 
-    def train(data, params, key):
-        raise NotImplementedError(
-            f"lstm_forecaster.train ({epochs} epochs, batch {batch_size}, "
-            f"lr {lr}, warm_start={warm_start}) comes with the port's "
-            "training slice (CompiledForecaster, adamw and the LSTM training "
-            "kernels); install trained speed models with "
-            "dataclasses.replace(forecaster, train=...)")
-
-    return Forecaster(train=train, predict=predict)
+    eng = CompiledForecaster(get_model(cfg), epochs=epochs,
+                             batch_size=batch_size, lr=lr,
+                             warm_start=warm_start, predict_fn=predict,
+                             device=dev)
+    return Forecaster(train=eng.train, predict=eng.predict, engine=eng)
 
 
 @dataclass
@@ -156,3 +162,11 @@ class HybridStreamAnalytics:
 
         return InProcessExecutor(self.stages(), start_window=start_window).run(
             stream, batch_params, seed)
+
+
+def pretrain_batch_model(
+    forecaster: Forecaster, historical: Dict[str, np.ndarray], key: int
+) -> Tuple[Params, float]:
+    """One-time batch training on historical data (paper: 20k observations,
+    50 epochs, batch 512)."""
+    return forecaster.train(historical, None, key)

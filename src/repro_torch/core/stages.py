@@ -157,7 +157,8 @@ class SpeedTraining(Stage):
     """Train M^s_t on window t's records and stash the Algorithm-1 inputs:
     predictions of (M^s_t, M^b) on window t, consumed when weighting window
     t+1.  ``train_wall_s`` is the forecaster-reported fit time (excludes the
-    eval predictions)."""
+    eval predictions); ``CompiledForecaster`` stops that clock after
+    ``torch.cuda.synchronize()``, so it holds the fit's device work."""
 
     name = "speed_training"
 

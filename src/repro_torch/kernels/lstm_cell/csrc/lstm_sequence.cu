@@ -1,26 +1,37 @@
-// Whole-sequence LSTM forward for Hopper (sm_90a): x (B,T,F) -> final (h, c).
+// Whole-sequence LSTM forward for Hopper (sm_90a), in two variants that share
+// one body:
+//   lstm_sequence_kernel        x (B,T,F) -> final (h, c)            (serving)
+//   lstm_sequence_train_kernel  x (B,T,F) -> gates, c_seq, h_seq     (training)
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_fused (_sequence_kernel).
+// They replace the Pallas TPU kernels
+//   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_fused (_sequence_kernel)
+//   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_fwd_train
+//                                          (_sequence_train_kernel).
 //
 // Layouts are the reference's, row-major and contiguous:
 //   x  (B, T, F) float32 or bfloat16
 //   wx (F, 4H)   float32, gates along the columns in the order i, f, g, o
 //   wh (H, 4H)   float32, same column layout
 //   b  (4H)      float32
-//   h_out, c_out (B, H) in x's type.
-// Compute is float32 throughout; only the final state is rounded to x's type.
+//   h_out, c_out (B, H) in x's type                       (serving)
+//   gates (B, T, 4H), c_seq (B, T, H), h_seq (B, T, H) float32  (training):
+//     the post-activation gates i, f, g, o and the cell and hidden state of
+//     every step, the residuals the backward (lstm_sequence_bwd.cu) reads.
+// Compute is float32 throughout; only the serving outputs are rounded to x's
+// type.
 //
 // What bounds it: at the paper's shape (B=250, T=5, F=5, H=40) one call is
-// 18 MFLOP over ~134 KB, well under a microsecond of the card's float32 or
-// memory rate, so launch latency and the serial T-step chain set the time.
+// 18 MFLOP over ~134 KB (the training variant writes B*T*6H*4 bytes more,
+// 307 KB at B=64), well under a microsecond of the card's float32 or memory
+// rate, so launch latency and the serial T-step chain set the time.
 // The design keeps everything after the first load on chip: each block
 // stages wx, wh and b in shared memory once ((F+H)*4H*4 bytes, 28.8 KB at
 // H=40), runs all T steps with h double-buffered in shared memory and c in a
-// register, and writes only the final (h, c).  One thread owns one
-// (batch row, hidden unit) and computes that unit's four gate
-// pre-activations; the R rows of a block are a tile of the batch, and the
-// last tile is guarded row by row (rows >= B do no work but still reach
+// register, and writes only the final (h, c), or, in training, each step's
+// residuals (coalesced: neighbouring threads own neighbouring units).  One
+// thread owns one (batch row, hidden unit) and computes that unit's four
+// gate pre-activations; the R rows of a block are a tile of the batch, and
+// the last tile is guarded row by row (rows >= B do no work but still reach
 // every __syncthreads).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,14 +68,16 @@ size_t smem_bytes(int F, int H) {
   return sizeof(float) * ((F + H) * G + G + 2 * R * H);
 }
 
-template <typename Tin>
-__global__ void lstm_sequence_kernel(const Tin* __restrict__ x,
-                                     const float* __restrict__ wx,
-                                     const float* __restrict__ wh,
-                                     const float* __restrict__ b,
-                                     Tin* __restrict__ h_out,
-                                     Tin* __restrict__ c_out,
-                                     int B, int T, int F, int H) {
+// The recurrence both kernels run.  kEmitResiduals selects the outputs: the
+// final (h, c) in x's type, or every step's gates, c and h in float32; the
+// arithmetic is the same.
+template <typename Tin, bool kEmitResiduals>
+__device__ __forceinline__ void sequence_forward(
+    const Tin* __restrict__ x, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ b,
+    Tin* __restrict__ h_out, Tin* __restrict__ c_out,
+    float* __restrict__ gates, float* __restrict__ c_seq,
+    float* __restrict__ h_seq, int B, int T, int F, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   const int R = blockDim.y;
@@ -115,25 +128,62 @@ __global__ void lstm_sequence_kernel(const Tin* __restrict__ x,
       c = fg * c + ig * gg;
       h = og * tanhf(c);
       s_h[((cur ^ 1) * R + r) * H + j] = h;
+      if constexpr (kEmitResiduals) {
+        const long long rt = row * T + t;
+        float* g4 = gates + rt * G;
+        g4[j] = ig;
+        g4[H + j] = fg;
+        g4[2 * H + j] = gg;
+        g4[3 * H + j] = og;
+        c_seq[rt * H + j] = c;
+        h_seq[rt * H + j] = h;
+      }
     }
     cur ^= 1;
     // every read of buffer `cur` this step is done before the next step
     // overwrites it
     __syncthreads();
   }
-  if (active) {
-    store(h_out + row * H + j, h);
-    store(c_out + row * H + j, c);
+  if constexpr (!kEmitResiduals) {
+    if (active) {
+      store(h_out + row * H + j, h);
+      store(c_out + row * H + j, c);
+    }
   }
 }
 
 template <typename Tin>
-cudaError_t launch(const void* x, const void* wx, const void* wh,
-                   const void* b, void* h_out, void* c_out, int B, int T,
-                   int F, int H, cudaStream_t stream) {
+__global__ void lstm_sequence_kernel(const Tin* __restrict__ x,
+                                     const float* __restrict__ wx,
+                                     const float* __restrict__ wh,
+                                     const float* __restrict__ b,
+                                     Tin* __restrict__ h_out,
+                                     Tin* __restrict__ c_out,
+                                     int B, int T, int F, int H) {
+  sequence_forward<Tin, false>(x, wx, wh, b, h_out, c_out, nullptr, nullptr,
+                               nullptr, B, T, F, H);
+}
+
+template <typename Tin>
+__global__ void lstm_sequence_train_kernel(const Tin* __restrict__ x,
+                                           const float* __restrict__ wx,
+                                           const float* __restrict__ wh,
+                                           const float* __restrict__ b,
+                                           float* __restrict__ gates,
+                                           float* __restrict__ c_seq,
+                                           float* __restrict__ h_seq,
+                                           int B, int T, int F, int H) {
+  sequence_forward<Tin, true>(x, wx, wh, b, nullptr, nullptr, gates, c_seq,
+                              h_seq, B, T, F, H);
+}
+
+// Launches `kernel` over the batch tiles of (B, F, H) on `stream` and returns
+// cudaGetLastError().
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int B, int F, int H, cudaStream_t stream,
+                   Args... args) {
   const int R = rows_per_block(H);
   const size_t smem = smem_bytes(F, H);
-  auto kernel = lstm_sequence_kernel<Tin>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -142,10 +192,7 @@ cudaError_t launch(const void* x, const void* wx, const void* wh,
   }
   const dim3 block(H, R);
   const dim3 grid((B + R - 1) / R);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const float*>(wx),
-      static_cast<const float*>(wh), static_cast<const float*>(b),
-      static_cast<Tin*>(h_out), static_cast<Tin*>(c_out), B, T, F, H);
+  kernel<<<grid, block, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -166,10 +213,44 @@ int lstm_sequence_forward(const void* x, const void* wx, const void* wh,
   if (B <= 0) return 0;
   if (T < 1 || F < 1 || H < 1 || H > 1024) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* w[3] = {static_cast<const float*>(wx),
+                       static_cast<const float*>(wh),
+                       static_cast<const float*>(b)};
   const cudaError_t err =
-      x_is_bf16 ? launch<__nv_bfloat16>(x, wx, wh, b, h_out, c_out, B, T, F,
-                                        H, s)
-                : launch<float>(x, wx, wh, b, h_out, c_out, B, T, F, H, s);
+      x_is_bf16
+          ? launch(lstm_sequence_kernel<__nv_bfloat16>, B, F, H, s,
+                   static_cast<const __nv_bfloat16*>(x), w[0], w[1], w[2],
+                   static_cast<__nv_bfloat16*>(h_out),
+                   static_cast<__nv_bfloat16*>(c_out), B, T, F, H)
+          : launch(lstm_sequence_kernel<float>, B, F, H, s,
+                   static_cast<const float*>(x), w[0], w[1], w[2],
+                   static_cast<float*>(h_out), static_cast<float*>(c_out), B,
+                   T, F, H);
+  return static_cast<int>(err);
+}
+
+// The training variant: gates (B,T,4H), c_seq and h_seq (B,T,H), float32,
+// whatever x's type.  Launches on `stream` and returns cudaGetLastError().
+int lstm_sequence_forward_train(const void* x, const void* wx, const void* wh,
+                                const void* b, void* gates, void* c_seq,
+                                void* h_seq, int B, int T, int F, int H,
+                                int x_is_bf16, void* stream) {
+  if (B <= 0) return 0;
+  if (T < 1 || F < 1 || H < 1 || H > 1024) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* w[3] = {static_cast<const float*>(wx),
+                       static_cast<const float*>(wh),
+                       static_cast<const float*>(b)};
+  float* out[3] = {static_cast<float*>(gates), static_cast<float*>(c_seq),
+                   static_cast<float*>(h_seq)};
+  const cudaError_t err =
+      x_is_bf16
+          ? launch(lstm_sequence_train_kernel<__nv_bfloat16>, B, F, H, s,
+                   static_cast<const __nv_bfloat16*>(x), w[0], w[1], w[2],
+                   out[0], out[1], out[2], B, T, F, H)
+          : launch(lstm_sequence_train_kernel<float>, B, F, H, s,
+                   static_cast<const float*>(x), w[0], w[1], w[2], out[0],
+                   out[1], out[2], B, T, F, H);
   return static_cast<int>(err);
 }
 

@@ -1,20 +1,32 @@
-"""The fused whole-sequence LSTM forward on the card: the wrapper around
-``csrc/lstm_sequence.cu``.
+"""The LSTM kernels on the card: the wrappers around ``csrc/*.cu``.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/lstm_cell/kernel.py:
-lstm_sequence_fused`` (``_sequence_kernel``).  Given x (B,T,F) in float32 or
-bfloat16, wx (F,4H), wh (H,4H) and b (4H) in float32, it returns the final
-(h, c), each (B,H) in ``x.dtype``.  Compute is float32; gate order i, f, g, o.
+Three hand-written CUDA kernels, each replacing a Pallas TPU kernel of
+``src/repro/kernels/lstm_cell/kernel.py`` (see the sources for the design):
 
-What bounds it: at the paper's shape (B=250, T=5, F=5, H=40) a call is
-2*B*T*(F+H)*4H = 18 MFLOP over ~134 KB, a fraction of a microsecond at the
-card's float32 or memory rate, so launch latency and the serial T-step chain
-set its time.  The design keeps the weights and the h/c carry on chip for all
-T steps (one block per tile of batch rows, weights in shared memory, one
-thread per (row, hidden unit)) and writes only the final state; see the
-source for the details.
+* ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu``) replaces
+  ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx (F,4H),
+  wh (H,4H) and b (4H) in float32 -> the final (h, c), each (B,H) in
+  ``x.dtype``.  The serving forward.
+* ``lstm_sequence_fwd_train`` (same source, the same recurrence) replaces
+  ``lstm_sequence_fwd_train``: the same inputs -> the residuals the backward
+  needs, post-activation gates (B,T,4H) and c_seq, h_seq (B,T,H), float32.
+* ``lstm_sequence_bwd`` (``csrc/lstm_sequence_bwd.cu``, a reverse-time
+  kernel and a weight-gradient reduce) replaces ``lstm_sequence_bwd``:
+  x, the residuals, the weights and the cotangents dh, dc (B,H) of the final
+  state -> dx (B,T,F), dwx (F,4H), dwh (H,4H), db (4H), float32.  Reruns on
+  the same inputs are bit-identical (no atomics).
 
-The library builds with ``nvcc`` at the first launch (``kernels/_build``).
+Compute is float32; gate order i, f, g, o.  What bounds them: at the paper's
+shapes (B of 64 to 256, T=5, F=5, H=40) a call is a few MFLOP over a few
+hundred KB, a fraction of a microsecond at the card's float32 or memory
+rate, so launch latency and the serial T-step chain set their time.
+
+Each wrapper checks its inputs, allocates its outputs with ``torch.empty``,
+launches on the current CUDA stream, raises when the launch fails, and counts
+its successful launches in a plain integer ``.launches``; at B=0 it returns
+without launching or counting.  The libraries
+build with ``nvcc`` at the first launch (``kernels/_build``); ``LIBRARIES``
+names them for a caller that builds them all up front.
 """
 from __future__ import annotations
 
@@ -27,34 +39,121 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "lstm_sequence.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "lstm_sequence.cu"
+BWD_SOURCE = CSRC / "lstm_sequence_bwd.cu"
+# every library of this package: name -> its sources
+LIBRARIES = {"lstm_sequence": [SOURCE], "lstm_sequence_bwd": [BWD_SOURCE]}
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernel's library, built (or loaded) at the first call."""
-    lib = _build.load_library("lstm_sequence", [SOURCE])
+    """The forward kernels' library, built (or loaded) at the first call."""
+    lib = _build.load_library("lstm_sequence", LIBRARIES["lstm_sequence"])
     lib.lstm_sequence_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.lstm_sequence_smem_bytes.restype = ctypes.c_longlong
     lib.lstm_sequence_forward.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.lstm_sequence_forward.restype = ctypes.c_int
+    lib.lstm_sequence_forward_train.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.lstm_sequence_forward_train.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_library() -> ctypes.CDLL:
+    """The backward kernels' library, built (or loaded) at the first call."""
+    lib = _build.load_library("lstm_sequence_bwd",
+                              LIBRARIES["lstm_sequence_bwd"])
+    lib.lstm_sequence_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lstm_sequence_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.lstm_sequence_backward.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.lstm_sequence_backward.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def smem_bytes(F: int, H: int) -> int:
-    """Shared memory one block of the kernel needs at (F, H)."""
+    """Shared memory one block of the forward kernels needs at (F, H)."""
     return int(library().lstm_sequence_smem_bytes(F, H))
 
 
-def max_hidden(F: int) -> int:
-    """The largest H whose weights fit the kernel's shared-memory plan."""
+@functools.lru_cache(maxsize=None)
+def bwd_smem_bytes(F: int, H: int) -> int:
+    """Shared memory one block of the reverse-time kernel needs at (F, H)."""
+    return int(bwd_library().lstm_sequence_bwd_smem_bytes(F, H))
+
+
+def _largest_h(need, F: int) -> int:
     H = 1
-    while smem_bytes(F, H + 1) <= SMEM_LIMIT:
+    while need(F, H + 1) <= SMEM_LIMIT:
         H += 1
     return H
+
+
+def max_hidden(F: int) -> int:
+    """The largest H whose weights fit the forward kernels' shared memory."""
+    return _largest_h(smem_bytes, F)
+
+
+def max_hidden_bwd(F: int) -> int:
+    """The largest H whose weights fit the backward's shared memory."""
+    return _largest_h(bwd_smem_bytes, F)
+
+
+def _check_forward_inputs(name: str, x: torch.Tensor, wx: torch.Tensor,
+                          wh: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise unless (x, wx, wh, b) is what the forward kernels take."""
+    if x.dim() != 3 or wx.dim() != 2 or wh.dim() != 2 or b.dim() != 1:
+        raise ValueError(
+            f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H), "
+            f"b (4H); got {tuple(x.shape)}, {tuple(wx.shape)}, "
+            f"{tuple(wh.shape)}, {tuple(b.shape)}")
+    B, T, F = x.shape
+    H = wh.shape[0]
+    if (tuple(wx.shape) != (F, 4 * H) or tuple(wh.shape) != (H, 4 * H)
+            or tuple(b.shape) != (4 * H,)):
+        raise ValueError(
+            f"{name}: weight shapes {tuple(wx.shape)}, "
+            f"{tuple(wh.shape)}, {tuple(b.shape)} do not match F={F}, H={H}")
+    if T < 1 or H < 1:
+        raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be float32 or bfloat16, "
+                        f"got {x.dtype}")
+    for wname, w in (("wx", wx), ("wh", wh), ("b", b)):
+        if w.dtype != torch.float32:
+            raise TypeError(
+                f"{name}: {wname} must be float32, got {w.dtype}")
+    _check_placement(name, (x, wx, wh, b))
+    need = smem_bytes(F, H)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: F={F}, H={H} needs {need} bytes of shared "
+            f"memory for its weights, more than the {SMEM_LIMIT} a block may "
+            f"use; the largest H that fits at F={F} is {max_hidden(F)}")
+
+
+def _check_placement(name: str, tensors) -> None:
+    x = tensors[0]
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError(
+            f"{name}: all inputs must lie on one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _raise_on_error(name: str, err: int, x: torch.Tensor, H: int) -> None:
+    if err != 0:
+        B, T, F = x.shape
+        raise RuntimeError(
+            f"{name}: launch failed with CUDA error {err} "
+            f"(B={B}, T={T}, F={F}, H={H}, {x.dtype})")
 
 
 def lstm_sequence_fused(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
@@ -64,56 +163,123 @@ def lstm_sequence_fused(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     x (B,T,F) float32 or bfloat16; wx (F,4H), wh (H,4H), b (4H) float32, all
     contiguous on one CUDA device.  Returns the final (h, c), each (B,H) in
     ``x.dtype``.  Raises on anything else, and when the launch fails."""
-    if x.dim() != 3 or wx.dim() != 2 or wh.dim() != 2 or b.dim() != 1:
-        raise ValueError(
-            "lstm_sequence_fused: expected x (B,T,F), wx (F,4H), wh (H,4H), "
-            f"b (4H); got {tuple(x.shape)}, {tuple(wx.shape)}, "
-            f"{tuple(wh.shape)}, {tuple(b.shape)}")
+    _check_forward_inputs("lstm_sequence_fused", x, wx, wh, b)
     B, T, F = x.shape
     H = wh.shape[0]
-    if (tuple(wx.shape) != (F, 4 * H) or tuple(wh.shape) != (H, 4 * H)
-            or tuple(b.shape) != (4 * H,)):
-        raise ValueError(
-            f"lstm_sequence_fused: weight shapes {tuple(wx.shape)}, "
-            f"{tuple(wh.shape)}, {tuple(b.shape)} do not match F={F}, H={H}")
-    if T < 1 or H < 1:
-        raise ValueError(f"lstm_sequence_fused: need T, H >= 1, got {T}, {H}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"lstm_sequence_fused: x must be float32 or bfloat16, "
-                        f"got {x.dtype}")
-    for name, w in (("wx", wx), ("wh", wh), ("b", b)):
-        if w.dtype != torch.float32:
-            raise TypeError(
-                f"lstm_sequence_fused: {name} must be float32, got {w.dtype}")
-    tensors = (x, wx, wh, b)
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError(
-            "lstm_sequence_fused: all inputs must lie on one CUDA device, got "
-            f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("lstm_sequence_fused: inputs must be contiguous")
-    need = smem_bytes(F, H)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"lstm_sequence_fused: F={F}, H={H} needs {need} bytes of shared "
-            f"memory for its weights, more than the {SMEM_LIMIT} a block may "
-            f"use; the largest H that fits at F={F} is {max_hidden(F)}")
-
     h = torch.empty((B, H), dtype=x.dtype, device=x.device)
     c = torch.empty((B, H), dtype=x.dtype, device=x.device)
+    if B == 0:  # nothing to launch, nothing counted
+        return h, c
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().lstm_sequence_forward(
             x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
             h.data_ptr(), c.data_ptr(), B, T, F, H,
             int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"lstm_sequence_fused: launch failed with CUDA error {err} "
-            f"(B={B}, T={T}, F={F}, H={H}, {x.dtype})")
+    _raise_on_error("lstm_sequence_fused", err, x, H)
     lstm_sequence_fused.launches += 1
     return h, c
 
 
 # launches of the kernel since the last reset; only a successful launch counts
 lstm_sequence_fused.launches = 0
+
+
+def lstm_sequence_fwd_train(x: torch.Tensor, wx: torch.Tensor,
+                            wh: torch.Tensor, b: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch the residual-emitting forward on the current CUDA stream.
+
+    Takes what ``lstm_sequence_fused`` takes.  Returns the post-activation
+    gates (B,T,4H) and c_seq, h_seq (B,T,H), all float32; ``h_seq[:, -1]``
+    is the final hidden state.  Raises on anything else, and when the launch
+    fails."""
+    _check_forward_inputs("lstm_sequence_fwd_train", x, wx, wh, b)
+    B, T, F = x.shape
+    H = wh.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gates = torch.empty((B, T, 4 * H), **f32)
+    c_seq = torch.empty((B, T, H), **f32)
+    h_seq = torch.empty((B, T, H), **f32)
+    if B == 0:  # nothing to launch, nothing counted
+        return gates, c_seq, h_seq
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().lstm_sequence_forward_train(
+            x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+            gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(), B, T, F, H,
+            int(x.dtype == torch.bfloat16), stream)
+    _raise_on_error("lstm_sequence_fwd_train", err, x, H)
+    lstm_sequence_fwd_train.launches += 1
+    return gates, c_seq, h_seq
+
+
+lstm_sequence_fwd_train.launches = 0
+
+
+def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
+                      c_seq: torch.Tensor, h_seq: torch.Tensor,
+                      wx: torch.Tensor, wh: torch.Tensor, dh: torch.Tensor,
+                      dc: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Launch the backward pair on the current CUDA stream: the reverse-time
+    kernel, then the weight-gradient reduce (one launch as counted here).
+
+    x (B,T,F) float32 or bfloat16; the residuals of
+    ``lstm_sequence_fwd_train``; wx (F,4H), wh (H,4H); dh, dc (B,H), the
+    cotangents of the final (h, c); all but x float32, contiguous, on one
+    CUDA device.  Returns (dx (B,T,F), dwx, dwh, db), float32.  Raises on
+    anything else, and when a launch fails."""
+    name = "lstm_sequence_bwd"
+    if x.dim() != 3 or wx.dim() != 2 or wh.dim() != 2:
+        raise ValueError(f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H); "
+                         f"got {tuple(x.shape)}, {tuple(wx.shape)}, "
+                         f"{tuple(wh.shape)}")
+    B, T, F = x.shape
+    H = wh.shape[0]
+    want = {"gates": (gates, (B, T, 4 * H)), "c_seq": (c_seq, (B, T, H)),
+            "h_seq": (h_seq, (B, T, H)), "wx": (wx, (F, 4 * H)),
+            "wh": (wh, (H, 4 * H)), "dh": (dh, (B, H)), "dc": (dc, (B, H))}
+    for tname, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {tname} is {tuple(t.shape)}, expected "
+                             f"{shape} for B={B}, T={T}, F={F}, H={H}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {tname} must be float32, got {t.dtype}")
+    if T < 1 or H < 1:
+        raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be float32 or bfloat16, "
+                        f"got {x.dtype}")
+    _check_placement(name, (x, *(t for t, _ in want.values())))
+    need = bwd_smem_bytes(F, H)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: F={F}, H={H} needs {need} bytes of shared memory for "
+            f"its weights, more than the {SMEM_LIMIT} a block may use; the "
+            f"largest H that fits at F={F} is {max_hidden_bwd(F)}")
+
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((B, T, F), **f32)
+    if B == 0:  # no rows: zero weight gradients, nothing launched or counted
+        return (dx, torch.zeros((F, 4 * H), **f32),
+                torch.zeros((H, 4 * H), **f32), torch.zeros((4 * H,), **f32))
+    dz = torch.empty((B, T, 4 * H), **f32)  # workspace of the reduce
+    dwx = torch.empty((F, 4 * H), **f32)
+    dwh = torch.empty((H, 4 * H), **f32)
+    db = torch.empty((4 * H,), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = bwd_library().lstm_sequence_backward(
+            x.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(),
+            wx.data_ptr(), wh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+            dx.data_ptr(), dz.data_ptr(), dwx.data_ptr(), dwh.data_ptr(),
+            db.data_ptr(), B, T, F, H, int(x.dtype == torch.bfloat16), stream)
+    _raise_on_error(name, err, x, H)
+    lstm_sequence_bwd.launches += 1
+    return dx, dwx, dwh, db
+
+
+lstm_sequence_bwd.launches = 0

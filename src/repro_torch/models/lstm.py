@@ -5,9 +5,10 @@ Params are a nested dict of tensors with the reference's keys:
 ``lstm/kernel`` (F,4H), ``lstm/recurrent`` (H,4H), ``lstm/bias`` (4H),
 ``dense/dense_w``, ``dense/dense_b``, ``head/head_w``, ``head/head_b``.
 The recurrence always goes through ``kernels.lstm_cell.ops.lstm_sequence``:
-the fused CUDA kernel on the card, its plain version on the CPU.  The int8
-(``QTensor``) serving path comes with the int8-sync slice and the loss with
-the training slice.
+the CUDA kernels on the card (the serving forward, or under a gradient the
+training pair), their plain versions on the CPU.  ``loss_fn`` is the masked
+MSE the trainers differentiate.  The int8 (``QTensor``) serving path comes
+with the int8-sync slice.
 """
 from __future__ import annotations
 
@@ -66,6 +67,25 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = lstm_ops.lstm_sequence(x, lp["kernel"], lp["recurrent"], lp["bias"])
     d = torch.relu(h @ p["dense"]["dense_w"] + p["dense"]["dense_b"])
     return d @ p["head"]["head_w"] + p["head"]["head_b"]
+
+
+def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
+    """MSE regression loss.  batch: {"x": (B,lag,F), "y": (B,out)} plus an
+    optional per-example validity "mask" (B,): 1 for real examples, 0 for
+    the padding the fixed-shape-bucket trainer adds.  A masked batch yields
+    exactly the unpadded mean, so every shape bucket trains the same loss.
+    Returns ``(loss, {"mse", "rmse"})``, all float32 scalars."""
+    pred = forward(cfg, p, batch["x"])
+    err = (pred - batch["y"]).float()
+    sq = err * err
+    mask = batch.get("mask")
+    if mask is None:
+        loss = sq.mean()
+    else:
+        m = mask.float()[:, None]
+        denom = torch.clamp(m.sum(), min=1.0) * sq.shape[-1]
+        loss = (sq * m).sum() / denom
+    return loss, {"mse": loss, "rmse": torch.sqrt(loss)}
 
 
 def predict(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Randomness comes from an explicit ``torch.Generator``.  The reference's
 per-path ``fold_in`` of ``jax.random`` keys is not reproduced (torch cannot
 reproduce those streams): parity with the reference comes from carrying its
-weights over (``repro_torch.convert``), not from the init.
+weights, or the initial params its fits started from, over
+(``repro_torch.convert``), not from the init.
 """
 from __future__ import annotations
 

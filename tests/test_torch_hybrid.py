@@ -1,13 +1,21 @@
-"""The port's per-window inference path as a whole, held to the JAX package.
+"""The port's per-window loop as a whole, held to the JAX package.
 
 The reference's own ``HybridStreamAnalytics.run`` (the ``tests/test_system.py``
 setup: 3200 turbine records, 1600 of history, gradual drift, 6 windows of
 250) writes the committed fixture ``tests/data/torch_parity_lstm_paper.npz``:
-the batch model, the speed model published after each window, and the
-per-window records of five modes.  The port then serves the same stream with
-those models — the edge's view of cloud-side training — and must reproduce
-every record.  The port side runs through ``chip_smoke.py``'s helpers, the
-same code the smoke run drives on the card.  Regenerate the fixture with
+the batch model, the speed model published after each window, the
+per-window records of five modes, and the draws every fit started from (the
+init params and the epoch permutations, which torch cannot reproduce from a
+``jax.random`` key).  The port then
+
+* serves the same stream with the reference's models (the edge's view of
+  cloud-side training), and
+* trains every model itself from the reference's draws: the batch pretrain
+  and each window's speed model, through ``CompiledForecaster.fit_window``,
+
+and must reproduce every trained model and every record.  The port side runs
+through ``chip_smoke.py``'s helpers, the same code the smoke run drives on
+the card.  Regenerate the fixture with
 
     PYTHONPATH=src python tests/test_torch_hybrid.py
 """
@@ -29,6 +37,7 @@ from repro.core import (
     pretrain_batch_model,
 )
 from repro.streams.normalize import MinMaxScaler
+from repro.training.compiled import bucket_examples
 from repro.streams.sources import gradual_drift, wind_turbine_series
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,10 +76,28 @@ def jax_stream_and_history(s=SETUP):
     return WindowedStream(scaler.transform(stream), plan), scaler.transform(hist)
 
 
+def reference_draws(fc, data, key):
+    """The init params and the ``(epochs*steps, batch)`` permutation indices
+    the reference's ``CompiledForecaster.train`` draws from ``key`` for
+    ``data``, derived as its ``train`` (``compiled.py:414``) and epoch scan
+    (``compiled.py:263-265``) derive them; the indices as int16."""
+    eng = fc.engine
+    n = len(data["x"])
+    nb = bucket_examples(n, eng.batch_size)
+    init_key, perm_key = jax.random.split(key)
+    init = jax.tree_util.tree_map(np.asarray, eng._init_fn(init_key))
+    perms = jax.vmap(lambda k: jax.random.permutation(k, nb))(
+        jax.random.split(perm_key, eng.epochs))
+    idx = np.asarray(perms).reshape(-1, eng.batch_size)
+    assert idx.max() < np.iinfo(np.int16).max
+    return init, idx.astype(np.int16)
+
+
 def build_fixture():
     """Run the JAX package's learner in every mode and return the fixture's
-    arrays: setup scalars, the batch model, the published speed models and
-    the per-mode records."""
+    arrays: setup scalars, the batch model, the published speed models, the
+    per-mode records, and the draws each fit started from (``batch_init``,
+    ``batch_idx``; ``init{t}``, ``idx{t}`` for window t)."""
     s = SETUP
     cfg = get_config("lstm-paper")
     ws, hist = jax_stream_and_history()
@@ -78,34 +105,41 @@ def build_fixture():
                                batch_size=s["batch_size"])
     fc_speed = lstm_forecaster(cfg, epochs=s["speed_epochs"],
                                batch_size=s["speed_batch_size"])
-    bp, _ = pretrain_batch_model(
-        fc_batch, make_supervised(hist, s["lag"], 0),
-        jax.random.PRNGKey(s["batch_key"]))
+    hist_sup = make_supervised(hist, s["lag"], 0)
+    batch_key = jax.random.PRNGKey(s["batch_key"])
+    bp, _ = pretrain_batch_model(fc_batch, hist_sup, batch_key)
 
-    published = []
+    published, draws = [], []
 
     def recording_train(data, params, key):
         p, wall = fc_speed.train(data, params, key)
         published[-1].append(jax.tree_util.tree_map(np.asarray, p))
+        draws[-1].append(reference_draws(fc_speed, data, key))
         return p, wall
 
     fc = dataclasses.replace(fc_speed, train=recording_train)
     out = {f"setup/{k}": np.asarray(v) for k, v in s.items()}
     _flatten("batch", jax.tree_util.tree_map(np.asarray, bp), out)
+    batch_init, out["batch_idx"] = reference_draws(fc_batch, hist_sup,
+                                                   batch_key)
+    _flatten("batch_init", batch_init, out)
     for name, (mode, solver) in smoke.MODES.items():
         published.append([])
+        draws.append([])
         res = HybridStreamAnalytics(fc, mode=mode, dwa_solver=solver).run(
             ws, bp, jax.random.PRNGKey(s["run_key"]))
         out[f"records/{name}"] = smoke.records_array(res.records)
-    # training does not depend on the mode, so every run publishes the same
-    # models and one set serves all modes
-    for run in published[1:]:
-        for a, b in zip(published[0], run):
-            for la, lb in zip(jax.tree_util.tree_leaves(a),
-                              jax.tree_util.tree_leaves(b)):
+    # training does not depend on the mode, so every run draws and publishes
+    # the same models and one set serves all modes
+    for runs in (published, draws):
+        for run in runs[1:]:
+            for la, lb in zip(jax.tree_util.tree_leaves(runs[0]),
+                              jax.tree_util.tree_leaves(run)):
                 assert np.array_equal(la, lb)
-    for t, p in enumerate(published[0]):
+    for t, (p, (init, idx)) in enumerate(zip(published[0], draws[0])):
         _flatten(f"speed{t}", p, out)
+        _flatten(f"init{t}", init, out)
+        out[f"idx{t}"] = idx
     out["n_speed_models"] = np.asarray(len(published[0]))
     return out
 
@@ -139,6 +173,59 @@ def test_port_stream_matches_reference_stream():
         a, b = ours.supervised(t), ref.supervised(t)
         np.testing.assert_array_equal(a["x"], b["x"])
         np.testing.assert_array_equal(a["y"], b["y"])
+
+
+@pytest.fixture(scope="module")
+def port_training():
+    """The training path on the CPU, single-threaded: its many small
+    operators run faster so, and it leaves the worker's other cores alone."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        fx = smoke.load_fixture()
+        return fx, smoke.run_training_path(fx, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_port_pretrains_batch_model_from_reference_draws(port_training):
+    """The batch model (8 epochs x 8 steps of 256 from ``batch_init`` and
+    ``batch_idx``) matches the reference's to atol 1e-5."""
+    fx, run = port_training
+    assert smoke.check_params(smoke.unflatten(fx, "batch"), run["batch"],
+                              atol=1e-5, what="batch") < 1e-5
+    assert run["batch_wall_s"] > 0
+
+
+@pytest.mark.parametrize("name", list(smoke.MODES))
+def test_port_trains_speed_models_and_reproduces_records(port_training,
+                                                         name):
+    """Each window's speed model, trained by the port from ``init{t}`` and
+    ``idx{t}``, matches the reference's published model to atol 1e-5, and
+    every record of the mode matches (RMSEs rtol 1e-5, weights atol
+    1e-5)."""
+    fx, run = port_training
+    models = run["speed"][name]
+    assert len(models) == int(fx["n_speed_models"])
+    for t, p in enumerate(models):
+        smoke.check_params(smoke.unflatten(fx, f"speed{t}"), p, atol=1e-5,
+                           what=f"{name} speed{t}")
+    smoke.check_records(fx, {name: run["results"][name]}, rtol=1e-5,
+                        atol=1e-5)
+    assert all(r.t_speed_train > 0 for r in run["results"][name].records)
+
+
+def test_expected_training_launches_follow_the_setup():
+    """One training forward and backward per step: 8 x 8 for the pretrain
+    and 15 x 4 for each of 6 windows in 5 modes; the serving kernel's 22
+    predicts a mode plus 2 mask-check losses for each padded bucket (window
+    0's 245 -> 256 in each mode, the pretrain's 1595 -> 2048)."""
+    want = smoke.expected_training_launches(smoke.load_fixture())
+    assert want == {"lstm_sequence_fwd_train": 64 + 5 * 6 * 60,
+                    "lstm_sequence_bwd": 64 + 5 * 6 * 60,
+                    "lstm_sequence_fused": 5 * (22 + 2) + 2}
 
 
 @pytest.fixture(scope="module")

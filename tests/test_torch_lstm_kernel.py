@@ -61,12 +61,21 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing():
 
 
 def test_dispatch_refuses_gradients():
+    """A call that needs a gradient goes through the training pair (its
+    plain versions on the CPU), never the serving forward, and refuses a
+    device it has no kernels for."""
     x, wx, wh, b = map(torch.from_numpy, _inputs(4, 5, 5, 8))
     wx.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.lstm_sequence(x, wx, wh, b)
+    h = ops.lstm_sequence(x, wx, wh, b)
+    assert type(h.grad_fn).__name__ == "_LSTMSequenceBackward"
+    torch.testing.assert_close(h.detach(), lstm_sequence_ref(x, wx, wh, b),
+                               rtol=0, atol=0)
     with torch.no_grad():
-        assert ops.lstm_sequence(x, wx, wh, b).shape == (4, 8)
+        assert ops.lstm_sequence(x, wx, wh, b).grad_fn is None
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.lstm_sequence(*(t.detach().to("meta").requires_grad_(True)
+                            for t in (x, wx, wh, b)))
+    assert lstm_kernel.lstm_sequence_fused.launches == 0
 
 
 def test_wrapper_rejects_cpu_tensors_and_bad_shapes():

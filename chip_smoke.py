@@ -12,7 +12,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the backward also run
    twice, bit for bit), then timed beside the plain version and the library
-   call that computes the same function;
+   call that computes the same function (for the int8 matmul, which no one
+   PyTorch call computes, ``(x @ q.float()) * scale``);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
    models the JAX reference published (``tests/data/
@@ -25,9 +26,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    draws); every trained model and every record must match the reference's,
    the launch counters must show every train step through the training
    kernels, and a refit from the same draws must be bit-identical;
-6. where the time goes: ``torch.profiler`` gives each kernel's own device
+6. the bus path (``BusExecutor``): the reference's models replayed in the
+   paper's three deployments with float sync (integrated and cloud-centric
+   must reproduce the in-process records, edge-centric must OOM every
+   window and serve the batch model), and with int8 sync in the integrated
+   deployment (every publish 9,644 B of int8 tensors equal to the
+   reference's bit for bit, its int8 predictions and records matched, every
+   int8 product through the int8 kernel); then the launcher
+   (``repro_torch.launch.edge_cloud``), trained on the card, with float and
+   with int8 sync, must pass every Table-3 claim;
+7. where the time goes: ``torch.profiler`` gives each kernel's own device
    time, and the device's busy time and idle share over a warm drive of the
-   serving path and over one warm speed fit.
+   serving path, over one warm speed fit and pretrain, and over one warm
+   int8 bus run.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -96,6 +107,38 @@ TRAIN_CASES = [
 BWD_ATOL = BWD_RTOL = 2e-5
 # the trained models and records on the card against the reference's
 TRAIN_ATOL = 1e-4
+# kernel #4, (M, K, N, x dtype): the bus path's products at B=250 and at the
+# warm-up's 245 (input projection (B*T, F) @ (F, 4H), one recurrent step
+# (B, H) @ (H, 4H), Dense(10)), the reference's edge shapes
+# (tests/test_kernels.py), and bf16 x
+INT8_MAIN = (250, 40, 160)
+INT8_SHAPES = ((1250, 5, 160), INT8_MAIN, (250, 40, 10))
+INT8_CASES = [
+    *((*shape, "float32") for shape in INT8_SHAPES),
+    (1225, 5, 160, "float32"),
+    (245, 40, 160, "float32"),
+    (245, 40, 10, "float32"),
+    (1, 1, 1, "float32"),
+    (33, 100, 17, "float32"),
+    (128, 512, 128, "float32"),
+    (*INT8_MAIN, "bfloat16"),
+]
+# atol = rtol = 1e-5 where K <= 40; at K >= 100 the reference's own 1e-3
+# (tests/test_kernels.py), where sums of hundreds of terms of up to 127|x|
+# differ in order between the card and the plain version
+INT8_TOL = 1e-5
+INT8_TOL_DEEP = 1e-3
+# the bus path: the deployments, and the cost model of the reference's
+# tests/test_executor.py (only the Kafka ingest charge is set)
+BUS_DEPLOYMENTS = ("edge-cloud-integrated", "cloud-centric", "edge-centric")
+BUS_INGEST_S = 0.5
+# model-topic bytes of one lstm-paper publish: 7,781 float32 parameters, or
+# the int8 tree of quantize_tree(min_size=64)
+FLOAT_MODEL_NBYTES = 31_124
+INT8_MODEL_NBYTES = 9_644
+# int8 speed predictions on the bus against the reference's (its forward
+# through qmatmul in interpret mode)
+INT8_PRED_ATOL = 1e-5
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores, at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -168,17 +211,31 @@ def port_stream(setup: dict):
     return port_data(setup)[0]
 
 
-def replay_trainer(speed_models, device):
-    """A ``Forecaster.train`` that installs published speed models in window
-    order, as the edge installs the models the cloud publishes.  Its wall is
-    the transfer of the model onto the device."""
-    from repro_torch.convert import params_from_numpy
+def window_keys(setup: dict) -> dict:
+    """{training key: window} of a run of the fixture's setup: the window
+    keys every executor derives from ``run_key``, and the bus executor's
+    warm-up key, which gets window 0's model or draws.  A replay keyed so
+    stays in step when an executor adds a call (the bus's warm-up fit)."""
+    _import_port()
+    from repro_torch.runtime.executor import warmup_seed, window_seeds
 
-    models = iter(speed_models)
+    run_key, n = int(setup["run_key"]), int(setup["n_windows"])
+    keys = {k: t for t, k in enumerate(window_seeds(run_key, n))}
+    keys[warmup_seed(run_key)] = 0
+    return keys
+
+
+def replay_trainer(speed_models, keys, device):
+    """A ``Forecaster.train`` that installs published speed models, window
+    t's for the key ``keys`` maps to t, as the edge installs the models the
+    cloud publishes.  Its wall is the transfer of the model onto the
+    device."""
+    from repro_torch.convert import params_from_numpy
 
     def train(data, params, key):
         t0 = time.perf_counter()
-        return params_from_numpy(next(models), device), time.perf_counter() - t0
+        model = params_from_numpy(speed_models[keys[key]], device)
+        return model, time.perf_counter() - t0
 
     return train
 
@@ -203,7 +260,8 @@ def run_main_path(fx: dict, device, modes=tuple(MODES)) -> dict:
         fc = lstm_forecaster(cfg, epochs=int(setup["speed_epochs"]),
                              batch_size=int(setup["speed_batch_size"]),
                              device=device)
-        fc = dataclasses.replace(fc, train=replay_trainer(speed, device))
+        fc = dataclasses.replace(
+            fc, train=replay_trainer(speed, window_keys(setup), device))
         results[name] = HybridStreamAnalytics(
             fc, mode=mode, dwa_solver=solver).run(
                 ws, batch_params, int(setup["run_key"]))
@@ -230,21 +288,20 @@ def check_records(fx: dict, results: dict, rtol: float, atol: float) -> float:
     return worst
 
 
-def draw_replay_trainer(engine, draws, device):
+def draw_replay_trainer(engine, draws, keys, device):
     """A ``Forecaster.train`` that trains every window itself, from draws
-    made elsewhere: window t's (init params, permutation indices), taken in
-    window order, go to ``engine.fit_window``.  Its wall is the fit's,
-    synced.  Returns (train, published), where ``published`` collects the
-    models it trains."""
+    made elsewhere: window t's (init params, permutation indices), for the
+    key ``keys`` maps to t, go to ``engine.fit_window``.  Its wall is the
+    fit's, synced.  Returns (train, published), where ``published`` collects
+    the models it trains."""
     import torch
 
     from repro_torch.convert import params_from_numpy
 
-    todo = iter(draws)
     published = []
 
     def train(data, params, key):
-        init, idx = next(todo)
+        init, idx = draws[keys[key]]
         init = params_from_numpy(init, device)
         idx = torch.as_tensor(np.asarray(idx, np.int64))
         t0 = time.perf_counter()
@@ -285,7 +342,7 @@ def run_training_path(fx: dict, device, modes=tuple(MODES)) -> dict:
                                device=device)
     train, _ = draw_replay_trainer(
         fc_batch.engine, [(unflatten(fx, "batch_init"), fx["batch_idx"])],
-        device)
+        {int(setup["batch_key"]): 0}, device)
     batch_params, batch_wall = pretrain_batch_model(
         dataclasses.replace(fc_batch, train=train),
         make_supervised(hist, int(setup["lag"]), 0), int(setup["batch_key"]))
@@ -295,8 +352,8 @@ def run_training_path(fx: dict, device, modes=tuple(MODES)) -> dict:
         fc = lstm_forecaster(cfg, epochs=int(setup["speed_epochs"]),
                              batch_size=int(setup["speed_batch_size"]),
                              device=device)
-        train, speed[name] = draw_replay_trainer(fc.engine, speed_draws(fx),
-                                                 device)
+        train, speed[name] = draw_replay_trainer(
+            fc.engine, speed_draws(fx), window_keys(setup), device)
         results[name] = HybridStreamAnalytics(
             dataclasses.replace(fc, train=train), mode=mode,
             dwa_solver=solver).run(ws, batch_params, int(setup["run_key"]))
@@ -365,6 +422,154 @@ def expected_training_launches(fx: dict, modes=tuple(MODES)) -> dict:
         fused += checks + 2 * len(sizes) + 2 * len(fx[f"records/{name}"])
     return {"lstm_sequence_fwd_train": steps, "lstm_sequence_bwd": steps,
             "lstm_sequence_fused": fused}
+
+
+def run_bus_replay(fx: dict, device, deployment: str, quantized=False,
+                   stage_costs=None):
+    """The fixture's stream on the bus in ``deployment``, dynamic weights
+    with the closed-form solve, serving the reference's published speed
+    models through the keyed replay; with ``quantized`` the training site
+    publishes them as int8.  ``stage_costs`` (module -> seconds), when
+    given, replaces the measured stage walls in the schedule.  Returns the
+    ``BusRunResult``."""
+    _import_port()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import PipelineStages, lstm_forecaster
+    from repro_torch.runtime import (
+        ALL_DEPLOYMENTS,
+        BusExecutor,
+        CostModel,
+        paper_topology,
+    )
+
+    setup = unflatten(fx, "setup")
+    speed = [unflatten(fx, f"speed{t}")
+             for t in range(int(fx["n_speed_models"]))]
+    fc = lstm_forecaster(get_config("lstm-paper"),
+                         epochs=int(setup["speed_epochs"]),
+                         batch_size=int(setup["speed_batch_size"]),
+                         device=device)
+    fc = dataclasses.replace(
+        fc, train=replay_trainer(speed, window_keys(setup), device))
+    ex = BusExecutor(PipelineStages.build(fc, mode="dynamic"),
+                     ALL_DEPLOYMENTS[deployment](), paper_topology(),
+                     CostModel(ingest_s=BUS_INGEST_S),
+                     quantized_sync=quantized)
+    ex.stage_costs = stage_costs
+    return ex.run(port_stream(setup),
+                  params_from_numpy(unflatten(fx, "batch"), device),
+                  int(setup["run_key"]))
+
+
+def messages(res, topic: str) -> list:
+    """The deliveries of ``topic`` in a bus run, in delivery order."""
+    return [m for m in res.message_log if m.topic == topic]
+
+
+def check_bus_float(fx: dict, results: dict, rtol: float, atol: float
+                    ) -> float:
+    """Hold float-sync replays ({deployment: BusRunResult}) to the
+    reference: integrated and cloud-centric reproduce its in-process
+    ``dynamic_closed_form`` records (every model sync lands before the next
+    window); edge-centric records one OOM failure per window and serves the
+    batch model as its speed model.  Returns the largest relative RMSE
+    error."""
+    _import_port()
+    from repro_torch.runtime.modules import T_MODEL
+
+    worst = 0.0
+    for dep in ("edge-cloud-integrated", "cloud-centric"):
+        worst = max(worst, check_records(
+            fx, {"dynamic_closed_form": results[dep]},
+            rtol=rtol, atol=atol))
+        sizes = {m.nbytes for m in messages(results[dep], T_MODEL)}
+        if sizes != {FLOAT_MODEL_NBYTES}:
+            raise AssertionError(f"{dep}: model-topic bytes {sizes}, "
+                                 f"expected {FLOAT_MODEL_NBYTES}")
+    edge = results["edge-centric"]
+    if (len(edge.failures) != edge.n_windows
+            or not all("OOM" in f for f in edge.failures)):
+        raise AssertionError(f"edge-centric: {len(edge.failures)} failures "
+                             f"in {edge.n_windows} windows: {edge.failures}")
+    if len(edge.records) != edge.n_windows - 1 or any(
+            r.rmse_speed != r.rmse_batch for r in edge.records):
+        raise AssertionError("edge-centric: the speed layer must serve the "
+                             "batch model in every window")
+    return worst
+
+
+def check_bus_int8(fx: dict, res, rtol: float) -> tuple:
+    """Hold the int8-sync replay (integrated) to the reference: every model
+    publish is ``INT8_MODEL_NBYTES`` and carries ``QTensor`` leaves whose
+    ``q`` and ``scale`` equal the reference's ``quantize_tree`` bit for bit
+    (the rest float); every window's speed predictions come from an
+    installed int8 model, within ``INT8_PRED_ATOL`` of the reference's
+    ``int8pred{t}``; the records within ``rtol`` of its
+    ``bus_int8_integrated`` (the reference serves dequantized floats off the
+    TPU, one float rounding from the int8 products).  Returns (largest
+    |dpred|, largest relative RMSE error)."""
+    _import_port()
+    from repro_torch.runtime.modules import T_MODEL, T_SPEED
+    from repro_torch.serving.quantize import QTensor
+
+    published = messages(res, T_MODEL)
+    if len(published) != int(fx["n_speed_models"]):
+        raise AssertionError(f"{len(published)} int8 publishes, expected "
+                             f"{int(fx['n_speed_models'])}")
+    for m in published:
+        t = m.payload["window"]
+        if m.nbytes != INT8_MODEL_NBYTES:
+            raise AssertionError(f"window {t}: model-topic bytes {m.nbytes}, "
+                                 f"expected {INT8_MODEL_NBYTES}")
+        want = unflatten(fx, f"q8speed{t}")
+        for sub, leaves in m.payload["params"].items():
+            for leaf, got in leaves.items():
+                if leaf not in want.get(sub, {}):
+                    if isinstance(got, QTensor):
+                        raise AssertionError(f"{sub}/{leaf} quantized, the "
+                                             "reference keeps it float")
+                    continue
+                ref = want[sub][leaf]
+                if not (isinstance(got, QTensor)
+                        and np.array_equal(got.q.cpu().numpy(), ref["q"])
+                        and np.array_equal(
+                            got.scale.cpu().numpy().view(np.uint32),
+                            ref["scale"].view(np.uint32))):
+                    raise AssertionError(f"window {t}: {sub}/{leaf} is not "
+                                         "the reference's int8 tensor")
+    worst_pred = 0.0
+    for m in messages(res, T_SPEED):
+        w = m.payload["window"]
+        if m.payload["fallback"]:
+            raise AssertionError(f"window {w} served no synced model")
+        err = float(np.max(np.abs(m.payload["pred"] - fx[f"int8pred{w - 1}"])))
+        worst_pred = max(worst_pred, err)
+        if err > INT8_PRED_ATOL:
+            raise AssertionError(f"window {w}: int8 predictions off by {err}")
+    worst = check_records(fx, {"bus_int8_integrated": res},
+                          rtol=rtol, atol=rtol)
+    return worst_pred, worst
+
+
+def expected_bus_launches(res, quantized: bool, lag: int) -> dict:
+    """The launches a replayed bus run must make, derived from the run: the
+    warm-up's 2 eval predicts and batch predict; 2 eval predicts for every
+    window that trained; a batch predict per record; a speed predict per
+    speed message, through kernel #4's ``lag + 2`` products (input
+    projection, ``lag`` recurrent steps, Dense(10)) where an installed int8
+    model served it, else through #1; the warm-up's int8 speed predict
+    with int8 sync on."""
+    _import_port()
+    from repro_torch.runtime.modules import T_SPEED
+
+    speed = messages(res, T_SPEED)
+    int8_served = (sum(not m.payload["fallback"] for m in speed)
+                   if quantized else 0)
+    trained = res.n_windows - len(res.failures)
+    return {"lstm_sequence_fused": 3 + 2 * trained + len(res.records)
+            + len(speed) - int8_served,
+            "int8_matmul": (lag + 2) * (int8_served + 1) if quantized else 0}
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +847,84 @@ def train_kernel_phase() -> dict:
     return rows
 
 
+def _int8_inputs(M, K, N, dtype, seed):
+    """x (M,K) in [-1, 1) in ``dtype`` and the int8 (q, scale) of a (K,N)
+    fan-in-scaled normal weight, quantized by the port, on the card."""
+    import torch
+
+    from repro_torch.serving.quantize import quantize
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    x = torch.tensor(rng.uniform(-1.0, 1.0, (M, K)),
+                     dtype=getattr(torch, dtype), device=dev)
+    qt = quantize(torch.tensor(rng.normal(size=(K, N)) * K**-0.5,
+                               dtype=torch.float32, device=dev))
+    return x, qt.q, qt.scale
+
+
+def _int8_bound(M, K, N):
+    """Bound of one int8 matmul: x (float32), q (int8) and scale read once,
+    y (float32) written once; the M*K*N multiply-adds and the M*N scale
+    multiplies."""
+    nbytes = 4 * M * K + K * N + 4 * N + 4 * M * N
+    return _bound(nbytes, 2 * M * K * N + M * N)
+
+
+def int8_kernel_phase() -> dict:
+    """Kernel #4 against its plain version at every case, then timed at the
+    bus path's three shapes beside the plain version and the library
+    yardstick ``(x @ q.float()) * scale`` (cuBLAS and two elementwise
+    launches: no single PyTorch call computes the function).  Returns the
+    numbers of its row, at the recurrent step's shape ``INT8_MAIN``."""
+    import torch
+
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+
+    max_err = 0.0
+    for i, (M, K, N, dtype) in enumerate(INT8_CASES):
+        x, q, scale = _int8_inputs(M, K, N, dtype, seed=400 + i)
+        y = int8_kernel.int8_matmul(x, q, scale)
+        y_ref = int8_matmul_ref(x, q, scale)
+        torch.cuda.synchronize()
+        err = float((y.float() - y_ref.float()).abs().max())
+        if dtype == "float32":
+            tol = INT8_TOL if K <= 40 else INT8_TOL_DEEP
+            ok = bool(((y - y_ref).abs() <= tol + tol * y_ref.abs()).all())
+            max_err = max(max_err, err)
+            limit = f"atol = rtol = {tol}"
+        else:
+            # both round the same float32 sum once to bf16
+            ok = bool(((y.float() - y_ref.float()).abs()
+                       <= 2.0**-7 * y_ref.float().abs() + INT8_TOL).all())
+            limit = "<= one bf16 step"
+        print(f"kernel int8_matmul M={M} K={K} N={N} {dtype}: max|dy|="
+              f"{err:.3g} ({limit}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"int8_matmul disagrees with its plain "
+                                 f"version at M={M} K={K} N={N} {dtype}: "
+                                 f"{err}")
+
+    by_shape = {}
+    for M, K, N in INT8_SHAPES:
+        x, q, scale = _int8_inputs(M, K, N, "float32", seed=500)
+        bound_ms, bound_by = _int8_bound(M, K, N)
+        numbers = {
+            "ms": _median_ms(lambda: int8_kernel.int8_matmul(x, q, scale)),
+            "plain_ms": _median_ms(lambda: int8_matmul_ref(x, q, scale)),
+            "library_ms": _median_ms(lambda: (x @ q.float()) * scale),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        by_shape[f"{M}x{K}x{N}"] = numbers
+        print(f"timing int8_matmul at (M, K, N) = {(M, K, N)} float32 "
+              f"(median of 200, CUDA events): kernel {numbers['ms']:.6f} ms, "
+              f"plain {numbers['plain_ms']:.6f} ms, (x @ q.float()) * scale "
+              f"{numbers['library_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by})", flush=True)
+    return {"max_abs_err": max_err, "by_shape": by_shape,
+            **by_shape["{}x{}x{}".format(*INT8_MAIN)]}
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side event of a profile:
     kernels, copies and memsets."""
@@ -710,7 +993,8 @@ def _busy(fn, label: str) -> dict:
           f"unprofiled wall: idle share {idle:.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile {label}: device time {us / 1e3:.3f} ms  {name[:90]}")
-    return {"wall_s": wall_s, "busy_ms": busy_us / 1e3, "idle_share": idle}
+    return {"wall_s": wall_s, "busy_ms": busy_us / 1e3, "idle_share": idle,
+            "device_ms_by_name": {n: us / 1e3 for n, us in by_name.items()}}
 
 
 def profile_phase(fx: dict) -> dict:
@@ -725,9 +1009,16 @@ def profile_phase(fx: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import lstm_forecaster, make_supervised
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 
     out = {}
+    x, q, scale = _int8_inputs(*INT8_MAIN, "float32", seed=500)
+    dev = _kernel_device_ms(lambda: int8_kernel.int8_matmul(x, q, scale),
+                            ["int8_matmul_kernel"])["int8_matmul_kernel"]
+    out["int8_matmul"] = {"device_ms": dev}
+    print(f"profile: int8_matmul device time at (M, K, N) = {INT8_MAIN} "
+          f"{dev} ms (median of 100)")
     x, wx, wh, b = _kernel_inputs(*MAIN_SHAPE, "float32", seed=100)
     with torch.inference_mode():
         dev = _kernel_device_ms(
@@ -759,6 +1050,17 @@ def profile_phase(fx: dict) -> dict:
         torch.cuda.synchronize()
 
     out["serving"] = _busy(serve, "serving path, 5 modes")
+
+    def bus_int8():
+        run_bus_replay(fx, "cuda", "edge-cloud-integrated", quantized=True)
+        torch.cuda.synchronize()
+
+    bus_int8()  # warm
+    out["bus_int8"] = _busy(bus_int8, "int8 bus run, integrated")
+    int8_ms = sum(ms for n, ms in out["bus_int8"].get(
+        "device_ms_by_name", {}).items() if "int8_matmul_kernel" in n)
+    print(f"profile int8 bus run, integrated: int8_matmul_kernel device "
+          f"time {int8_ms:.6f} ms in all")
 
     setup = unflatten(fx, "setup")
     ws, hist = port_data(setup)
@@ -802,25 +1104,30 @@ def main() -> int:
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import lstm_forecaster
     from repro_torch.kernels import _build
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.launch import edge_cloud
+    from repro_torch.runtime.modules import T_MODEL
     from repro_torch.training.optimizer import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"device: {name} (torch {torch.__version__}, CUDA "
+    print(f"device: {device_name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(smi, flush=True)
 
     # phase 2: every library, one nvcc each, all at once
     t0 = time.perf_counter()
-    seconds = _build.build_all(lstm_kernel.LIBRARIES)
+    seconds = _build.build_all({**lstm_kernel.LIBRARIES,
+                                **int8_kernel.LIBRARIES})
     lstm_kernel.library()
     lstm_kernel.bwd_library()
+    int8_kernel.library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
@@ -830,11 +1137,14 @@ def main() -> int:
     fused = lstm_kernel.lstm_sequence_fused
     fwd_train = lstm_kernel.lstm_sequence_fwd_train
     bwd = lstm_kernel.lstm_sequence_bwd
-    rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase()}
+    int8 = int8_kernel.int8_matmul
+    wrappers = (fused, fwd_train, bwd, int8)
+    rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
+            "int8_matmul": int8_kernel_phase()}
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(fused, fwd_train, bwd)
+    _reset_launches(*wrappers)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -857,12 +1167,13 @@ def main() -> int:
     if serving_launches != expected or serving_launches == 0:
         raise AssertionError(f"lstm_sequence_fused launched {serving_launches} "
                              f"times on the serving path, expected {expected}")
-    if fwd_train.launches or bwd.launches:
-        raise AssertionError("the serving path launched a training kernel")
+    if fwd_train.launches or bwd.launches or int8.launches:
+        raise AssertionError("the serving path launched a training or an "
+                             "int8 kernel")
 
     # phase 5: the training path
     expected = expected_training_launches(fx)
-    _reset_launches(fused, fwd_train, bwd)
+    _reset_launches(*wrappers)
     t0 = time.perf_counter()
     run = run_training_path(fx, "cuda")
     torch.cuda.synchronize()
@@ -889,6 +1200,8 @@ def main() -> int:
     if training_launches != expected or 0 in training_launches.values():
         raise AssertionError(f"training path launches {training_launches}, "
                              f"expected {expected}")
+    if int8.launches:
+        raise AssertionError("the training path launched the int8 kernel")
 
     setup = unflatten(fx, "setup")
     eng = lstm_forecaster(get_config("lstm-paper"),
@@ -906,7 +1219,95 @@ def main() -> int:
     if not same:
         raise AssertionError("two fits from the same draws differ")
 
-    # phase 6: where the time goes
+    # phase 6: the bus path.  (a) float sync, the reference's models
+    # replayed in each deployment
+    lag = int(setup["lag"])
+    _reset_launches(*wrappers)
+    t0 = time.perf_counter()
+    bus_float = {d: run_bus_replay(fx, "cuda", d) for d in BUS_DEPLOYMENTS}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bus_launches = {"float": {w.__name__: w.launches for w in wrappers}}
+    worst = check_bus_float(fx, bus_float, rtol=TRAIN_ATOL, atol=TRAIN_ATOL)
+    expected = {"lstm_sequence_fused": 0, "lstm_sequence_fwd_train": 0,
+                "lstm_sequence_bwd": 0, "int8_matmul": 0}
+    for res in bus_float.values():
+        expected["lstm_sequence_fused"] += expected_bus_launches(
+            res, False, lag)["lstm_sequence_fused"]
+    for dep, res in bus_float.items():
+        sizes = sorted({int(m.nbytes) for m in messages(res, T_MODEL)})
+        print(f"bus path, float sync, {dep}: e2e {res.mean_e2e_s():.6f} s, "
+              f"{len(res.failures)} capacity failures, model-topic bytes "
+              f"{sizes}")
+    print(f"bus path, float sync: 3 deployments in {wall:.3f} s; integrated "
+          f"and cloud-centric reproduce the reference's in-process records "
+          f"(worst relative RMSE error {worst:.3g}), edge-centric OOMs every "
+          f"window and serves the batch model; launches "
+          f"{bus_launches['float']}, expected {expected}", flush=True)
+    if bus_launches["float"] != expected:
+        raise AssertionError(f"float bus launches {bus_launches['float']}, "
+                             f"expected {expected}")
+
+    # (b) int8 sync in the integrated deployment
+    _reset_launches(*wrappers)
+    t0 = time.perf_counter()
+    bus_int8 = run_bus_replay(fx, "cuda", "edge-cloud-integrated",
+                              quantized=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bus_launches["int8"] = {w.__name__: w.launches for w in wrappers}
+    worst_pred, worst = check_bus_int8(fx, bus_int8, rtol=TRAIN_ATOL)
+    expected = {"lstm_sequence_fwd_train": 0, "lstm_sequence_bwd": 0,
+                **expected_bus_launches(bus_int8, True, lag)}
+    speed_ms = {sync: 1e3 * statistics.median(r.t_speed_infer
+                                             for r in res.records)
+                for sync, res in (("float", bus_float[
+                    "edge-cloud-integrated"]), ("int8", bus_int8))}
+    print(f"bus path, integrated: median t_speed_infer float "
+          f"{speed_ms['float']:.6f} ms, int8 {speed_ms['int8']:.6f} ms")
+    print(f"bus path, int8 sync, integrated: {wall:.3f} s, e2e "
+          f"{bus_int8.mean_e2e_s():.6f} s; every publish {INT8_MODEL_NBYTES} "
+          f"B (float {FLOAT_MODEL_NBYTES} B) with q and scale bit for bit the "
+          f"reference's; int8 predictions within {worst_pred:.3g} of the "
+          f"reference's (<= {INT8_PRED_ATOL}); records within {worst:.3g} "
+          f"relative; launches {bus_launches['int8']}, expected {expected}",
+          flush=True)
+    if bus_launches["int8"] != expected or int8.launches == 0:
+        raise AssertionError(f"int8 bus launches {bus_launches['int8']}, "
+                             f"expected {expected}")
+
+    # (c) the launcher, trained on the card, float and int8 sync
+    for path, flag in (("launcher_float", []),
+                       ("launcher_int8", ["--quantized"])):
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        runs = edge_cloud.run_real(edge_cloud.parse_args(
+            ["--real", "--deployment", "all", "--fast", "--windows", "6",
+             *flag]), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bus_launches[path] = {w.__name__: w.launches for w in wrappers}
+        checks = edge_cloud.table3_claim_checks(runs)
+        int8_want = sum(expected_bus_launches(r, bool(flag), lag)[
+            "int8_matmul"] for r in runs.values())
+        print(json.dumps({path: {dep: {
+            "table3": r.table3(), "e2e_s": r.mean_e2e_s(),
+            "model_topic_nbytes": [m.nbytes for m in messages(r, T_MODEL)],
+            "failures": len(r.failures)} for dep, r in runs.items()}}))
+        print(f"bus path, {path}: 3 deployments in {wall:.3f} s; claims "
+              f"{checks}; launches {bus_launches[path]}, int8_matmul "
+              f"expected {int8_want}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"{path}: a Table-3 claim failed: {checks}")
+        trained = bus_launches[path]
+        if (trained["int8_matmul"] != int8_want or 0 in (
+                trained["lstm_sequence_fused"],
+                trained["lstm_sequence_fwd_train"],
+                trained["lstm_sequence_bwd"])):
+            raise AssertionError(f"{path}: launches {trained}, int8_matmul "
+                                 f"expected {int8_want}")
+
+    # phase 7: where the time goes
     prof = profile_phase(fx)
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
@@ -917,25 +1318,33 @@ def main() -> int:
                                     replaces + "216"),
         "lstm_sequence_bwd": (sources + "lstm_sequence_bwd.cu",
                               replaces + "330"),
+        "int8_matmul": ("src/repro_torch/kernels/int8_matmul/csrc/"
+                        "int8_matmul.cu",
+                        "src/repro/kernels/int8_matmul/kernel.py:47"),
     }
     kernels = []
     for kname, (source, repl) in meta.items():
         row = rows[kname]
         device = prof[kname]
-        if kname != "lstm_sequence_fused":
+        if kname in ("lstm_sequence_fwd_train", "lstm_sequence_bwd"):
             for B, numbers in row["by_batch"].items():
                 numbers.update(device[B])
             device = device[TRAIN_SHAPES[0][0]]
+        by_path = {"serving": serving_launches if kname == fused.__name__
+                   else 0, "training": training_launches.get(kname, 0),
+                   **{path: counts[kname]
+                      for path, counts in bus_launches.items()}}
+        # each kernel's main path: training for the LSTM kernels, the int8
+        # bus replay for the int8 kernel
+        main_path = "int8" if kname == int8.__name__ else "training"
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": repl, "launches": training_launches[kname],
-            "launches_by_path": {
-                "serving": serving_launches if kname == fused.__name__ else 0,
-                "training": training_launches[kname]},
+            "replaces": repl, "launches": by_path[main_path],
+            "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -11,9 +11,8 @@ pipeline stages (paper Sec. 4.4), for one stream:
   data_sync         (records_nbytes,)            -> archive handoff
 
 Each stage's ``compute(**inputs) -> dict`` is wrapped by ``__call__`` with a
-wall-clock measurement.  The fleet stages come with the fleet slice; the
-checksum and signature checks of ``model_sync`` with the chaos and health
-slice.
+wall-clock measurement.  The fleet stages come with the fleet slice, and
+the signature check of ``model_sync`` with the health slice.
 """
 from __future__ import annotations
 
@@ -30,19 +29,19 @@ from repro_torch.core.weighting import (
     dwa_scipy,
     static_weights,
 )
+from repro_torch.serving.quantize import (
+    dequantize_tree,
+    tree_checksum,
+    tree_leaves,
+)
 
 Params = Any
 
 
 def _tensor_leaves(tree: Any) -> Iterator[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensor_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensor_leaves(v)
+    """The tensors of a stage's outputs, a ``QTensor``'s ``q`` and
+    ``scale`` among them."""
+    return (x for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
 
 
 @dataclass
@@ -169,6 +168,11 @@ class SpeedTraining(Stage):
                 speed_params: Optional[Params], batch_params: Params,
                 key) -> Dict[str, Any]:
         fc = self.forecaster
+        if speed_params is not None:
+            # the serving model may be the int8-synced tree (QTensor leaves);
+            # training runs in float, so dequantize at the stage boundary
+            # (no-op on a float tree)
+            speed_params = dequantize_tree(speed_params)
         params, train_wall_s = fc.train(data, speed_params, key)
         x, y = data["x"], data["y"]
         eval_preds = eval_y = None
@@ -184,19 +188,38 @@ class ModelSync(Stage):
     """Install a freshly-published speed model (plus its Algorithm-1 eval
     predictions) as the serving state.  Pure pass-through compute; the cost
     of this module is the model transfer, which the executor accounts as
-    communication.  Checksum and signature verification come with the chaos
-    and health slice: until then, passing either raises."""
+    communication.
+
+    When the publish carries a ``checksum`` (``serving.quantize.
+    tree_checksum``, stamped by the training site), the stage verifies it
+    before installing anything: a mismatch returns ``ok=False`` with no
+    state, and counts in ``corrupt_rejected``; a match counts in
+    ``verified``.  A corrupt model is never served.  The HMAC signature
+    check comes with the health slice: until then, passing ``signature`` or
+    ``sig_key`` raises."""
 
     name = "model_sync"
+
+    _REJECT = {"ok": False, "speed_params": None,
+               "prev_preds": None, "prev_y": None}
+
+    def __init__(self):
+        self.verified = 0
+        self.corrupt_rejected = 0
 
     def compute(self, *, params: Params, eval_preds, eval_y,
                 checksum: Optional[int] = None,
                 signature: Optional[str] = None,
                 sig_key: Optional[bytes] = None) -> Dict[str, Any]:
-        if checksum is not None or signature is not None or sig_key is not None:
+        if signature is not None or sig_key is not None:
             raise NotImplementedError(
-                "model_sync: checksum and signature verification come with "
-                "the chaos and health slice of the port")
+                "model_sync: signature verification comes with the health "
+                "slice of the port (slice 6)")
+        if checksum is not None:
+            if tree_checksum(params) != checksum:
+                self.corrupt_rejected += 1
+                return dict(self._REJECT)
+            self.verified += 1
         return {"ok": True, "speed_params": params, "prev_preds": eval_preds,
                 "prev_y": eval_y}
 

@@ -1,0 +1,30 @@
+"""Public entry point of the int8 dequantizing matmul: ``qmatmul``.
+
+``repro_torch.models.lstm._forward_int8`` rides it, the edge's inference on
+an int8-synced speed model.  A tensor on a CUDA device launches the kernel
+(``kernel.int8_matmul``) or raises; a tensor on the CPU takes its plain
+version (``ref``).  Nothing falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.int8_matmul import kernel, ref
+from repro_torch.serving.quantize import QTensor
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """``x @ dequant(qt)``: ``x`` is (..., K) float32 or bfloat16, ``qt``
+    wraps an int8 (K, N) matrix and its (N,) float32 scale; the result is
+    (..., N) in ``x.dtype``.  The leading dims are flattened to one M axis
+    for the kernel and restored after."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    scale = qt.scale.reshape(-1)
+    if x.device.type == "cuda":
+        y = kernel.int8_matmul(x2, qt.q, scale)
+    elif x.device.type == "cpu":
+        y = ref.int8_matmul_ref(x2, qt.q, scale)
+    else:
+        raise ValueError(f"qmatmul: unsupported device {x.device}")
+    return y.reshape(*lead, -1)

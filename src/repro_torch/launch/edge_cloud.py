@@ -1,0 +1,248 @@
+"""Edge-cloud deployment launcher: the paper's three deployments on real
+LSTM compute, scheduled on the TopicBus by ``BusExecutor``, with each
+stage's wall measured on the card and rescaled to its site's hardware class
+(paper Table 3, Sec. 6.2).
+
+    PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
+        --deployment all --fast [--quantized] [--period S] [--windows N] \\
+        [--scenario none|gradual|abrupt|seasonal] [--static]
+
+It prints each deployment's Table-3 breakdown, its mean end-to-end window
+latency and model-topic bytes, and the paper's claims as measured, PASS or
+FAIL.  The port has the single-stream ``--real`` mode only; the reference's
+other modes raise, naming the slice that brings each.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+# the inference rows of Table 3, summed by the totals claim
+ROWS = ("speed_inference", "batch_inference", "hybrid_inference")
+# the order the paper measures: integrated < cloud-centric < edge-centric
+E2E_ORDER = ["edge-cloud-integrated", "cloud-centric", "edge-centric"]
+
+
+def _print_table(table, e2e=None) -> None:
+    for m, row in table.items():
+        line = (f"  {m:<18} comp={row['computation']:>8.3f}s "
+                f"comm={row['communication']:>8.3f}s ")
+        if row.get("queue", 0.0) > 0:
+            line += f"queue={row['queue']:>7.3f}s "
+        line += f"total={row['total']:>8.3f}s"
+        print(line)
+    if e2e is not None:
+        print(f"  {'end-to-end window':<18} {e2e:>42.3f}s")
+
+
+def build_real_pipeline(n_windows: int, fast: bool = True, mode="dynamic",
+                        records_per_window: int = 250, verbose: bool = False,
+                        scenario: str = "gradual",
+                        device: Optional[Union[str, torch.device]] = None):
+    """The paper's experiment built for real-compute execution on
+    ``device`` (the current CUDA device by default): returns (stages,
+    batch_params, stream, cost), as the reference's does.  History length,
+    seeds (series 0, drift 1, batch pretrain key 0), drift, epoch pairs and
+    the Kafka-ingest formula live only here."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        PipelineStages,
+        WindowedStream,
+        WindowPlan,
+        lstm_forecaster,
+        make_supervised,
+        pretrain_batch_model,
+    )
+    from repro_torch.runtime import CostModel
+    from repro_torch.streams.normalize import MinMaxScaler
+    from repro_torch.streams.sources import apply_scenario, wind_turbine_series
+
+    batch_epochs, speed_epochs = (8, 10) if fast else (50, 100)
+    rpw = records_per_window
+    cfg = get_config("lstm-paper")
+    series = wind_turbine_series(1600 + rpw * n_windows + 5, seed=0)
+    hist, stream_raw = series[:1600], series[1600:]
+    alphas = np.full(5, 1.5e-3) if scenario == "gradual" else None
+    stream_raw = apply_scenario(stream_raw, scenario, seed=1, alphas=alphas)
+    scaler = MinMaxScaler.fit(hist)
+
+    fc_batch = lstm_forecaster(cfg, epochs=batch_epochs, batch_size=256,
+                               device=device)
+    fc_speed = lstm_forecaster(cfg, epochs=speed_epochs, batch_size=64,
+                               device=device)
+    if verbose:
+        print(f"pretraining batch model M^b ({batch_epochs} epochs) ...")
+    bp, t_pre = pretrain_batch_model(
+        fc_batch, make_supervised(scaler.transform(hist), 5, 0), 0)
+    if verbose:
+        print(f"  done in {t_pre:.1f}s")
+
+    stream = WindowedStream(scaler.transform(stream_raw),
+                            WindowPlan(n_windows, rpw, lag=5))
+    stages = PipelineStages.build(fc_speed, mode=mode)
+    # only the unmeasurable parts come from the cost model: the Kafka ingest
+    # throttle and the training-job memory footprint (capacity model)
+    cost = CostModel(ingest_s=rpw / 7.0 * 0.45)
+    return stages, bp, stream, cost
+
+
+def table3_claim_checks(results) -> Dict[str, bool]:
+    """The paper's Table-3 claims on measured runs ({deployment name:
+    BusRunResult}), as ``benchmarks/table3_deployment_latency.py`` checks
+    them; the e2e ordering needs every deployment's end-to-end latency."""
+    tables = {d: r.table3() for d, r in results.items()}
+    tot = {d: sum(t.get(m, {}).get("total", 0.0) for m in ROWS)
+           for d, t in tables.items()}
+    comm = {d: t["batch_inference"]["communication"]
+            for d, t in tables.items()}
+    e2e = {d: r.mean_e2e_s() for d, r in results.items()}
+    return {
+        "cloud_comm>edge_comm (inference)": (
+            comm["cloud-centric"] > comm["edge-cloud-integrated"]),
+        "edge_centric_training_OOM": bool(results["edge-centric"].failures),
+        "integrated_beats_edge_centric_total": (
+            tot["edge-cloud-integrated"] < tot["edge-centric"]),
+        "integrated_trains_without_capacity_limits": (
+            not results["edge-cloud-integrated"].failures),
+        "e2e: integrated < cloud < edge": (
+            e2e["edge-cloud-integrated"] < e2e["cloud-centric"]
+            < e2e["edge-centric"]),
+    }
+
+
+def run_real(args, device=None) -> Dict[str, Any]:
+    """The chosen deployments on real LSTM compute through the TopicBus, on
+    ``device`` (the current CUDA device by default): prints each one's
+    breakdown and, with all three, the paper-claim checks.  Returns
+    {deployment name: BusRunResult}."""
+    from repro_torch.runtime import (
+        ALL_DEPLOYMENTS,
+        BusExecutor,
+        paper_topology,
+    )
+    from repro_torch.runtime.modules import T_MODEL
+
+    mode = ("static", 0.5) if args.static else "dynamic"
+    stages, bp, stream, cost = build_real_pipeline(
+        args.windows, fast=args.fast, mode=mode, verbose=True,
+        scenario=args.scenario, device=device)
+
+    deps = {
+        "edge": ["edge-centric"],
+        "cloud": ["cloud-centric"],
+        "integrated": ["edge-cloud-integrated"],
+        "all": list(ALL_DEPLOYMENTS),
+    }[args.deployment]
+
+    results = {}
+    for name in deps:
+        dep = ALL_DEPLOYMENTS[name]()
+        ex = BusExecutor(stages, dep, paper_topology(), cost,
+                         window_period_s=args.period,
+                         quantized_sync=args.quantized)
+        res = results[name] = ex.run(stream, bp, 1)
+        print(f"\n[{dep.name}] {args.windows} windows, measured Table-3 "
+              f"breakdown ({'static' if args.static else 'dynamic'} "
+              f"weighting, real LSTM compute"
+              f"{', int8 sync' if args.quantized else ''}):")
+        _print_table(res.table3(),
+                     e2e=res.mean_e2e_s() if res.e2e_s else None)
+        sizes = sorted({int(m.nbytes) for m in res.message_log
+                        if m.topic == T_MODEL})
+        n_pub = sum(m.topic == T_MODEL for m in res.message_log)
+        print(f"  model topic: {n_pub} publishes of {sizes} bytes")
+        if res.records:
+            m = res.to_hybrid_result().mean_rmse()
+            print(f"  mean RMSE: batch={m['batch']:.4f} "
+                  f"speed={m['speed']:.4f} hybrid={m['hybrid']:.4f}")
+        else:
+            print("  (no inference windows: window 0 only trains; "
+                  "use --windows >= 2)")
+        if res.failures:
+            print(f"  !! {len(res.failures)} capacity failures "
+                  f"(first: {res.failures[0]})")
+
+    if len(deps) < 3:
+        return results
+    e2e = {n: r.mean_e2e_s() for n, r in results.items()}
+    order = sorted(e2e, key=e2e.get)
+    checks = table3_claim_checks(results)
+    print("\n# paper-claim checks (measured)")
+    print("  e2e window latency: " + " < ".join(
+        f"{n} ({e2e[n]:.6f}s)" for n in order)
+        + f"  [{'PASS' if order == E2E_ORDER else 'FAIL'}]")
+    print(f"  edge-centric speed-training capacity failure: "
+          f"{'PASS' if results['edge-centric'].failures else 'FAIL'}")
+    for claim, ok in checks.items():
+        print(f"  {claim}: {'PASS' if ok else 'FAIL'}")
+    return results
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags; a mode the port has not yet is an error that
+    names the slice bringing it."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--deployment",
+                   choices=["edge", "cloud", "integrated", "all"],
+                   default="all")
+    p.add_argument("--windows", type=int, default=25)
+    p.add_argument("--scenario",
+                   choices=["none", "gradual", "abrupt", "seasonal"],
+                   default="gradual",
+                   help="the paper's drift scenario (Sec. 6.1.3): stationary"
+                        " stream, Eq. 6 gradual drift, or Eq. 7 abrupt "
+                        "drift, plus the seasonal excursion-and-return "
+                        "extension")
+    p.add_argument("--static", action="store_true",
+                   help="static 5:5 weighting instead of dynamic")
+    p.add_argument("--quantized", action="store_true",
+                   help="int8 model sync: the training site publishes the "
+                        "int8 tree and the edge serves it through the int8 "
+                        "dequant-matmul kernel")
+    p.add_argument("--fast", action="store_true")
+    p.add_argument("--real", action="store_true",
+                   help="run real LSTM compute through the TopicBus "
+                        "(BusExecutor); the port has no other mode yet")
+    p.add_argument("--period", type=float, default=30.0,
+                   help="virtual seconds between stream windows; shrink it "
+                        "below the training time to watch stale-model "
+                        "inference emerge from event ordering")
+    # the reference's other modes, refused until their slices land
+    p.add_argument("--streams", type=int, default=1)
+    p.add_argument("--gated", action="store_true")
+    p.add_argument("--qps", type=float, default=0.0)
+    p.add_argument("--elastic", nargs="?", const="proactive", default=None)
+    p.add_argument("--chaos", default=None)
+    args = p.parse_args(argv)
+
+    if args.chaos is not None:
+        p.error("--chaos: the chaos scenarios come with the port's chaos and "
+                "health slice (slice 6)")
+    if args.streams > 1:
+        p.error("--streams > 1: the fleet executors come with the port's "
+                "fleet slice (slice 4)")
+    if args.gated:
+        p.error("--gated: drift-gated retraining comes with the port's "
+                "fleet slice (slice 4)")
+    if args.qps > 0:
+        p.error("--qps: the request plane comes with the port's request-plane "
+                "slice (slice 5)")
+    if args.elastic:
+        p.error("--elastic: the placement plane comes with the port's "
+                "elastic slice (slice 6)")
+    if not args.real:
+        p.error("the calibrated simulation (the default without --real) "
+                "replays benchmarks/calibrate.py's constants and comes with "
+                "the slice that ports the benchmarks; pass --real")
+    return args
+
+
+def main(argv=None) -> None:
+    run_real(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,11 +4,13 @@
 Params are a nested dict of tensors with the reference's keys:
 ``lstm/kernel`` (F,4H), ``lstm/recurrent`` (H,4H), ``lstm/bias`` (4H),
 ``dense/dense_w``, ``dense/dense_b``, ``head/head_w``, ``head/head_b``.
-The recurrence always goes through ``kernels.lstm_cell.ops.lstm_sequence``:
-the CUDA kernels on the card (the serving forward, or under a gradient the
-training pair), their plain versions on the CPU.  ``loss_fn`` is the masked
-MSE the trainers differentiate.  The int8 (``QTensor``) serving path comes
-with the int8-sync slice.
+The float recurrence always goes through
+``kernels.lstm_cell.ops.lstm_sequence``: the CUDA kernels on the card (the
+serving forward, or under a gradient the training pair), their plain
+versions on the CPU.  A tree with ``QTensor`` leaves (an int8-synced speed
+model) serves through ``_forward_int8``, whose every quantized product is
+``kernels.int8_matmul.ops.qmatmul``.  ``loss_fn`` is the masked MSE the
+trainers differentiate.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.int8_matmul.ops import qmatmul
 from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.models import nn
+from repro_torch.serving.quantize import QTensor
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -56,13 +60,44 @@ def _forget_bias(H: int, dt: torch.dtype, device: torch.device) -> torch.Tensor:
     return b.to(dt)
 
 
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w, through the int8 dequantizing matmul when ``w`` is a
+    ``QTensor`` (float leaves multiply as usual, so a partly quantized tree,
+    its tiny head kept in float, still serves)."""
+    if isinstance(w, QTensor):
+        return qmatmul(x, w)
+    return x @ w
+
+
+def _forward_int8(cfg: ModelConfig, p: Params, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """Edge inference on an int8-synced speed model, as the reference's
+    ``_forward_int8``: the whole-sequence input projection in one
+    ``qmatmul`` of (B*T, F), the recurrent projection one ``qmatmul`` of
+    (B, H) a step (t = 0 included), the gate math in plain torch, and
+    Dense(10) one ``qmatmul``; activations stay float (weight-only
+    quantization)."""
+    H = cfg.lstm.hidden
+    B, T, _ = x.shape
+    lp = p["lstm"]
+    zx = _mm(x.reshape(B * T, -1), lp["kernel"]).reshape(B, T, 4 * H)
+    h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    c = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    for t in range(T):
+        z = zx[:, t] + _mm(h, lp["recurrent"]) + lp["bias"]
+        i, f, g, o = z.split(H, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        c = f * c + i * torch.tanh(g)
+        h = o * torch.tanh(c)
+    d = torch.relu(_mm(h, p["dense"]["dense_w"]) + p["dense"]["dense_b"])
+    return _mm(d, p["head"]["head_w"]) + p["head"]["head_b"]
+
+
 def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, lag, F) -> prediction (B, out_dim)."""
-    leaves = [v for sub in p.values() for v in sub.values()]
-    if not all(isinstance(v, torch.Tensor) for v in leaves):
-        raise TypeError(
-            "repro_torch.models.lstm.forward takes a params tree of tensors; "
-            "quantized (QTensor) leaves come with the int8-sync slice")
+    """x: (B, lag, F) -> prediction (B, out_dim).  A tree with ``QTensor``
+    leaves serves through ``_forward_int8``."""
+    if any(isinstance(v, QTensor) for sub in p.values() for v in sub.values()):
+        return _forward_int8(cfg, p, x)
     lp = p["lstm"]
     h = lstm_ops.lstm_sequence(x, lp["kernel"], lp["recurrent"], lp["bias"])
     d = torch.relu(h @ p["dense"]["dense_w"] + p["dense"]["dense_b"])

@@ -1,1 +1,30 @@
-"""Executors of the port: the synchronous in-process loop."""
+"""The port's runtime: the topic bus and its sites and links, the paper's
+three deployments, latency accounting, and the executors (the synchronous
+loop and the bus-driven ``BusExecutor``)."""
+from repro_torch.runtime.bus import (  # noqa: F401
+    CapacityError,
+    DeadLetter,
+    EventKernel,
+    Link,
+    Message,
+    Site,
+    TopicBus,
+    Topology,
+    paper_topology,
+    topic_matches,
+)
+from repro_torch.runtime.deployment import (  # noqa: F401
+    ALL_DEPLOYMENTS,
+    STREAM_MODULES,
+    Deployment,
+    cloud_centric,
+    edge_centric,
+    edge_cloud_integrated,
+)
+from repro_torch.runtime.executor import (  # noqa: F401
+    BusExecutor,
+    BusRunResult,
+    InProcessExecutor,
+    window_seeds,
+)
+from repro_torch.runtime.latency import CostModel, LatencyLedger  # noqa: F401

@@ -16,8 +16,12 @@ a device value on the host; the per-step losses reach the host once, after
 the loop, as ``last_losses``.  A CUDA-graph capture of a bucket's loop, the
 counterpart of the reference's one dispatch per fit, is not done yet.
 
-The fleet trainer (``FleetForecaster``) and the dequantization of an int8
-warm start come with their own slices.
+``predict`` serves an int8-synced model (``QTensor`` leaves) as it is,
+through ``models.lstm._forward_int8``: the reference's
+dequantize-once cache (``_serving_params``) exists only because the Pallas
+interpreter runs the int8 kernel slowly off the TPU, and has no counterpart
+here, where the card runs the int8 kernel and the CPU its plain version.
+The fleet trainer (``FleetForecaster``) comes with its own slice.
 """
 from __future__ import annotations
 
@@ -183,7 +187,8 @@ class CompiledForecaster:
         """Fit the window from the draws of ``key``: its permutations, and
         fresh init params or, on a warm start with ``params`` given, a
         private copy of them (the update is in place, and the caller's tree
-        is the model being served).  Returns (params, synced wall seconds)."""
+        is the model being served; ``SpeedTraining`` hands it a float tree).
+        Returns (params, synced wall seconds)."""
         t0 = time.perf_counter()
         n = len(next(iter(data.values())))
         nb = bucket_examples(n, self.batch_size)
@@ -198,6 +203,8 @@ class CompiledForecaster:
         return params, time.perf_counter() - t0
 
     def predict(self, params: Params, x: np.ndarray) -> np.ndarray:
+        """``predict_fn(params, x)``: a float tree or an int8 (``QTensor``)
+        tree, served as it is."""
         if self._predict_fn is None:
             raise ValueError("CompiledForecaster built without a predict_fn")
         return self._predict_fn(params, x)

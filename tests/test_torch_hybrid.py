@@ -6,7 +6,12 @@ setup: 3200 turbine records, 1600 of history, gradual drift, 6 windows of
 the batch model, the speed model published after each window, the
 per-window records of five modes, and the draws every fit started from (the
 init params and the epoch permutations, which torch cannot reproduce from a
-``jax.random`` key).  The port then
+``jax.random`` key).  For the int8 model sync it also holds each published
+model's ``quantize_tree(min_size=64)`` (``q8speed{t}``), the reference's int8
+forward of it on the next window (``int8pred{t}``, through ``qmatmul`` in
+interpret mode) and the records of a ``BusExecutor(quantized_sync=True)``
+run in the integrated deployment (``records/bus_int8_integrated``).  The
+port then
 
 * serves the same stream with the reference's models (the edge's view of
   cloud-side training), and
@@ -24,18 +29,29 @@ import importlib.util
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.configs import get_config
 from repro.core import (
     HybridStreamAnalytics,
+    PipelineStages,
     WindowedStream,
     WindowPlan,
     lstm_forecaster,
     make_supervised,
     pretrain_batch_model,
 )
+from repro.core.stages import split_chain
+from repro.models import lstm as lstm_ref
+from repro.runtime import (
+    BusExecutor,
+    CostModel,
+    edge_cloud_integrated,
+    paper_topology,
+)
+from repro.serving.quantize import QTensor, quantize_tree
 from repro.streams.normalize import MinMaxScaler
 from repro.training.compiled import bucket_examples
 from repro.streams.sources import gradual_drift, wind_turbine_series
@@ -93,6 +109,28 @@ def reference_draws(fc, data, key):
     return init, idx.astype(np.int16)
 
 
+def reference_bus_int8(fc_speed, bp, ws, models, s=SETUP):
+    """The reference's int8-sync bus run in the integrated deployment,
+    installing ``models`` (the published speed models) through a replay
+    keyed on the training key: window t's key gets model t, and the
+    warm-up's key (``fold_in(key, 0)``) model 0, which it never publishes."""
+    run_key = jax.random.PRNGKey(s["run_key"])
+    keys = {tuple(np.asarray(k).tolist()): t
+            for t, k in enumerate(split_chain(run_key, s["n_windows"]))}
+    keys[tuple(np.asarray(jax.random.fold_in(run_key, 0)).tolist())] = 0
+
+    def train(data, params, key):
+        model = models[keys[tuple(np.asarray(key).tolist())]]
+        return jax.tree_util.tree_map(jnp.asarray, model), 0.0
+
+    ex = BusExecutor(
+        PipelineStages.build(dataclasses.replace(fc_speed, train=train),
+                             mode="dynamic"),
+        edge_cloud_integrated(), paper_topology(),
+        CostModel(ingest_s=smoke.BUS_INGEST_S), quantized_sync=True)
+    return ex.run(ws, bp, run_key)
+
+
 def build_fixture():
     """Run the JAX package's learner in every mode and return the fixture's
     arrays: setup scalars, the batch model, the published speed models, the
@@ -140,7 +178,21 @@ def build_fixture():
         _flatten(f"speed{t}", p, out)
         _flatten(f"init{t}", init, out)
         out[f"idx{t}"] = idx
+        # the int8 sync: the quantized leaves of the publish, and their
+        # forward on the next window through qmatmul (interpret mode)
+        q8 = quantize_tree(jax.tree_util.tree_map(jnp.asarray, p),
+                           min_size=64)
+        for sub, leaves in q8.items():
+            for leaf, v in leaves.items():
+                if isinstance(v, QTensor):
+                    out[f"q8speed{t}/{sub}/{leaf}/q"] = np.asarray(v.q)
+                    out[f"q8speed{t}/{sub}/{leaf}/scale"] = np.asarray(v.scale)
+        if t + 1 < len(ws):
+            out[f"int8pred{t}"] = np.asarray(lstm_ref.forward(
+                cfg, q8, jnp.asarray(ws.supervised(t + 1)["x"])))
     out["n_speed_models"] = np.asarray(len(published[0]))
+    bus = reference_bus_int8(fc_speed, bp, ws, published[0])
+    out["records/bus_int8_integrated"] = smoke.records_array(bus.records)
     return out
 
 

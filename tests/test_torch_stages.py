@@ -57,12 +57,29 @@ def test_combine_and_speed_fallback():
 
 
 def test_model_sync_passes_through_and_refuses_integrity_checks():
-    ms = stages.ModelSync()
+    """A publish passes through; its checksum is verified as the
+    reference's stage verifies it (a mismatch rejects, counted); the
+    signature check, which the port has not yet, raises."""
+    from repro.runtime.faults import tree_checksum as jax_tree_checksum
+    from repro_torch.serving.quantize import tree_checksum
+
+    ms, ms_ref = stages.ModelSync(), stages_ref.ModelSync()
     p = {"lstm": {"kernel": torch.zeros(2)}}
+    p_ref = {"lstm": {"kernel": np.zeros(2, np.float32)}}
     out = ms(params=p, eval_preds=None, eval_y=None)
     assert out["ok"] and out["speed_params"] is p
-    for kw in ({"checksum": 1}, {"sig_key": b"k"}, {"signature": "s"}):
-        with pytest.raises(NotImplementedError, match="chaos and health"):
+    good = tree_checksum(p)
+    assert good == jax_tree_checksum(p_ref)
+    for checksum in (good, good ^ 1):
+        got = ms(params=p, eval_preds=None, eval_y=None, checksum=checksum)
+        want = ms_ref(params=p_ref, eval_preds=None, eval_y=None,
+                      checksum=checksum)
+        assert got["ok"] == want["ok"] == (checksum == good)
+        assert (got["speed_params"] is None) == (want["speed_params"] is None)
+    assert (ms.verified, ms.corrupt_rejected) == (1, 1)
+    assert (ms_ref.verified, ms_ref.corrupt_rejected) == (1, 1)
+    for kw in ({"sig_key": b"k"}, {"signature": "s"}):
+        with pytest.raises(NotImplementedError, match="health slice"):
             ms(params=p, eval_preds=None, eval_y=None, **kw)
     assert stages.DataSync()(nbytes=12.0)["nbytes"] == 12.0
 

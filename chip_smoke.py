@@ -38,7 +38,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. where the time goes: ``torch.profiler`` gives each kernel's own device
    time, and the device's busy time and idle share over a warm drive of the
    serving path, over one warm speed fit and pretrain, and over one warm
-   int8 bus run.
+   int8 bus run;
+8. the zoo's serving path: ``tinyllama-1.1b`` at full width and depth
+   through the port's ``Engine``, every attention through the flash kernel.
+   In float32, params from a numpy seed must reproduce the JAX reference's
+   greedy tokens and logits (``tests/data/torch_parity_tinyllama.npz``) and
+   step-by-step decode must equal one full forward; in the config's bf16,
+   ``Engine.generate`` (4 x 512 prompt + 32 tokens) must launch the flash
+   kernel exactly 22 x 32 times and no plain attention, and
+   ``Engine.serve`` must finish every request; prefill and decode times,
+   tokens/s and the device's idle share over a warm generate are printed.
+
+The flash kernel (#6) is built in phase 2, held to its plain version and
+timed beside SDPA in phase 3, and profiled in phase 7.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -52,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -143,6 +156,44 @@ INT8_PRED_ATOL = 1e-5
 # cores, at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# and the bf16 tensor-core rate (dense)
+PEAK_BF16_FLOP_PER_S = 989e12
+# the zoo's serving path: tinyllama-1.1b through the port's Engine.  The
+# parity run (tests/data/torch_parity_tinyllama.npz, written by the JAX
+# reference): full width and depth in float32, params from numpy seed
+# ZOO_SEED, 2 prompts of 32 tokens, 8 greedy tokens, each step's logsumexp
+# and top 64 (id, logit) pairs.  Logits held at ZOO_LOGIT_ATOL: float32
+# products of depth 2048 and 5632 over 22 layers, summed in another order
+# on the card than on the reference's CPU
+ZOO_ARCH = "tinyllama-1.1b"
+ZOO_FIXTURE = ROOT / "tests" / "data" / "torch_parity_tinyllama.npz"
+ZOO_SEED = 0
+ZOO_PROMPTS = (2, 32)
+ZOO_NEW_TOKENS = 8
+ZOO_TOPK = 64
+ZOO_LOGIT_ATOL = 2e-3
+# the served run in the config's bf16: Engine.generate at (batch, prompt,
+# new tokens), and Engine.serve's request mix on 4 slots
+SERVE_GENERATE = (4, 512, 32)
+SERVE_MAX_LEN = 544
+SERVE_PROMPT_LENS = (17, 300, 64, 129, 33, 250, 100, 200)
+SERVE_NEW_TOKENS = (8, 32, 16, 24, 12, 32, 8, 20)
+SERVE_SLOTS = 4
+# step-by-step decode against one full forward, float32 on the card (the
+# reference's tests/test_decode_equivalence.py tolerance)
+DECODE_EQ_ATOL = 2e-3
+# kernel #6 against its plain version: the reference's tolerances
+# (tests/test_kernels.py: tol), atol = rtol
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# (B, H, S, D, causal, window) of tests/test_kernels.py's
+# test_flash_attention_sweep, one KV head per query head
+FLASH_SWEEP = ((2, 2, 128, 32, True, 0), (1, 4, 256, 64, True, 0),
+               (2, 2, 100, 32, True, 0), (2, 2, 250, 32, True, 64),
+               (1, 2, 77, 16, False, 0))
+# the served shapes: (B, Sq, Sk, Hq, Hkv, D) of one layer's prefill
+# attention and of generate's last decode step
+FLASH_PREFILL = (4, 512, 512, 32, 4, 64)
+FLASH_DECODE = (4, 1, 544, 32, 4, 64)
 
 
 def _import_port():
@@ -573,6 +624,228 @@ def expected_bus_launches(res, quantized: bool, lag: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The zoo's serving path (tinyllama-1.1b), on any device
+# ---------------------------------------------------------------------------
+
+
+def zoo_parity_config(cfg):
+    """The parity run's config: the arch at full width and depth, float32."""
+    return cfg.replace(dtype="float32", param_dtype="float32")
+
+
+def _param_shapes(cfg) -> dict:
+    """{path: (shape, kind)} of the dense transformer's params in the
+    reference's tree layout (``models/transformer.py: init_params``: the
+    embedding, the head, the final norm, and the layer stack with a
+    leading L axis)."""
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    qd, kvd, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    shapes = {"tok_embed": ((V, d), "embed"), "final_norm": ((d,), "norm")}
+    if not cfg.tie_embeddings:
+        shapes["out_head"] = ((d, V), "dense")
+    layer = {"attn_norm": ((L, d), "norm"), "mlp_norm": ((L, d), "norm"),
+             "wq": ((L, d, qd), "dense"), "wk": ((L, d, kvd), "dense"),
+             "wv": ((L, d, kvd), "dense"), "wo": ((L, qd, d), "dense"),
+             "w_in": ((L, d, f), "dense"), "w_out": ((L, f, d), "dense")}
+    if cfg.qkv_bias:
+        layer.update(bq=((L, qd), "bias"), bk=((L, kvd), "bias"),
+                     bv=((L, kvd), "bias"))
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        layer["w_gate"] = ((L, d, f), "dense")
+    shapes.update({f"layers/{k}": v for k, v in layer.items()})
+    return shapes
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """Random float32 params of the dense transformer, a nested dict of
+    numpy arrays in the reference's tree layout.  Each leaf draws from its
+    own generator, seeded by (seed, crc32 of its path): dense weights
+    normal at fan-in scale, the embedding normal at d**-0.5, norm gains
+    1 + 0.1 normal, biases 0.02 normal.  The reference and the port load
+    the same tree, so neither needs the other's init."""
+    tree: dict = {}
+    for path, (shape, kind) in sorted(_param_shapes(cfg).items()):
+        rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+        w = rng.standard_normal(shape, dtype=np.float32)
+        if kind in ("dense", "embed"):
+            w *= np.float32(shape[-2 if kind == "dense" else -1] ** -0.5)
+        elif kind == "norm":
+            w *= np.float32(0.1)
+            w += np.float32(1.0)
+        else:
+            w *= np.float32(0.02)
+        *parents, leaf = path.split("/")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = w
+    return tree
+
+
+def zoo_prompts(cfg, seed: int, shape=ZOO_PROMPTS) -> np.ndarray:
+    return np.random.default_rng(seed).integers(1, cfg.vocab_size, shape,
+                                                dtype=np.int32)
+
+
+def _host(x) -> np.ndarray:
+    """A device array (a tensor, or the reference's array) as float32
+    numpy on the host."""
+    if hasattr(x, "detach"):
+        x = x.detach().float().cpu()
+    return np.asarray(x, np.float32)
+
+
+def record_logits(engine) -> list:
+    """Wrap ``engine``'s prefill and decode so that each call's logits
+    land, as float32 numpy (B, V), in the returned list: one entry per
+    generated token.  Works on the port's Engine and the reference's."""
+    steps = []
+    prefill, decode = engine._prefill, engine._decode
+
+    def _prefill(params, batch):
+        logits, cache = prefill(params, batch)
+        steps.append(_host(logits))
+        return logits, cache
+
+    def _decode(params, batch, cache):
+        logits, cache = decode(params, batch, cache)
+        steps.append(_host(logits))
+        return logits, cache
+
+    engine._prefill, engine._decode = _prefill, _decode
+    return steps
+
+
+def logit_summary(steps: list, k: int = ZOO_TOPK) -> dict:
+    """Per row and step of ``steps`` (each (B, V)): the logsumexp and the
+    top-k (id, logit) pairs, largest first; arrays (B, T) and (B, T, k)."""
+    logits = np.stack(steps, axis=1).astype(np.float64)  # (B, T, V)
+    m = logits.max(axis=-1, keepdims=True)
+    lse = m[..., 0] + np.log(np.exp(logits - m).sum(axis=-1))
+    ids = np.argsort(-logits, axis=-1, kind="stable")[..., :k]
+    return {"lse": lse.astype(np.float32), "top_ids": ids.astype(np.int32),
+            "top_logits": np.take_along_axis(logits, ids, -1).astype(
+                np.float32)}
+
+
+def zoo_fixture_arrays(arch: str, reduced: bool, seed: int,
+                       prompts: np.ndarray, tokens: np.ndarray, steps: list,
+                       max_len: int) -> dict:
+    """The parity fixture's arrays: the run's metadata, its prompts and
+    greedy tokens, and ``logit_summary`` of its steps.  No weights: the
+    params are ``numpy_params(config, seed)``."""
+    return {"arch": np.array(arch), "reduced": np.array(reduced),
+            "seed": np.array(seed), "max_len": np.array(max_len),
+            "prompts": np.asarray(prompts, np.int32),
+            "tokens": np.asarray(tokens, np.int32), **logit_summary(steps)}
+
+
+def zoo_config(fx: dict):
+    """The config of a parity fixture: its arch at full width in float32,
+    or ``.reduced()``."""
+    _import_port()
+    from repro_torch.configs import get_config
+
+    cfg = get_config(str(fx["arch"]))
+    return cfg.reduced() if bool(fx["reduced"]) else zoo_parity_config(cfg)
+
+
+def run_zoo_parity(fx: dict, device):
+    """The fixture's run on the port: params from ``numpy_params`` on
+    ``device``, the prompts through ``Engine.generate``.  Returns (cfg,
+    params, tokens, steps)."""
+    _import_port()
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving.engine import Engine
+
+    cfg = zoo_config(fx)
+    params = params_from_numpy(numpy_params(cfg, int(fx["seed"])), device)
+    engine = Engine(cfg, params, max_len=int(fx["max_len"]), device=device)
+    steps = record_logits(engine)
+    tokens, _ = engine.generate(fx["prompts"], fx["tokens"].shape[1])
+    return cfg, params, tokens, steps
+
+
+def check_zoo_parity(fx: dict, tokens: np.ndarray, steps: list,
+                     atol: float) -> dict:
+    """Hold the port's greedy tokens and logits to the fixture: tokens
+    equal; at every step, the logits at the reference's top-k ids and the
+    logsumexp within ``atol``.  A token may differ only where the
+    reference's top-1/top-2 gap is below ``atol``; that row is then
+    compared up to the step where it differs.  Returns the measured
+    {"logit_err", "lse_err", "near_ties"}."""
+    got = np.stack(steps, axis=1)  # (B, T, V)
+    lse = logit_summary(steps)["lse"]
+    logit_err = lse_err = 0.0
+    near_ties = []
+    for b in range(fx["tokens"].shape[0]):
+        diff = np.flatnonzero(tokens[b] != fx["tokens"][b])
+        last = int(diff[0]) if diff.size else tokens.shape[1] - 1
+        if diff.size:
+            gap = float(fx["top_logits"][b, last, 0]
+                        - fx["top_logits"][b, last, 1])
+            if gap >= atol:
+                raise AssertionError(
+                    f"row {b}: token {last} is {tokens[b, last]}, the "
+                    f"reference's {fx['tokens'][b, last]} (top-2 gap "
+                    f"{gap:.3g} >= {atol})")
+            near_ties.append((b, last, gap))
+        ids = fx["top_ids"][b, :last + 1]
+        mine = np.take_along_axis(got[b, :last + 1], ids, -1)
+        logit_err = max(logit_err, float(np.abs(
+            mine - fx["top_logits"][b, :last + 1]).max()))
+        lse_err = max(lse_err, float(np.abs(
+            lse[b, :last + 1] - fx["lse"][b, :last + 1]).max()))
+    if logit_err > atol or lse_err > atol:
+        raise AssertionError(f"logits off the reference's: top-{ZOO_TOPK} "
+                             f"{logit_err:.3g}, logsumexp {lse_err:.3g} "
+                             f"(atol {atol})")
+    return {"logit_err": logit_err, "lse_err": lse_err,
+            "near_ties": near_ties}
+
+
+def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
+                       device) -> float:
+    """Step-by-step decode against one full forward over the same tokens:
+    prefill ``n_prefill`` tokens, decode the rest teacher-forced, and
+    return the largest |logit difference| from ``forward``'s logits at
+    every decoded position (the reference's strongest serving invariant,
+    tests/test_decode_equivalence.py)."""
+    import torch
+
+    from repro_torch.models import blocks, transformer
+
+    with torch.no_grad():
+        t = torch.tensor(np.asarray(tokens, np.int32), device=device)
+        B, S = t.shape
+        h, _ = transformer.forward(cfg, params, {"tokens": t})
+        full = blocks.logits_fn(cfg, params, h)
+        logits, cache = transformer.prefill(cfg, params,
+                                            {"tokens": t[:, :n_prefill]}, S)
+        err = float((logits - full[:, n_prefill - 1]).abs().max())
+        for i in range(n_prefill, S):
+            pos = torch.full((B,), i, dtype=torch.int32, device=device)
+            logits, cache = transformer.decode_step(
+                cfg, params, {"token": t[:, i:i + 1], "pos": pos}, cache)
+            err = max(err, float((logits - full[:, i]).abs().max()))
+    return err
+
+
+def zoo_requests(cfg, seed: int = ZOO_SEED) -> list:
+    """Engine.serve's request mix: prompt lengths ``SERVE_PROMPT_LENS``,
+    ``SERVE_NEW_TOKENS`` new tokens each, prompts from numpy ``seed``."""
+    _import_port()
+    from repro_torch.serving.batching import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size, (n,),
+                                               dtype=np.int32),
+                    max_new_tokens=new)
+            for i, (n, new) in enumerate(zip(SERVE_PROMPT_LENS,
+                                             SERVE_NEW_TOKENS))]
+
+
+# ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
 
@@ -609,11 +882,13 @@ def _median_ms(fn, n=200, warmup=20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def _bound(nbytes: float, flops: float):
-    """Least time for work that moves ``nbytes`` and does ``flops`` float32
-    operations: the larger of the two over the card's peak rates.  Returns
-    (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+def _bound(nbytes: float, flops: float,
+           peak_flop_per_s: float = PEAK_F32_FLOP_PER_S):
+    """Least time for work that moves ``nbytes`` and does ``flops``
+    operations at ``peak_flop_per_s`` (float32 by default): the larger of
+    the two over the card's peak rates.  Returns (ms, "bytes" |
+    "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -925,6 +1200,162 @@ def int8_kernel_phase() -> dict:
             **by_shape["{}x{}x{}".format(*INT8_MAIN)]}
 
 
+def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
+    """q, k, v (standard normal, in ``dtype``) and int32 positions on the
+    card.  ``kind``: "arange" (the queries at the last Sq positions),
+    "holes" (every 7th slot and batch row 1's first 50 slots unwritten),
+    "decode" (each row's query at its own position, the slots after it
+    unwritten), "last" (generate's last decode step: every query at Sk-2,
+    the last slot unwritten), "masked" (batch row 0's slots all unwritten,
+    the first half of the queries before every slot)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dt,
+                            device="cuda")
+               for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    q_pos = np.tile(np.arange(Sk - Sq, Sk, dtype=np.int32), (B, 1))
+    kv_pos = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    if kind == "holes":
+        kv_pos[:, ::7] = -1
+        kv_pos[min(1, B - 1), :50] = -1
+    elif kind in ("decode", "last"):
+        q_pos = (np.full((B, 1), Sk - 2, np.int32) if kind == "last" else
+                 (Sk - 1 - 13 * np.arange(B, dtype=np.int32))[:, None])
+        kv_pos[kv_pos > q_pos] = -1
+    elif kind == "masked":
+        kv_pos[0] = -1
+        q_pos = np.tile(np.arange(Sq, dtype=np.int32) - Sq // 2, (B, 1))
+    return (q, k, v, torch.tensor(q_pos, device="cuda"),
+            torch.tensor(kv_pos, device="cuda"))
+
+
+def _flash_bound(q, k, q_pos, kv_pos, causal=True, window=0):
+    """Bound of one attention call: q and o moved once, K and V of the
+    slots written (kv_pos >= 0) read once, the positions read once; the
+    operations of the (query, slot) pairs this call's positions let
+    through, 4 D per pair and query head (q.k and p v), at the bf16
+    tensor-core rate for bf16 inputs, the float32 rate otherwise."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import position_mask
+
+    B, Sq, Hq, D = q.shape
+    esize = q.element_size()
+    pairs = int(position_mask(q_pos, kv_pos, causal, window).sum())
+    live = int((kv_pos >= 0).sum())
+    nbytes = (2 * B * Sq * Hq * D + 2 * live * k.shape[2] * D) * esize + 4 * (
+        q_pos.numel() + kv_pos.numel())
+    peak = (PEAK_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+            else PEAK_F32_FLOP_PER_S)
+    return _bound(nbytes, 4 * D * Hq * pairs, peak)
+
+
+def _sdpa_call(q, k, v, q_pos, kv_pos, causal_arange: bool):
+    """``scaled_dot_product_attention(..., enable_gqa=True)`` on (B,H,S,D)
+    copies of the inputs, causal for the prefill and a boolean mask from
+    the positions for a decode step: the library yardstick timed beside
+    the kernel, never used by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import position_mask
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if causal_arange:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    mask = position_mask(q_pos, kv_pos, True, 0)[:, None]  # (B,1,Sq,Sk)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def flash_kernel_phase() -> dict:
+    """Kernel #6 against its plain version: the reference's sweep shapes
+    (``gqa_flash`` against ``attention_ref``), its GQA case, the served
+    prefill with unwritten slots, decode steps against the cache, a sliding
+    window at D=120 and fully masked rows, float32 and bf16 at the
+    reference's tolerances; then timed at the served prefill and decode
+    shapes (bf16) beside the plain version and SDPA.  Returns the numbers
+    of its row, at the prefill shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    checks = []
+    for B, H, S, D, causal, window in FLASH_SWEEP:
+        for dtype in FLASH_TOL:
+            checks.append(("sweep", (B, S, S, H, H, D), causal, window,
+                           "arange", dtype))
+    checks += [("gqa", (2, 96, 96, 8, 2, 32), True, 0, "arange", "float32")]
+    for dtype in FLASH_TOL:
+        checks += [("prefill", FLASH_PREFILL, True, 0, "holes", dtype),
+                   ("decode", FLASH_DECODE, True, 0, "decode", dtype),
+                   ("window", (2, 200, 200, 16, 2, 120), True, 64, "arange",
+                    dtype),
+                   ("masked", (2, 8, 64, 4, 2, 32), True, 0, "masked",
+                    dtype)]
+    max_err = {dtype: 0.0 for dtype in FLASH_TOL}
+    for i, (label, shape, causal, window, kind, dtype) in enumerate(checks):
+        q, k, v, q_pos, kv_pos = _flash_case(*shape, dtype, 600 + i, kind)
+        if label == "sweep":  # the reference's test: MHA layout, arange
+            got = flash_ops.gqa_flash(q, k, v, causal=causal, window=window)
+            want = flash_ref.attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window).transpose(1, 2)
+        else:
+            got = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos,
+                                               causal=causal, window=window)
+            want = flash_ref.attend_full_ref(q, k, v, q_pos, kv_pos,
+                                             causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        d = (got.float() - want.float()).abs()
+        ok = bool((d <= tol + tol * want.float().abs()).all())
+        if kind == "masked":  # rows with no slot to attend give exactly 0
+            dead = ~flash_ref.position_mask(q_pos, kv_pos, causal,
+                                            window).any(-1)
+            ok = ok and bool((got[dead] == 0).all()) and bool(dead.any())
+        max_err[dtype] = max(max_err[dtype], float(d.max()))
+        print(f"kernel flash_attention {label} (B, Sq, Sk, Hq, Hkv, D) = "
+              f"{shape} causal={causal} window={window} {kind} {dtype}: "
+              f"max|do|={float(d.max()):.3g} (atol = rtol = {tol}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version: {label} {shape} {dtype}")
+
+    by_shape = {}
+    for label, shape, kind in (("prefill", FLASH_PREFILL, "arange"),
+                               ("decode", FLASH_DECODE, "last")):
+        q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
+        sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, label == "prefill")
+        kern = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos)
+        lib_err = float((sdpa().float() - kern.float()).abs().max())
+        bound_ms, bound_by = _flash_bound(q, k, q_pos, kv_pos)
+        numbers = {
+            "ms": _median_ms(lambda: flash_kernel.flash_attention(
+                q, k, v, q_pos, kv_pos)),
+            "plain_ms": _median_ms(lambda: flash_ref.attend_full_ref(
+                q, k, v, q_pos, kv_pos), n=50),
+            "library_ms": _median_ms(sdpa),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "sdpa_max_abs_diff": lib_err}
+        by_shape[label] = numbers
+        print(f"timing flash_attention {label} at (B, Sq, Sk, Hq, Hkv, D) = "
+              f"{shape} bfloat16 (median, CUDA events): kernel "
+              f"{numbers['ms']:.6f} ms, plain {numbers['plain_ms']:.6f} ms, "
+              f"SDPA (enable_gqa) {numbers['library_ms']:.6f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}); SDPA vs kernel max|do| "
+              f"{lib_err:.3g}", flush=True)
+    return {"max_abs_err": max_err["float32"],
+            "max_abs_err_bf16": max_err["bfloat16"], "by_shape": by_shape,
+            **by_shape["prefill"]}
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side event of a profile:
     kernels, copies and memsets."""
@@ -1002,17 +1433,29 @@ def profile_phase(fx: dict) -> dict:
     device time per call (the serving kernel at the serving shape, the
     training pair at both step shapes), the device's busy time over a warm
     drive of the serving path, over one warm speed fit and over one warm
-    pretrain.  Measures only;
-    where the profiler sees no device events it reports "not measured"."""
+    pretrain; the flash kernel at the served prefill and decode shapes.
+    Measures only; where the profiler sees no device events it reports
+    "not measured"."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import lstm_forecaster, make_supervised
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 
-    out = {}
+    out = {"flash_attention": {}}
+    for label, shape, kind in (("prefill", FLASH_PREFILL, "arange"),
+                               ("decode", FLASH_DECODE, "last")):
+        q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
+        dev = _kernel_device_ms(lambda: flash_kernel.flash_attention(
+            q, k, v, q_pos, kv_pos), ["flash_attention_kernel"])[
+                "flash_attention_kernel"]
+        out["flash_attention"][label] = {"device_ms": dev}
+        print(f"profile: flash_attention device time at {label} "
+              f"(B, Sq, Sk, Hq, Hkv, D) = {shape} bf16 {dev} ms (median of "
+              "100)")
     x, q, scale = _int8_inputs(*INT8_MAIN, "float32", seed=500)
     dev = _kernel_device_ms(lambda: int8_kernel.int8_matmul(x, q, scale),
                             ["int8_matmul_kernel"])["int8_matmul_kernel"]
@@ -1087,6 +1530,129 @@ def profile_phase(fx: dict) -> dict:
     return out
 
 
+def zoo_phase(flash) -> dict:
+    """The zoo's serving path on the card, ``tinyllama-1.1b`` at full
+    width and depth through the port's ``Engine``.  (b) Parity in float32:
+    the reference's fixture reproduced (greedy tokens equal, logits within
+    ``ZOO_LOGIT_ATOL``), and step-by-step decode against one full forward.
+    (c) The served run in the config's bf16, params from a
+    ``torch.Generator`` on the card: ``Engine.generate`` with every
+    attention through the flash kernel (exactly n_layers launches per
+    token, no plain attention), the device's idle share over a warm
+    generate, and ``Engine.serve`` finishing every request.  Returns the
+    measured numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.engine import Engine
+
+    out = {}
+    fx = load_fixture(ZOO_FIXTURE)
+    if str(fx["arch"]) != ZOO_ARCH or bool(fx["reduced"]):
+        raise AssertionError(f"{ZOO_FIXTURE} is not the full-width "
+                             f"{ZOO_ARCH} fixture")
+    t0 = time.perf_counter()
+    cfg, params, tokens, steps = run_zoo_parity(fx, "cuda")
+    torch.cuda.synchronize()
+    parity = check_zoo_parity(fx, tokens, steps, ZOO_LOGIT_ATOL)
+    print(f"zoo parity {ZOO_ARCH} float32 full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}): params from numpy seed {int(fx['seed'])} "
+          f"and {fx['tokens'].shape[0]} x {fx['tokens'].shape[1]} greedy "
+          f"tokens in {time.perf_counter() - t0:.3f} s; tokens "
+          f"{'equal' if not parity['near_ties'] else 'equal up to near ties '}"
+          f"{parity['near_ties'] or ''} the reference's; top-{ZOO_TOPK} "
+          f"logits max|d|={parity['logit_err']:.3g}, logsumexp "
+          f"max|d|={parity['lse_err']:.3g} (atol {ZOO_LOGIT_ATOL})",
+          flush=True)
+    toks = np.concatenate([fx["prompts"], fx["tokens"]], axis=1)
+    eq = decode_equivalence(cfg, params, toks, fx["prompts"].shape[1], "cuda")
+    print(f"zoo decode equivalence float32 full width: prefill "
+          f"{fx['prompts'].shape[1]} then {fx['tokens'].shape[1]} decode "
+          f"steps against one forward over {toks.shape[1]} tokens, logits "
+          f"max|d|={eq:.3g} (atol {DECODE_EQ_ATOL})", flush=True)
+    if eq > DECODE_EQ_ATOL:
+        raise AssertionError(f"decode differs from the full forward: {eq}")
+    out.update(parity_logit_err=parity["logit_err"],
+               parity_lse_err=parity["lse_err"],
+               near_ties=parity["near_ties"], decode_equivalence_err=eq)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the served run, in the config's bf16
+    cfg = get_config(ZOO_ARCH)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(ZOO_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, new = SERVE_GENERATE
+    prompts = zoo_prompts(cfg, ZOO_SEED + 1, (B, S))
+    engine = Engine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    engine.generate(prompts, new)  # warm: cuBLAS handles, the allocator
+
+    counts = {"scan": 0, "oracle": 0}
+    plain = (attention_mod._attend_chunked, flash_ref.attend_full_ref)
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    attention_mod._attend_chunked = counting("scan", plain[0])
+    flash_ref.attend_full_ref = counting("oracle", plain[1])
+    try:
+        flash.launches = 0
+        tokens, stats = engine.generate(prompts, new)
+        launches = flash.launches
+    finally:
+        attention_mod._attend_chunked, flash_ref.attend_full_ref = plain
+    expected = cfg.n_layers * new  # the prefill and new - 1 decode steps
+    decode_ms = 1e3 * stats.decode_s / (new - 1)
+    print(f"zoo generate {ZOO_ARCH} bf16 full width, batch {B}, prompt {S}, "
+          f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
+          f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
+          f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
+          f"tokens/s; flash_attention launches {launches}, expected "
+          f"{expected}; plain attention calls {counts}", flush=True)
+    if launches != expected or any(counts.values()):
+        raise AssertionError(f"generate: {launches} flash launches (expected "
+                             f"{expected}), plain attention calls {counts}")
+    if tokens.shape != (B, new) or not ((tokens >= 0)
+                                        & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generate returned {tokens.shape} tokens out "
+                             "of the vocabulary")
+    out.update(prefill_ms=1e3 * stats.prefill_s, decode_ms_per_step=decode_ms,
+               tokens_per_s=stats.tokens_per_s, generate_launches=launches)
+    out["busy"] = _busy(lambda: engine.generate(prompts, new),
+                        f"zoo generate {B} x {S} + {new}, bf16")
+
+    reqs = zoo_requests(cfg, ZOO_SEED + 2)
+    flash.launches = 0
+    t0 = time.perf_counter()
+    done = engine.serve(reqs, n_slots=SERVE_SLOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finished = sorted(r.uid for r in done)
+    ok = finished == list(range(len(reqs))) and all(
+        len(r.generated) == r.max_new_tokens
+        and all(0 <= t < cfg.vocab_size for t in r.generated) for r in done)
+    print(f"zoo serve: {len(reqs)} requests (prompts {SERVE_PROMPT_LENS}, "
+          f"new tokens {SERVE_NEW_TOKENS}) on {SERVE_SLOTS} slots in "
+          f"{wall:.3f} s, {sum(r.max_new_tokens for r in reqs)} tokens, "
+          f"finished at ticks {[r.finished_at for r in done]}; "
+          f"flash_attention launches {flash.launches}; every request "
+          f"{'finished with its max_new_tokens' if ok else 'NOT finished'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"serve finished {finished}")
+    out.update(serve_wall_s=wall, serve_launches=flash.launches)
+    return out
+
+
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
@@ -1104,6 +1670,7 @@ def main() -> int:
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import lstm_forecaster
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
     from repro_torch.launch import edge_cloud
@@ -1124,10 +1691,12 @@ def main() -> int:
     # phase 2: every library, one nvcc each, all at once
     t0 = time.perf_counter()
     seconds = _build.build_all({**lstm_kernel.LIBRARIES,
-                                **int8_kernel.LIBRARIES})
+                                **int8_kernel.LIBRARIES,
+                                **flash_kernel.LIBRARIES})
     lstm_kernel.library()
     lstm_kernel.bwd_library()
     int8_kernel.library()
+    flash_kernel.library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
@@ -1138,13 +1707,15 @@ def main() -> int:
     fwd_train = lstm_kernel.lstm_sequence_fwd_train
     bwd = lstm_kernel.lstm_sequence_bwd
     int8 = int8_kernel.int8_matmul
+    flash = flash_kernel.flash_attention
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
-            "int8_matmul": int8_kernel_phase()}
+            "int8_matmul": int8_kernel_phase(),
+            "flash_attention": flash_kernel_phase()}
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(*wrappers)
+    _reset_launches(*wrappers, flash)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -1307,8 +1878,14 @@ def main() -> int:
             raise AssertionError(f"{path}: launches {trained}, int8_matmul "
                                  f"expected {int8_want}")
 
+    if flash.launches:
+        raise AssertionError("an LSTM path launched the flash kernel")
+
     # phase 7: where the time goes
     prof = profile_phase(fx)
+
+    # phase 8: the zoo's serving path, tinyllama-1.1b through the Engine
+    zoo = zoo_phase(flash)
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -1321,6 +1898,9 @@ def main() -> int:
         "int8_matmul": ("src/repro_torch/kernels/int8_matmul/csrc/"
                         "int8_matmul.cu",
                         "src/repro/kernels/int8_matmul/kernel.py:47"),
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:83"),
     }
     kernels = []
     for kname, (source, repl) in meta.items():
@@ -1330,18 +1910,32 @@ def main() -> int:
             for B, numbers in row["by_batch"].items():
                 numbers.update(device[B])
             device = device[TRAIN_SHAPES[0][0]]
-        by_path = {"serving": serving_launches if kname == fused.__name__
-                   else 0, "training": training_launches.get(kname, 0),
-                   **{path: counts[kname]
-                      for path, counts in bus_launches.items()}}
+        if kname == flash.__name__:
+            for label, numbers in row["by_shape"].items():
+                numbers.update(device[label])
+            device = device["prefill"]
+            by_path = {"zoo_generate": zoo["generate_launches"],
+                       "zoo_serve": zoo["serve_launches"]}
+        else:
+            by_path = {"serving": serving_launches
+                       if kname == fused.__name__ else 0,
+                       "training": training_launches.get(kname, 0),
+                       **{path: counts[kname]
+                          for path, counts in bus_launches.items()}}
         # each kernel's main path: training for the LSTM kernels, the int8
-        # bus replay for the int8 kernel
-        main_path = "int8" if kname == int8.__name__ else "training"
+        # bus replay for the int8 kernel, the served generate for flash
+        main_path = {int8.__name__: "int8",
+                     flash.__name__: "zoo_generate"}.get(kname, "training")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
+    print(json.dumps({"zoo": {k: v for k, v in zoo.items()
+                              if k not in ("busy", "near_ties")} | {
+        "idle_share": zoo["busy"]["idle_share"],
+        "busy_ms": zoo["busy"]["busy_ms"],
+        "generate_wall_s": zoo["busy"]["wall_s"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

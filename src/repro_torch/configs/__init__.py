@@ -1,16 +1,35 @@
 """Config registry: ``get_config(name)``.  The port knows the paper's
-forecaster only; the model zoo's configs come with the zoo slice."""
+forecaster and ``tinyllama-1.1b``; each other arch of the reference's zoo
+comes with the slice named in ``UNPORTED``."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import LSTMConfig, ModelConfig
 from repro_torch.configs.lstm_paper import CONFIG as _lstm_paper
+from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 
-REGISTRY: Dict[str, ModelConfig] = {_lstm_paper.name: _lstm_paper}
+REGISTRY: Dict[str, ModelConfig] = {
+    c.name: c for c in (_lstm_paper, _tinyllama)}
+
+# the reference's other archs -> the slice of the port that brings them
+# (ROADMAP.md, Queue A)
+_REST_OF_ZOO = "slice 11 (the rest of the model zoo)"
+UNPORTED: Dict[str, str] = {
+    "rwkv6-3b": "slice 5 (models/rwkv.py, kernel #7 rwkv6_scan)",
+    "zamba2-1.2b": "slice 6 (models/ssm.py and hybrid_arch.py, kernel #8 "
+                   "ssm_scan)",
+    **{name: _REST_OF_ZOO for name in (
+        "paligemma-3b", "h2o-danube-3-4b", "codeqwen1.5-7b",
+        "nemotron-4-15b", "grok-1-314b", "kimi-k2-1t-a32b",
+        "seamless-m4t-medium")},
+}
 
 
 def get_config(name: str) -> ModelConfig:
+    if name in UNPORTED:
+        raise KeyError(f"arch {name!r} is not ported yet: it comes with "
+                       f"{UNPORTED[name]}; available: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(REGISTRY)}"
@@ -18,4 +37,4 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["REGISTRY", "get_config", "LSTMConfig", "ModelConfig"]
+__all__ = ["REGISTRY", "UNPORTED", "get_config", "LSTMConfig", "ModelConfig"]

@@ -1,11 +1,16 @@
-"""Config dataclasses of the port: the paper's forecaster only.
+"""Config dataclasses of the port: the paper's forecaster and the dense
+transformer.
 
 ``ModelConfig`` keeps the reference's names for the fields the LSTM family
-reads; the transformer fields, the model-zoo sub-configs and the TPU
-hardware model wait for the zoo slice.
+and the dense transformer read, with the reference's defaults; the fields
+of the model zoo's other families (MoE, SSM, RWKV, hybrid, encoder-decoder,
+frontends), the input shapes and the TPU hardware model come with their
+slices.  The transformer fields default to 0 so the LSTM configs construct
+as before.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -25,6 +30,64 @@ class LSTMConfig:
 class ModelConfig:
     name: str
     family: str
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    mlp_variant: str = "swiglu"
+    attention: str = "full"
+    window_size: int = 4096  # only used when attention == "swa"
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    logit_softcap: float = 0.0  # grok-style tanh soft capping (0 = off)
+    dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     lstm: Optional[LSTMConfig] = None
+    # KV chunk of the CPU path's online-softmax scan; the CUDA kernel tiles
+    # on its own and does not read it
+    attn_chunk: int = 1024
+    attn_p_dtype: str = "float32"  # attention-prob dtype for the PV product
+    attn_q_chunk: int = 0  # >0: block queries too (bounds the live score set)
     citation: str = ""
+
+    # -- derived -----------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # -- smoke-test reduction ----------------------------------------------
+    def reduced(self) -> "ModelConfig":
+        """Same family, CPU-runnable: 2 layers, d_model<=256."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        head_dim = max(32, d_model // n_heads)
+        return self.replace(
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            dtype="float32",
+            param_dtype="float32",
+            attn_chunk=64,
+            window_size=min(self.window_size, 64),
+        )

@@ -1,0 +1,46 @@
+"""Public entry points of flash attention: ``gqa_flash`` and
+``flash_attend``.
+
+``flash_attend`` is the positions form the model's ``attend`` rides on the
+card: every prefill and decode attention of the dense transformer.
+``gqa_flash`` is the counterpart of the reference's ``ops.gqa_flash``: the
+same function at arange positions.  A tensor on a CUDA device launches the
+kernel (``kernel.flash_attention``) or raises; a tensor on the CPU takes
+its plain version (``ref``).  Nothing falls back.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel, ref
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), q_pos (B,Sq), kv_pos (B,Sk)
+    with -1 on an unwritten slot -> (B,Sq,Hq,D) in ``q.dtype``."""
+    if q.device.type == "cuda":
+        return kernel.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            q_pos.to(torch.int32).contiguous(),
+            kv_pos.to(torch.int32).contiguous(),
+            causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return ref.attend_full_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, scale=scale)
+    raise ValueError(f"flash_attend: unsupported device {q.device}")
+
+
+def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,S,Hq,D), k and v (B,S,Hkv,D) -> (B,S,Hq,D), positions 0..S-1.
+    The kernel reads KV head hq // (Hq/Hkv) for query head hq; nothing is
+    repeated."""
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    return flash_attend(q, k, v, ref.arange_positions(B, Sq, q.device),
+                        ref.arange_positions(B, Sk, q.device), causal=causal,
+                        window=window)

@@ -1,1 +1,2 @@
-"""Models of the port: the paper's LSTM forecaster."""
+"""Models of the port: the paper's LSTM forecaster and the dense
+transformer."""

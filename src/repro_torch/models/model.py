@@ -1,10 +1,14 @@
 """Model dispatcher: ``get_model(cfg)`` returns a ``Model`` whose functions
-the hybrid learner and the trainers consume.  The port knows the LSTM family
-only; the model zoo comes with its own slice.
+the hybrid learner, the trainers and the serving engine consume.  The port
+knows the LSTM family and the dense transformer; the zoo's other families
+come with their slices.
 
-    init(generator, device) -> params
-    loss_fn(params, batch)  -> (loss, metrics)
-    predict(params, x)      -> (B, out_dim)
+    init(generator, device)           -> params
+    loss_fn(params, batch)            -> (loss, metrics)
+    predict(params, x)                -> (B, out_dim)           (LSTM)
+    prefill(params, batch, max_len)   -> (last_logits, cache)   (dense)
+    decode_step(params, batch, cache) -> (logits, cache)        (dense)
+    init_cache(batch, max_len, device)-> cache                  (dense)
 """
 from __future__ import annotations
 
@@ -18,6 +22,16 @@ from repro_torch.configs.base import ModelConfig
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
 
+# the reference's other families -> the slice of the port that brings them
+# (ROADMAP.md, Queue A)
+UNPORTED_FAMILIES = {
+    "ssm": "slice 5 (rwkv6-3b)",
+    "hybrid": "slice 6 (zamba2-1.2b)",
+    "moe": "slice 11 (the rest of the model zoo)",
+    "vlm": "slice 11 (the rest of the model zoo)",
+    "audio": "slice 11 (the rest of the model zoo)",
+}
+
 
 @dataclass(frozen=True)
 class Model:
@@ -25,7 +39,11 @@ class Model:
     init: Callable[[torch.Generator, Optional[torch.device]], Params]
     loss_fn: Callable[[Params, Batch],
                       Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
-    predict: Callable[[Params, torch.Tensor], torch.Tensor]
+    predict: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
+    prefill: Optional[Callable[..., Tuple[torch.Tensor, Params]]] = None
+    decode_step: Optional[Callable[[Params, Batch, Params],
+                                   Tuple[torch.Tensor, Params]]] = None
+    init_cache: Optional[Callable[..., Params]] = None
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -39,4 +57,21 @@ def get_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: m.loss_fn(cfg, p, b),
             predict=lambda p, x: m.predict(cfg, p, x),
         )
-    raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm'")
+    if cfg.family == "dense":
+        from repro_torch.models import transformer as t
+
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: t.init_params(
+                cfg, generator, device),
+            loss_fn=lambda p, b: t.loss_fn(cfg, p, b),
+            prefill=lambda p, b, max_len=None: t.prefill(cfg, p, b, max_len),
+            decode_step=lambda p, b, c: t.decode_step(cfg, p, b, c),
+            init_cache=lambda bsz, ml, device=None: t.init_cache(
+                cfg, bsz, ml, device),
+        )
+    if cfg.family in UNPORTED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported yet: it comes "
+                         f"with {UNPORTED_FAMILIES[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm' "
+                     "and 'dense'")

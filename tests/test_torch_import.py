@@ -33,6 +33,15 @@ print("\n".join(names))
 TRAINING_MODULES = {"repro_torch.training", "repro_torch.training.optimizer",
                     "repro_torch.training.train_loop",
                     "repro_torch.training.compiled"}
+# the modules of the dense transformer's serving path
+ZOO_MODULES = {"repro_torch.configs.tinyllama_1_1b",
+               "repro_torch.kernels.flash_attention.kernel",
+               "repro_torch.kernels.flash_attention.ops",
+               "repro_torch.kernels.flash_attention.ref",
+               "repro_torch.models.attention", "repro_torch.models.blocks",
+               "repro_torch.models.transformer",
+               "repro_torch.serving.batching", "repro_torch.serving.engine",
+               "repro_torch.launch.serve"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -43,6 +52,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = set(proc.stdout.split())
     assert len(names) >= 25  # every subpackage and module
     assert TRAINING_MODULES <= names
+    assert ZOO_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):
@@ -73,3 +83,39 @@ def test_params_and_init_without_device_raise_without_cuda(monkeypatch):
     model = get_model(get_config("lstm-paper"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init(torch.Generator().manual_seed(0))
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    """``Engine``, the dense model's init and cache, and the serve launcher
+    refuse the CPU unless asked for it; the flash kernel's wrapper refuses
+    a CPU tensor (``attend`` on a CPU tensor is the plain path the caller
+    chose by putting the tensor there)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import attend
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = get_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    params = model.init(gen, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, max_len=8)
+    assert Engine(cfg, params, max_len=8, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(serve.parse_args(["--arch", "tinyllama-1.1b"]))
+    q = torch.zeros(1, 2, 4, 32)
+    kv = torch.zeros(1, 2, 2, 32)
+    pos = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.flash_attention(q, kv, kv, pos, pos)
+    assert attend(q, kv, kv, pos, pos).shape == q.shape

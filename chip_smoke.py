@@ -47,10 +47,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``Engine.generate`` (4 x 512 prompt + 32 tokens) must launch the flash
    kernel exactly 22 x 32 times and no plain attention, and
    ``Engine.serve`` must finish every request; prefill and decode times,
-   tokens/s and the device's idle share over a warm generate are printed.
+   tokens/s and the device's idle share over a warm generate are printed;
+9. the zoo's RWKV6 path: ``rwkv6-3b`` at full width and depth through the
+   same ``Engine`` and the same checks, every WKV recurrence through the
+   WKV kernel: float32 parity with ``tests/data/torch_parity_rwkv6_3b.npz``
+   and decode equivalence, then in bf16 ``Engine.generate`` (4 x 512 + 32)
+   with exactly 32 x 32 launches of the WKV kernel and no plain WKV call,
+   and ``Engine.serve``.
 
 The flash kernel (#6) is built in phase 2, held to its plain version and
-timed beside SDPA in phase 3, and profiled in phase 7.
+timed beside SDPA in phase 3, and profiled in phase 7.  The WKV kernel (#7)
+is built in phase 2, held to its plain version (reruns bit for bit) and
+timed in phase 3, with its device time from the profiler; no single
+PyTorch call computes it.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -182,6 +191,12 @@ SERVE_SLOTS = 4
 # step-by-step decode against one full forward, float32 on the card (the
 # reference's tests/test_decode_equivalence.py tolerance)
 DECODE_EQ_ATOL = 2e-3
+# the zoo's RWKV6 serving path: rwkv6-3b through the port's Engine, its
+# parity fixture written by the JAX reference as the tinyllama one is (the
+# same seed, prompts, new tokens, top-k and tolerances); the served run at
+# SERVE_GENERATE and the serve mix on SERVE_SLOTS
+RWKV_ARCH = "rwkv6-3b"
+RWKV_FIXTURE = ROOT / "tests" / "data" / "torch_parity_rwkv6_3b.npz"
 # kernel #6 against its plain version: the reference's tolerances
 # (tests/test_kernels.py: tol), atol = rtol
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
@@ -194,6 +209,15 @@ FLASH_SWEEP = ((2, 2, 128, 32, True, 0), (1, 4, 256, 64, True, 0),
 # attention and of generate's last decode step
 FLASH_PREFILL = (4, 512, 512, 32, 4, 64)
 FLASH_DECODE = (4, 1, 544, 32, 4, 64)
+# kernel #7 against its plain version: the reference's tolerance
+# (tests/test_kernels.py: test_rwkv6_scan_sweep), atol = rtol
+WKV_TOL = 1e-4
+# (BH, T, N) of tests/test_kernels.py::test_rwkv6_scan_sweep
+WKV_SWEEP = ((4, 64, 16), (2, 100, 32), (3, 17, 8), (1, 256, 64))
+# the served shapes (B, T, H, N) of rwkv6-3b: one layer's prefill of
+# SERVE_GENERATE and one decode step
+WKV_PREFILL = (4, 512, 40, 64)
+WKV_DECODE = (4, 1, 40, 64)
 
 
 def _import_port():
@@ -624,7 +648,7 @@ def expected_bus_launches(res, quantized: bool, lag: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The zoo's serving path (tinyllama-1.1b), on any device
+# The zoo's serving path (tinyllama-1.1b, rwkv6-3b), on any device
 # ---------------------------------------------------------------------------
 
 
@@ -634,15 +658,33 @@ def zoo_parity_config(cfg):
 
 
 def _param_shapes(cfg) -> dict:
-    """{path: (shape, kind)} of the dense transformer's params in the
-    reference's tree layout (``models/transformer.py: init_params``: the
-    embedding, the head, the final norm, and the layer stack with a
-    leading L axis)."""
+    """{path: (shape, kind)} of the model's params in the reference's tree
+    layout: the embedding, the head, the final norm, and the layer stack
+    with a leading L axis, of the dense transformer
+    (``models/transformer.py: init_params``) or of RWKV6, the ``ssm``
+    family (``models/rwkv.py: init_params``)."""
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     qd, kvd, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = {"tok_embed": ((V, d), "embed"), "final_norm": ((d,), "norm")}
     if not cfg.tie_embeddings:
         shapes["out_head"] = ((d, V), "dense")
+    if cfg.family == "ssm":
+        N, r = cfg.rwkv.head_size, cfg.rwkv.decay_lora
+        layer = {"attn_norm": ((L, d), "norm"), "mlp_norm": ((L, d), "norm"),
+                 **{name: ((L, d, d), "dense")
+                    for name in ("w_r", "w_k", "w_v", "w_g", "w_o")},
+                 "mix_base": ((L, 6, d), "mix"),
+                 "mix_lora_a": ((L, d, 5 * 32), "dense"),
+                 "mix_lora_b": ((L, 5, 32, d), "mix_lora"),
+                 "decay_base": ((L, d), "decay"),
+                 "decay_lora_a": ((L, d, r), "dense"),
+                 "decay_lora_b": ((L, r, d), "decay_lora"),
+                 "bonus": ((L, d // N, N), "bonus"),
+                 "ln_x": ((L, d), "norm"), "ck_mix": ((L, 2, d), "mix"),
+                 "ck_in": ((L, d, f), "dense"), "ck_out": ((L, f, d), "dense"),
+                 "ck_rec": ((L, d, d), "dense")}
+        shapes.update({f"layers/{k}": v for k, v in layer.items()})
+        return shapes
     layer = {"attn_norm": ((L, d), "norm"), "mlp_norm": ((L, d), "norm"),
              "wq": ((L, d, qd), "dense"), "wk": ((L, d, kvd), "dense"),
              "wv": ((L, d, kvd), "dense"), "wo": ((L, qd, d), "dense"),
@@ -656,24 +698,49 @@ def _param_shapes(cfg) -> dict:
     return shapes
 
 
+# RWKV6's uniform draws: kind -> (low, high)
+UNIFORM_KINDS = {"mix": (0.2, 0.8), "mix_lora": (-0.005, 0.005),
+                 "decay": (-1.5, -0.5)}
+
+
 def numpy_params(cfg, seed: int) -> dict:
-    """Random float32 params of the dense transformer, a nested dict of
-    numpy arrays in the reference's tree layout.  Each leaf draws from its
-    own generator, seeded by (seed, crc32 of its path): dense weights
-    normal at fan-in scale, the embedding normal at d**-0.5, norm gains
-    1 + 0.1 normal, biases 0.02 normal.  The reference and the port load
-    the same tree, so neither needs the other's init."""
+    """Random float32 params of the dense transformer or of RWKV6, a nested
+    dict of numpy arrays in the reference's tree layout.  Each leaf draws
+    from its own generator, seeded by (seed, crc32 of its path): dense
+    weights normal at fan-in scale, the embedding normal at d**-0.5, norm
+    gains 1 + 0.1 normal, biases 0.02 normal.  RWKV6's other leaves:
+
+    - ``mix_base`` and ``ck_mix`` uniform on [0.2, 0.8], ``mix_lora_b``
+      uniform on [-0.005, 0.005]: the ddlerp's LoRA (tanh, rank 32) moves a
+      coefficient by at most 32 * 0.005 = 0.16, so every token-shift mix
+      coefficient lies in [0.04, 0.96], inside [0, 1];
+    - ``decay_base`` uniform on [-1.5, -0.5], ``decay_lora_b`` (r, d)
+      uniform on [-0.5/r, 0.5/r]: the decay LoRA (tanh, rank r) moves dw by
+      at most 0.5, so dw lies in [-2, 0] and every decay
+      w = exp(-exp(dw)) in [0.368, 0.873], inside (0, 1) and away from
+      both ends at every token;
+    - ``bonus`` 0.5 normal.
+
+    The reference and the port load the same tree, so neither needs the
+    other's init."""
     tree: dict = {}
     for path, (shape, kind) in sorted(_param_shapes(cfg).items()):
         rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
-        w = rng.standard_normal(shape, dtype=np.float32)
+        if kind in UNIFORM_KINDS or kind == "decay_lora":
+            lo, hi = UNIFORM_KINDS.get(kind, (-0.5 / shape[-2],
+                                              0.5 / shape[-2]))
+            w = rng.uniform(lo, hi, shape).astype(np.float32)
+        else:
+            w = rng.standard_normal(shape, dtype=np.float32)
         if kind in ("dense", "embed"):
             w *= np.float32(shape[-2 if kind == "dense" else -1] ** -0.5)
         elif kind == "norm":
             w *= np.float32(0.1)
             w += np.float32(1.0)
-        else:
+        elif kind == "bias":
             w *= np.float32(0.02)
+        elif kind == "bonus":
+            w *= np.float32(0.5)
         *parents, leaf = path.split("/")
         node = tree
         for name in parents:
@@ -804,6 +871,15 @@ def check_zoo_parity(fx: dict, tokens: np.ndarray, steps: list,
             "near_ties": near_ties}
 
 
+def full_logits(cfg, params, tokens):
+    """Every position's logits of one full forward over ``tokens``."""
+    from repro_torch.models import blocks
+    from repro_torch.models.model import get_model
+
+    h = get_model(cfg).forward(params, {"tokens": tokens})
+    return blocks.logits_fn(cfg, params, h)
+
+
 def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
                        device) -> float:
     """Step-by-step decode against one full forward over the same tokens:
@@ -813,20 +889,19 @@ def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
     tests/test_decode_equivalence.py)."""
     import torch
 
-    from repro_torch.models import blocks, transformer
+    from repro_torch.models.model import get_model
 
+    model = get_model(cfg)
     with torch.no_grad():
         t = torch.tensor(np.asarray(tokens, np.int32), device=device)
         B, S = t.shape
-        h, _ = transformer.forward(cfg, params, {"tokens": t})
-        full = blocks.logits_fn(cfg, params, h)
-        logits, cache = transformer.prefill(cfg, params,
-                                            {"tokens": t[:, :n_prefill]}, S)
+        full = full_logits(cfg, params, t)
+        logits, cache = model.prefill(params, {"tokens": t[:, :n_prefill]}, S)
         err = float((logits - full[:, n_prefill - 1]).abs().max())
         for i in range(n_prefill, S):
             pos = torch.full((B,), i, dtype=torch.int32, device=device)
-            logits, cache = transformer.decode_step(
-                cfg, params, {"token": t[:, i:i + 1], "pos": pos}, cache)
+            logits, cache = model.decode_step(
+                params, {"token": t[:, i:i + 1], "pos": pos}, cache)
             err = max(err, float((logits - full[:, i]).abs().max()))
     return err
 
@@ -1356,6 +1431,133 @@ def flash_kernel_phase() -> dict:
             **by_shape["prefill"]}
 
 
+def _wkv_case(B, T, H, N, seed, state=False, decay=None):
+    """Inputs of kernel #7 on the card, float32, drawn as the reference's
+    test draws them: r, k, v 0.5 normal, w = sigmoid(normal) * 0.5 + 0.45
+    (or uniform on ``decay`` = (low, high)), u (H,N) 0.1 normal; state0
+    normal when ``state``, else None."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, N)) * 0.5 for _ in range(3))
+    if decay is None:
+        w = 0.5 / (1 + np.exp(-rng.standard_normal((B, T, H, N)))) + 0.45
+    else:
+        w = rng.uniform(*decay, (B, T, H, N))
+    u = rng.standard_normal((H, N)) * 0.1
+    s0 = rng.standard_normal((B, H, N, N)) if state else None
+    return [None if a is None else torch.tensor(a, dtype=torch.float32,
+                                                device="cuda")
+            for a in (r, k, v, w, u, s0)]
+
+
+def _wkv_bound(B, T, H, N, state_in):
+    """Bound of one WKV scan at (B,T,H,N), float32: r, k, v, w read and y
+    written once, u read once, the final state written once and the
+    initial one read only when ``state_in`` (the model's prefill passes
+    none).  Operations: 5 a state element and step (r_i S_ij summed, one
+    FMA; w_i S_ij + k_i v_j, a multiply and an FMA) and 5 a (b, t, h, j)
+    for the bonus, factored as y_j += v_j (sum_i r_i u_i k_i): 3 an i for
+    the sum, 2 a j for its product and add."""
+    nbytes = 4 * (5 * B * T * H * N + H * N
+                  + (2 if state_in else 1) * B * H * N * N)
+    return _bound(nbytes, 5 * B * T * H * N * (N + 1))
+
+
+def wkv_kernel_phase() -> dict:
+    """Kernel #7 against its plain version: the reference's sweep in the
+    flat (BH,T,N) layout from a zero state (against ``rwkv6_scan_ref``),
+    the model layout, a nonzero state, decays near 0 and near 1, a head
+    size that is no power of two, T = 1, the served prefill and decode
+    step, the state updated in place, and T = 0 (no launch), at the
+    reference's tolerance; every case run twice, bit for bit.  Then timed
+    at the served prefill and decode (CUDA events and the profiler's
+    device time) beside the plain version and the bound; no single
+    PyTorch call computes the recurrence.  Returns the numbers of its
+    row, at the prefill shape."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    checks = [("sweep", (1, T, BH, N), {}) for BH, T, N in WKV_SWEEP]
+    checks += [("model", (2, 40, 3, 16), {}),
+               ("state", (3, 77, 5, 32), {"state": True}),
+               ("decay~0", (2, 50, 4, 16), {"state": True,
+                                            "decay": (1e-6, 1e-3)}),
+               ("decay~1", (2, 300, 4, 64), {"state": True,
+                                             "decay": (0.999, 1 - 1e-7)}),
+               ("N=24", (2, 30, 3, 24), {"state": True}),
+               ("T=1", (3, 1, 5, 32), {"state": True}),
+               ("prefill", WKV_PREFILL, {}),
+               ("decode", WKV_DECODE, {"state": True})]
+    max_err = 0.0
+    for i, (label, shape, kw) in enumerate(checks):
+        r, k, v, w, u, s0 = _wkv_case(*shape, seed=800 + i, **kw)
+        if label == "prefill":  # the model's prefill passes a zero state
+            s0 = torch.zeros(shape[0], shape[2], shape[3], shape[3],
+                             device="cuda")
+        runs = [wkv_ops.wkv(r, k, v, w, u, s0) for _ in range(2)]
+        want = wkv_ref.wkv_ref(r, k, v, w, u, s0)
+        if label == "sweep":  # the reference's test: the flat (BH,T,N)
+            flat = [a[0].transpose(0, 1) for a in (r, k, v, w)]
+            y, s = wkv_ref.rwkv6_scan_ref(*flat, u)
+            want = (wkv_ref.to_model_layout(y), s[None])
+        if label == "decode":  # in place: the state written over state0
+            inplace = s0.clone()
+            runs.append(wkv_ops.wkv(r, k, v, w, u, inplace, out=inplace))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for run in runs[1:]
+                   for a, b in zip(runs[0], run))
+        d = max(float((g - e).abs().max()) for g, e in zip(runs[0], want))
+        ok = same and all(bool(((g - e).abs() <= WKV_TOL + WKV_TOL * e.abs())
+                               .all()) for g, e in zip(runs[0], want))
+        max_err = max(max_err, d)
+        print(f"kernel rwkv6_scan {label} (B, T, H, N) = {shape}"
+              f"{' from a state' if s0 is not None else ''}: max|d|={d:.3g} "
+              f"(atol = rtol = {WKV_TOL}); {len(runs)} runs "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"rwkv6_scan disagrees with its plain "
+                                 f"version or with itself: {label} {shape}")
+    launches = wkv_kernel.rwkv6_scan.launches
+    r, k, v, w, u, s0 = _wkv_case(2, 0, 3, 16, seed=899, state=True)
+    y, s = wkv_ops.wkv(r, k, v, w, u, s0)
+    if (wkv_kernel.rwkv6_scan.launches != launches or y.shape[1] != 0
+            or not torch.equal(s, s0)):
+        raise AssertionError("rwkv6_scan at T = 0 launched or lost the state")
+    print("kernel rwkv6_scan T=0: no launch, the state handed back ok")
+
+    by_shape = {}
+    for label, shape, state in (("prefill", WKV_PREFILL, False),
+                                ("decode", WKV_DECODE, True)):
+        r, k, v, w, u, s0 = _wkv_case(*shape, seed=900, state=state)
+
+        def kern():
+            return wkv_kernel.rwkv6_scan(r, k, v, w, u, s0)
+
+        bound_ms, bound_by = _wkv_bound(*shape, state_in=state)
+        numbers = {
+            "ms": _median_ms(kern),
+            "plain_ms": _median_ms(lambda: wkv_ref.wkv_ref(r, k, v, w, u, s0),
+                                   n=10 if label == "prefill" else 50,
+                                   warmup=2),
+            "device_ms": _kernel_device_ms(kern, ["rwkv6_scan_kernel"])[
+                "rwkv6_scan_kernel"],
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        by_shape[label] = numbers
+        print(f"timing rwkv6_scan {label} at (B, T, H, N) = {shape} float32 "
+              f"(median, CUDA events): kernel {numbers['ms']:.6f} ms "
+              f"(device {numbers['device_ms']} ms, profiler median of 100), "
+              f"plain {numbers['plain_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}); no single PyTorch call computes it",
+              flush=True)
+    return {"max_abs_err": max_err, "by_shape": by_shape,
+            **by_shape["prefill"]}
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side event of a profile:
     kernels, copies and memsets."""
@@ -1530,35 +1732,35 @@ def profile_phase(fx: dict) -> dict:
     return out
 
 
-def zoo_phase(flash) -> dict:
-    """The zoo's serving path on the card, ``tinyllama-1.1b`` at full
-    width and depth through the port's ``Engine``.  (b) Parity in float32:
-    the reference's fixture reproduced (greedy tokens equal, logits within
+def zoo_phase(arch: str, fixture: Path, kernel, plain: dict) -> dict:
+    """A zoo model's serving path on the card, ``arch`` at full width and
+    depth through the port's ``Engine``.  (b) Parity in float32: the
+    reference's ``fixture`` reproduced (greedy tokens equal, logits within
     ``ZOO_LOGIT_ATOL``), and step-by-step decode against one full forward.
     (c) The served run in the config's bf16, params from a
-    ``torch.Generator`` on the card: ``Engine.generate`` with every
-    attention through the flash kernel (exactly n_layers launches per
-    token, no plain attention), the device's idle share over a warm
+    ``torch.Generator`` on the card: ``Engine.generate`` with every call of
+    the path's kernel through ``kernel`` (its wrapper: exactly n_layers
+    launches per token) and none of the plain versions ``plain`` names
+    ({label: (module, attribute)}), the device's idle share over a warm
     generate, and ``Engine.serve`` finishing every request.  Returns the
     measured numbers."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ref as flash_ref
-    from repro_torch.models import attention as attention_mod
     from repro_torch.models.model import get_model
     from repro_torch.serving.engine import Engine
 
     out = {}
-    fx = load_fixture(ZOO_FIXTURE)
-    if str(fx["arch"]) != ZOO_ARCH or bool(fx["reduced"]):
-        raise AssertionError(f"{ZOO_FIXTURE} is not the full-width "
-                             f"{ZOO_ARCH} fixture")
+    name = kernel.__name__
+    fx = load_fixture(fixture)
+    if str(fx["arch"]) != arch or bool(fx["reduced"]):
+        raise AssertionError(f"{fixture} is not the full-width {arch} "
+                             "fixture")
     t0 = time.perf_counter()
     cfg, params, tokens, steps = run_zoo_parity(fx, "cuda")
     torch.cuda.synchronize()
     parity = check_zoo_parity(fx, tokens, steps, ZOO_LOGIT_ATOL)
-    print(f"zoo parity {ZOO_ARCH} float32 full width ({cfg.n_layers} layers, "
+    print(f"zoo parity {arch} float32 full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}): params from numpy seed {int(fx['seed'])} "
           f"and {fx['tokens'].shape[0]} x {fx['tokens'].shape[1]} greedy "
           f"tokens in {time.perf_counter() - t0:.3f} s; tokens "
@@ -1569,7 +1771,7 @@ def zoo_phase(flash) -> dict:
           flush=True)
     toks = np.concatenate([fx["prompts"], fx["tokens"]], axis=1)
     eq = decode_equivalence(cfg, params, toks, fx["prompts"].shape[1], "cuda")
-    print(f"zoo decode equivalence float32 full width: prefill "
+    print(f"zoo decode equivalence {arch} float32 full width: prefill "
           f"{fx['prompts'].shape[1]} then {fx['tokens'].shape[1]} decode "
           f"steps against one forward over {toks.shape[1]} tokens, logits "
           f"max|d|={eq:.3g} (atol {DECODE_EQ_ATOL})", flush=True)
@@ -1582,7 +1784,7 @@ def zoo_phase(flash) -> dict:
     torch.cuda.empty_cache()
 
     # (c) the served run, in the config's bf16
-    cfg = get_config(ZOO_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = get_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(ZOO_SEED), "cuda")
@@ -1593,34 +1795,35 @@ def zoo_phase(flash) -> dict:
     engine = Engine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
     engine.generate(prompts, new)  # warm: cuBLAS handles, the allocator
 
-    counts = {"scan": 0, "oracle": 0}
-    plain = (attention_mod._attend_chunked, flash_ref.attend_full_ref)
+    counts = {label: 0 for label in plain}
+    saved = {label: getattr(mod, attr) for label, (mod, attr) in plain.items()}
 
-    def counting(name, fn):
+    def counting(label, fn):
         def call(*args, **kwargs):
-            counts[name] += 1
+            counts[label] += 1
             return fn(*args, **kwargs)
         return call
 
-    attention_mod._attend_chunked = counting("scan", plain[0])
-    flash_ref.attend_full_ref = counting("oracle", plain[1])
+    for label, (mod, attr) in plain.items():
+        setattr(mod, attr, counting(label, saved[label]))
     try:
-        flash.launches = 0
+        kernel.launches = 0
         tokens, stats = engine.generate(prompts, new)
-        launches = flash.launches
+        launches = kernel.launches
     finally:
-        attention_mod._attend_chunked, flash_ref.attend_full_ref = plain
+        for label, (mod, attr) in plain.items():
+            setattr(mod, attr, saved[label])
     expected = cfg.n_layers * new  # the prefill and new - 1 decode steps
     decode_ms = 1e3 * stats.decode_s / (new - 1)
-    print(f"zoo generate {ZOO_ARCH} bf16 full width, batch {B}, prompt {S}, "
+    print(f"zoo generate {arch} bf16 full width, batch {B}, prompt {S}, "
           f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
           f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
           f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
-          f"tokens/s; flash_attention launches {launches}, expected "
-          f"{expected}; plain attention calls {counts}", flush=True)
+          f"tokens/s; {name} launches {launches}, expected {expected}; plain "
+          f"calls {counts}", flush=True)
     if launches != expected or any(counts.values()):
-        raise AssertionError(f"generate: {launches} flash launches (expected "
-                             f"{expected}), plain attention calls {counts}")
+        raise AssertionError(f"generate: {launches} {name} launches "
+                             f"(expected {expected}), plain calls {counts}")
     if tokens.shape != (B, new) or not ((tokens >= 0)
                                         & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned {tokens.shape} tokens out "
@@ -1628,10 +1831,10 @@ def zoo_phase(flash) -> dict:
     out.update(prefill_ms=1e3 * stats.prefill_s, decode_ms_per_step=decode_ms,
                tokens_per_s=stats.tokens_per_s, generate_launches=launches)
     out["busy"] = _busy(lambda: engine.generate(prompts, new),
-                        f"zoo generate {B} x {S} + {new}, bf16")
+                        f"zoo generate {arch} {B} x {S} + {new}, bf16")
 
     reqs = zoo_requests(cfg, ZOO_SEED + 2)
-    flash.launches = 0
+    kernel.launches = 0
     t0 = time.perf_counter()
     done = engine.serve(reqs, n_slots=SERVE_SLOTS)
     torch.cuda.synchronize()
@@ -1640,16 +1843,19 @@ def zoo_phase(flash) -> dict:
     ok = finished == list(range(len(reqs))) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab_size for t in r.generated) for r in done)
-    print(f"zoo serve: {len(reqs)} requests (prompts {SERVE_PROMPT_LENS}, "
-          f"new tokens {SERVE_NEW_TOKENS}) on {SERVE_SLOTS} slots in "
-          f"{wall:.3f} s, {sum(r.max_new_tokens for r in reqs)} tokens, "
-          f"finished at ticks {[r.finished_at for r in done]}; "
-          f"flash_attention launches {flash.launches}; every request "
+    print(f"zoo serve {arch}: {len(reqs)} requests (prompts "
+          f"{SERVE_PROMPT_LENS}, new tokens {SERVE_NEW_TOKENS}) on "
+          f"{SERVE_SLOTS} slots in {wall:.3f} s, "
+          f"{sum(r.max_new_tokens for r in reqs)} tokens, finished at ticks "
+          f"{[r.finished_at for r in done]}; {name} launches "
+          f"{kernel.launches}; every request "
           f"{'finished with its max_new_tokens' if ok else 'NOT finished'}",
           flush=True)
     if not ok:
         raise AssertionError(f"serve finished {finished}")
-    out.update(serve_wall_s=wall, serve_launches=flash.launches)
+    out.update(serve_wall_s=wall, serve_launches=kernel.launches)
+    del engine, params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1671,9 +1877,14 @@ def main() -> int:
     from repro_torch.core import lstm_forecaster
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.launch import edge_cloud
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import rwkv as rwkv_mod
     from repro_torch.runtime.modules import T_MODEL
     from repro_torch.training.optimizer import tree_leaves
 
@@ -1692,11 +1903,13 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build_all({**lstm_kernel.LIBRARIES,
                                 **int8_kernel.LIBRARIES,
-                                **flash_kernel.LIBRARIES})
+                                **flash_kernel.LIBRARIES,
+                                **wkv_kernel.LIBRARIES})
     lstm_kernel.library()
     lstm_kernel.bwd_library()
     int8_kernel.library()
     flash_kernel.library()
+    wkv_kernel.library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
@@ -1708,14 +1921,16 @@ def main() -> int:
     bwd = lstm_kernel.lstm_sequence_bwd
     int8 = int8_kernel.int8_matmul
     flash = flash_kernel.flash_attention
+    wkv = wkv_kernel.rwkv6_scan
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
             "int8_matmul": int8_kernel_phase(),
-            "flash_attention": flash_kernel_phase()}
+            "flash_attention": flash_kernel_phase(),
+            "rwkv6_scan": wkv_kernel_phase()}
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(*wrappers, flash)
+    _reset_launches(*wrappers, flash, wkv)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -1878,14 +2093,29 @@ def main() -> int:
             raise AssertionError(f"{path}: launches {trained}, int8_matmul "
                                  f"expected {int8_want}")
 
-    if flash.launches:
-        raise AssertionError("an LSTM path launched the flash kernel")
+    if flash.launches or wkv.launches:
+        raise AssertionError("an LSTM path launched the flash or WKV kernel")
 
     # phase 7: where the time goes
     prof = profile_phase(fx)
 
     # phase 8: the zoo's serving path, tinyllama-1.1b through the Engine
-    zoo = zoo_phase(flash)
+    wkv.launches = 0
+    zoo = zoo_phase(ZOO_ARCH, ZOO_FIXTURE, flash, {
+        "scan": (attention_mod, "_attend_chunked"),
+        "oracle": (flash_ref, "attend_full_ref")})
+    if wkv.launches:
+        raise AssertionError("tinyllama's path launched the WKV kernel")
+
+    # phase 9: the zoo's RWKV6 path, rwkv6-3b through the Engine
+    flash.launches = 0
+    rwkv = zoo_phase(RWKV_ARCH, RWKV_FIXTURE, wkv, {
+        "stepwise": (rwkv_mod, "wkv_stepwise"),
+        "chunked": (rwkv_mod, "wkv_chunked"),
+        "oracle": (wkv_ref, "wkv_ref"),
+        "oracle_flat": (wkv_ref, "rwkv6_scan_ref")})
+    if flash.launches:
+        raise AssertionError("rwkv6-3b's path launched the flash kernel")
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -1901,11 +2131,14 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
                             "flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:83"),
+        "rwkv6_scan": ("src/repro_torch/kernels/rwkv6_scan/csrc/"
+                       "rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan/kernel.py:60"),
     }
     kernels = []
     for kname, (source, repl) in meta.items():
         row = rows[kname]
-        device = prof[kname]
+        device = prof.get(kname, {"device_ms": row.get("device_ms")})
         if kname in ("lstm_sequence_fwd_train", "lstm_sequence_bwd"):
             for B, numbers in row["by_batch"].items():
                 numbers.update(device[B])
@@ -1914,8 +2147,10 @@ def main() -> int:
             for label, numbers in row["by_shape"].items():
                 numbers.update(device[label])
             device = device["prefill"]
-            by_path = {"zoo_generate": zoo["generate_launches"],
-                       "zoo_serve": zoo["serve_launches"]}
+        if kname in (flash.__name__, wkv.__name__):
+            served = zoo if kname == flash.__name__ else rwkv
+            by_path = {"zoo_generate": served["generate_launches"],
+                       "zoo_serve": served["serve_launches"]}
         else:
             by_path = {"serving": serving_launches
                        if kname == fused.__name__ else 0,
@@ -1924,18 +2159,20 @@ def main() -> int:
                           for path, counts in bus_launches.items()}}
         # each kernel's main path: training for the LSTM kernels, the int8
         # bus replay for the int8 kernel, the served generate for flash
-        main_path = {int8.__name__: "int8",
-                     flash.__name__: "zoo_generate"}.get(kname, "training")
+        # (tinyllama-1.1b) and for the WKV kernel (rwkv6-3b)
+        main_path = {int8.__name__: "int8", flash.__name__: "zoo_generate",
+                     wkv.__name__: "zoo_generate"}.get(kname, "training")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
-    print(json.dumps({"zoo": {k: v for k, v in zoo.items()
-                              if k not in ("busy", "near_ties")} | {
-        "idle_share": zoo["busy"]["idle_share"],
-        "busy_ms": zoo["busy"]["busy_ms"],
-        "generate_wall_s": zoo["busy"]["wall_s"]}}))
+    for label, served in (("zoo", zoo), ("zoo_rwkv", rwkv)):
+        print(json.dumps({label: {k: v for k, v in served.items()
+                                  if k not in ("busy", "near_ties")} | {
+            "idle_share": served["busy"]["idle_share"],
+            "busy_ms": served["busy"]["busy_ms"],
+            "generate_wall_s": served["busy"]["wall_s"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

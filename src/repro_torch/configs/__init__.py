@@ -1,22 +1,22 @@
 """Config registry: ``get_config(name)``.  The port knows the paper's
-forecaster and ``tinyllama-1.1b``; each other arch of the reference's zoo
-comes with the slice named in ``UNPORTED``."""
+forecaster, ``tinyllama-1.1b`` and ``rwkv6-3b``; each other arch of the
+reference's zoo comes with the slice named in ``UNPORTED``."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import LSTMConfig, ModelConfig
+from repro_torch.configs.base import LSTMConfig, ModelConfig, RWKVConfig
 from repro_torch.configs.lstm_paper import CONFIG as _lstm_paper
+from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv6
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_lstm_paper, _tinyllama)}
+    c.name: c for c in (_lstm_paper, _tinyllama, _rwkv6)}
 
 # the reference's other archs -> the slice of the port that brings them
 # (ROADMAP.md, Queue A)
 _REST_OF_ZOO = "slice 11 (the rest of the model zoo)"
 UNPORTED: Dict[str, str] = {
-    "rwkv6-3b": "slice 5 (models/rwkv.py, kernel #7 rwkv6_scan)",
     "zamba2-1.2b": "slice 6 (models/ssm.py and hybrid_arch.py, kernel #8 "
                    "ssm_scan)",
     **{name: _REST_OF_ZOO for name in (
@@ -37,4 +37,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["REGISTRY", "UNPORTED", "get_config", "LSTMConfig", "ModelConfig"]
+__all__ = ["REGISTRY", "UNPORTED", "get_config", "LSTMConfig", "ModelConfig",
+           "RWKVConfig"]

@@ -1,12 +1,12 @@
-"""Config dataclasses of the port: the paper's forecaster and the dense
-transformer.
+"""Config dataclasses of the port: the paper's forecaster, the dense
+transformer and RWKV6.
 
-``ModelConfig`` keeps the reference's names for the fields the LSTM family
-and the dense transformer read, with the reference's defaults; the fields
-of the model zoo's other families (MoE, SSM, RWKV, hybrid, encoder-decoder,
-frontends), the input shapes and the TPU hardware model come with their
-slices.  The transformer fields default to 0 so the LSTM configs construct
-as before.
+``ModelConfig`` keeps the reference's names for the fields the LSTM family,
+the dense transformer and RWKV6 read, with the reference's defaults; the
+fields of the model zoo's other families (MoE, Mamba2 SSM, hybrid,
+encoder-decoder, frontends), the input shapes and the TPU hardware model
+come with their slices.  The transformer fields default to 0 so the LSTM
+configs construct as before.
 """
 from __future__ import annotations
 
@@ -24,6 +24,15 @@ class LSTMConfig:
     n_features: int = 5
     lag: int = 5  # paper sets time lag n = 5
     out_dim: int = 1
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 (Finch) time-mix config."""
+
+    head_size: int = 64
+    decay_lora: int = 64  # rank of the data-dependent decay LoRA
+    gate_lora: int = 64
 
 
 @dataclass(frozen=True)
@@ -47,12 +56,17 @@ class ModelConfig:
     logit_softcap: float = 0.0  # grok-style tanh soft capping (0 = off)
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    rwkv: Optional[RWKVConfig] = None
     lstm: Optional[LSTMConfig] = None
     # KV chunk of the CPU path's online-softmax scan; the CUDA kernel tiles
     # on its own and does not read it
     attn_chunk: int = 1024
     attn_p_dtype: str = "float32"  # attention-prob dtype for the PV product
     attn_q_chunk: int = 0  # >0: block queries too (bounds the live score set)
+    # the CPU path's RWKV scan: chunked (vs per-step); the CUDA kernel steps
+    # through time on its own and reads neither
+    scan_chunked: bool = False
+    scan_chunk: int = 64
     citation: str = ""
 
     # -- derived -----------------------------------------------------------
@@ -68,6 +82,17 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.attention == "none"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic decode: SSM/linear-attn state, or sliding-window KV."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.attention == "swa"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -78,7 +103,7 @@ class ModelConfig:
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         head_dim = max(32, d_model // n_heads)
-        return self.replace(
+        kw = dict(
             n_layers=2,
             d_model=d_model,
             n_heads=n_heads,
@@ -91,3 +116,8 @@ class ModelConfig:
             attn_chunk=64,
             window_size=min(self.window_size, 64),
         )
+        if self.rwkv is not None:
+            kw["rwkv"] = dataclasses.replace(
+                self.rwkv, head_size=32, decay_lora=16, gate_lora=16
+            )
+        return self.replace(**kw)

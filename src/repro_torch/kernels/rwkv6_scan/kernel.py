@@ -1,0 +1,112 @@
+"""The RWKV6 WKV scan on the card: the wrapper around
+``csrc/rwkv6_scan.cu``.
+
+``rwkv6_scan`` replaces the Pallas TPU kernel of
+``src/repro/kernels/rwkv6_scan/kernel.py``: the WKV recurrence of every
+(batch, head), in the model's (B,T,H,N) layout, float32 in and out, from a
+given state (zero when none is given) to the final state.  With a zero
+state it computes the Pallas kernel's function; with any other it computes
+the reference's oracle ``rwkv6_scan_ref(..., state0)``.  What bounds it:
+the bytes of r, k, v, w, y and the state, and ~8 B T H N^2 float32
+operations (see the source for the design and its distance from the
+bound).
+
+The wrapper checks its inputs, allocates y (and the state, unless given
+``out``) with ``torch.empty``, launches on the current CUDA stream, raises
+when the launch fails, and counts its successful launches in a plain
+integer ``.launches``; at T = 0 it launches nothing and counts nothing.
+The library builds with ``nvcc`` at the first launch (``kernels/_build``);
+``LIBRARIES`` names it for a caller that builds every library up front.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
+# every library of this package: name -> its sources
+LIBRARIES = {"rwkv6_scan": [SOURCE]}
+# the largest head size: thread j keeps column j of the state in registers
+MAX_HEAD_SIZE = 64
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel's library, built (or loaded) at the first call."""
+    lib = _build.load_library("rwkv6_scan", LIBRARIES["rwkv6_scan"])
+    lib.rwkv6_scan_forward.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.rwkv6_scan_forward.restype = ctypes.c_int
+    return lib
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state0: Optional[torch.Tensor] = None, *,
+               out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current CUDA stream.
+
+    r, k, v, w (B,T,H,N); u (H,N); state0 and ``out`` (B,H,N,N) or None;
+    all float32, contiguous, on one
+    CUDA device; 1 <= N <= 64.  ``out`` receives the final state and may be
+    ``state0`` itself.  Returns (y (B,T,H,N), final state).  Raises on
+    anything else, and when the launch fails."""
+    name = "rwkv6_scan"
+    if r.dim() != 4:
+        raise ValueError(f"{name}: expected r, k, v, w (B,T,H,N), got r "
+                         f"{tuple(r.shape)}")
+    B, T, H, N = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"{name}: r, k, v, w must share one shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"{name}: u must be (H,N) = {(H, N)}, got "
+                         f"{tuple(u.shape)}")
+    for label, s in (("state0", state0), ("out", out)):
+        if s is not None and tuple(s.shape) != (B, H, N, N):
+            raise ValueError(f"{name}: {label} must be (B,H,N,N) = "
+                             f"{(B, H, N, N)}, got {tuple(s.shape)}")
+    if not 1 <= N <= MAX_HEAD_SIZE or B < 1 or H < 1 or B * H > 2**31 - 1:
+        raise ValueError(f"{name}: need 1 <= N <= {MAX_HEAD_SIZE} and 1 <= "
+                         f"B*H < 2**31, got B={B}, H={H}, N={N}")
+    tensors = [t for t in (r, k, v, w, u, state0, out) if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: inputs must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device.type != "cuda" or t.device != r.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    y = torch.empty_like(r)
+    state = torch.empty((B, H, N, N), dtype=torch.float32,
+                        device=r.device) if out is None else out
+    if T == 0:  # nothing to launch, nothing counted
+        if state0 is None:
+            state.zero_()
+        elif state is not state0:
+            state.copy_(state0)
+        return y, state
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().rwkv6_scan_forward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state0 is None else state0.data_ptr(),
+            y.data_ptr(),
+            state.data_ptr(), B, T, H, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
+                           f"(B={B}, T={T}, H={H}, N={N})")
+    rwkv6_scan.launches += 1
+    return y, state
+
+
+# launches of the kernel since the last reset; only a successful launch counts
+rwkv6_scan.launches = 0

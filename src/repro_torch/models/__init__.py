@@ -1,2 +1,2 @@
-"""Models of the port: the paper's LSTM forecaster and the dense
-transformer."""
+"""Models of the port: the paper's LSTM forecaster, the dense transformer
+and RWKV6."""

@@ -1,14 +1,15 @@
 """Model dispatcher: ``get_model(cfg)`` returns a ``Model`` whose functions
 the hybrid learner, the trainers and the serving engine consume.  The port
-knows the LSTM family and the dense transformer; the zoo's other families
-come with their slices.
+knows the LSTM family, the dense transformer and RWKV6 (the ``ssm``
+family); the zoo's other families come with their slices.
 
     init(generator, device)           -> params
     loss_fn(params, batch)            -> (loss, metrics)
+    forward(params, batch)            -> hidden (B, S, d)       (dense, ssm)
     predict(params, x)                -> (B, out_dim)           (LSTM)
-    prefill(params, batch, max_len)   -> (last_logits, cache)   (dense)
-    decode_step(params, batch, cache) -> (logits, cache)        (dense)
-    init_cache(batch, max_len, device)-> cache                  (dense)
+    prefill(params, batch, max_len)   -> (last_logits, cache)   (dense, ssm)
+    decode_step(params, batch, cache) -> (logits, cache)        (dense, ssm)
+    init_cache(batch, max_len, device)-> cache                  (dense, ssm)
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ Batch = Dict[str, torch.Tensor]
 # the reference's other families -> the slice of the port that brings them
 # (ROADMAP.md, Queue A)
 UNPORTED_FAMILIES = {
-    "ssm": "slice 5 (rwkv6-3b)",
     "hybrid": "slice 6 (zamba2-1.2b)",
     "moe": "slice 11 (the rest of the model zoo)",
     "vlm": "slice 11 (the rest of the model zoo)",
@@ -40,6 +40,7 @@ class Model:
     loss_fn: Callable[[Params, Batch],
                       Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     predict: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
+    forward: Optional[Callable[[Params, Batch], torch.Tensor]] = None
     prefill: Optional[Callable[..., Tuple[torch.Tensor, Params]]] = None
     decode_step: Optional[Callable[[Params, Batch, Params],
                                    Tuple[torch.Tensor, Params]]] = None
@@ -57,14 +58,18 @@ def get_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: m.loss_fn(cfg, p, b),
             predict=lambda p, x: m.predict(cfg, p, x),
         )
-    if cfg.family == "dense":
-        from repro_torch.models import transformer as t
+    if cfg.family in ("dense", "ssm"):  # ssm: RWKV6, as in the reference
+        if cfg.family == "dense":
+            from repro_torch.models import transformer as t
+        else:
+            from repro_torch.models import rwkv as t
 
         return Model(
             cfg=cfg,
             init=lambda generator, device=None: t.init_params(
                 cfg, generator, device),
             loss_fn=lambda p, b: t.loss_fn(cfg, p, b),
+            forward=lambda p, b: t.forward(cfg, p, b)[0],
             prefill=lambda p, b, max_len=None: t.prefill(cfg, p, b, max_len),
             decode_step=lambda p, b, c: t.decode_step(cfg, p, b, c),
             init_cache=lambda bsz, ml, device=None: t.init_cache(
@@ -73,5 +78,5 @@ def get_model(cfg: ModelConfig) -> Model:
     if cfg.family in UNPORTED_FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not ported yet: it comes "
                          f"with {UNPORTED_FAMILIES[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm' "
-                     "and 'dense'")
+    raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm', "
+                     "'dense' and 'ssm'")

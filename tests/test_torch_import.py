@@ -42,6 +42,12 @@ ZOO_MODULES = {"repro_torch.configs.tinyllama_1_1b",
                "repro_torch.models.transformer",
                "repro_torch.serving.batching", "repro_torch.serving.engine",
                "repro_torch.launch.serve"}
+# the modules of RWKV6's serving path
+RWKV_MODULES = {"repro_torch.configs.rwkv6_3b",
+                "repro_torch.kernels.rwkv6_scan.kernel",
+                "repro_torch.kernels.rwkv6_scan.ops",
+                "repro_torch.kernels.rwkv6_scan.ref",
+                "repro_torch.models.rwkv"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -53,6 +59,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert len(names) >= 25  # every subpackage and module
     assert TRAINING_MODULES <= names
     assert ZOO_MODULES <= names
+    assert RWKV_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):
@@ -119,3 +126,30 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.flash_attention(q, kv, kv, pos, pos)
     assert attend(q, kv, kv, pos, pos).shape == q.shape
+
+
+def test_rwkv_entry_points_raise_without_cuda(monkeypatch):
+    """RWKV6's init and cache and its serve launcher refuse the CPU unless
+    asked for it; the WKV kernel's wrapper refuses a CPU tensor, and
+    ``ops.wkv`` on a CPU tensor is the plain path the caller chose."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel, ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = get_model(get_config("rwkv6-3b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(serve.parse_args(["--arch", "rwkv6-3b"]))
+    x = torch.zeros(1, 2, 3, 8)
+    u = torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.rwkv6_scan(x, x, x, x, u)
+    y, state = ops.wkv(x, x, x, x, u)
+    assert y.shape == x.shape and state.shape == (1, 3, 8, 8)

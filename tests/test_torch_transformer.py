@@ -76,8 +76,7 @@ def test_configs_match_reference():
             assert (cfg.resolved_head_dim, cfg.q_dim, cfg.kv_dim) == (
                 want.resolved_head_dim, want.q_dim, want.kv_dim)
     assert get_config("lstm-paper").lstm.hidden == 40
-    with pytest.raises(KeyError, match="slice 5"):
-        get_config("rwkv6-3b")
+    assert get_config("rwkv6-3b").family == "ssm"  # ported in slice 5
     with pytest.raises(KeyError, match="slice 6"):
         get_config("zamba2-1.2b")
 
@@ -272,5 +271,5 @@ def test_unported_parts_raise_naming_their_slice():
         transformer.prefill(cfg, {**p, "proj_in": torch.zeros(2, 2)}, batch)
     with pytest.raises(NotImplementedError, match="prefix"):
         transformer.forward(cfg, p, {**batch, "prefix_embed": None})
-    with pytest.raises(ValueError, match="slice 5"):
-        get_model(cfg.replace(family="ssm"))
+    with pytest.raises(ValueError, match="slice 6"):
+        get_model(cfg.replace(family="hybrid"))

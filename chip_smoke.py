@@ -53,13 +53,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    WKV kernel: float32 parity with ``tests/data/torch_parity_rwkv6_3b.npz``
    and decode equivalence, then in bf16 ``Engine.generate`` (4 x 512 + 32)
    with exactly 32 x 32 launches of the WKV kernel and no plain WKV call,
-   and ``Engine.serve``.
+   and ``Engine.serve``;
+10. the zoo's hybrid path: ``zamba2-1.2b`` at full width and depth through
+   the same ``Engine`` and the same checks, every Mamba2 scan through the
+   selective-scan kernel and every application of the shared attention
+   block through the flash kernel: float32 parity with
+   ``tests/data/torch_parity_zamba2_1_2b.npz`` and decode equivalence,
+   then in bf16 ``Engine.generate`` (4 x 512 + 32) with exactly 38 x 32
+   launches of the selective-scan kernel, 6 x 32 of the flash kernel and
+   no plain scan or attention, and ``Engine.serve``.
 
 The flash kernel (#6) is built in phase 2, held to its plain version and
-timed beside SDPA in phase 3, and profiled in phase 7.  The WKV kernel (#7)
-is built in phase 2, held to its plain version (reruns bit for bit) and
-timed in phase 3, with its device time from the profiler; no single
-PyTorch call computes it.
+timed beside SDPA in phase 3 (at tinyllama's GQA shapes and at zamba2's
+MHA ones), and profiled in phase 7.  The WKV kernel (#7) and the
+selective-scan kernel (#8) are built in phase 2, held to their plain
+versions (reruns bit for bit) and timed in phase 3, with their device
+times from the profiler; no single PyTorch call computes either.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -218,6 +227,29 @@ WKV_SWEEP = ((4, 64, 16), (2, 100, 32), (3, 17, 8), (1, 256, 64))
 # SERVE_GENERATE and one decode step
 WKV_PREFILL = (4, 512, 40, 64)
 WKV_DECODE = (4, 1, 40, 64)
+# the zoo's hybrid serving path: zamba2-1.2b through the port's Engine, its
+# parity fixture written by the JAX reference as the other two are; its
+# shared block is MHA (32 query heads, 32 KV heads), and kernel #6 is held
+# and timed at its shapes too: (B, Sq, Sk, Hq, Hkv, D) of the served
+# prefill and of generate's last decode step
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_FIXTURE = ROOT / "tests" / "data" / "torch_parity_zamba2_1_2b.npz"
+FLASH_MHA_PREFILL = (4, 512, 512, 32, 32, 64)
+FLASH_MHA_DECODE = (4, 1, 544, 32, 32, 64)
+# kernel #6's timed shapes: label -> (shape, the positions' kind)
+FLASH_TIMED = (("prefill", FLASH_PREFILL, "arange"),
+               ("decode", FLASH_DECODE, "last"),
+               ("mha_prefill", FLASH_MHA_PREFILL, "arange"),
+               ("mha_decode", FLASH_MHA_DECODE, "last"))
+# kernel #8 against its plain version: the reference's tolerance
+# (tests/test_kernels.py: test_ssm_scan_sweep), atol = rtol
+SSM_TOL = 1e-4
+# (BH, T, P, N) of tests/test_kernels.py::test_ssm_scan_sweep
+SSM_SWEEP = ((4, 64, 16, 16), (2, 90, 32, 16), (1, 33, 8, 8))
+# the served shapes (B, T, H, P, N) of zamba2-1.2b: one layer's prefill of
+# SERVE_GENERATE and one decode step
+SSM_PREFILL = (4, 512, 64, 64, 64)
+SSM_DECODE = (4, 1, 64, 64, 64)
 
 
 def _import_port():
@@ -662,12 +694,33 @@ def _param_shapes(cfg) -> dict:
     layout: the embedding, the head, the final norm, and the layer stack
     with a leading L axis, of the dense transformer
     (``models/transformer.py: init_params``) or of RWKV6, the ``ssm``
-    family (``models/rwkv.py: init_params``)."""
+    family (``models/rwkv.py: init_params``); or, for the Zamba2 hybrid
+    (``models/hybrid_arch.py: init_params``), the Mamba2 stack ``mamba/*``
+    with a leading L axis and the one shared block ``shared/*``."""
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     qd, kvd, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = {"tok_embed": ((V, d), "embed"), "final_norm": ((d,), "norm")}
     if not cfg.tie_embeddings:
         shapes["out_head"] = ((d, V), "dense")
+    if cfg.family == "hybrid":
+        s, H = cfg.ssm, cfg.ssm.expand * d // cfg.ssm.head_dim
+        d_inner, xbc = s.expand * d, s.expand * d + 2 * s.state_dim
+        mamba = {"in_proj": ((L, d, 2 * d_inner + 2 * s.state_dim + H),
+                             "dense"),
+                 "conv_w": ((L, s.conv_dim, xbc), "conv"),
+                 "conv_b": ((L, xbc), "bias"), "A_log": ((L, H), "a_log"),
+                 "D": ((L, H), "norm"), "dt_bias": ((L, H), "dt_bias"),
+                 "ssm_norm": ((L, d_inner), "norm"),
+                 "out_proj": ((L, d_inner, d), "dense")}
+        shared = {"attn_norm": ((d,), "norm"), "mlp_norm": ((d,), "norm"),
+                  "wq": ((d, qd), "dense"), "wk": ((d, kvd), "dense"),
+                  "wv": ((d, kvd), "dense"), "wo": ((qd, d), "dense"),
+                  "w_in": ((d, f), "dense"), "w_gate": ((d, f), "dense"),
+                  "w_out": ((f, d), "dense"),
+                  "shared_down": ((2 * d, d), "dense")}
+        shapes.update({f"mamba/{k}": v for k, v in mamba.items()})
+        shapes.update({f"shared/{k}": v for k, v in shared.items()})
+        return shapes
     if cfg.family == "ssm":
         N, r = cfg.rwkv.head_size, cfg.rwkv.decay_lora
         layer = {"attn_norm": ((L, d), "norm"), "mlp_norm": ((L, d), "norm"),
@@ -698,17 +751,20 @@ def _param_shapes(cfg) -> dict:
     return shapes
 
 
-# RWKV6's uniform draws: kind -> (low, high)
+# RWKV6's uniform draws and Zamba2's A_log: kind -> (low, high)
 UNIFORM_KINDS = {"mix": (0.2, 0.8), "mix_lora": (-0.005, 0.005),
-                 "decay": (-1.5, -0.5)}
+                 "decay": (-1.5, -0.5), "a_log": (0.0, float(np.log(16.0)))}
+# Zamba2's dt_bias: the inverse softplus of a dt log-uniform on this range
+DT_RANGE = (1e-3, 1e-1)
 
 
 def numpy_params(cfg, seed: int) -> dict:
-    """Random float32 params of the dense transformer or of RWKV6, a nested
-    dict of numpy arrays in the reference's tree layout.  Each leaf draws
-    from its own generator, seeded by (seed, crc32 of its path): dense
-    weights normal at fan-in scale, the embedding normal at d**-0.5, norm
-    gains 1 + 0.1 normal, biases 0.02 normal.  RWKV6's other leaves:
+    """Random float32 params of the dense transformer, RWKV6 or the Zamba2
+    hybrid, a nested dict of numpy arrays in the reference's tree layout.
+    Each leaf draws from its own generator, seeded by (seed, crc32 of its
+    path): dense weights normal at fan-in scale, the embedding normal at
+    d**-0.5, norm gains 1 + 0.1 normal, biases 0.02 normal.  RWKV6's other
+    leaves:
 
     - ``mix_base`` and ``ck_mix`` uniform on [0.2, 0.8], ``mix_lora_b``
       uniform on [-0.005, 0.005]: the ddlerp's LoRA (tanh, rank 32) moves a
@@ -721,6 +777,20 @@ def numpy_params(cfg, seed: int) -> dict:
       both ends at every token;
     - ``bonus`` 0.5 normal.
 
+    Zamba2's Mamba2 leaves (Mamba2's own init, arXiv:2405.21060):
+
+    - ``A_log`` uniform on [0, log 16], so A = -exp(A_log) in [-16, -1];
+    - ``dt_bias`` the inverse softplus of a dt log-uniform on [1e-3, 1e-1],
+      so softplus(dt_bias) = dt at a zero input; every step
+      dt = softplus(raw + dt_bias) > 0, so every decay exp(dt A) lies in
+      (0, 1).  In float32 the extremes round to its ends: the reference's
+      Mamba blocks take the residual stream unnormalised, which grows
+      through the shared blocks (its RMS ~0.05 at the first layer, ~36 at
+      the 38th of a 512-wide stack), so raw, and dt, grow with depth, and
+      deep layers' largest steps decay to exactly 0 (and tiny ones to 1);
+    - ``D`` 1 + 0.1 normal, as a norm gain; ``ssm_norm`` a norm gain;
+    - ``conv_w`` normal at ``conv_dim``**-0.5, ``conv_b`` 0.02 normal.
+
     The reference and the port load the same tree, so neither needs the
     other's init."""
     tree: dict = {}
@@ -730,10 +800,13 @@ def numpy_params(cfg, seed: int) -> dict:
             lo, hi = UNIFORM_KINDS.get(kind, (-0.5 / shape[-2],
                                               0.5 / shape[-2]))
             w = rng.uniform(lo, hi, shape).astype(np.float32)
+        elif kind == "dt_bias":
+            dt = np.exp(rng.uniform(*np.log(DT_RANGE), shape))
+            w = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
         else:
             w = rng.standard_normal(shape, dtype=np.float32)
-        if kind in ("dense", "embed"):
-            w *= np.float32(shape[-2 if kind == "dense" else -1] ** -0.5)
+        if kind in ("dense", "embed", "conv"):
+            w *= np.float32(shape[-1 if kind == "embed" else -2] ** -0.5)
         elif kind == "norm":
             w *= np.float32(0.1)
             w += np.float32(1.0)
@@ -1349,11 +1422,12 @@ def _sdpa_call(q, k, v, q_pos, kv_pos, causal_arange: bool):
 def flash_kernel_phase() -> dict:
     """Kernel #6 against its plain version: the reference's sweep shapes
     (``gqa_flash`` against ``attention_ref``), its GQA case, the served
-    prefill with unwritten slots, decode steps against the cache, a sliding
-    window at D=120 and fully masked rows, float32 and bf16 at the
-    reference's tolerances; then timed at the served prefill and decode
-    shapes (bf16) beside the plain version and SDPA.  Returns the numbers
-    of its row, at the prefill shape."""
+    prefill with unwritten slots and decode steps against the cache (GQA
+    for tinyllama, MHA for zamba2's shared block), a sliding window at
+    D=120 and fully masked rows, float32 and bf16 at the reference's
+    tolerances; then timed at the served prefill and decode shapes of both
+    (bf16) beside the plain version and SDPA.  Returns the numbers of its
+    row, at tinyllama's prefill shape."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -1369,6 +1443,8 @@ def flash_kernel_phase() -> dict:
     for dtype in FLASH_TOL:
         checks += [("prefill", FLASH_PREFILL, True, 0, "holes", dtype),
                    ("decode", FLASH_DECODE, True, 0, "decode", dtype),
+                   ("mha prefill", FLASH_MHA_PREFILL, True, 0, "holes", dtype),
+                   ("mha decode", FLASH_MHA_DECODE, True, 0, "decode", dtype),
                    ("window", (2, 200, 200, 16, 2, 120), True, 64, "arange",
                     dtype),
                    ("masked", (2, 8, 64, 4, 2, 32), True, 0, "masked",
@@ -1404,10 +1480,9 @@ def flash_kernel_phase() -> dict:
                                  f"version: {label} {shape} {dtype}")
 
     by_shape = {}
-    for label, shape, kind in (("prefill", FLASH_PREFILL, "arange"),
-                               ("decode", FLASH_DECODE, "last")):
+    for label, shape, kind in FLASH_TIMED:
         q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
-        sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, label == "prefill")
+        sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, kind == "arange")
         kern = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos)
         lib_err = float((sdpa().float() - kern.float()).abs().max())
         bound_ms, bound_by = _flash_bound(q, k, q_pos, kv_pos)
@@ -1558,6 +1633,159 @@ def wkv_kernel_phase() -> dict:
             **by_shape["prefill"]}
 
 
+def _ssm_case(B, T, H, P, N, seed, state=False, dt_scale=1.0):
+    """Inputs of kernel #8 on the card in the model layout, float32, drawn
+    with the reference test's laws: x normal (B,T,H,P), b and c 0.3
+    normal (B,T,N), dt softplus(normal) (B,T,H) times ``dt_scale``, a =
+    -exp(normal) and d normal (H,); state0 normal when ``state``, else
+    None."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, H, P))
+    b, c = (rng.standard_normal((B, T, N)) * 0.3 for _ in range(2))
+    raw = rng.standard_normal((B, T, H))
+    dt = (np.log1p(np.exp(-np.abs(raw))) + np.maximum(raw, 0)) * dt_scale
+    a = -np.exp(rng.standard_normal(H))
+    d = rng.standard_normal(H)
+    s0 = rng.standard_normal((B, H, P, N)) if state else None
+    return [None if v is None else torch.tensor(v, dtype=torch.float32,
+                                                device="cuda")
+            for v in (x, b, c, dt, a, d, s0)]
+
+
+def _ssm_bound(B, T, H, P, N, state_in):
+    """Bound of one selective scan at (B,T,H,P,N), float32: x read and y
+    written once, b, c, dt, a and d read once, the final state written
+    once and the initial one read only when ``state_in`` (the model's
+    prefill starts from zero).  Operations: 5 a state element and step
+    (decay h + u b, a multiply and an FMA; h c summed, an FMA), 3 a (b, t,
+    h, p) (u = dt x; d x added, an FMA) and 2 a (b, t, h) (dt a and its
+    exp)."""
+    nbytes = 4 * (2 * B * T * H * P + 2 * B * T * N + B * T * H + 2 * H
+                  + (2 if state_in else 1) * B * H * P * N)
+    flops = 5 * B * T * H * P * N + 3 * B * T * H * P + 2 * B * T * H
+    return _bound(nbytes, flops)
+
+
+def ssm_kernel_phase() -> dict:
+    """Kernel #8 against its plain version: the reference's sweep in the
+    flat (BH,T,P) layout from a zero state (each row its own launch, b and
+    c its own, against ``ssm_scan_ref``), the model layout, a nonzero
+    state, steps near 0 and large (decays near 1 and near 0), dims that
+    are no power of two, T = 1, the served prefill and decode step, the
+    state updated in place (``out`` is ``state0``), and T = 0 (no launch),
+    at the reference's tolerance; every case run twice, bit for bit.  Then
+    timed at the served prefill and decode (CUDA events and the profiler's
+    device time) beside the plain version and the bound; no single
+    PyTorch call computes the recurrence.  Returns the numbers of its row,
+    at the prefill shape."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    def close(got, want):
+        return bool(((got - want).abs() <= SSM_TOL + SSM_TOL * want.abs())
+                    .all())
+
+    max_err = 0.0
+    for i, (BH, T, P, N) in enumerate(SSM_SWEEP):
+        x, b, c, dt, *_ = _ssm_case(BH, T, 1, P, N, seed=1000 + i)
+        rng = np.random.default_rng(1050 + i)  # a and d of each row
+        a, d = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in
+                (-np.exp(rng.standard_normal(BH)), rng.standard_normal(BH)))
+        runs = [[ssm_kernel.ssm_scan(x[r:r + 1], b[r:r + 1], c[r:r + 1],
+                                     dt[r:r + 1], a[r:r + 1], d[r:r + 1])
+                 for r in range(BH)] for _ in range(2)]
+        got = [(torch.cat([y[:, :, 0] for y, _ in run]),
+                torch.cat([s[:, 0] for _, s in run])) for run in runs]
+        want = ssm_ref.ssm_scan_ref(x[:, :, 0], b, c, dt[..., 0], a, d)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(*got))
+        err = max(float((g - e).abs().max()) for g, e in zip(got[0], want))
+        ok = same and all(close(g, e) for g, e in zip(got[0], want))
+        max_err = max(max_err, err)
+        print(f"kernel ssm_scan sweep (BH, T, P, N) = {(BH, T, P, N)} from a "
+              f"zero state: max|d|={err:.3g} (atol = rtol = {SSM_TOL}); 2 "
+              f"runs {'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ssm_scan disagrees with its plain version "
+                                 f"or with itself: sweep {(BH, T, P, N)}")
+
+    checks = [("model", (2, 40, 3, 16, 8), {}),
+              ("state", (3, 77, 5, 32, 16), {"state": True}),
+              ("dt~0", (2, 50, 4, 16, 16), {"state": True, "dt_scale": 1e-6}),
+              ("dt large", (2, 300, 4, 64, 64), {"state": True,
+                                                 "dt_scale": 40.0}),
+              ("P=24 N=24", (2, 30, 3, 24, 24), {"state": True}),
+              ("T=1", (3, 1, 5, 32, 16), {"state": True}),
+              ("prefill", SSM_PREFILL, {}),
+              ("decode", SSM_DECODE, {"state": True})]
+    for i, (label, shape, kw) in enumerate(checks):
+        x, b, c, dt, a, d, s0 = _ssm_case(*shape, seed=1100 + i, **kw)
+        runs = [ssm_ops.selective_scan(x, b, c, dt, a, d, s0)
+                for _ in range(2)]
+        want = ssm_ref.selective_scan_ref(x, b, c, dt, a, d, s0)
+        if label == "decode":  # in place: the state written over state0
+            inplace = s0.clone()
+            y, s = ssm_ops.selective_scan(x, b, c, dt, a, d, inplace,
+                                          out=inplace)
+            if s is not inplace:
+                raise AssertionError("ssm_scan: out is not the state0 given")
+            runs.append((y, s))
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for run in runs[1:]
+                   for u, v in zip(runs[0], run))
+        err = max(float((g - e).abs().max()) for g, e in zip(runs[0], want))
+        ok = same and all(close(g, e) for g, e in zip(runs[0], want))
+        max_err = max(max_err, err)
+        print(f"kernel ssm_scan {label} (B, T, H, P, N) = {shape}"
+              f"{' from a state' if s0 is not None else ''}: max|d|={err:.3g} "
+              f"(atol = rtol = {SSM_TOL}); {len(runs)} runs "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ssm_scan disagrees with its plain version "
+                                 f"or with itself: {label} {shape}")
+    launches = ssm_kernel.ssm_scan.launches
+    x, b, c, dt, a, d, s0 = _ssm_case(2, 0, 3, 16, 8, seed=1199, state=True)
+    y, s = ssm_ops.selective_scan(x, b, c, dt, a, d, s0)
+    if (ssm_kernel.ssm_scan.launches != launches or y.shape[1] != 0
+            or not torch.equal(s, s0)):
+        raise AssertionError("ssm_scan at T = 0 launched or lost the state")
+    print("kernel ssm_scan T=0: no launch, the state handed back ok")
+
+    by_shape = {}
+    for label, shape, state in (("prefill", SSM_PREFILL, False),
+                                ("decode", SSM_DECODE, True)):
+        x, b, c, dt, a, d, s0 = _ssm_case(*shape, seed=1200, state=state)
+
+        def kern():
+            return ssm_kernel.ssm_scan(x, b, c, dt, a, d, s0)
+
+        bound_ms, bound_by = _ssm_bound(*shape, state_in=state)
+        numbers = {
+            "ms": _median_ms(kern),
+            "plain_ms": _median_ms(
+                lambda: ssm_ref.selective_scan_ref(x, b, c, dt, a, d, s0),
+                n=10 if label == "prefill" else 50, warmup=2),
+            "device_ms": _kernel_device_ms(kern, ["ssm_scan_kernel"])[
+                "ssm_scan_kernel"],
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        by_shape[label] = numbers
+        print(f"timing ssm_scan {label} at (B, T, H, P, N) = {shape} float32 "
+              f"(median, CUDA events): kernel {numbers['ms']:.6f} ms "
+              f"(device {numbers['device_ms']} ms, profiler median of 100), "
+              f"plain {numbers['plain_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}); no single PyTorch call computes it",
+              flush=True)
+    return {"max_abs_err": max_err, "by_shape": by_shape,
+            **by_shape["prefill"]}
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side event of a profile:
     kernels, copies and memsets."""
@@ -1648,8 +1876,7 @@ def profile_phase(fx: dict) -> dict:
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 
     out = {"flash_attention": {}}
-    for label, shape, kind in (("prefill", FLASH_PREFILL, "arange"),
-                               ("decode", FLASH_DECODE, "last")):
+    for label, shape, kind in FLASH_TIMED:
         q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
         dev = _kernel_device_ms(lambda: flash_kernel.flash_attention(
             q, k, v, q_pos, kv_pos), ["flash_attention_kernel"])[
@@ -1732,18 +1959,19 @@ def profile_phase(fx: dict) -> dict:
     return out
 
 
-def zoo_phase(arch: str, fixture: Path, kernel, plain: dict) -> dict:
+def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     """A zoo model's serving path on the card, ``arch`` at full width and
     depth through the port's ``Engine``.  (b) Parity in float32: the
     reference's ``fixture`` reproduced (greedy tokens equal, logits within
     ``ZOO_LOGIT_ATOL``), and step-by-step decode against one full forward.
     (c) The served run in the config's bf16, params from a
     ``torch.Generator`` on the card: ``Engine.generate`` with every call of
-    the path's kernel through ``kernel`` (its wrapper: exactly n_layers
-    launches per token) and none of the plain versions ``plain`` names
-    ({label: (module, attribute)}), the device's idle share over a warm
-    generate, and ``Engine.serve`` finishing every request.  Returns the
-    measured numbers."""
+    the path's kernels through their wrappers, ``kernels`` ({wrapper:
+    launches per forward}, 0 for a kernel the path must not launch), and
+    none of the plain versions ``plain`` names ({label: (module,
+    attribute)}), the device's idle share over a warm generate, and
+    ``Engine.serve`` finishing every request.  Returns the measured
+    numbers."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1751,7 +1979,6 @@ def zoo_phase(arch: str, fixture: Path, kernel, plain: dict) -> dict:
     from repro_torch.serving.engine import Engine
 
     out = {}
-    name = kernel.__name__
     fx = load_fixture(fixture)
     if str(fx["arch"]) != arch or bool(fx["reduced"]):
         raise AssertionError(f"{fixture} is not the full-width {arch} "
@@ -1807,23 +2034,24 @@ def zoo_phase(arch: str, fixture: Path, kernel, plain: dict) -> dict:
     for label, (mod, attr) in plain.items():
         setattr(mod, attr, counting(label, saved[label]))
     try:
-        kernel.launches = 0
+        _reset_launches(*kernels)
         tokens, stats = engine.generate(prompts, new)
-        launches = kernel.launches
+        launches = {w.__name__: w.launches for w in kernels}
     finally:
         for label, (mod, attr) in plain.items():
             setattr(mod, attr, saved[label])
-    expected = cfg.n_layers * new  # the prefill and new - 1 decode steps
+    # the prefill and new - 1 decode steps
+    expected = {w.__name__: n * new for w, n in kernels.items()}
     decode_ms = 1e3 * stats.decode_s / (new - 1)
     print(f"zoo generate {arch} bf16 full width, batch {B}, prompt {S}, "
           f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
           f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
           f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
-          f"tokens/s; {name} launches {launches}, expected {expected}; plain "
+          f"tokens/s; launches {launches}, expected {expected}; plain "
           f"calls {counts}", flush=True)
     if launches != expected or any(counts.values()):
-        raise AssertionError(f"generate: {launches} {name} launches "
-                             f"(expected {expected}), plain calls {counts}")
+        raise AssertionError(f"generate: launches {launches} (expected "
+                             f"{expected}), plain calls {counts}")
     if tokens.shape != (B, new) or not ((tokens >= 0)
                                         & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned {tokens.shape} tokens out "
@@ -1834,26 +2062,33 @@ def zoo_phase(arch: str, fixture: Path, kernel, plain: dict) -> dict:
                         f"zoo generate {arch} {B} x {S} + {new}, bf16")
 
     reqs = zoo_requests(cfg, ZOO_SEED + 2)
-    kernel.launches = 0
+    _reset_launches(*kernels)
     t0 = time.perf_counter()
     done = engine.serve(reqs, n_slots=SERVE_SLOTS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in kernels}
     finished = sorted(r.uid for r in done)
     ok = finished == list(range(len(reqs))) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab_size for t in r.generated) for r in done)
+    # each forward of serve launches each kernel as a forward of generate
+    # does, so its count is a multiple of the count per forward
+    whole = all(launches[w.__name__] % n == 0 if n else
+                not launches[w.__name__] for w, n in kernels.items())
     print(f"zoo serve {arch}: {len(reqs)} requests (prompts "
           f"{SERVE_PROMPT_LENS}, new tokens {SERVE_NEW_TOKENS}) on "
           f"{SERVE_SLOTS} slots in {wall:.3f} s, "
           f"{sum(r.max_new_tokens for r in reqs)} tokens, finished at ticks "
-          f"{[r.finished_at for r in done]}; {name} launches "
-          f"{kernel.launches}; every request "
+          f"{[r.finished_at for r in done]}; launches {launches} "
+          f"{'whole forwards' if whole else 'NOT whole forwards'}; every "
+          f"request "
           f"{'finished with its max_new_tokens' if ok else 'NOT finished'}",
           flush=True)
-    if not ok:
-        raise AssertionError(f"serve finished {finished}")
-    out.update(serve_wall_s=wall, serve_launches=kernel.launches)
+    if not ok or not whole:
+        raise AssertionError(f"serve finished {finished}, launches "
+                             f"{launches}")
+    out.update(serve_wall_s=wall, serve_launches=launches)
     del engine, params
     torch.cuda.empty_cache()
     return out
@@ -1882,9 +2117,13 @@ def main() -> int:
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
     from repro_torch.launch import edge_cloud
     from repro_torch.models import attention as attention_mod
+    from repro_torch.models import hybrid_arch
     from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.runtime.modules import T_MODEL
     from repro_torch.training.optimizer import tree_leaves
 
@@ -1904,12 +2143,14 @@ def main() -> int:
     seconds = _build.build_all({**lstm_kernel.LIBRARIES,
                                 **int8_kernel.LIBRARIES,
                                 **flash_kernel.LIBRARIES,
-                                **wkv_kernel.LIBRARIES})
+                                **wkv_kernel.LIBRARIES,
+                                **ssm_kernel.LIBRARIES})
     lstm_kernel.library()
     lstm_kernel.bwd_library()
     int8_kernel.library()
     flash_kernel.library()
     wkv_kernel.library()
+    ssm_kernel.library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
@@ -1922,15 +2163,17 @@ def main() -> int:
     int8 = int8_kernel.int8_matmul
     flash = flash_kernel.flash_attention
     wkv = wkv_kernel.rwkv6_scan
+    ssm = ssm_kernel.ssm_scan
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
             "int8_matmul": int8_kernel_phase(),
             "flash_attention": flash_kernel_phase(),
-            "rwkv6_scan": wkv_kernel_phase()}
+            "rwkv6_scan": wkv_kernel_phase(),
+            "ssm_scan": ssm_kernel_phase()}
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(*wrappers, flash, wkv)
+    _reset_launches(*wrappers, flash, wkv, ssm)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -2093,29 +2336,36 @@ def main() -> int:
             raise AssertionError(f"{path}: launches {trained}, int8_matmul "
                                  f"expected {int8_want}")
 
-    if flash.launches or wkv.launches:
-        raise AssertionError("an LSTM path launched the flash or WKV kernel")
+    if flash.launches or wkv.launches or ssm.launches:
+        raise AssertionError("an LSTM path launched a zoo kernel")
 
     # phase 7: where the time goes
     prof = profile_phase(fx)
 
     # phase 8: the zoo's serving path, tinyllama-1.1b through the Engine
-    wkv.launches = 0
-    zoo = zoo_phase(ZOO_ARCH, ZOO_FIXTURE, flash, {
-        "scan": (attention_mod, "_attend_chunked"),
-        "oracle": (flash_ref, "attend_full_ref")})
-    if wkv.launches:
-        raise AssertionError("tinyllama's path launched the WKV kernel")
+    attention_plain = {"scan": (attention_mod, "_attend_chunked"),
+                       "oracle": (flash_ref, "attend_full_ref")}
+    zoo = zoo_phase(ZOO_ARCH, ZOO_FIXTURE, {
+        flash: get_config(ZOO_ARCH).n_layers, wkv: 0, ssm: 0},
+        attention_plain)
 
     # phase 9: the zoo's RWKV6 path, rwkv6-3b through the Engine
-    flash.launches = 0
-    rwkv = zoo_phase(RWKV_ARCH, RWKV_FIXTURE, wkv, {
+    rwkv = zoo_phase(RWKV_ARCH, RWKV_FIXTURE, {
+        wkv: get_config(RWKV_ARCH).n_layers, flash: 0, ssm: 0}, {
         "stepwise": (rwkv_mod, "wkv_stepwise"),
         "chunked": (rwkv_mod, "wkv_chunked"),
         "oracle": (wkv_ref, "wkv_ref"),
         "oracle_flat": (wkv_ref, "rwkv6_scan_ref")})
-    if flash.launches:
-        raise AssertionError("rwkv6-3b's path launched the flash kernel")
+
+    # phase 10: the zoo's hybrid path, zamba2-1.2b through the Engine: #8 in
+    # every Mamba2 layer, #6 in every application of the shared block
+    zcfg = get_config(ZAMBA_ARCH)
+    zamba = zoo_phase(ZAMBA_ARCH, ZAMBA_FIXTURE, {
+        ssm: zcfg.n_layers, flash: hybrid_arch._split(zcfg)[1], wkv: 0}, {
+        **attention_plain,
+        "ssd_stepwise": (ssm_mod, "ssd_stepwise"),
+        "ssm_oracle": (ssm_ref, "selective_scan_ref"),
+        "ssm_oracle_flat": (ssm_ref, "ssm_scan_ref")})
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -2134,7 +2384,14 @@ def main() -> int:
         "rwkv6_scan": ("src/repro_torch/kernels/rwkv6_scan/csrc/"
                        "rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan/kernel.py:60"),
+        "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:59"),
     }
+    served = {ZOO_ARCH: zoo, RWKV_ARCH: rwkv, ZAMBA_ARCH: zamba}
+    # each zoo kernel's main path: the served generate of the arch whose
+    # slice brought it
+    zoo_main = {flash.__name__: ZOO_ARCH, wkv.__name__: RWKV_ARCH,
+                ssm.__name__: ZAMBA_ARCH}
     kernels = []
     for kname, (source, repl) in meta.items():
         row = rows[kname]
@@ -2147,10 +2404,11 @@ def main() -> int:
             for label, numbers in row["by_shape"].items():
                 numbers.update(device[label])
             device = device["prefill"]
-        if kname in (flash.__name__, wkv.__name__):
-            served = zoo if kname == flash.__name__ else rwkv
-            by_path = {"zoo_generate": served["generate_launches"],
-                       "zoo_serve": served["serve_launches"]}
+        if kname in zoo_main:
+            by_path = {f"{arch}_{what}": run[f"{what}_launches"][kname]
+                       for arch, run in served.items()
+                       for what in ("generate", "serve")
+                       if run[f"{what}_launches"][kname]}
         else:
             by_path = {"serving": serving_launches
                        if kname == fused.__name__ else 0,
@@ -2158,21 +2416,21 @@ def main() -> int:
                        **{path: counts[kname]
                           for path, counts in bus_launches.items()}}
         # each kernel's main path: training for the LSTM kernels, the int8
-        # bus replay for the int8 kernel, the served generate for flash
-        # (tinyllama-1.1b) and for the WKV kernel (rwkv6-3b)
-        main_path = {int8.__name__: "int8", flash.__name__: "zoo_generate",
-                     wkv.__name__: "zoo_generate"}.get(kname, "training")
+        # bus replay for the int8 kernel, a served generate for the zoo's
+        main_path = ({int8.__name__: "int8"}.get(kname, "training")
+                     if kname not in zoo_main
+                     else f"{zoo_main[kname]}_generate")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
-    for label, served in (("zoo", zoo), ("zoo_rwkv", rwkv)):
-        print(json.dumps({label: {k: v for k, v in served.items()
-                                  if k not in ("busy", "near_ties")} | {
-            "idle_share": served["busy"]["idle_share"],
-            "busy_ms": served["busy"]["busy_ms"],
-            "generate_wall_s": served["busy"]["wall_s"]}}))
+    for arch, run in served.items():
+        print(json.dumps({arch: {k: v for k, v in run.items()
+                                 if k not in ("busy", "near_ties")} | {
+            "idle_share": run["busy"]["idle_share"],
+            "busy_ms": run["busy"]["busy_ms"],
+            "generate_wall_s": run["busy"]["wall_s"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

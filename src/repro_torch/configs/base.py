@@ -1,9 +1,10 @@
 """Config dataclasses of the port: the paper's forecaster, the dense
-transformer and RWKV6.
+transformer, RWKV6 and the Zamba2 hybrid (Mamba2 backbone, shared
+attention block).
 
 ``ModelConfig`` keeps the reference's names for the fields the LSTM family,
-the dense transformer and RWKV6 read, with the reference's defaults; the
-fields of the model zoo's other families (MoE, Mamba2 SSM, hybrid,
+the dense transformer, RWKV6 and the hybrid read, with the reference's
+defaults; the fields of the model zoo's other families (MoE,
 encoder-decoder, frontends), the input shapes and the TPU hardware model
 come with their slices.  The transformer fields default to 0 so the LSTM
 configs construct as before.
@@ -27,12 +28,33 @@ class LSTMConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style state-space block config.  The reference's
+    ``chunk_size`` (the chunk of its SSD form) is not carried: the port
+    has no chunked form."""
+
+    state_dim: int = 64
+    conv_dim: int = 4
+    expand: int = 2
+    head_dim: int = 64  # SSM head dim (d_inner / n_heads)
+
+
+@dataclass(frozen=True)
 class RWKVConfig:
     """RWKV6 (Finch) time-mix config."""
 
     head_size: int = 64
     decay_lora: int = 64  # rank of the data-dependent decay LoRA
     gate_lora: int = 64
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid: SSM backbone + shared attention block."""
+
+    # a single (shared-weight) transformer block is applied every
+    # ``attn_every`` backbone layers, concat-skip from the embedding
+    attn_every: int = 6
 
 
 @dataclass(frozen=True)
@@ -56,7 +78,9 @@ class ModelConfig:
     logit_softcap: float = 0.0  # grok-style tanh soft capping (0 = off)
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    hybrid: Optional[HybridConfig] = None
     lstm: Optional[LSTMConfig] = None
     # KV chunk of the CPU path's online-softmax scan; the CUDA kernel tiles
     # on its own and does not read it
@@ -64,7 +88,8 @@ class ModelConfig:
     attn_p_dtype: str = "float32"  # attention-prob dtype for the PV product
     attn_q_chunk: int = 0  # >0: block queries too (bounds the live score set)
     # the CPU path's RWKV scan: chunked (vs per-step); the CUDA kernel steps
-    # through time on its own and reads neither
+    # through time on its own and reads neither.  The hybrid's Mamba2 scan
+    # ignores both: it is per-step on every device
     scan_chunked: bool = False
     scan_chunk: int = 64
     citation: str = ""
@@ -116,8 +141,14 @@ class ModelConfig:
             attn_chunk=64,
             window_size=min(self.window_size, 64),
         )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_dim=min(self.ssm.state_dim, 16)
+            )
         if self.rwkv is not None:
             kw["rwkv"] = dataclasses.replace(
                 self.rwkv, head_size=32, decay_lora=16, gate_lora=16
             )
+        if self.hybrid is not None:
+            kw["hybrid"] = dataclasses.replace(self.hybrid, attn_every=1)
         return self.replace(**kw)

@@ -1,0 +1,116 @@
+"""The Mamba2 selective scan on the card: the wrapper around
+``csrc/ssm_scan.cu``.
+
+``ssm_scan`` replaces the Pallas TPU kernel of
+``src/repro/kernels/ssm_scan/kernel.py``: the selective-state recurrence
+of every (batch, head), in the model's layout (x (B,T,H,P), one group's b
+and c (B,T,N) read by every head, dt (B,T,H), a and d (H,)), float32 in
+and out, from a given state (zero when none is given) to the final state.
+With a zero state it computes the Pallas kernel's function; with any other
+it computes the reference's oracle ``ssm_scan_ref(..., state0)``.  What
+bounds it: ~5 B T H P N float32 operations against the bytes of x, y, b,
+c, dt and the state (see the source for the design and its distance from
+the bound).
+
+The wrapper checks its inputs, allocates y (and the state, unless given
+``out``) with ``torch.empty``, launches on the current CUDA stream, raises
+when the launch fails, and counts its successful launches in a plain
+integer ``.launches``; at T = 0 it launches nothing and counts nothing.
+The library builds with ``nvcc`` at the first launch (``kernels/_build``);
+``LIBRARIES`` names it for a caller that builds every library up front.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
+# every library of this package: name -> its sources
+LIBRARIES = {"ssm_scan": [SOURCE]}
+# the largest head dim (thread p keeps row p of the state) and state dim
+# (the row's N floats in registers)
+MAX_HEAD_DIM = 64
+MAX_STATE_DIM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel's library, built (or loaded) at the first call."""
+    lib = _build.load_library("ssm_scan", LIBRARIES["ssm_scan"])
+    lib.ssm_scan_forward.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.ssm_scan_forward.restype = ctypes.c_int
+    return lib
+
+
+def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+             state0: Optional[torch.Tensor] = None, *,
+             out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current CUDA stream.
+
+    x (B,T,H,P); b, c (B,T,N); dt (B,T,H); a, d (H,); state0 and ``out``
+    (B,H,P,N) or None; all float32, contiguous, on one CUDA device;
+    1 <= P, N <= 64.  ``out`` receives the final state and may be
+    ``state0`` itself.  Returns (y (B,T,H,P), final state).  Raises on
+    anything else, and when the launch fails."""
+    name = "ssm_scan"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected x (B,T,H,P), got x "
+                         f"{tuple(x.shape)}")
+    B, T, H, P = x.shape
+    N = b.shape[-1] if b.dim() == 3 else -1
+    shapes = {"b": (b, (B, T, N)), "c": (c, (B, T, N)), "dt": (dt, (B, T, H)),
+              "a": (a, (H,)), "d": (d, (H,)), "state0": (state0, (B, H, P, N)),
+              "out": (out, (B, H, P, N))}
+    for label, (t, want) in shapes.items():
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name}: {label} must be {want} for x "
+                             f"{tuple(x.shape)} and N = {N}, got "
+                             f"{tuple(t.shape)}")
+    if (not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE_DIM or B < 1
+            or H < 1 or B * H > 2**31 - 1):
+        raise ValueError(f"{name}: need 1 <= P <= {MAX_HEAD_DIM}, 1 <= N <= "
+                         f"{MAX_STATE_DIM} and 1 <= B*H < 2**31, got B={B}, "
+                         f"H={H}, P={P}, N={N}")
+    tensors = [t for t in (x, b, c, dt, a, d, state0, out) if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: inputs must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32,
+                        device=x.device) if out is None else out
+    if T == 0:  # nothing to launch, nothing counted
+        if state0 is None:
+            state.zero_()
+        elif state is not state0:
+            state.copy_(state0)
+        return y, state
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().ssm_scan_forward(
+            x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
+            a.data_ptr(), d.data_ptr(),
+            None if state0 is None else state0.data_ptr(), y.data_ptr(),
+            state.data_ptr(), B, T, H, P, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
+                           f"(B={B}, T={T}, H={H}, P={P}, N={N})")
+    ssm_scan.launches += 1
+    return y, state
+
+
+# launches of the kernel since the last reset; only a successful launch counts
+ssm_scan.launches = 0

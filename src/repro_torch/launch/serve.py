@@ -4,13 +4,15 @@ prefill + decode) on the card, printing latency stats.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 4 --prompt-len 64 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
 
 The reference's CLI on the port: the arch is ``.reduced()`` as the
 reference's launcher runs it, the params are initialised from a
 ``torch.Generator`` seeded 0, and every attention runs through the flash
-kernel (``tinyllama-1.1b``), every WKV recurrence through the WKV kernel
-(``rwkv6-3b``).  ``run(args, device="cpu")`` runs the plain versions on
-the CPU.
+kernel (``tinyllama-1.1b``, ``zamba2-1.2b``'s shared block), every WKV
+recurrence through the WKV kernel (``rwkv6-3b``), every Mamba2 scan
+through the selective-scan kernel (``zamba2-1.2b``).
+``run(args, device="cpu")`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 

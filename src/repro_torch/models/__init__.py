@@ -1,2 +1,2 @@
-"""Models of the port: the paper's LSTM forecaster, the dense transformer
-and RWKV6."""
+"""Models of the port: the paper's LSTM forecaster, the dense transformer,
+RWKV6 and the Zamba2 hybrid."""

@@ -1,15 +1,15 @@
 """Model dispatcher: ``get_model(cfg)`` returns a ``Model`` whose functions
 the hybrid learner, the trainers and the serving engine consume.  The port
-knows the LSTM family, the dense transformer and RWKV6 (the ``ssm``
-family); the zoo's other families come with their slices.
+knows the LSTM family, the dense transformer, RWKV6 (the ``ssm`` family)
+and the Zamba2 hybrid; the zoo's other families come with their slices.
 
     init(generator, device)           -> params
     loss_fn(params, batch)            -> (loss, metrics)
-    forward(params, batch)            -> hidden (B, S, d)       (dense, ssm)
+    forward(params, batch)            -> hidden (B, S, d)       (the zoo)
     predict(params, x)                -> (B, out_dim)           (LSTM)
-    prefill(params, batch, max_len)   -> (last_logits, cache)   (dense, ssm)
-    decode_step(params, batch, cache) -> (logits, cache)        (dense, ssm)
-    init_cache(batch, max_len, device)-> cache                  (dense, ssm)
+    prefill(params, batch, max_len)   -> (last_logits, cache)   (the zoo)
+    decode_step(params, batch, cache) -> (logits, cache)        (the zoo)
+    init_cache(batch, max_len, device)-> cache                  (the zoo)
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ Batch = Dict[str, torch.Tensor]
 # the reference's other families -> the slice of the port that brings them
 # (ROADMAP.md, Queue A)
 UNPORTED_FAMILIES = {
-    "hybrid": "slice 6 (zamba2-1.2b)",
     "moe": "slice 11 (the rest of the model zoo)",
     "vlm": "slice 11 (the rest of the model zoo)",
     "audio": "slice 11 (the rest of the model zoo)",
@@ -58,11 +57,14 @@ def get_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: m.loss_fn(cfg, p, b),
             predict=lambda p, x: m.predict(cfg, p, x),
         )
-    if cfg.family in ("dense", "ssm"):  # ssm: RWKV6, as in the reference
+    if cfg.family in ("dense", "ssm", "hybrid"):
+        # ssm is RWKV6, as in the reference; hybrid is Zamba2
         if cfg.family == "dense":
             from repro_torch.models import transformer as t
-        else:
+        elif cfg.family == "ssm":
             from repro_torch.models import rwkv as t
+        else:
+            from repro_torch.models import hybrid_arch as t
 
         return Model(
             cfg=cfg,
@@ -79,4 +81,4 @@ def get_model(cfg: ModelConfig) -> Model:
         raise ValueError(f"family {cfg.family!r} is not ported yet: it comes "
                          f"with {UNPORTED_FAMILIES[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm', "
-                     "'dense' and 'ssm'")
+                     "'dense', 'ssm' and 'hybrid'")

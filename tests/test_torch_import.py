@@ -48,6 +48,12 @@ RWKV_MODULES = {"repro_torch.configs.rwkv6_3b",
                 "repro_torch.kernels.rwkv6_scan.ops",
                 "repro_torch.kernels.rwkv6_scan.ref",
                 "repro_torch.models.rwkv"}
+# the modules of the Zamba2 hybrid's serving path
+ZAMBA2_MODULES = {"repro_torch.configs.zamba2_1_2b",
+                  "repro_torch.kernels.ssm_scan.kernel",
+                  "repro_torch.kernels.ssm_scan.ops",
+                  "repro_torch.kernels.ssm_scan.ref",
+                  "repro_torch.models.ssm", "repro_torch.models.hybrid_arch"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -60,6 +66,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert TRAINING_MODULES <= names
     assert ZOO_MODULES <= names
     assert RWKV_MODULES <= names
+    assert ZAMBA2_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):
@@ -153,3 +160,33 @@ def test_rwkv_entry_points_raise_without_cuda(monkeypatch):
         kernel.rwkv6_scan(x, x, x, x, u)
     y, state = ops.wkv(x, x, x, x, u)
     assert y.shape == x.shape and state.shape == (1, 3, 8, 8)
+
+
+def test_zamba2_entry_points_raise_without_cuda(monkeypatch):
+    """The hybrid's init and cache and its serve launcher refuse the CPU
+    unless asked for it; the selective-scan kernel's wrapper refuses a CPU
+    tensor, and ``ops.selective_scan`` on a CPU tensor is the plain path
+    the caller chose."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import kernel, ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = get_model(get_config("zamba2-1.2b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(serve.parse_args(["--arch", "zamba2-1.2b"]))
+    x = torch.zeros(1, 2, 3, 8)
+    bc = torch.zeros(1, 2, 4)
+    dt = torch.zeros(1, 2, 3)
+    a = torch.zeros(3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.ssm_scan(x, bc, bc, dt, a, a)
+    y, state = ops.selective_scan(x, bc, bc, dt, a, a)
+    assert y.shape == x.shape and state.shape == (1, 3, 8, 4)

@@ -331,7 +331,7 @@ def test_unported_parts_raise_naming_their_slice():
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="slice 11"):
         get_model(cfg).loss_fn(p, batch)
-    with pytest.raises(KeyError, match="slice 6"):
-        get_config("zamba2-1.2b")
-    with pytest.raises(ValueError, match="slice 6"):
-        get_model(cfg.replace(family="hybrid"))
+    with pytest.raises(KeyError, match="slice 11"):
+        get_config("paligemma-3b")
+    with pytest.raises(ValueError, match="slice 11"):
+        get_model(cfg.replace(family="moe"))

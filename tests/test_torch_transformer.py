@@ -77,8 +77,9 @@ def test_configs_match_reference():
                 want.resolved_head_dim, want.q_dim, want.kv_dim)
     assert get_config("lstm-paper").lstm.hidden == 40
     assert get_config("rwkv6-3b").family == "ssm"  # ported in slice 5
-    with pytest.raises(KeyError, match="slice 6"):
-        get_config("zamba2-1.2b")
+    assert get_config("zamba2-1.2b").family == "hybrid"  # ported in slice 6
+    with pytest.raises(KeyError, match="slice 11"):
+        get_config("paligemma-3b")
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -271,5 +272,5 @@ def test_unported_parts_raise_naming_their_slice():
         transformer.prefill(cfg, {**p, "proj_in": torch.zeros(2, 2)}, batch)
     with pytest.raises(NotImplementedError, match="prefix"):
         transformer.forward(cfg, p, {**batch, "prefix_embed": None})
-    with pytest.raises(ValueError, match="slice 6"):
-        get_model(cfg.replace(family="hybrid"))
+    with pytest.raises(ValueError, match="slice 11"):
+        get_model(cfg.replace(family="moe"))

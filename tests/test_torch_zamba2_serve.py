@@ -1,0 +1,208 @@
+"""The port's serving engine on the Zamba2 hybrid (``zamba2-1.2b``) on the
+CPU, held to the JAX package, and the full-width parity fixture the card is
+held to.
+
+At ``zamba2-1.2b.reduced()`` with params from ``chip_smoke.numpy_params``
+loaded into both: ``Engine.generate`` gives the reference's greedy tokens,
+and ``Engine.serve`` (slot-recycling continuous batching over a cache of
+both kinds: the SSM states ``conv`` and ``h`` and the shared block's ``k``
+and ``v`` scatter into their slots at batch axis 1, ``kv_pos`` at batch
+axis 0; the left pads of a prompt run through the conv and the scan, as
+the reference's do) gives the reference's tokens and tick stamps request
+by request.  The serve launcher runs ``--arch zamba2-1.2b`` on the CPU
+when asked.
+
+The card has no JAX, so its parity check reads the reference's outputs from
+``tests/data/torch_parity_zamba2_1_2b.npz``: ``zamba2-1.2b`` at full width
+and depth in float32 (38 Mamba2 layers, d_model 2048, 64 SSM heads of 64
+with state 64, the shared block every 6 layers, vocab 32000), params from
+``chip_smoke.numpy_params`` (a numpy seed, the reference's tree layout; the
+fixture holds no weights), two prompts of 32 tokens, eight greedy tokens
+through the reference's ``Engine.generate``, each step's logsumexp and top
+64 (id, logit) pairs.  Rewrite it with
+
+    PYTHONPATH=src python tests/test_torch_zamba2_serve.py
+
+(the 4.7 GB float32 tree handed to JAX leaf by leaf; CHANGES.md records
+its time and peak memory).  Here a reduced-width regeneration is checked
+against the committed file's format and reproduced by the port.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as get_config_ref
+from repro.models import get_model as get_model_ref
+from repro.serving.batching import Request as RequestRef
+from repro.serving.engine import Engine as EngineRef
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.serving.batching import Request
+from repro_torch.serving.engine import Engine
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+ARCH = smoke.ZAMBA_ARCH
+# the port's logits against the reference's on the CPU, both in float32:
+# the whole model, as tests/test_torch_zamba2.py's MODEL_ATOL says
+ATOL = 1e-4
+
+
+def _to_jax(tree: dict) -> dict:
+    """A nested dict of numpy arrays as JAX arrays, emptying ``tree`` leaf
+    by leaf so that the two copies of a large tree never coexist whole."""
+    out = {}
+    for name in list(tree):
+        leaf = tree.pop(name)
+        out[name] = (_to_jax(leaf) if isinstance(leaf, dict)
+                     else jnp.asarray(leaf))
+        del leaf
+    return out
+
+
+def _reduced():
+    cfg_ref = get_config_ref(ARCH).reduced()
+    tree = smoke.numpy_params(cfg_ref, 0)
+    return (cfg_ref, _to_jax(smoke.numpy_params(cfg_ref, 0)),
+            get_config(ARCH).reduced(), params_from_numpy(tree, "cpu"))
+
+
+def build_fixture(reduced: bool) -> dict:
+    """The reference's parity run: ``smoke.numpy_params`` loaded into the
+    reference, ``smoke.zoo_prompts`` through its ``Engine.generate``, each
+    step's logits recorded."""
+    cfg_ref = get_config_ref(ARCH)
+    cfg_ref = cfg_ref.reduced() if reduced else smoke.zoo_parity_config(
+        cfg_ref)
+    params = _to_jax(smoke.numpy_params(cfg_ref, smoke.ZOO_SEED))
+    prompts = smoke.zoo_prompts(cfg_ref, smoke.ZOO_SEED)
+    max_len = prompts.shape[1] + smoke.ZOO_NEW_TOKENS
+    engine = EngineRef(cfg_ref, params, max_len=max_len)
+    steps = smoke.record_logits(engine)
+    tokens, _ = engine.generate(prompts, smoke.ZOO_NEW_TOKENS)
+    return smoke.zoo_fixture_arrays(ARCH, reduced, smoke.ZOO_SEED, prompts,
+                                    tokens, steps, max_len)
+
+
+def _requests(cls, vocab):
+    """Prompts of 4 to 10 tokens (left-padded to buckets of 4, 8 and 16),
+    2 to 5 new tokens each."""
+    rng = np.random.default_rng(0)
+    return [cls(uid=i,
+                prompt=rng.integers(1, vocab, (4 + 3 * (i % 3),),
+                                    dtype=np.int32),
+                max_new_tokens=2 + (i % 4))
+            for i in range(5)]
+
+
+def test_generate_matches_reference():
+    cfg_ref, p_ref, cfg, p = _reduced()
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (3, 10),
+                                                dtype=np.int32)
+    want, _ = EngineRef(cfg_ref, p_ref, max_len=24).generate(prompts, 6)
+    got, stats = Engine(cfg, p, max_len=24, device="cpu").generate(prompts, 6)
+    np.testing.assert_array_equal(got, want)
+    assert stats.tokens_out == 18
+    assert stats.prefill_s > 0 and stats.decode_s > 0
+
+
+def test_serve_matches_reference_request_by_request():
+    cfg_ref, p_ref, cfg, p = _reduced()
+    want = EngineRef(cfg_ref, p_ref, max_len=48).serve(
+        _requests(RequestRef, cfg.vocab_size), n_slots=2)
+    engine = Engine(cfg, p, max_len=48, device="cpu")
+    got = engine.serve(_requests(Request, cfg.vocab_size), n_slots=2)
+    assert [r.uid for r in got] == [r.uid for r in want]
+    for a, b in zip(got, want):
+        assert a.generated == b.generated, a.uid
+        assert len(a.generated) == a.max_new_tokens
+        assert (a.admitted_at, a.finished_at) == (b.admitted_at,
+                                                  b.finished_at)
+    # the SSM states and the shared block's K/V have their batch axis at 1,
+    # the slots' positions at 0
+    assert engine._batch_axes == {"conv": 1, "h": 1, "k": 1, "v": 1,
+                                  "kv_pos": 0}
+
+
+def test_serve_launcher_runs_on_cpu(capsys):
+    args = serve_launcher.parse_args(["--arch", ARCH, "--batch", "2",
+                                      "--prompt-len", "8", "--new-tokens",
+                                      "4"])
+    out, stats = serve_launcher.run(args, device="cpu")
+    assert out.shape == (2, 4) and stats.tokens_out == 8
+    assert ((out >= 0) & (out < get_config(ARCH).reduced().vocab_size)).all()
+    assert "generated (2, 4) tokens" in capsys.readouterr().out
+
+
+def test_numpy_params_build_the_reference_layout_at_full_width():
+    """``chip_smoke.numpy_params`` gives the tree the reference's init
+    gives, leaf for leaf, at full width (shapes only: 1.18 B parameters)."""
+    cfg_ref = smoke.zoo_parity_config(get_config_ref(ARCH))
+    want = jax.eval_shape(lambda: get_model_ref(cfg_ref).init(
+        jax.random.PRNGKey(0)))
+    shapes = {tuple(k.key for k in path): leaf.shape for path, leaf in
+              jax.tree_util.tree_leaves_with_path(want)}
+    got = {tuple(k.split("/")): shape for k, (shape, _) in
+           smoke._param_shapes(cfg_ref).items()}
+    assert got == shapes
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 1_178_784_640
+
+
+def test_fixture_is_what_chip_smoke_reads():
+    fx = smoke.load_fixture(smoke.ZAMBA_FIXTURE)
+    assert str(fx["arch"]) == ARCH and not bool(fx["reduced"])
+    assert int(fx["seed"]) == smoke.ZOO_SEED
+    cfg = smoke.zoo_config(fx)
+    assert cfg == smoke.zoo_parity_config(get_config(ARCH))
+    assert cfg.n_layers == 38 and cfg.d_model == 2048
+    np.testing.assert_array_equal(fx["prompts"],
+                                  smoke.zoo_prompts(cfg, smoke.ZOO_SEED))
+    n = smoke.ZOO_NEW_TOKENS
+    assert int(fx["max_len"]) == smoke.ZOO_PROMPTS[1] + n
+    assert fx["tokens"].shape == (smoke.ZOO_PROMPTS[0], n)
+    assert fx["top_ids"].shape == (smoke.ZOO_PROMPTS[0], n, smoke.ZOO_TOPK)
+    assert (fx["top_ids"][..., 0] == fx["tokens"]).all()
+    assert np.isfinite(fx["top_logits"]).all() and np.isfinite(fx["lse"]).all()
+    assert smoke.ZAMBA_FIXTURE.stat().st_size < 1 << 20
+
+
+def test_reduced_fixture_matches_format_and_port_reproduces_it():
+    fx = build_fixture(reduced=True)
+    committed = smoke.load_fixture(smoke.ZAMBA_FIXTURE)
+    assert fx.keys() == committed.keys()
+    for k in fx:
+        assert fx[k].dtype == committed[k].dtype, k
+        assert fx[k].shape == committed[k].shape, k
+    cfg, _, tokens, steps = smoke.run_zoo_parity(fx, "cpu")
+    assert cfg == get_config(ARCH).reduced()
+    np.testing.assert_array_equal(tokens, fx["tokens"])
+    got = smoke.check_zoo_parity(fx, tokens, steps, atol=ATOL)
+    assert got["near_ties"] == []
+    # a changed logit beyond the tolerance is caught
+    bad = [s.copy() for s in steps]
+    bad[3][1, fx["top_ids"][1, 3, 5]] += 10 * ATOL
+    with pytest.raises(AssertionError, match="logits off"):
+        smoke.check_zoo_parity(fx, tokens, bad, atol=ATOL)
+
+
+if __name__ == "__main__":
+    import resource
+    import time
+
+    t0 = time.perf_counter()
+    arrays = build_fixture(reduced=False)
+    smoke.ZAMBA_FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(smoke.ZAMBA_FIXTURE, **arrays)
+    peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"wrote {smoke.ZAMBA_FIXTURE} "
+          f"({smoke.ZAMBA_FIXTURE.stat().st_size} bytes) in "
+          f"{time.perf_counter() - t0:.1f} s, peak resident {peak_gb:.1f} GB")

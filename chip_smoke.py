@@ -13,7 +13,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at the main paths' shapes and a few edge shapes (the backward also run
    twice, bit for bit), then timed beside the plain version and the library
    call that computes the same function (for the int8 matmul, which no one
-   PyTorch call computes, ``(x @ q.float()) * scale``);
+   PyTorch call computes, ``(x @ q.float()) * scale``; for the one-step
+   LSTM cell #5, ``torch.lstm_cell``);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
    models the JAX reference published (``tests/data/
@@ -61,10 +62,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``tests/data/torch_parity_zamba2_1_2b.npz`` and decode equivalence,
    then in bf16 ``Engine.generate`` (4 x 512 + 32) with exactly 38 x 32
    launches of the selective-scan kernel, 6 x 32 of the flash kernel and
-   no plain scan or attention, and ``Engine.serve``.
+   no plain scan or attention, and ``Engine.serve``;
+11. the scan path, the path of the one-step LSTM cell #5: the per-step
+   baseline ``ops.lstm_sequence_scan`` on the reference's batch model and
+   a serving window (250 x 5 x 5, H = 40), in float32 and with bf16 x; each
+   call must launch #5 exactly T = 5 times and no sequence kernel, match
+   the plain scan (whose carry is in x's type, as the reference's) and, in
+   float32, the fused #1; then timed beside #1 and ``torch.nn.LSTM``.
 
-The flash kernel (#6) is built in phase 2, held to its plain version and
-timed beside SDPA in phase 3 (at tinyllama's GQA shapes and at zamba2's
+Every kernel is built in phase 2 and held to its plain version in phase 3.
+The one-step cell (#5) is held there at the reference's sweep, the serving
+rows and H up to 1024 (beyond the sequence kernels' shared memory), every
+case twice, bit for bit.  The flash kernel (#6) is timed beside SDPA in
+phase 3 (at tinyllama's GQA shapes and at zamba2's
 MHA ones), and profiled in phase 7.  The WKV kernel (#7) and the
 selective-scan kernel (#8) are built in phase 2, held to their plain
 versions (reruns bit for bit) and timed in phase 3, with their device
@@ -101,10 +111,11 @@ MODES = {
 RECORD_COLUMNS = ("window", "rmse_batch", "rmse_speed", "rmse_hybrid",
                   "w_speed", "w_batch")
 
-# kernel phase: (B, T, F, H, dtype); H=None is the largest H that fits.
-# Every row count the main paths give the serving kernel is a case: 250 and
-# 245 (the windows), 256 and 245 (window 0's mask check, padded and not),
-# 2048 and 1595 (the pretrain's mask check)
+# kernel phase: (B, T, F, H, x dtype[, weights' dtype]); H=None is the
+# largest H that fits; the weights are float32 unless a case names bfloat16
+# (the wrappers cast those once).  Every row count the main paths give the
+# serving kernel is a case: 250 and 245 (the windows), 256 and 245 (window
+# 0's mask check, padded and not), 2048 and 1595 (the pretrain's mask check)
 MAIN_SHAPE = (250, 5, 5, 40)
 KERNEL_CASES = [
     (*MAIN_SHAPE, "float32"),
@@ -117,11 +128,14 @@ KERNEL_CASES = [
     (1024, 5, 5, 40, "float32"),
     (250, 5, 5, None, "float32"),
     (*MAIN_SHAPE, "bfloat16"),
+    (*MAIN_SHAPE, "float32", "bfloat16"),
+    (*MAIN_SHAPE, "bfloat16", "bfloat16"),
 ]
 KERNEL_ATOL = 1e-5
 # the training pair: the speed fit's and the pretrain's step shapes, the
-# reference's gradient-test shapes, the backward's largest H (H=None), and
-# bf16 x
+# reference's gradient-test shapes, the backward's largest H (H=None), bf16
+# x, and bf16 weights (the backward then takes their float32 copies, as
+# ops.lstm_sequence hands them over)
 TRAIN_SHAPES = ((64, 5, 5, 40), (256, 5, 5, 40))
 TRAIN_CASES = [
     (*TRAIN_SHAPES[0], "float32"),
@@ -131,6 +145,7 @@ TRAIN_CASES = [
     (130, 12, 4, 24, "float32"),
     (64, 5, 5, None, "float32"),
     (*TRAIN_SHAPES[0], "bfloat16"),
+    (*TRAIN_SHAPES[0], "float32", "bfloat16"),
 ]
 # the backward's tolerance is the reference's own for its gradient tests
 # (tests/test_kernels.py); the card sums in another order than the plain
@@ -250,6 +265,24 @@ SSM_SWEEP = ((4, 64, 16, 16), (2, 90, 32, 16), (1, 33, 8, 8))
 # SERVE_GENERATE and one decode step
 SSM_PREFILL = (4, 512, 64, 64, 64)
 SSM_DECODE = (4, 1, 64, 64, 64)
+# kernel #5 against its plain version, (B, F, H, x, h, c and weights'
+# dtypes): the reference's sweep (tests/test_kernels.py::
+# test_lstm_cell_sweep) with every input float32, then every input bfloat16;
+# the rows a serving window gives a step (250, window 0's 245, its padded
+# 256); bf16 h with float32 c; and two H beyond the sequence kernels' shared
+# memory (H <= 117 at F = 5).  Float32 outputs within CELL_ATOL (the
+# reference's tol), bf16 ones within one bf16 step of the value
+CELL_MAIN = (250, 5, 40)
+CELL_SWEEP = ((4, 5, 40), (128, 5, 40), (33, 7, 16), (1, 1, 8))
+F32, BF16 = ("float32",) * 4, ("bfloat16",) * 4
+CELL_CASES = [
+    *((*shape, F32) for shape in CELL_SWEEP),
+    *((*shape, BF16) for shape in CELL_SWEEP),
+    *((*shape, F32) for shape in (CELL_MAIN, (245, 5, 40), (256, 5, 40),
+                                  (250, 5, 512), (250, 5, 1024))),
+    (*CELL_MAIN, ("float32", "bfloat16", "float32", "float32")),
+]
+CELL_ATOL = 2e-5
 
 
 def _import_port():
@@ -998,7 +1031,7 @@ def zoo_requests(cfg, seed: int = ZOO_SEED) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_inputs(B, T, F, H, dtype, seed):
+def _kernel_inputs(B, T, F, H, dtype, seed, w_dtype="float32"):
     import torch
 
     rng = np.random.default_rng(seed)
@@ -1008,7 +1041,7 @@ def _kernel_inputs(B, T, F, H, dtype, seed):
     b = rng.normal(size=(4 * H,)) * 0.1
     dev = torch.device("cuda")
     return (torch.tensor(x, dtype=getattr(torch, dtype), device=dev),
-            *(torch.tensor(a, dtype=torch.float32, device=dev)
+            *(torch.tensor(a, dtype=getattr(torch, w_dtype), device=dev)
               for a in (wx, wh, b)))
 
 
@@ -1099,9 +1132,11 @@ def kernel_phase() -> dict:
     from repro_torch.kernels.lstm_cell.ref import lstm_sequence_ref
 
     max_err = 0.0
-    for i, (B, T, F, H, dtype) in enumerate(KERNEL_CASES):
+    for i, (B, T, F, H, dtype, *w_dtype) in enumerate(KERNEL_CASES):
         H = lstm_kernel.max_hidden(F) if H is None else H
-        x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, seed=i)
+        w_dtype = w_dtype[0] if w_dtype else "float32"
+        x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, seed=i,
+                                      w_dtype=w_dtype)
         with torch.inference_mode():
             h, c = lstm_kernel.lstm_sequence_fused(x, wx, wh, b)
             h_ref, c_ref = lstm_sequence_ref(x, wx, wh, b, return_state=True)
@@ -1120,13 +1155,13 @@ def kernel_phase() -> dict:
                            <= 2.0**-7 * r.float().abs() + KERNEL_ATOL).all())
                      for k, r in ((h, h_ref), (c, c_ref)))
             limit = "<= one bf16 step"
-        print(f"kernel lstm_sequence_fused B={B} T={T} F={F} H={H} {dtype}: "
-              f"max|dh|={errs[0]:.3g} max|dc|={errs[1]:.3g} ({limit}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        print(f"kernel lstm_sequence_fused B={B} T={T} F={F} H={H} {dtype}, "
+              f"{w_dtype} weights: max|dh|={errs[0]:.3g} max|dc|="
+              f"{errs[1]:.3g} ({limit}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(
                 f"lstm_sequence_fused disagrees with its plain version at "
-                f"B={B} T={T} F={F} H={H} {dtype}: {errs}")
+                f"B={B} T={T} F={F} H={H} {dtype}, {w_dtype} weights: {errs}")
 
     B, T, F, H = MAIN_SHAPE
     x, wx, wh, b = _kernel_inputs(B, T, F, H, "float32", seed=100)
@@ -1153,16 +1188,18 @@ def kernel_phase() -> dict:
             "library_ms": library_ms}
 
 
-def _train_case(B, T, F, H, dtype, seed):
-    """Inputs of the training pair at one case: x and the weights, the
-    residuals of the training forward on the card, and random cotangents
-    dh, dc of the final state."""
+def _train_case(B, T, F, H, dtype, seed, w_dtype="float32"):
+    """Inputs of the training pair at one case: x and the weights (the
+    float32 copies of bf16 ones, which the backward takes), the residuals of
+    the training forward on the card from the weights as drawn, and random
+    cotangents dh, dc of the final state."""
     import torch
 
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 
-    x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, seed)
+    x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, seed, w_dtype)
     res = lstm_kernel.lstm_sequence_fwd_train(x, wx, wh, b)
+    wx, wh, b = lstm_kernel.f32_weights(wx, wh, b)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dh = torch.randn((B, H), generator=g, device="cuda")
     dc = torch.randn((B, H), generator=g, device="cuda")
@@ -1180,9 +1217,11 @@ def train_kernel_phase() -> dict:
     from repro_torch.kernels.lstm_cell import ref
 
     max_fwd = max_bwd = 0.0
-    for i, (B, T, F, H, dtype) in enumerate(TRAIN_CASES):
+    for i, (B, T, F, H, dtype, *w_dtype) in enumerate(TRAIN_CASES):
         H = lstm_kernel.max_hidden_bwd(F) if H is None else H
-        (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, dtype, 200 + i)
+        w_dtype = w_dtype[0] if w_dtype else "float32"
+        (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, dtype, 200 + i,
+                                                  w_dtype)
         res_ref = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
         fwd_errs = [float((k - r).abs().max()) for k, r in zip(res, res_ref)]
         grads = lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc)
@@ -1203,19 +1242,21 @@ def train_kernel_phase() -> dict:
             bwd_ok = bwd_ok and bool(
                 ((dxk - dxr).abs() <= 2.0**-7 * dxr.abs() + KERNEL_ATOL).all())
         same = all(torch.equal(k, r) for k, r in zip(grads, again))
-        print(f"kernel lstm_sequence_fwd_train B={B} T={T} F={F} H={H} {dtype}: "
-              f"max|d gates, c_seq, h_seq|={max(fwd_errs):.3g} "
-              f"(<= {KERNEL_ATOL}) {'ok' if fwd_ok else 'FAIL'}")
-        print(f"kernel lstm_sequence_bwd B={B} T={T} F={F} H={H} {dtype}: "
-              f"max|d dx, dwx, dwh, db|="
+        print(f"kernel lstm_sequence_fwd_train B={B} T={T} F={F} H={H} "
+              f"{dtype}, {w_dtype} weights: max|d gates, c_seq, h_seq|="
+              f"{max(fwd_errs):.3g} (<= {KERNEL_ATOL}) "
+              f"{'ok' if fwd_ok else 'FAIL'}")
+        print(f"kernel lstm_sequence_bwd B={B} T={T} F={F} H={H} {dtype}, "
+              f"{w_dtype} weights: max|d dx, dwx, dwh, db|="
               f"{', '.join(f'{e:.3g}' for e in bwd_errs)} (atol = rtol = "
               f"{BWD_ATOL}{'; dx to one bf16 step' if dtype != 'float32' else ''}"
               f") {'ok' if bwd_ok else 'FAIL'}; rerun "
               f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
         if not (fwd_ok and bwd_ok and same):
             raise AssertionError(
-                f"training pair at B={B} T={T} F={F} H={H} {dtype}: forward "
-                f"{fwd_errs}, backward {bwd_errs}, rerun identical {same}")
+                f"training pair at B={B} T={T} F={F} H={H} {dtype}, "
+                f"{w_dtype} weights: forward {fwd_errs}, backward "
+                f"{bwd_errs}, rerun identical {same}")
 
     rows = {"lstm_sequence_fwd_train": {"max_abs_err": max_fwd, "by_batch": {}},
             "lstm_sequence_bwd": {"max_abs_err": max_bwd, "by_batch": {}}}
@@ -1268,6 +1309,209 @@ def train_kernel_phase() -> dict:
     for row in rows.values():  # the row's own numbers: the speed fit's shape
         row.update(row["by_batch"][TRAIN_SHAPES[0][0]])
     return rows
+
+
+def _cell_case(B, F, H, dtypes, seed):
+    """Inputs of kernel #5 on the card: x, h, c normal and the weights
+    normal times 0.2 (the reference's sweep) or the fan-in's inverse square
+    root where that is smaller, in ``dtypes`` (x, h, c, weights)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    scale = min(0.2, (F + H) ** -0.5)
+    arrays = (rng.standard_normal((B, F)), rng.standard_normal((B, H)),
+              rng.standard_normal((B, H)),
+              rng.standard_normal((F, 4 * H)) * scale,
+              rng.standard_normal((H, 4 * H)) * scale,
+              rng.standard_normal((4 * H,)) * scale)
+    kinds = (*dtypes[:3], dtypes[3], dtypes[3], dtypes[3])
+    return [torch.tensor(a, dtype=getattr(torch, d), device="cuda")
+            for a, d in zip(arrays, kinds)]
+
+
+def _within(got, want, atol) -> bool:
+    """float32 outputs within ``atol``; bf16 ones within one bf16 step of
+    the value (2^-7 |want|) more: both sides compute in float32 and round
+    once, so they may straddle a rounding boundary."""
+    import torch
+
+    step = 2.0**-7 * want.float().abs() if want.dtype == torch.bfloat16 else 0
+    return bool(((got.float() - want.float()).abs() <= atol + step).all())
+
+
+def _cell_bound(B, F, H):
+    """Bound of one float32 step at (B, F, H): x, h, c and the weights read
+    once, h' and c' written once; the two products, 2 B (F+H) 4H."""
+    nbytes = 4 * (B * F + 2 * B * H + (F + H) * 4 * H + 4 * H + 2 * B * H)
+    return _bound(nbytes, 2 * B * (F + H) * 4 * H)
+
+
+def cell_kernel_phase() -> dict:
+    """Kernel #5 against its plain version at every case of CELL_CASES, each
+    run twice, bit for bit, and at B = 0 (no launch).  Then timed at the
+    serving step (250, 5, 40) float32: CUDA events, the profiler's device
+    time, the plain version, and ``torch.lstm_cell``, the one PyTorch call
+    that computes the same function (held to the kernel first).  Returns
+    the numbers of its row."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ref
+
+    cell = lstm_kernel.lstm_cell
+    max_err = 0.0
+    for i, (B, F, H, dtypes) in enumerate(CELL_CASES):
+        args = _cell_case(B, F, H, dtypes, seed=1000 + i)
+        runs = [cell(*args) for _ in range(2)]
+        want = ref.lstm_cell_ref(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(runs[0], want)]
+        ok = same and all(g.dtype == w.dtype and _within(g, w, CELL_ATOL)
+                          for g, w in zip(runs[0], want))
+        max_err = max([max_err, *(e for e, w in zip(errs, want)
+                                  if w.dtype == torch.float32)])
+        print(f"kernel lstm_cell B={B} F={F} H={H} x, h, c, weights "
+              f"{'/'.join(dtypes)}: max|dh'|="
+              f"{errs[0]:.3g} max|dc'|={errs[1]:.3g} (float32 <= {CELL_ATOL},"
+              f" bf16 one step); 2 runs "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"lstm_cell disagrees with its plain "
+                                 f"version or itself at B={B} F={F} H={H} "
+                                 f"{dtypes}: {errs}, rerun identical {same}")
+    launches = cell.launches
+    h, c = cell(*_cell_case(0, 5, 40, F32, seed=999))
+    if cell.launches != launches or h.shape != (0, 40) or c.shape != (0, 40):
+        raise AssertionError("lstm_cell at B = 0 launched or gave rows")
+    print("kernel lstm_cell B=0: no launch, empty state ok")
+
+    B, F, H = CELL_MAIN
+    x, h, c, wx, wh, b = args = _cell_case(B, F, H, F32, seed=1100)
+    w_ih, w_hh, zeros = wx.t(), wh.t(), torch.zeros_like(b)
+
+    def library():
+        return torch.lstm_cell(x, [h, c], w_ih, w_hh, b, zeros)
+
+    lib_err = max(float((k - l).abs().max())
+                  for k, l in zip(cell(*args), library()))
+    print(f"torch.lstm_cell vs kernel at (B, F, H) = {CELL_MAIN}: "
+          f"max|d h', c'|={lib_err:.3g}")
+    if lib_err > 1e-4:
+        raise AssertionError("torch.lstm_cell does not compute the kernel's "
+                             f"function on these weights: {lib_err}")
+    bound_ms, bound_by = _cell_bound(B, F, H)
+    numbers = {
+        "max_abs_err": max_err, "ms": _median_ms(lambda: cell(*args)),
+        "device_ms": _kernel_device_ms(lambda: cell(*args),
+                                       ["lstm_cell_kernel"])[
+                                           "lstm_cell_kernel"],
+        "plain_ms": _median_ms(lambda: ref.lstm_cell_ref(*args)),
+        "library_ms": _median_ms(library),
+        "library_device_ms": _device_ms_per_call(library),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"timing lstm_cell at (B, F, H) = {CELL_MAIN} float32 (median of "
+          f"200, CUDA events): kernel {numbers['ms']:.6f} ms (device "
+          f"{numbers['device_ms']} ms, profiler median of 100), plain "
+          f"{numbers['plain_ms']:.6f} ms, torch.lstm_cell "
+          f"{numbers['library_ms']:.6f} ms (device "
+          f"{numbers['library_device_ms']} ms a call, all its kernels, "
+          f"profiler mean of 100), bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+    return numbers
+
+
+def scan_phase(fx: dict) -> dict:
+    """The path of kernel #5: ``ops.lstm_sequence_scan``, the per-step
+    baseline, on the reference's batch model (the fixture's) and window 1's
+    250 examples, (B, T, F, H) = (250, 5, 5, 40), with float32 and with
+    bf16 x.  Each call must launch #5 exactly T times and no sequence
+    kernel.  Each is held to the plain scan (float32 within CELL_ATOL, bf16
+    within one bf16 step), and the float32 one to the fused #1
+    (``ops.lstm_sequence``) within the reference's 2e-5
+    (tests/test_kernels.py::test_lstm_sequence_fused_agrees_with_scanned_
+    cells).  Then the scan is timed beside #1, the plain scan and
+    ``torch.nn.LSTM``: T launches against one.  Returns the launch counts
+    and the numbers."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ops, ref
+
+    cell = lstm_kernel.lstm_cell
+    lstm_wrappers = (cell, lstm_kernel.lstm_sequence_fused,
+                     lstm_kernel.lstm_sequence_fwd_train,
+                     lstm_kernel.lstm_sequence_bwd)
+    setup = unflatten(fx, "setup")
+    lp = unflatten(fx, "batch")["lstm"]
+    wx, wh, b = (torch.tensor(lp[k], device="cuda")
+                 for k in ("kernel", "recurrent", "bias"))
+    x32 = torch.tensor(port_stream(setup).supervised(1)["x"], device="cuda")
+    B, T, F = x32.shape
+    inputs = {"float32": x32, "bfloat16": x32.bfloat16()}
+
+    _reset_launches(*lstm_wrappers)
+    out = {}
+    for dtype, x in inputs.items():
+        before = cell.launches
+        out[dtype] = ops.lstm_sequence_scan(x, wx, wh, b)
+        torch.cuda.synchronize()
+        if cell.launches - before != T:
+            raise AssertionError(f"lstm_sequence_scan {dtype} launched "
+                                 f"lstm_cell {cell.launches - before} times, "
+                                 f"expected T = {T}")
+    launches = {w.__name__: w.launches for w in lstm_wrappers}
+    expected = {w.__name__: 0 for w in lstm_wrappers} | {
+        cell.__name__: T * len(inputs)}
+    print(f"scan path: ops.lstm_sequence_scan at (B, T, F, H) = "
+          f"{(B, T, F, wh.shape[0])}, float32 and bf16 x; launches "
+          f"{launches}, expected {expected}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"scan path launches {launches}, expected "
+                             f"{expected}")
+
+    errs = {}
+    for dtype, x in inputs.items():
+        want = ref.lstm_sequence_scan_ref(x, wx, wh, b)
+        errs[dtype] = float((out[dtype].float() - want.float()).abs().max())
+        if out[dtype].dtype != x.dtype or not _within(out[dtype], want,
+                                                      CELL_ATOL):
+            raise AssertionError(f"lstm_sequence_scan {dtype} disagrees with "
+                                 f"the plain scan: {errs[dtype]}")
+    fused = ops.lstm_sequence(x32, wx, wh, b)
+    errs["fused"] = float((out["float32"] - fused).abs().max())
+    print(f"scan path: against the plain scan max|dh| float32 "
+          f"{errs['float32']:.3g} (<= {CELL_ATOL}), bf16 "
+          f"{errs['bfloat16']:.3g} (one bf16 step); float32 against the "
+          f"fused lstm_sequence {errs['fused']:.3g} (<= 2e-5)", flush=True)
+    if errs["fused"] > 2e-5:
+        raise AssertionError(f"lstm_sequence_scan disagrees with the fused "
+                             f"lstm_sequence: {errs['fused']}")
+
+    lstm = _cudnn_lstm(wx, wh, b)
+    calls = {"scan": lambda: ops.lstm_sequence_scan(x32, wx, wh, b),
+             "fused": lambda: ops.lstm_sequence(x32, wx, wh, b),
+             "plain": lambda: ref.lstm_sequence_scan_ref(x32, wx, wh, b),
+             "library": lambda: lstm(x32)}
+    numbers = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            numbers[f"{name}_ms"] = _median_ms(fn)
+            numbers[f"{name}_device_ms"] = _device_ms_per_call(fn)
+    print(f"timing the scan path at {(B, T, F, wh.shape[0])} float32 (median "
+          f"of 200, CUDA events; device: every kernel, copy and memset of a "
+          f"call, profiler mean of 100): ops.lstm_sequence_scan "
+          f"{numbers['scan_ms']:.6f} ms, device {numbers['scan_device_ms']} "
+          f"ms ({T} launches of lstm_cell, a copy and two fills); fused "
+          f"ops.lstm_sequence {numbers['fused_ms']:.6f} ms, device "
+          f"{numbers['fused_device_ms']} ms (one launch); plain scan "
+          f"{numbers['plain_ms']:.6f} ms, device "
+          f"{numbers['plain_device_ms']} ms; torch.nn.LSTM "
+          f"{numbers['library_ms']:.6f} ms, device "
+          f"{numbers['library_device_ms']} ms", flush=True)
+    return {"launches": launches, "max_abs_err": errs, **numbers}
 
 
 def _int8_inputs(M, K, N, dtype, seed):
@@ -1806,10 +2050,9 @@ def _profile(fn):
     return _device_intervals(prof)
 
 
-def _kernel_device_ms(fn, names, calls=100):
-    """Median device time per call of each kernel in ``names`` (a substring
-    of its name), over ``calls`` profiled calls of ``fn`` after warm-up;
-    None where the profiler saw none."""
+def _profile_calls(fn, calls):
+    """Device intervals of ``calls`` profiled calls of ``fn`` after
+    warm-up."""
     import torch
 
     for _ in range(10):
@@ -1821,7 +2064,22 @@ def _kernel_device_ms(fn, names, calls=100):
             fn()
         torch.cuda.synchronize()
 
-    spans = _profile(many)
+    return _profile(many)
+
+
+def _device_ms_per_call(fn, calls=100):
+    """Device time of one call of ``fn``, every kernel, copy and memset it
+    runs: their sum over ``calls`` profiled calls after warm-up, over
+    ``calls``; None where the profiler saw none."""
+    spans = _profile_calls(fn, calls)
+    return sum(e - s for _, s, e in spans) / calls / 1e3 if spans else None
+
+
+def _kernel_device_ms(fn, names, calls=100):
+    """Median device time per call of each kernel in ``names`` (a substring
+    of its name), over ``calls`` profiled calls of ``fn`` after warm-up;
+    None where the profiler saw none."""
+    spans = _profile_calls(fn, calls)
     out = {}
     for n in names:
         kern = [e - s for name, s, e in spans if n in name]
@@ -2147,6 +2405,7 @@ def main() -> int:
                                 **ssm_kernel.LIBRARIES})
     lstm_kernel.library()
     lstm_kernel.bwd_library()
+    lstm_kernel.cell_library()
     int8_kernel.library()
     flash_kernel.library()
     wkv_kernel.library()
@@ -2164,8 +2423,10 @@ def main() -> int:
     flash = flash_kernel.flash_attention
     wkv = wkv_kernel.rwkv6_scan
     ssm = ssm_kernel.ssm_scan
+    cell = lstm_kernel.lstm_cell
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
+            "lstm_cell": cell_kernel_phase(),
             "int8_matmul": int8_kernel_phase(),
             "flash_attention": flash_kernel_phase(),
             "rwkv6_scan": wkv_kernel_phase(),
@@ -2173,7 +2434,7 @@ def main() -> int:
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(*wrappers, flash, wkv, ssm)
+    _reset_launches(*wrappers, flash, wkv, ssm, cell)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -2336,8 +2597,9 @@ def main() -> int:
             raise AssertionError(f"{path}: launches {trained}, int8_matmul "
                                  f"expected {int8_want}")
 
-    if flash.launches or wkv.launches or ssm.launches:
-        raise AssertionError("an LSTM path launched a zoo kernel")
+    if flash.launches or wkv.launches or ssm.launches or cell.launches:
+        raise AssertionError("an LSTM path launched a zoo kernel or the "
+                             "one-step lstm_cell")
 
     # phase 7: where the time goes
     prof = profile_phase(fx)
@@ -2346,12 +2608,12 @@ def main() -> int:
     attention_plain = {"scan": (attention_mod, "_attend_chunked"),
                        "oracle": (flash_ref, "attend_full_ref")}
     zoo = zoo_phase(ZOO_ARCH, ZOO_FIXTURE, {
-        flash: get_config(ZOO_ARCH).n_layers, wkv: 0, ssm: 0},
+        flash: get_config(ZOO_ARCH).n_layers, wkv: 0, ssm: 0, cell: 0},
         attention_plain)
 
     # phase 9: the zoo's RWKV6 path, rwkv6-3b through the Engine
     rwkv = zoo_phase(RWKV_ARCH, RWKV_FIXTURE, {
-        wkv: get_config(RWKV_ARCH).n_layers, flash: 0, ssm: 0}, {
+        wkv: get_config(RWKV_ARCH).n_layers, flash: 0, ssm: 0, cell: 0}, {
         "stepwise": (rwkv_mod, "wkv_stepwise"),
         "chunked": (rwkv_mod, "wkv_chunked"),
         "oracle": (wkv_ref, "wkv_ref"),
@@ -2361,11 +2623,15 @@ def main() -> int:
     # every Mamba2 layer, #6 in every application of the shared block
     zcfg = get_config(ZAMBA_ARCH)
     zamba = zoo_phase(ZAMBA_ARCH, ZAMBA_FIXTURE, {
-        ssm: zcfg.n_layers, flash: hybrid_arch._split(zcfg)[1], wkv: 0}, {
+        ssm: zcfg.n_layers, flash: hybrid_arch._split(zcfg)[1], wkv: 0,
+        cell: 0}, {
         **attention_plain,
         "ssd_stepwise": (ssm_mod, "ssd_stepwise"),
         "ssm_oracle": (ssm_ref, "selective_scan_ref"),
         "ssm_oracle_flat": (ssm_ref, "ssm_scan_ref")})
+
+    # phase 11: the scan path, kernel #5 under ops.lstm_sequence_scan
+    scan = scan_phase(fx)
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -2375,6 +2641,7 @@ def main() -> int:
                                     replaces + "216"),
         "lstm_sequence_bwd": (sources + "lstm_sequence_bwd.cu",
                               replaces + "330"),
+        "lstm_cell": (sources + "lstm_cell.cu", replaces + "72"),
         "int8_matmul": ("src/repro_torch/kernels/int8_matmul/csrc/"
                         "int8_matmul.cu",
                         "src/repro/kernels/int8_matmul/kernel.py:47"),
@@ -2413,18 +2680,21 @@ def main() -> int:
             by_path = {"serving": serving_launches
                        if kname == fused.__name__ else 0,
                        "training": training_launches.get(kname, 0),
-                       **{path: counts[kname]
-                          for path, counts in bus_launches.items()}}
-        # each kernel's main path: training for the LSTM kernels, the int8
-        # bus replay for the int8 kernel, a served generate for the zoo's
-        main_path = ({int8.__name__: "int8"}.get(kname, "training")
-                     if kname not in zoo_main
+                       **{path: counts.get(kname, 0)
+                          for path, counts in bus_launches.items()},
+                       "scan": scan["launches"].get(kname, 0)}
+        # each kernel's main path: training for the LSTM sequence kernels,
+        # the scan for the one-step cell, the int8 bus replay for the int8
+        # kernel, a served generate for the zoo's
+        main_path = ({int8.__name__: "int8", cell.__name__: "scan"}.get(
+            kname, "training") if kname not in zoo_main
                      else f"{zoo_main[kname]}_generate")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
+    print(json.dumps({"scan": scan}))
     for arch, run in served.items():
         print(json.dumps({arch: {k: v for k, v in run.items()
                                  if k not in ("busy", "near_ties")} | {

@@ -1,3 +1,4 @@
-"""Fused LSTM sequence kernels: ``kernel.py`` (the CUDA wrappers: serving
-forward, training forward, backward), ``ops.py`` (the dispatching entry point
-and its ``autograd.Function``) and ``ref.py`` (the plain PyTorch versions)."""
+"""Fused LSTM kernels: ``kernel.py`` (the CUDA wrappers: the one-step cell,
+the serving forward, the training forward, the backward), ``ops.py`` (the
+dispatching entry points, the fused sequence's ``autograd.Function`` and the
+per-step scan) and ``ref.py`` (the plain PyTorch versions)."""

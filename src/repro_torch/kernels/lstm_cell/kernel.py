@@ -1,12 +1,16 @@
 """The LSTM kernels on the card: the wrappers around ``csrc/*.cu``.
 
-Three hand-written CUDA kernels, each replacing a Pallas TPU kernel of
+Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
 ``src/repro/kernels/lstm_cell/kernel.py`` (see the sources for the design):
 
+* ``lstm_cell`` (``csrc/lstm_cell.cu``) replaces ``lstm_cell``: one step,
+  x (B,F), h and c (B,H), each float32 or bfloat16, and wx (F,4H),
+  wh (H,4H), b (4H) -> (h', c'), h' in ``h.dtype`` and c' in ``c.dtype``.
+  The step of the per-step baseline ``ops.lstm_sequence_scan``.
 * ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu``) replaces
   ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx (F,4H),
-  wh (H,4H) and b (4H) in float32 -> the final (h, c), each (B,H) in
-  ``x.dtype``.  The serving forward.
+  wh (H,4H) and b (4H) -> the final (h, c), each (B,H) in ``x.dtype``.
+  The serving forward.
 * ``lstm_sequence_fwd_train`` (same source, the same recurrence) replaces
   ``lstm_sequence_fwd_train``: the same inputs -> the residuals the backward
   needs, post-activation gates (B,T,4H) and c_seq, h_seq (B,T,H), float32.
@@ -16,10 +20,13 @@ Three hand-written CUDA kernels, each replacing a Pallas TPU kernel of
   state -> dx (B,T,F), dwx (F,4H), dwh (H,4H), db (4H), float32.  Reruns on
   the same inputs are bit-identical (no atomics).
 
-Compute is float32; gate order i, f, g, o.  What bounds them: at the paper's
-shapes (B of 64 to 256, T=5, F=5, H=40) a call is a few MFLOP over a few
-hundred KB, a fraction of a microsecond at the card's float32 or memory
-rate, so launch latency and the serial T-step chain set their time.
+Compute is float32; gate order i, f, g, o.  The forward wrappers take the
+weights in float32 or bfloat16, as the reference's kernels do, and cast
+bfloat16 ones to float32 once (exact) before the launch.  What bounds them:
+at the paper's shapes (B of 64 to 256, T=5, F=5, H=40) a call is a few
+MFLOP over a few hundred KB, a fraction of a microsecond at the card's
+float32 or memory rate, so launch latency and the serial T-step chain set
+their time.
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``,
 launches on the current CUDA stream, raises when the launch fails, and counts
@@ -42,8 +49,11 @@ from repro_torch.kernels import _build
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "lstm_sequence.cu"
 BWD_SOURCE = CSRC / "lstm_sequence_bwd.cu"
+CELL_SOURCE = CSRC / "lstm_cell.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"lstm_sequence": [SOURCE], "lstm_sequence_bwd": [BWD_SOURCE]}
+LIBRARIES = {"lstm_sequence": [SOURCE], "lstm_sequence_bwd": [BWD_SOURCE],
+             "lstm_cell": [CELL_SOURCE]}
+FLOATS = (torch.float32, torch.bfloat16)
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
 
@@ -73,6 +83,16 @@ def bwd_library() -> ctypes.CDLL:
     lib.lstm_sequence_backward.argtypes = (
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.lstm_sequence_backward.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def cell_library() -> ctypes.CDLL:
+    """The one-step kernel's library, built (or loaded) at the first call."""
+    lib = _build.load_library("lstm_cell", LIBRARIES["lstm_cell"])
+    lib.lstm_cell_forward.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.lstm_cell_forward.restype = ctypes.c_int
     return lib
 
 
@@ -122,13 +142,7 @@ def _check_forward_inputs(name: str, x: torch.Tensor, wx: torch.Tensor,
             f"{tuple(wh.shape)}, {tuple(b.shape)} do not match F={F}, H={H}")
     if T < 1 or H < 1:
         raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: x must be float32 or bfloat16, "
-                        f"got {x.dtype}")
-    for wname, w in (("wx", wx), ("wh", wh), ("b", b)):
-        if w.dtype != torch.float32:
-            raise TypeError(
-                f"{name}: {wname} must be float32, got {w.dtype}")
+    _check_floats(name, (("x", x), ("wx", wx), ("wh", wh), ("b", b)))
     _check_placement(name, (x, wx, wh, b))
     need = smem_bytes(F, H)
     if need > SMEM_LIMIT:
@@ -136,6 +150,21 @@ def _check_forward_inputs(name: str, x: torch.Tensor, wx: torch.Tensor,
             f"{name}: F={F}, H={H} needs {need} bytes of shared "
             f"memory for its weights, more than the {SMEM_LIMIT} a block may "
             f"use; the largest H that fits at F={F} is {max_hidden(F)}")
+
+
+def _check_floats(name: str, named) -> None:
+    """Raise unless each (name, tensor) of ``named`` is float32 or bfloat16."""
+    for tname, t in named:
+        if t.dtype not in FLOATS:
+            raise TypeError(f"{name}: {tname} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+
+
+def f32_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weights in float32, as the kernels take them: bfloat16 ones cast
+    once (exact), float32 ones as they are."""
+    return wx.float(), wh.float(), b.float()
 
 
 def _check_placement(name: str, tensors) -> None:
@@ -160,10 +189,11 @@ def lstm_sequence_fused(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                         b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the fused sequence kernel on the current CUDA stream.
 
-    x (B,T,F) float32 or bfloat16; wx (F,4H), wh (H,4H), b (4H) float32, all
+    x (B,T,F), wx (F,4H), wh (H,4H), b (4H), each float32 or bfloat16, all
     contiguous on one CUDA device.  Returns the final (h, c), each (B,H) in
     ``x.dtype``.  Raises on anything else, and when the launch fails."""
     _check_forward_inputs("lstm_sequence_fused", x, wx, wh, b)
+    wx, wh, b = f32_weights(wx, wh, b)
     B, T, F = x.shape
     H = wh.shape[0]
     h = torch.empty((B, H), dtype=x.dtype, device=x.device)
@@ -196,6 +226,7 @@ def lstm_sequence_fwd_train(x: torch.Tensor, wx: torch.Tensor,
     is the final hidden state.  Raises on anything else, and when the launch
     fails."""
     _check_forward_inputs("lstm_sequence_fwd_train", x, wx, wh, b)
+    wx, wh, b = f32_weights(wx, wh, b)
     B, T, F = x.shape
     H = wh.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -250,9 +281,7 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
             raise TypeError(f"{name}: {tname} must be float32, got {t.dtype}")
     if T < 1 or H < 1:
         raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: x must be float32 or bfloat16, "
-                        f"got {x.dtype}")
+    _check_floats(name, (("x", x),))
     _check_placement(name, (x, *(t for t, _ in want.values())))
     need = bwd_smem_bytes(F, H)
     if need > SMEM_LIMIT:
@@ -283,3 +312,58 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
 
 
 lstm_sequence_bwd.launches = 0
+
+
+def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one fused LSTM step on the current CUDA stream.
+
+    x (B,F), h and c (B,H), wx (F,4H), wh (H,4H), b (4H), each float32 or
+    bfloat16, all contiguous on one CUDA device.  Returns (h', c'), h' in
+    ``h.dtype`` and c' in ``c.dtype``.  Raises on anything else, and when
+    the launch fails."""
+    name = "lstm_cell"
+    if (x.dim(), h.dim(), c.dim(), wx.dim(), wh.dim(), b.dim()) != (
+            2, 2, 2, 2, 2, 1):
+        raise ValueError(
+            f"{name}: expected x (B,F), h, c (B,H), wx (F,4H), wh (H,4H), "
+            f"b (4H); got {tuple(x.shape)}, {tuple(h.shape)}, "
+            f"{tuple(c.shape)}, {tuple(wx.shape)}, {tuple(wh.shape)}, "
+            f"{tuple(b.shape)}")
+    B, F = x.shape
+    H = wh.shape[0]
+    if (tuple(h.shape) != (B, H) or tuple(c.shape) != (B, H)
+            or tuple(wx.shape) != (F, 4 * H) or tuple(wh.shape) != (H, 4 * H)
+            or tuple(b.shape) != (4 * H,)):
+        raise ValueError(
+            f"{name}: shapes {tuple(h.shape)}, {tuple(c.shape)}, "
+            f"{tuple(wx.shape)}, {tuple(wh.shape)}, {tuple(b.shape)} do not "
+            f"match B={B}, F={F}, H={H}")
+    if H < 1:
+        raise ValueError(f"{name}: need H >= 1, got {H}")
+    _check_floats(name, (("x", x), ("h", h), ("c", c), ("wx", wx),
+                         ("wh", wh), ("b", b)))
+    _check_placement(name, (x, h, c, wx, wh, b))
+    wx, wh, b = f32_weights(wx, wh, b)
+    h_out = torch.empty((B, H), dtype=h.dtype, device=x.device)
+    c_out = torch.empty((B, H), dtype=c.dtype, device=x.device)
+    if B == 0:  # nothing to launch, nothing counted
+        return h_out, c_out
+    dtypes = sum(1 << i for i, t in enumerate((x, h, c))
+                 if t.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = cell_library().lstm_cell_forward(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
+            wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            B, F, H, dtypes, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: launch failed with CUDA error {err} (B={B}, F={F}, "
+            f"H={H}, {x.dtype}, {h.dtype}, {c.dtype})")
+    lstm_cell.launches += 1
+    return h_out, c_out
+
+
+lstm_cell.launches = 0

@@ -1,14 +1,23 @@
-"""Public entry point of the fused LSTM: ``lstm_sequence``.
+"""Public entry points of the LSTM kernels: the fused ``lstm_sequence``, and
+the per-step ``lstm_step`` and ``lstm_sequence_scan``.
 
-The model layer rides it (``repro_torch.models.lstm.forward``).  Without a
-gradient to take, a tensor on a CUDA device launches the serving kernel
-(``kernel.lstm_sequence_fused``) and a tensor on the CPU takes its plain
-version (``ref``).  When grad is enabled and an input requires it, the call
-goes through ``_LSTMSequence``, the counterpart of the reference's
+The model layer rides ``lstm_sequence`` (``repro_torch.models.lstm.forward``).
+Without a gradient to take, a tensor on a CUDA device launches the serving
+kernel (``kernel.lstm_sequence_fused``) and a tensor on the CPU takes its
+plain version (``ref``).  When grad is enabled and an input requires it, the
+call goes through ``_LSTMSequence``, the counterpart of the reference's
 ``jax.custom_vjp``: its forward is the residual-emitting kernel
 (``kernel.lstm_sequence_fwd_train``) and its backward the reverse-time pair
-(``kernel.lstm_sequence_bwd``), or their plain versions on the CPU.  A CUDA
-tensor launches the kernels or raises; nothing falls back.
+(``kernel.lstm_sequence_bwd``), or their plain versions on the CPU.
+
+``lstm_step`` is one step through the one-step kernel (``kernel.lstm_cell``),
+and ``lstm_sequence_scan`` the pre-fusion baseline: one such launch a
+timestep, the launch-overhead comparison the fused sequence kernel replaced.
+Both are forward-only on every device, as the reference's are (reverse-mode
+AD does not go through its ``pallas_call``): a call that needs a gradient
+raises, on the CPU as on the card.
+
+A CUDA tensor launches the kernels or raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,10 +29,13 @@ from repro_torch.kernels.lstm_cell import kernel, ref
 class _LSTMSequence(torch.autograd.Function):
     """x, wx, wh, b -> final hidden (B,H) in ``x.dtype``, differentiable in
     all four.  Saves the residuals (post-activation gates, c_seq, h_seq, all
-    float32) so the backward re-runs no product of the forward."""
+    float32) and the float32 weights, so the backward re-runs no product of
+    the forward; the weights' gradients come back in the weights' types."""
 
     @staticmethod
     def forward(ctx, x, wx, wh, b):
+        ctx.weight_dtypes = (wx.dtype, wh.dtype, b.dtype)
+        wx, wh, b = kernel.f32_weights(wx, wh, b)
         if x.device.type == "cuda":
             gates, c_seq, h_seq = kernel.lstm_sequence_fwd_train(x, wx, wh, b)
         else:
@@ -39,18 +51,23 @@ class _LSTMSequence(torch.autograd.Function):
         bwd = (kernel.lstm_sequence_bwd if x.device.type == "cuda"
                else ref.lstm_sequence_bwd_ref)
         dx, dwx, dwh, db = bwd(x, gates, c_seq, h_seq, wx, wh, dh, dc)
-        grads = (dx.to(x.dtype), dwx, dwh, db)
+        grads = (dx.to(x.dtype), *(g.to(dt) for g, dt in zip(
+            (dwx, dwh, db), ctx.weight_dtypes)))
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def lstm_sequence(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Fused full-sequence LSTM: x (B,T,F) -> final hidden (B,H) in
     ``x.dtype``.  ``wx`` is (F,4H), ``wh`` (H,4H), ``b`` (4H) with gate order
-    (i, f, g, o); compute is float32."""
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"lstm_sequence: unsupported device {x.device}")
+    (i, f, g, o), float32 or bfloat16; compute is float32."""
+    _check_device("lstm_sequence", x)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, wx, wh, b)):
         return _LSTMSequence.apply(x, wx, wh, b)
@@ -58,3 +75,42 @@ def lstm_sequence(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
         h, _ = kernel.lstm_sequence_fused(x, wx, wh, b)
         return h
     return ref.lstm_sequence_ref(x, wx, wh, b)
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: its kernel has no backward, as the "
+            "reference's has none; differentiate ops.lstm_sequence instead")
+
+
+def lstm_step(x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor):
+    """One LSTM step: x_t (B,F), h and c (B,H) -> (h', c'), h' in
+    ``h.dtype`` and c' in ``c.dtype``; each input float32 or bfloat16,
+    compute float32.  Forward-only."""
+    _check_device("lstm_step", x_t)
+    _forward_only("lstm_step", x_t, h, c, wx, wh, b)
+    if x_t.device.type == "cuda":
+        return kernel.lstm_cell(x_t, h, c, wx, wh, b)
+    return ref.lstm_cell_ref(x_t, h, c, wx, wh, b)
+
+
+def lstm_sequence_scan(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """The per-step baseline: x (B,T,F) -> final hidden (B,H) in
+    ``x.dtype``, one ``lstm_cell`` launch a timestep from h = c = 0, the
+    carry in ``x.dtype`` (rounded every step in bfloat16, where the fused
+    kernel keeps it in float32).  Forward-only."""
+    _check_device("lstm_sequence_scan", x)
+    _forward_only("lstm_sequence_scan", x, wx, wh, b)
+    if x.device.type == "cpu":
+        return ref.lstm_sequence_scan_ref(x, wx, wh, b)
+    B, H = x.shape[0], wh.shape[0]
+    wx, wh, b = kernel.f32_weights(wx, wh, b)  # once, not at every step
+    h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    c = torch.zeros_like(h)
+    # one copy to (T,B,F), so that every step's slice is contiguous
+    for x_t in x.transpose(0, 1).contiguous():
+        h, c = kernel.lstm_cell(x_t, h, c, wx, wh, b)
+    return h

@@ -1,11 +1,41 @@
 """The plain PyTorch versions of the LSTM kernels: the same functions, one
-step at a time.  The CPU path of ``ops.lstm_sequence`` and the reference
-each kernel is held to on the card."""
+step at a time.  The CPU path of ``ops`` and the reference each kernel is
+held to on the card."""
 from __future__ import annotations
 
 from typing import Iterator, Tuple
 
 import torch
+
+
+def lstm_cell_ref(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                  wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step: x (B,F), h and c (B,H), each input float32 or bfloat16 ->
+    (h', c').  z = x·wx + h·wh + b in float32, gate order i, f, g, o;
+    c' = f·c + i·g with c read as float32, h' = o·tanh(c'); h' comes back in
+    ``h.dtype`` and c' in ``c.dtype``."""
+    H = h.shape[-1]
+    z = x.float() @ wx.float() + h.float() @ wh.float() + b.float()
+    i, f, g, o = z.split(H, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c_new = f * c.float() + i * torch.tanh(g)
+    h_new = o * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def lstm_sequence_scan_ref(x: torch.Tensor, wx: torch.Tensor,
+                           wh: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The per-step scan: x (B,T,F) -> final hidden (B,H) in ``x.dtype``,
+    ``lstm_cell_ref`` a step from h = c = 0.  Unlike ``lstm_sequence_ref``
+    the h/c carry is in ``x.dtype``, so in bfloat16 it rounds every step, as
+    the reference's ``lstm_sequence_scan`` carries it."""
+    B, T, _ = x.shape
+    h = torch.zeros((B, wh.shape[0]), dtype=x.dtype, device=x.device)
+    c = torch.zeros_like(h)
+    for t in range(T):
+        h, c = lstm_cell_ref(x[:, t], h, c, wx, wh, b)
+    return h
 
 
 def _steps(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,

@@ -51,6 +51,27 @@ def test_plain_version_matches_pallas_kernel_and_oracle(dtype, B, T, F, H):
                                    atol=atol)
 
 
+@pytest.mark.parametrize("B,T,F,H", [(8, 5, 5, 40), (33, 7, 3, 16)])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_plain_version_with_bf16_weights_matches_pallas_kernel(x_dtype, B, T,
+                                                               F, H):
+    """bf16 wx, wh and b, as the reference's sweep passes them: both sides
+    cast them to f32 (exact), so the bf16 weights change nothing but their
+    values.  atol 2e-2, as the bf16 cases above."""
+    x, *w = _inputs(B, T, F, H, seed=B + T + F + H)
+    xj = jnp.asarray(x).astype(getattr(jnp, x_dtype))
+    xt = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    wt = [torch.from_numpy(a).bfloat16() for a in w]
+    h, c = lstm_sequence_ref(xt, *wt, return_state=True)
+    hj, cj = jax_fused(xj, *(jnp.asarray(a).astype(jnp.bfloat16) for a in w),
+                       interpret=True)
+    for got, want in ((h, hj), (c, cj)):
+        assert got.dtype == xt.dtype
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=0,
+                                   atol=2e-2)
+
+
 def test_cpu_dispatch_takes_plain_version_and_launches_nothing():
     x, wx, wh, b = map(torch.from_numpy, _inputs(13, 5, 5, 40))
     before = lstm_kernel.lstm_sequence_fused.launches
@@ -86,4 +107,13 @@ def test_wrapper_rejects_cpu_tensors_and_bad_shapes():
         lstm_kernel.lstm_sequence_fused(x, wx[:, :-1], wh, b)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         lstm_kernel.lstm_sequence_fused(x.double(), wx, wh, b)
+    # bf16 weights are taken, as the reference's kernels take them: these
+    # CPU tensors get past the type checks to the placement check
+    bf16 = [w.bfloat16() for w in (wx, wh, b)]
+    for wrapper in (lstm_kernel.lstm_sequence_fused,
+                    lstm_kernel.lstm_sequence_fwd_train):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            wrapper(x, *bf16)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            wrapper(x, wx.double(), wh, b)
     assert lstm_kernel.lstm_sequence_fused.launches == 0

@@ -46,7 +46,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    greedy tokens and logits (``tests/data/torch_parity_tinyllama.npz``) and
    step-by-step decode must equal one full forward; in the config's bf16,
    ``Engine.generate`` (4 x 512 prompt + 32 tokens) must launch the flash
-   kernel exactly 22 x 32 times and no plain attention, and
+   kernel exactly 22 x 32 times (22 of its wgmma prefill, 22 x 31 of its
+   split decode, none of its SIMT kernel) and no plain attention, and
    ``Engine.serve`` must finish every request; prefill and decode times,
    tokens/s and the device's idle share over a warm generate are printed;
 9. the zoo's RWKV6 path: ``rwkv6-3b`` at full width and depth through the
@@ -61,8 +62,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    block through the flash kernel: float32 parity with
    ``tests/data/torch_parity_zamba2_1_2b.npz`` and decode equivalence,
    then in bf16 ``Engine.generate`` (4 x 512 + 32) with exactly 38 x 32
-   launches of the selective-scan kernel, 6 x 32 of the flash kernel and
-   no plain scan or attention, and ``Engine.serve``;
+   launches of the selective-scan kernel, 6 x 32 of the flash kernel (6 of
+   its wgmma prefill, 6 x 31 of its split decode) and no plain scan or
+   attention, and ``Engine.serve``;
 11. the scan path, the path of the one-step LSTM cell #5: the per-step
    baseline ``ops.lstm_sequence_scan`` on the reference's batch model and
    a serving window (250 x 5 x 5, H = 40), in float32 and with bf16 x; each
@@ -73,9 +75,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Every kernel is built in phase 2 and held to its plain version in phase 3.
 The one-step cell (#5) is held there at the reference's sweep, the serving
 rows and H up to 1024 (beyond the sequence kernels' shared memory), every
-case twice, bit for bit.  The flash kernel (#6) is timed beside SDPA in
-phase 3 (at tinyllama's GQA shapes and at zamba2's
-MHA ones), and profiled in phase 7.  The WKV kernel (#7) and the
+case twice, bit for bit.  Flash attention (#6) is three kernels, one
+launch a call, picked by ``kernel.kernel_for``: the split decode, the
+wgmma prefill and the SIMT kernel; phase 3 runs each case through the one
+the rule picks and names it, holds the wgmma prefill's bf16 output also
+within ``FLASH_TC_TOL``, reruns the two new kernels bit for bit, and times
+each new kernel against the SIMT kernel in turns beside SDPA (at
+tinyllama's GQA shapes and at zamba2's MHA ones), by CUDA events and by
+the profiler.  The WKV kernel (#7) and the
 selective-scan kernel (#8) are built in phase 2, held to their plain
 versions (reruns bit for bit) and timed in phase 3, with their device
 times from the profiler; no single PyTorch call computes either.
@@ -252,6 +259,25 @@ ZAMBA_FIXTURE = ROOT / "tests" / "data" / "torch_parity_zamba2_1_2b.npz"
 FLASH_MHA_PREFILL = (4, 512, 512, 32, 32, 64)
 FLASH_MHA_DECODE = (4, 1, 544, 32, 32, 64)
 # kernel #6's timed shapes: label -> (shape, the positions' kind)
+# kernel A's bf16 output against the plain version: about two bf16 steps
+# (one rounding of the output either way).  It cannot tell P_hi + P_lo
+# from a single bf16 pass of P (that moves the output by ~1e-3), so
+# FLASH_TC_SHARE and the count of elements equal to the SIMT kernel's do
+FLASH_TC_TOL = 1e-2
+# a bf16 output of kernels A and B against the float32 result of its own
+# algorithm (ref.attend_tc_ref, ref.flash_decode_split_ref) on the same
+# inputs: one rounding to bf16 (half a step, at most 2^-8 of the value)
+# and the f32 sums' order; a dropped 64-key split or lane group moves a
+# decode output of ~0.07 by ~1e-2
+FLASH_STEP_RTOL, FLASH_STEP_ATOL = 2.0**-8, 1e-3
+# kernel A's bf16 output: the largest share of elements that may differ
+# from ref.attend_tc_ref's bf16 output on the same inputs (the f32 sums'
+# order flips a rounding now and then; a P without P_lo flips far more)
+FLASH_TC_SHARE = 0.01
+# kernel #6's three kernels, by a substring of the profiler's name
+FLASH_KERNELS = {"simt": "flash_attention_kernel",
+                 "prefill_wgmma": "flash_prefill_wgmma_kernel",
+                 "decode_split": "flash_decode_split_kernel"}
 FLASH_TIMED = (("prefill", FLASH_PREFILL, "arange"),
                ("decode", FLASH_DECODE, "last"),
                ("mha_prefill", FLASH_MHA_PREFILL, "arange"),
@@ -1599,7 +1625,11 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
     "decode" (each row's query at its own position, the slots after it
     unwritten), "last" (generate's last decode step: every query at Sk-2,
     the last slot unwritten), "masked" (batch row 0's slots all unwritten,
-    the first half of the queries before every slot)."""
+    the first half of the queries before every slot), "decode_dead" (a
+    decode step whose batch row 0 has no written slot), "ring" (a ring
+    buffer of Sk slots holding positions Sk/3 .. Sk/3 + Sk - 1 at slot
+    position % Sk, so kv_pos is not sorted, every 5th slot unwritten; the
+    queries at the last Sq positions)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -1619,6 +1649,15 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
     elif kind == "masked":
         kv_pos[0] = -1
         q_pos = np.tile(np.arange(Sq, dtype=np.int32) - Sq // 2, (B, 1))
+    elif kind == "decode_dead":
+        q_pos = (Sk - 1 - 13 * np.arange(B, dtype=np.int32))[:, None]
+        kv_pos[kv_pos > q_pos] = -1
+        kv_pos[0] = -1
+    elif kind == "ring":
+        pos = np.arange(Sk // 3, Sk // 3 + Sk, dtype=np.int32)
+        kv_pos[:, pos % Sk] = pos
+        kv_pos[:, ::5] = -1
+        q_pos = np.tile(pos[Sk - Sq:], (B, 1))
     return (q, k, v, torch.tensor(q_pos, device="cuda"),
             torch.tensor(kv_pos, device="cuda"))
 
@@ -1663,90 +1702,286 @@ def _sdpa_call(q, k, v, q_pos, kv_pos, causal_arange: bool):
         qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
+def _flash_checks() -> list:
+    """Phase 3's cases of kernel #6: (label, (B, Sq, Sk, Hq, Hkv, D),
+    causal, window, positions' kind, dtype, p_dtype)."""
+    checks = []
+    for B, H, S, D, causal, window in FLASH_SWEEP:
+        for dtype in FLASH_TOL:
+            checks.append(("sweep", (B, S, S, H, H, D), causal, window,
+                           "arange", dtype, None))
+    checks += [("gqa", (2, 96, 96, 8, 2, 32), True, 0, "arange", "float32",
+                None)]
+    for dtype in FLASH_TOL:
+        checks += [
+            ("prefill", FLASH_PREFILL, True, 0, "holes", dtype, None),
+            ("decode", FLASH_DECODE, True, 0, "decode", dtype, None),
+            ("mha prefill", FLASH_MHA_PREFILL, True, 0, "holes", dtype, None),
+            ("mha decode", FLASH_MHA_DECODE, True, 0, "decode", dtype, None),
+            ("window", (2, 200, 200, 16, 2, 120), True, 64, "arange", dtype,
+             None),
+            ("masked", (2, 8, 64, 4, 2, 32), True, 0, "masked", dtype, None),
+            # the dispatch's edges: Sq * G = 64 rows (the split decode) and
+            # 65 (the prefill kernels); a decode whose batch row 0 has no
+            # written slot; ring buffers (kv_pos not sorted) for both
+            ("rows 64", (2, 8, 96, 16, 2, 32), True, 0, "arange", dtype,
+             None),
+            ("rows 65", (2, 65, 96, 4, 4, 32), True, 0, "holes", dtype, None),
+            ("decode dead row", FLASH_DECODE, True, 0, "decode_dead", dtype,
+             None),
+            ("ring decode", FLASH_DECODE, True, 0, "ring", dtype, None),
+            ("ring prefill", (2, 128, 544, 32, 4, 64), True, 256, "ring",
+             dtype, None)]
+    # kernel A at D = 120 (the box's zero columns) and D = 16 (one step of K)
+    checks += [("d120", (2, 130, 130, 16, 2, 120), True, 0, "holes",
+                "bfloat16", None),
+               ("d16", (2, 100, 100, 8, 2, 16), True, 0, "holes", "bfloat16",
+                None)]
+    # kernel B at the lane groupings the cases above do not reach (1, 2
+    # and 32 lanes a key row, beside 4, 8 and 16), a decode whose rows are
+    # not 16-byte multiples (the SIMT kernel), and views that start one
+    # element past a 16-byte boundary (copied once for kernels A and B)
+    checks += [("decode d8", (2, 1, 300, 16, 2, 8), True, 0, "decode",
+                "bfloat16", None),
+               ("decode d16", (2, 1, 300, 16, 2, 16), True, 0, "decode",
+                "bfloat16", None),
+               ("decode d120", (2, 1, 300, 16, 2, 120), True, 0, "decode",
+                "float32", None),
+               ("decode d128", (2, 1, 300, 16, 2, 128), True, 0, "decode",
+                "float32", None),
+               ("decode d20", (2, 1, 300, 16, 2, 20), True, 0, "decode",
+                "bfloat16", None),
+               ("unaligned decode", FLASH_DECODE, True, 0, "decode",
+                "bfloat16", None),
+               ("unaligned prefill", (2, 128, 128, 8, 2, 64), True, 0,
+                "holes", "bfloat16", None)]
+    # attend(p_dtype=bfloat16) on the card, through each kernel
+    checks += [("p bf16 prefill", (2, 256, 256, 32, 4, 64), True, 0, "holes",
+                "bfloat16", "bfloat16"),
+               ("p bf16 decode", FLASH_DECODE, True, 0, "decode", "bfloat16",
+                "bfloat16"),
+               ("p bf16 f32 prefill", (2, 200, 200, 16, 2, 64), True, 0,
+                "holes", "float32", "bfloat16"),
+               ("p bf16 f32 decode", (2, 1, 300, 16, 2, 64), True, 0, "decode",
+                "float32", "bfloat16")]
+    return checks
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _ptxas_lines(log: str) -> dict:
+    """``-Xptxas -v``'s registers, shared memory and spills of each kernel
+    entry in an nvcc log, and any performance warning of ptxas (a wgmma
+    serialized): {mangled name: "...spill...; Used ..."}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = []
+        elif name and ("spill" in line or "Used" in line
+                       or "Performance" in line):
+            out[name].append(line.split(" : ")[-1].strip())
+    return {n: "; ".join(v) for n, v in out.items()}
+
+
 def flash_kernel_phase() -> dict:
     """Kernel #6 against its plain version: the reference's sweep shapes
     (``gqa_flash`` against ``attention_ref``), its GQA case, the served
     prefill with unwritten slots and decode steps against the cache (GQA
     for tinyllama, MHA for zamba2's shared block), a sliding window at
-    D=120 and fully masked rows, float32 and bf16 at the reference's
-    tolerances; then timed at the served prefill and decode shapes of both
-    (bf16) beside the plain version and SDPA.  Returns the numbers of its
-    row, at tinyllama's prefill shape."""
+    D=120, fully masked rows, the dispatch's edges and ring buffers,
+    float32 and bf16 at the reference's tolerances, each through the kernel
+    ``kernel_for`` picks; ``attend(p_dtype=bfloat16)`` against the
+    reference's scan with the same p_dtype; kernel A's bf16 output also
+    within FLASH_TC_TOL; every bf16 output of kernels A and B within a
+    bf16 step of its own algorithm's float32 result (``ref.attend_tc_ref``,
+    ``ref.flash_decode_split_ref``); kernel A's bf16 output differing from
+    ``attend_tc_ref``'s in at most FLASH_TC_SHARE of its elements, and
+    equal to the SIMT kernel's in more elements than a single bf16 pass of
+    P gives; every case of kernels A and B rerun bit for bit.
+    Then, at the served prefill and decode shapes of both (bf16), the new
+    kernel and the SIMT kernel timed in turns (SIMT, new, new, SIMT) by
+    CUDA events and by the profiler, beside the plain version and SDPA.
+    Returns the numbers of its row, at tinyllama's prefill shape."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import attention as attention_mod
 
-    checks = []
-    for B, H, S, D, causal, window in FLASH_SWEEP:
-        for dtype in FLASH_TOL:
-            checks.append(("sweep", (B, S, S, H, H, D), causal, window,
-                           "arange", dtype))
-    checks += [("gqa", (2, 96, 96, 8, 2, 32), True, 0, "arange", "float32")]
-    for dtype in FLASH_TOL:
-        checks += [("prefill", FLASH_PREFILL, True, 0, "holes", dtype),
-                   ("decode", FLASH_DECODE, True, 0, "decode", dtype),
-                   ("mha prefill", FLASH_MHA_PREFILL, True, 0, "holes", dtype),
-                   ("mha decode", FLASH_MHA_DECODE, True, 0, "decode", dtype),
-                   ("window", (2, 200, 200, 16, 2, 120), True, 64, "arange",
-                    dtype),
-                   ("masked", (2, 8, 64, 4, 2, 32), True, 0, "masked",
-                    dtype)]
-    max_err = {dtype: 0.0 for dtype in FLASH_TOL}
-    for i, (label, shape, causal, window, kind, dtype) in enumerate(checks):
+    # the largest |do| by input dtype, and of the p_dtype=bfloat16 cases
+    max_err = {key: 0.0 for key in (*FLASH_TOL, "p_bfloat16")}
+    tc_err, cases_by_kernel = 0.0, dict.fromkeys(flash_kernel.KERNELS, 0)
+    # the largest reading of the bf16-step gate by kernel, the largest
+    # share of kernel A's elements off attend_tc_ref's, and the fewest
+    # elements by which kernel A beats its single-pass build at matching
+    # the SIMT kernel
+    step_max = {"prefill_wgmma": 0.0, "decode_split": 0.0}
+    tc_share_max, simt_margin_min = 0.0, None
+    for i, (label, shape, causal, window, kind, dtype,
+            p_dtype) in enumerate(_flash_checks()):
         q, k, v, q_pos, kv_pos = _flash_case(*shape, dtype, 600 + i, kind)
+        if label.startswith("unaligned"):
+            q, k, v = (_unaligned(t) for t in (q, k, v))
+        B, Sq, Sk, Hq, Hkv, D = shape
+        which = flash_kernel.kernel_for(Sq, Hq, Hkv, D, q.dtype)
+        cases_by_kernel[which] += 1
         if label == "sweep":  # the reference's test: MHA layout, arange
-            got = flash_ops.gqa_flash(q, k, v, causal=causal, window=window)
+            def run():
+                return flash_ops.gqa_flash(q, k, v, causal=causal,
+                                           window=window)
             want = flash_ref.attention_ref(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, window=window).transpose(1, 2)
+        elif p_dtype:  # the repaired attend(p_dtype=...) on the card
+            pdt = getattr(torch, p_dtype)
+
+            def run():
+                return attention_mod.attend(q, k, v, q_pos, kv_pos,
+                                            causal=causal, window=window,
+                                            p_dtype=pdt)
+            want = attention_mod._attend_chunked(
+                q, k, v, q_pos, kv_pos, causal=causal, window=window,
+                chunk=1024, scale=None, p_dtype=pdt)
         else:
-            got = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos,
-                                               causal=causal, window=window)
+            def run():
+                return flash_kernel.flash_attention(
+                    q, k, v, q_pos, kv_pos, causal=causal, window=window)
             want = flash_ref.attend_full_ref(q, k, v, q_pos, kv_pos,
                                              causal=causal, window=window)
+        got = run()
         torch.cuda.synchronize()
-        tol = FLASH_TOL[dtype]
+        # p in bf16 makes the product a bf16 one, whatever the inputs
+        tol = FLASH_TOL["bfloat16" if p_dtype else dtype]
         d = (got.float() - want.float()).abs()
         ok = bool((d <= tol + tol * want.float().abs()).all())
-        if kind == "masked":  # rows with no slot to attend give exactly 0
-            dead = ~flash_ref.position_mask(q_pos, kv_pos, causal,
-                                            window).any(-1)
-            ok = ok and bool((got[dead] == 0).all()) and bool(dead.any())
-        max_err[dtype] = max(max_err[dtype], float(d.max()))
-        print(f"kernel flash_attention {label} (B, Sq, Sk, Hq, Hkv, D) = "
-              f"{shape} causal={causal} window={window} {kind} {dtype}: "
-              f"max|do|={float(d.max()):.3g} (atol = rtol = {tol}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        notes = []
+        # rows with no slot to attend give exactly 0
+        dead = ~flash_ref.position_mask(q_pos, kv_pos, causal, window).any(-1)
+        if bool(dead.any()):
+            zero = bool((got[dead] == 0).all())
+            ok = ok and zero
+            notes.append(f"{int(dead.sum())} masked rows "
+                         f"{'exactly 0' if zero else 'NOT 0'}")
+        if kind in ("masked", "decode_dead") and not bool(dead.any()):
+            ok = False
+        if which == "prefill_wgmma" and not p_dtype:
+            rel = float((d / (FLASH_TC_TOL + FLASH_TC_TOL
+                              * want.float().abs())).max())
+            tc_err = max(tc_err, float(d.max()))
+            ok = ok and rel <= 1.0
+            notes.append(f"within atol = rtol = {FLASH_TC_TOL} at "
+                         f"{rel:.3g} of it")
+        if which != "simt" and dtype == "bfloat16":
+            # one bf16 rounding off the f32 result of the kernel's own
+            # algorithm on the same inputs
+            alg = (flash_ref.attend_tc_ref if which == "prefill_wgmma"
+                   else flash_ref.flash_decode_split_ref)
+            want32 = alg(q.float(), k.float(), v.float(), q_pos, kv_pos,
+                         causal=causal, window=window,
+                         p_dtype=getattr(torch, p_dtype) if p_dtype else None)
+            step = float(((got.float() - want32).abs() / (
+                FLASH_STEP_RTOL * want32.abs() + FLASH_STEP_ATOL)).max())
+            step_max[which] = max(step_max[which], step)
+            ok = ok and step <= 1.0
+            notes.append(f"within a bf16 step (|d| <= 2^-8 |want| + "
+                         f"{FLASH_STEP_ATOL}) of {alg.__name__} at "
+                         f"{step:.3g} of it")
+        if which == "prefill_wgmma":
+            share = float((got != want32.to(torch.bfloat16)).float().mean())
+            tc_share_max = max(tc_share_max, share)
+            ok = ok and share <= FLASH_TC_SHARE
+            notes.append(f"{share:.3%} of elements off attend_tc_ref's "
+                         f"(at most {FLASH_TC_SHARE:.0%})")
+            if not p_dtype:
+                def named(kernel, **kw):
+                    return flash_kernel._launch(
+                        q, k, v, q_pos, kv_pos, kernel=kernel,
+                        causal=causal, window=window, **kw)
+                simt = named("simt")
+                n_two = int((got == simt).sum())
+                n_one = int((named("prefill_wgmma", p_bf16=True)
+                             == simt).sum())
+                margin = n_two - n_one
+                simt_margin_min = (margin if simt_margin_min is None
+                                   else min(simt_margin_min, margin))
+                ok = ok and margin > 0
+                notes.append(f"equal to simt's in {n_two} of {got.numel()} "
+                             f"elements, a single bf16 P in {n_one}")
+        if which != "simt":
+            same = torch.equal(run(), got)
+            ok = ok and same
+            notes.append(f"rerun {'bit-identical' if same else 'DIFFERS'}")
+        key = "p_bfloat16" if p_dtype else dtype
+        max_err[key] = max(max_err[key], float(d.max()))
+        print(f"kernel flash_attention [{which}] {label} (B, Sq, Sk, Hq, "
+              f"Hkv, D) = {shape} causal={causal} window={window} {kind} "
+              f"{dtype}{' p ' + p_dtype if p_dtype else ''}: "
+              f"max|do|={float(d.max()):.3g} (atol = rtol = {tol}); "
+              f"{'; '.join(notes)} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version: {label} {shape} {dtype}")
+            raise AssertionError(f"flash_attention [{which}] disagrees with "
+                                 f"its plain version: {label} {shape} "
+                                 f"{dtype}")
+    print(f"kernel flash_attention: cases by kernel {cases_by_kernel}",
+          flush=True)
 
     by_shape = {}
     for label, shape, kind in FLASH_TIMED:
         q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
+        new = flash_kernel.kernel_for(shape[1], shape[3], shape[4], shape[5],
+                                      q.dtype)
         sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, kind == "arange")
-        kern = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos)
+
+        def launch(name):
+            return lambda: flash_kernel._launch(q, k, v, q_pos, kv_pos,
+                                                kernel=name)
+        kern, simt = launch(new)(), launch("simt")()
         lib_err = float((sdpa().float() - kern.float()).abs().max())
+        simt_diff = float((simt.float() - kern.float()).abs().max())
         bound_ms, bound_by = _flash_bound(q, k, q_pos, kv_pos)
+        turns = [_median_ms(launch(name)) for name in
+                 ("simt", new, new, "simt")]
+        dev = {name: _kernel_device_ms(launch(name), [FLASH_KERNELS[name]])[
+            FLASH_KERNELS[name]] for name in ("simt", new)}
+        sdpa_dev = _device_ms_per_call(sdpa)
         numbers = {
-            "ms": _median_ms(lambda: flash_kernel.flash_attention(
-                q, k, v, q_pos, kv_pos)),
+            "kernel": new, "ms": (turns[1] + turns[2]) / 2,
+            "device_ms": dev[new], "simt_ms": (turns[0] + turns[3]) / 2,
+            "simt_device_ms": dev["simt"], "ms_in_turns": turns,
             "plain_ms": _median_ms(lambda: flash_ref.attend_full_ref(
                 q, k, v, q_pos, kv_pos), n=50),
-            "library_ms": _median_ms(sdpa),
+            "library_ms": _median_ms(sdpa), "library_device_ms": sdpa_dev,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "sdpa_max_abs_diff": lib_err}
+            "sdpa_max_abs_diff": lib_err, "simt_max_abs_diff": simt_diff}
         by_shape[label] = numbers
         print(f"timing flash_attention {label} at (B, Sq, Sk, Hq, Hkv, D) = "
-              f"{shape} bfloat16 (median, CUDA events): kernel "
-              f"{numbers['ms']:.6f} ms, plain {numbers['plain_ms']:.6f} ms, "
-              f"SDPA (enable_gqa) {numbers['library_ms']:.6f} ms, bound "
-              f"{bound_ms:.6f} ms ({bound_by}); SDPA vs kernel max|do| "
-              f"{lib_err:.3g}", flush=True)
+              f"{shape} bfloat16 (median, CUDA events; in turns simt, {new}, "
+              f"{new}, simt: {', '.join(f'{t:.6f}' for t in turns)} ms): "
+              f"{new} {numbers['ms']:.6f} ms, device {dev[new]} ms; simt "
+              f"{numbers['simt_ms']:.6f} ms, device {dev['simt']} ms; plain "
+              f"{numbers['plain_ms']:.6f} ms, SDPA (enable_gqa) "
+              f"{numbers['library_ms']:.6f} ms, device {sdpa_dev} ms (all "
+              f"its kernels), bound {bound_ms:.6f} ms "
+              f"({bound_by}); max|do| against SDPA {lib_err:.3g}, against "
+              f"simt {simt_diff:.3g}", flush=True)
     return {"max_abs_err": max_err["float32"],
-            "max_abs_err_bf16": max_err["bfloat16"], "by_shape": by_shape,
+            "max_abs_err_bf16": max_err["bfloat16"],
+            "max_abs_err_p_bf16": max_err["p_bfloat16"],
+            "max_abs_err_wgmma_bf16": tc_err,
+            "bf16_step_max": step_max, "wgmma_tc_share_max": tc_share_max,
+            "wgmma_simt_margin_min": simt_margin_min,
+            "cases_by_kernel": cases_by_kernel, "by_shape": by_shape,
             **by_shape["prefill"]}
 
 
@@ -2129,20 +2364,10 @@ def profile_phase(fx: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import lstm_forecaster, make_supervised
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.int8_matmul import kernel as int8_kernel
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 
-    out = {"flash_attention": {}}
-    for label, shape, kind in FLASH_TIMED:
-        q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
-        dev = _kernel_device_ms(lambda: flash_kernel.flash_attention(
-            q, k, v, q_pos, kv_pos), ["flash_attention_kernel"])[
-                "flash_attention_kernel"]
-        out["flash_attention"][label] = {"device_ms": dev}
-        print(f"profile: flash_attention device time at {label} "
-              f"(B, Sq, Sk, Hq, Hkv, D) = {shape} bf16 {dev} ms (median of "
-              "100)")
+    out = {}
     x, q, scale = _int8_inputs(*INT8_MAIN, "float32", seed=500)
     dev = _kernel_device_ms(lambda: int8_kernel.int8_matmul(x, q, scale),
                             ["int8_matmul_kernel"])["int8_matmul_kernel"]
@@ -2295,27 +2520,38 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
         _reset_launches(*kernels)
         tokens, stats = engine.generate(prompts, new)
         launches = {w.__name__: w.launches for w in kernels}
+        by_kernel = _by_kernel(kernels)
     finally:
         for label, (mod, attr) in plain.items():
             setattr(mod, attr, saved[label])
-    # the prefill and new - 1 decode steps
+    # the prefill and new - 1 decode steps; in bf16 with D % 8 == 0 every
+    # prefill attention (S x G > 64 rows a KV head) takes flash attention's
+    # wgmma prefill, every decode step (G <= 64 rows) its split decode
     expected = {w.__name__: n * new for w, n in kernels.items()}
+    expected_by_kernel = {
+        w.__name__: {"simt": 0, "prefill_wgmma": n,
+                     "decode_split": n * (new - 1)}
+        for w, n in kernels.items() if hasattr(w, "launches_by_kernel")}
     decode_ms = 1e3 * stats.decode_s / (new - 1)
     print(f"zoo generate {arch} bf16 full width, batch {B}, prompt {S}, "
           f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
           f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
           f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
-          f"tokens/s; launches {launches}, expected {expected}; plain "
-          f"calls {counts}", flush=True)
-    if launches != expected or any(counts.values()):
+          f"tokens/s; launches {launches}, expected {expected}; by kernel "
+          f"{by_kernel}, expected {expected_by_kernel}; plain calls "
+          f"{counts}", flush=True)
+    if (launches != expected or by_kernel != expected_by_kernel
+            or any(counts.values())):
         raise AssertionError(f"generate: launches {launches} (expected "
-                             f"{expected}), plain calls {counts}")
+                             f"{expected}), by kernel {by_kernel} (expected "
+                             f"{expected_by_kernel}), plain calls {counts}")
     if tokens.shape != (B, new) or not ((tokens >= 0)
                                         & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned {tokens.shape} tokens out "
                              "of the vocabulary")
     out.update(prefill_ms=1e3 * stats.prefill_s, decode_ms_per_step=decode_ms,
-               tokens_per_s=stats.tokens_per_s, generate_launches=launches)
+               tokens_per_s=stats.tokens_per_s, generate_launches=launches,
+               generate_launches_by_kernel=by_kernel)
     out["busy"] = _busy(lambda: engine.generate(prompts, new),
                         f"zoo generate {arch} {B} x {S} + {new}, bf16")
 
@@ -2326,6 +2562,7 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in kernels}
+    serve_by_kernel = _by_kernel(kernels)
     finished = sorted(r.uid for r in done)
     ok = finished == list(range(len(reqs))) and all(
         len(r.generated) == r.max_new_tokens
@@ -2334,11 +2571,14 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     # does, so its count is a multiple of the count per forward
     whole = all(launches[w.__name__] % n == 0 if n else
                 not launches[w.__name__] for w, n in kernels.items())
+    # bf16 at D % 8 == 0: never the SIMT kernel
+    whole = whole and not any(c["simt"] for c in serve_by_kernel.values())
     print(f"zoo serve {arch}: {len(reqs)} requests (prompts "
           f"{SERVE_PROMPT_LENS}, new tokens {SERVE_NEW_TOKENS}) on "
           f"{SERVE_SLOTS} slots in {wall:.3f} s, "
           f"{sum(r.max_new_tokens for r in reqs)} tokens, finished at ticks "
-          f"{[r.finished_at for r in done]}; launches {launches} "
+          f"{[r.finished_at for r in done]}; launches {launches}, by kernel "
+          f"{serve_by_kernel} "
           f"{'whole forwards' if whole else 'NOT whole forwards'}; every "
           f"request "
           f"{'finished with its max_new_tokens' if ok else 'NOT finished'}",
@@ -2346,15 +2586,25 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     if not ok or not whole:
         raise AssertionError(f"serve finished {finished}, launches "
                              f"{launches}")
-    out.update(serve_wall_s=wall, serve_launches=launches)
+    out.update(serve_wall_s=wall, serve_launches=launches,
+               serve_launches_by_kernel=serve_by_kernel)
     del engine, params
     torch.cuda.empty_cache()
     return out
 
 
+def _by_kernel(wrappers) -> dict:
+    """Launches by kernel of each wrapper that counts them (flash
+    attention's three)."""
+    return {w.__name__: dict(w.launches_by_kernel) for w in wrappers
+            if hasattr(w, "launches_by_kernel")}
+
+
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+        if hasattr(w, "launches_by_kernel"):  # flash attention's three
+            w.launches_by_kernel = dict.fromkeys(w.launches_by_kernel, 0)
 
 
 def main() -> int:
@@ -2414,6 +2664,10 @@ def main() -> int:
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
           flush=True)
+    ptxas = {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get("flash_attention", "")).items() if "flash_" in n}
+    for n, info in ptxas.items():
+        print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
     fused = lstm_kernel.lstm_sequence_fused
@@ -2668,9 +2922,7 @@ def main() -> int:
                 numbers.update(device[B])
             device = device[TRAIN_SHAPES[0][0]]
         if kname == flash.__name__:
-            for label, numbers in row["by_shape"].items():
-                numbers.update(device[label])
-            device = device["prefill"]
+            device = row  # phase 3 profiled the flash kernels
         if kname in zoo_main:
             by_path = {f"{arch}_{what}": run[f"{what}_launches"][kname]
                        for arch, run in served.items()
@@ -2683,6 +2935,13 @@ def main() -> int:
                        **{path: counts.get(kname, 0)
                           for path, counts in bus_launches.items()},
                        "scan": scan["launches"].get(kname, 0)}
+        if kname == flash.__name__:
+            row["launches_by_kernel_by_path"] = {
+                f"{arch}_{what}": run[f"{what}_launches_by_kernel"][kname]
+                for arch, run in served.items()
+                for what in ("generate", "serve")
+                if run[f"{what}_launches"][kname]}
+            row["ptxas"] = ptxas
         # each kernel's main path: training for the LSTM sequence kernels,
         # the scan for the one-step cell, the int8 bus replay for the int8
         # kernel, a served generate for the zoo's

@@ -22,8 +22,12 @@ from typing import Dict, Mapping, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+# -Xptxas -v: the compiler's registers, shared memory and spills of every
+# kernel, kept in LOGS
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# library name -> the output of its last build in this process
+LOGS: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -42,8 +46,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """The library's path, named by a hash of the flags, the sources and
+    the headers (``*.cuh``) beside them."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({h for src in sources
+                      for h in Path(src).parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         digest.update(Path(src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -76,6 +84,7 @@ def build_all(libraries: Mapping[str, Sequence[Path]]) -> Dict[str, float]:
         try:
             log, _ = proc.communicate()
             seconds[name] = time.perf_counter() - t0
+            LOGS[name] = log
             if proc.returncode == 0:
                 os.replace(tmp, out)
             else:

@@ -2,10 +2,20 @@
 //   o (B, Sq, Hq, D) = softmax(mask(q k^T * scale)) v
 //
 // It replaces the Pallas TPU kernel
-//   src/repro/kernels/flash_attention/kernel.py: flash_attention (_fa_kernel),
+//   src/repro/kernels/flash_attention/kernel.py: flash_attention (:83,
+//   its pallas_call at :121; _fa_kernel),
 // and serves every attention of the port's dense transformer: the prefill's
 // self attention (arange positions) and each decode step's attention against
 // the KV cache (the cache's positions, -1 on an unwritten slot).
+//
+// The C entry point at the end launches one of three kernels, one launch a
+// call, by the rule of kernel.py: kernel_for:
+//   * (query, head) rows a KV head Sq * G <= 64, float32 or bf16: kernel B,
+//     the split-Sk decode (flash_decode.cu);
+//   * otherwise bf16 with D % 8 == 0: kernel A, the wgmma + TMA prefill
+//     (flash_prefill.cu);
+//   * otherwise (a float32 prefill, bf16 with D % 8 != 0): the SIMT kernel
+//     of this file.
 //
 // Layouts are the port's public ones, row-major and contiguous, with no
 // transpose and no repeat of the KV heads:
@@ -20,13 +30,15 @@
 // reference's models/attention.py: attend.  The statistics are the
 // reference's online softmax in float32 (running max m, sum l, accumulator
 // acc; a fully masked row keeps m at -1e30 and returns acc / max(l, 1e-30)
-// = 0); bf16 inputs are converted to float32 on load, exp is expf.
+// = 0); bf16 inputs are converted to float32 on load, exp is expf.  With
+// p_bf16 (the reference's attend(p_dtype=bfloat16)) p and v are rounded to
+// bf16 before the P V product, which accumulates in f32.
 //
-// What bounds it: at the served shapes (TinyLlama-1.1B, one layer) the
-// prefill moves ~19 MB and does ~4.3 GFLOP causal (a bound of ~5.6 us, set
-// by the bytes at 3.35 TB/s), and a decode step reads the 2.2 MB bf16 KV
-// cache (~0.67 us).  This first design is the simple one, on the CUDA cores
-// in float32, and sits far above both:
+// The SIMT kernel.  What bounds it: its own arithmetic.  At the served
+// float32 shapes the bytes (~38 MB for a TinyLlama-1.1B prefill layer) set
+// the function's bound, but this kernel runs every product as an f32 FMA
+// on the CUDA cores (67 TFLOP/s at most): float32 stays off the tensor
+// cores, since TF32 would break the float32 tolerance.  Its design:
 //   * one block of 256 threads owns 64 rows of one (batch, KV head): the
 //     rows are the (query, head) pairs of that KV head's group, query-major,
 //     so a K/V tile staged once in shared memory serves all G query heads
@@ -41,14 +53,9 @@
 //     masked tile leaves m, l and acc as they were;
 //   * every ragged edge is guarded: any Sq and Sk, any D <= 128 (D = 120
 //     included), no padding copies.
-// At decode (Sq = 1) a block has only G = 8 live rows and the grid has
-// B * Hkv blocks (16 at the served shape, on 132 SMs): the redesign is a
-// split over Sk with a fixed-order combine pass (flash-decoding).  No wgmma,
-// no TMA: those are for a later design.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "hopper.cuh"
+
 #include <limits.h>
-#include <stdint.h>
 
 namespace {
 
@@ -56,7 +63,7 @@ constexpr int kRows = 64;      // (query, head) rows per block
 constexpr int kKeys = 64;      // keys per staged K/V tile: two per lane
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
+using flash::kNegInf;
 static_assert(kKeys == 64, "the softmax phase gives each lane two keys");
 static_assert(kRows * 4 == kThreads, "P V gives each row four threads");
 static_assert(kRows * kKeys == kThreads * 16, "scores: 4 x 4 a thread");
@@ -93,7 +100,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, T* __restrict__ o,
                        int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                       int window, float scale) {
+                       int window, float scale, int p_bf16) {
   extern __shared__ float smem[];
   const int ks = odd_stride(D);
   float* qs = smem;                         // [kRows][ks]
@@ -174,7 +181,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         vx = to_f32(v[off]);
       }
       kt[j * ks + d] = kx;
-      vt[j * D + d] = vx;
+      vt[j * D + d] = p_bf16 ? flash::round_bf16(vx) : vx;
     }
     __syncthreads();
 
@@ -235,8 +242,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_safe = m_new <= kNegInf / 2 ? 0.0f : m_new;
       const float p0 = s0 > kNegInf / 2 ? expf(s0 - m_safe) : 0.0f;
       const float p1 = s1 > kNegInf / 2 ? expf(s1 - m_safe) : 0.0f;
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
+      srow[lane] = p_bf16 ? flash::round_bf16(p0) : p0;
+      srow[lane + 32] = p_bf16 ? flash::round_bf16(p1) : p1;
       float sum = p0 + p1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -284,7 +291,7 @@ template <typename T, int kMaxD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, const void* kv_pos, void* o, int B,
                    int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, int p_bf16, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, kMaxD>,
@@ -296,7 +303,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<T*>(o), Sq, Sk, Hq, Hkv, D,
-      causal, window, scale);
+      causal, window, scale, p_bf16);
   return cudaGetLastError();
 }
 
@@ -304,24 +311,35 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* q_pos, const void* kv_pos, void* o, int B,
                      int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                     int window, float scale, cudaStream_t stream) {
+                     int window, float scale, int p_bf16,
+                     cudaStream_t stream) {
   return D <= 64 ? launch<T, 64>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                                 Hkv, D, causal, window, scale, stream)
+                                 Hkv, D, causal, window, scale, p_bf16, stream)
                  : launch<T, 128>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                                  Hkv, D, causal, window, scale, stream);
+                                  Hkv, D, causal, window, scale, p_bf16,
+                                  stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// is_bf16 selects bfloat16 q, k, v and o; otherwise all four are float32.
+// Launches kernel `kernel` (flash::Kernel: 0 the SIMT kernel, 1 the wgmma
+// prefill, 2 the split decode) on `stream` and returns cudaGetLastError()
+// (0 on success).  is_bf16 selects bfloat16 q, k, v and o, otherwise all
+// four are float32; p_bf16 rounds p and v to bf16 before P V.  The split
+// decode takes `scratch` (2 + D floats for each of the B Hkv Sq G rows and
+// each split of 64 keys) and `counters` (B Hkv ints, zero before the first
+// call, left zero by every call); the others take null.  A kernel that
+// cannot take the call (A: float32, D % 8 != 0 or a k or v not 16-byte
+// aligned; B: more than 64 rows a KV head) is refused with
+// cudaErrorInvalidValue, as is a shape out of range.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* kv_pos, void* o,
                             int B, int Sq, int Sk, int Hq, int Hkv, int D,
                             int causal, int window, float scale, int is_bf16,
-                            void* stream) {
+                            int p_bf16, int kernel, void* scratch,
+                            void* counters, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Sk < 0 || Hkv < 1 || Hq % Hkv != 0 || D < 1 || D > 128 || B > 65535 ||
       Hkv > 65535 ||
@@ -329,11 +347,29 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
           INT_MAX)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk,
-                                        Hq, Hkv, D, causal, window, scale, s)
-              : launch_d<float>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv,
-                                D, causal, window, scale, s));
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* kp = static_cast<const int*>(kv_pos);
+  switch (kernel) {
+    case flash::kSimt:
+      return static_cast<int>(
+          is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, q_pos, kv_pos, o, B, Sq,
+                                            Sk, Hq, Hkv, D, causal, window,
+                                            scale, p_bf16, s)
+                  : launch_d<float>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq,
+                                    Hkv, D, causal, window, scale, p_bf16, s));
+    case flash::kPrefillWgmma:
+      if (!is_bf16) return cudaErrorInvalidValue;
+      return static_cast<int>(flash_prefill_wgmma_launch(
+          q, k, v, qp, kp, o, B, Sq, Sk, Hq, Hkv, D, causal, window, scale,
+          p_bf16, s));
+    case flash::kDecodeSplit:
+      return static_cast<int>(flash_decode_split_launch(
+          q, k, v, qp, kp, o, static_cast<float*>(scratch),
+          static_cast<int*>(counters), B, Sq, Sk, Hq, Hkv, D, causal, window,
+          scale, is_bf16, p_bf16, s));
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

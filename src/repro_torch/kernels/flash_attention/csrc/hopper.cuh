@@ -1,0 +1,177 @@
+// Hopper (sm_90a) primitives for the flash-attention kernels, as inline
+// PTX: mbarriers, TMA tile loads, the wgmma shared-memory descriptor and
+// the one wgmma shape the prefill uses, and the position mask every kernel
+// of flash_attention.cu, flash_prefill.cu and flash_decode.cu shares.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;
+
+// The kernels of one call, as the C entry point names them.
+enum Kernel : int { kSimt = 0, kPrefillWgmma = 1, kDecodeSplit = 2 };
+
+// Slot position kp counts for the query at position qp: written, not after
+// the query when causal, less than `window` behind it when window > 0 (the
+// mask of the reference's models/attention.py: attend).
+__device__ __forceinline__ bool attends(int kp, int qp, int causal,
+                                        int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// two floats as one register of two bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of transactions to come
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+// One 4-d box of `map` at coordinates (c0, c1, c2, c3), innermost first,
+// into shared memory at `dst`; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a tile in the 128-byte swizzle that
+// TMA writes (8 rows of 128 bytes to a 1024-byte atom): start address,
+// leading and stride byte offsets, layout type 1 (SWIZZLE_128B).  The atom
+// must be 1024-byte aligned; the start may move by 32 bytes inside it to
+// step along K of a K-major tile.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFull) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) = a (64 x 16, bf16, registers) * b (16 x 64, bf16, shared
+// memory at desc_b) + (accumulate ? d : 0), issued by one warpgroup.
+// kTransB = 0 reads b K-major (each of b's 64 columns is 16 contiguous
+// values of K), 1 MN-major (each of b's 16 rows is 64 contiguous values).
+// Thread (warp w, lane l) of the warpgroup holds rows 16w + l/4 and
+// 16w + l/4 + 8: d[4j + e] and d[4j + 2 + e] at column 8j + 2(l%4) + e;
+// a[0..3] the same rows at columns {2(l%4), +1}, {+8, +9} of the 16.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+}  // namespace flash
+
+// Launchers of the two Hopper kernels (flash_prefill.cu, flash_decode.cu),
+// called by the C entry point in flash_attention.cu.
+cudaError_t flash_prefill_wgmma_launch(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* kv_pos, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    int causal, int window, float scale, int p_bf16, cudaStream_t stream);
+
+cudaError_t flash_decode_split_launch(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* kv_pos, void* o, float* scratch, int* counters, int B, int Sq,
+    int Sk, int Hq, int Hkv, int D, int causal, int window, float scale,
+    int is_bf16, int p_bf16, cudaStream_t stream);

@@ -1,5 +1,4 @@
-"""Flash attention on the card: the wrapper around
-``csrc/flash_attention.cu``.
+"""Flash attention on the card: the wrapper around ``csrc/``.
 
 ``flash_attention`` replaces the Pallas TPU kernel of
 ``src/repro/kernels/flash_attention/kernel.py``: grouped-query attention
@@ -7,60 +6,112 @@ over explicit positions, q (B,Sq,Hq,D) against k, v (B,Sk,Hkv,D) in float32
 or bfloat16, ``q_pos`` (B,Sq) and ``kv_pos`` (B,Sk) int32 with -1 on an
 unwritten slot, causal and an optional sliding window; the output is
 (B,Sq,Hq,D) in q's dtype, the statistics float32.  What bounds it: the
-bytes of q, k, v and o at the served shapes (see the source for the design
-and its distance from the bound).
+bytes of q, k, v and o at the served shapes (see the sources for each
+design and its distance from the bound).
 
-The wrapper checks its inputs, allocates the output with ``torch.empty``,
-launches on the current CUDA stream, raises when the launch fails, and
-counts its successful launches in a plain integer ``.launches``; with no
-query rows it returns without launching or counting.  The library builds
-with ``nvcc`` at the first launch (``kernels/_build``); ``LIBRARIES`` names
-it for a caller that builds every library up front.
+One library holds three kernels, and every call launches exactly one of
+them, by ``kernel_for``:
+
+- ``decode_split`` (``csrc/flash_decode.cu``): Sq * G <= 64 rows a KV
+  head, float32 or bf16, rows of 16-byte multiples -- every decode step.
+  A split over Sk of 64 keys a block, combined in split order by the last
+  block to finish;
+- ``prefill_wgmma`` (``csrc/flash_prefill.cu``): otherwise bf16 with
+  D % 8 == 0 -- the bf16 prefill on the tensor cores, K and V through TMA;
+- ``simt`` (``csrc/flash_attention.cu``): everything else (a float32
+  prefill, rows that are not 16-byte multiples), on the CUDA cores in
+  float32.
+
+The wrapper checks its inputs, allocates the output and the split
+decode's scratch with ``torch.empty``, copies a view that does not start
+on 16 bytes where the kernel loads 16-byte vectors, launches on the
+current CUDA stream, raises when the launch fails, and counts its
+successful launches in ``.launches`` and by kernel in
+``.launches_by_kernel``; with no query rows it returns without launching
+or counting.  The split decode's arrival counters live in one buffer a
+(device, stream), zeroed once and left zero by every call.  The library builds with ``nvcc`` at the first launch
+(``kernels/_build``); ``LIBRARIES`` names it for a caller that builds
+every library up front.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
+PREFILL_SOURCE = CSRC / "flash_prefill.cu"
+DECODE_SOURCE = CSRC / "flash_decode.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"flash_attention": [SOURCE]}
-# the kernel's largest head dim, and its (query, head) rows per block
+LIBRARIES = {"flash_attention": [SOURCE, PREFILL_SOURCE, DECODE_SOURCE]}
+# the kernels' largest head dim, and the SIMT kernel's rows per block
 MAX_HEAD_DIM = 128
 BLOCK_ROWS = 64
+# the split decode takes calls of at most this many (query, head) rows a
+# KV head, and splits the keys in runs of DECODE_SPLIT
+DECODE_MAX_ROWS = 64
+DECODE_SPLIT = 64
+# the kernels by name, as the C entry point numbers them
+KERNELS = {"simt": 0, "prefill_wgmma": 1, "decode_split": 2}
+
+
+def kernel_for(Sq: int, Hq: int, Hkv: int, D: int,
+               dtype: torch.dtype) -> str:
+    """The kernel that takes a call whose rows are D elements of
+    ``dtype``: where a row is a 16-byte multiple (D % 8 == 0 in bf16,
+    D % 4 == 0 in float32), ``decode_split`` for Sq * (Hq/Hkv) <= 64 rows
+    a KV head and otherwise, in bf16, ``prefill_wgmma`` (both load rows in
+    16-byte pieces, and TMA needs 16-byte strides); everything else
+    ``simt``."""
+    row16 = D * (2 if dtype == torch.bfloat16 else 4) % 16 == 0
+    if row16 and Sq * (Hq // Hkv) <= DECODE_MAX_ROWS:
+        return "decode_split"
+    if row16 and dtype == torch.bfloat16:
+        return "prefill_wgmma"
+    return "simt"
+
+
+def decode_scratch_numel(B: int, Sq: int, Sk: int, Hq: int, Hkv: int,
+                         D: int) -> int:
+    """Floats of the split decode's scratch: (m, l, acc[D]) for each of the
+    B * Hkv * Sq * G rows and each split of DECODE_SPLIT keys."""
+    splits = max(1, -(-Sk // DECODE_SPLIT))
+    return B * Sq * Hq * splits * (D + 2)
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernel's library, built (or loaded) at the first call."""
+    """The kernels' library, built (or loaded) at the first call."""
     lib = _build.load_library("flash_attention",
                               LIBRARIES["flash_attention"])
     lib.flash_attention_forward.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     lib.flash_attention_forward.restype = ctypes.c_int
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel on the current CUDA stream.
+# (device, stream) -> the split decode's arrival counters (int32, all zero
+# between calls): calls on one stream run in order, and two in flight on
+# two streams must not share a buffer
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
-    q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), one dtype (float32 or bfloat16);
-    q_pos (B,Sq) and kv_pos (B,Sk) int32; all contiguous on one CUDA
-    device; Hq a multiple of Hkv and D <= 128.  ``scale`` defaults to
-    D**-0.5.  Returns (B,Sq,Hq,D) in q's dtype.  Raises on anything else,
-    and when the launch fails."""
-    name = "flash_attention"
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
+
+
+def _check(name, q, k, v, q_pos, kv_pos):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: expected q (B,Sq,Hq,D), k and v "
                          f"(B,Sk,Hkv,D); got {tuple(q.shape)}, "
@@ -93,24 +144,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_pos: torch.Tensor, kv_pos: torch.Tensor, *, kernel: str,
+            causal: bool = True, window: int = 0,
+            scale: Optional[float] = None,
+            p_bf16: bool = False) -> torch.Tensor:
+    """Check the inputs as ``flash_attention`` does, launch the named
+    kernel (a key of ``KERNELS``) whatever ``kernel_for`` would pick, and
+    return the output; counts nothing.  For ``chip_smoke.py``, which times
+    one kernel against another at one shape; the port's path never calls
+    it.  Raises when the kernel cannot take the call or the launch
+    fails."""
+    _check("flash_attention", q, k, v, q_pos, kv_pos)
+    return _run(q, k, v, q_pos, kv_pos, kernel, causal, window, scale,
+                p_bf16)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _run(q, k, v, q_pos, kv_pos, kernel, causal, window, scale, p_bf16):
+    """The launch itself, on inputs ``_check`` has passed."""
+    name = "flash_attention"
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    if B == 0 or Sq == 0:  # nothing to launch, nothing counted
+    if B == 0 or Sq == 0:
         return o
+    # the two Hopper kernels read q, k and v in pieces of up to 16 bytes
+    # (TMA, vector loads) from 16-byte aligned starts; a view that starts
+    # elsewhere is copied once
+    if kernel != "simt":
+        q, k, v = (_aligned(t) for t in (q, k, v))
     scale = D**-0.5 if scale is None else float(scale)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch = counters = None
+        if kernel == "decode_split":
+            scratch = torch.empty(
+                decode_scratch_numel(B, Sq, Sk, Hq, Hkv, D),
+                dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, stream, B * Hkv)
         err = library().flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), o.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
             int(causal), int(window), scale, int(q.dtype == torch.bfloat16),
-            stream)
+            int(p_bf16), KERNELS[kernel],
+            None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           f"(B={B}, Sq={Sq}, Sk={Sk}, Hq={Hq}, Hkv={Hkv}, "
-                           f"D={D}, {q.dtype})")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{name}: launch of {kernel} failed with CUDA "
+                           f"error {err} (B={B}, Sq={Sq}, Sk={Sk}, Hq={Hq}, "
+                           f"Hkv={Hkv}, D={D}, {q.dtype})")
     return o
 
 
-# launches of the kernel since the last reset; only a successful launch counts
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    p_bf16: bool = False) -> torch.Tensor:
+    """Launch the kernel ``kernel_for`` picks on the current CUDA stream.
+
+    q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), one dtype (float32 or bfloat16);
+    q_pos (B,Sq) and kv_pos (B,Sk) int32; all contiguous on one CUDA
+    device; Hq a multiple of Hkv and D <= 128.  ``scale`` defaults to
+    D**-0.5; ``p_bf16`` rounds p and v to bf16 before the P V product (the
+    reference's ``attend(p_dtype=bfloat16)``).  Returns (B,Sq,Hq,D) in q's
+    dtype.  Raises on anything else, and when the launch fails."""
+    _check("flash_attention", q, k, v, q_pos, kv_pos)
+    B, Sq, Hq, D = q.shape
+    which = kernel_for(Sq, Hq, k.shape[2], D, q.dtype)
+    o = _run(q, k, v, q_pos, kv_pos, which, causal, window, scale, p_bf16)
+    if B and Sq:
+        flash_attention.launches += 1
+        flash_attention.launches_by_kernel[which] += 1
+    return o
+
+
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)

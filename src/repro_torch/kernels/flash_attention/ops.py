@@ -20,18 +20,26 @@ from repro_torch.kernels.flash_attention import kernel, ref
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                  causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None,
+                 p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), q_pos (B,Sq), kv_pos (B,Sk)
-    with -1 on an unwritten slot -> (B,Sq,Hq,D) in ``q.dtype``."""
+    with -1 on an unwritten slot -> (B,Sq,Hq,D) in ``q.dtype``.
+    ``p_dtype`` bfloat16 rounds p and v to bf16 before the P V product (f32
+    accumulation); None or float32 keeps p in f32."""
+    if p_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attend: p_dtype {p_dtype} is not float32 "
+                         "or bfloat16")
+    p_bf16 = p_dtype == torch.bfloat16
     if q.device.type == "cuda":
         return kernel.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             q_pos.to(torch.int32).contiguous(),
             kv_pos.to(torch.int32).contiguous(),
-            causal=causal, window=window, scale=scale)
+            causal=causal, window=window, scale=scale, p_bf16=p_bf16)
     if q.device.type == "cpu":
         return ref.attend_full_ref(q, k, v, q_pos, kv_pos, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale,
+                                   p_dtype=torch.bfloat16 if p_bf16 else None)
     raise ValueError(f"flash_attend: unsupported device {q.device}")
 
 

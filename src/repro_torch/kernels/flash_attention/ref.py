@@ -8,6 +8,12 @@ reference's ``models/attention.py: attend_full_ref``: q (B,Sq,Hq,D), k and
 v (B,Sk,Hkv,D), ``kv_pos`` -1 on an unwritten slot.  ``attention_ref`` is
 the counterpart of ``kernels/flash_attention/ref.py: attention_ref``, the
 (B,H,S,D) layout with arange positions.
+
+Two more compute the same function by the algorithms of the card's
+kernels, so that the CPU tests can hold each algorithm to the reference:
+``flash_decode_split_ref`` is the split decode's (per-split statistics,
+then the combine in split order), ``attend_tc_ref`` the tensor-core
+prefill's (bf16 operands, P applied as P_hi + P_lo in bf16).
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ def position_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
 def attend_full_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Grouped-query attention over explicit positions, in float32; returns
-    (B,Sq,Hq,D) in ``q.dtype``.  A row with no slot to attend gives 0."""
+    (B,Sq,Hq,D) in ``q.dtype``.  A row with no slot to attend gives 0.
+    ``p_dtype`` rounds the probabilities and v to it before p v."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -47,7 +55,10 @@ def attend_full_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = position_mask(q_pos, kv_pos, causal, window)[:, :, None, None, :]
     s = torch.where(mask, s, NEG_INF)
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
-    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    vf = v.float()
+    if p_dtype is not None:
+        p, vf = p.to(p_dtype).float(), v.to(p_dtype).float()
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, vf)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
@@ -64,3 +75,106 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         arange_positions(B, Sq, q.device), arange_positions(B, Sk, q.device),
         causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def _scores(qg, kk, q_pos, pos, causal, window, scale):
+    """Masked f32 scores (B,Sq,Hkv,G,C) of a run of keys, and the mask."""
+    s = torch.einsum("bqhgd,bchd->bqhgc", qg, kk) * scale
+    mask = position_mask(q_pos, pos, causal, window)[:, :, None, None, :]
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           scale: Optional[float] = None, split: int = 64,
+                           p_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """The split decode's algorithm (``csrc/flash_decode.cu``): for each
+    run of ``split`` keys the partial statistics in f32 -- m the run's
+    largest score (-1e30 where the row attends no slot of it), l = sum p,
+    acc = p v with p = exp(s - m) -- then the combine in split order:
+    o = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30), M the
+    largest m_s, splits without a slot left out; a row with none gives 0.
+    With ``p_dtype`` p and v are rounded to it before p v (l keeps the f32
+    p).  Returns (B,Sq,Hq,D) in ``q.dtype``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D**-0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    out = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32,
+                      device=q.device)
+    parts = []
+    for k0 in range(0, Sk, split):
+        kk, vv = k[:, k0:k0 + split].float(), v[:, k0:k0 + split].float()
+        s, mask = _scores(qg, kk, q_pos, kv_pos[:, k0:k0 + split], causal,
+                          window, scale)
+        m = s.amax(dim=-1)
+        empty = m <= NEG_INF / 2
+        p = torch.where(mask, torch.exp(s - torch.where(empty, 0.0, m)[
+            ..., None]), 0.0)
+        pv = p if p_dtype is None else p.to(p_dtype).float()
+        vv = vv if p_dtype is None else vv.to(p_dtype).float()
+        parts.append((torch.where(empty, NEG_INF, m), p.sum(dim=-1),
+                      torch.einsum("bqhgc,bchd->bqhgd", pv, vv)))
+    if not parts:
+        return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    dead = M <= NEG_INF / 2
+    M = torch.where(dead, 0.0, M)
+    L = torch.zeros_like(M)
+    for m, l, acc in parts:  # in split order
+        w = torch.where(m > NEG_INF / 2, torch.exp(m - M), 0.0)
+        L = L + l * w
+        out = out + acc * w[..., None]
+    out = torch.where(dead[..., None], 0.0,
+                      out / torch.clamp(L, min=1e-30)[..., None])
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attend_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None, tile: int = 64,
+                  p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The tensor-core prefill's algorithm (``csrc/flash_prefill.cu``):
+    q, k and v rounded to bf16; per tile of ``tile`` keys the f32 scores
+    (the bf16 products summed in f32) and the online-softmax update in f32;
+    P applied as P_hi + P_lo against bf16 V, accumulated in f32: P_hi is P
+    cut to its top 16 bits (a bf16 value), P_lo = bf16(P - P_hi), so the
+    two carry P to ~2^-16 of itself (``p_dtype`` bfloat16: bf16(P) alone,
+    rounded to nearest, the reference's ``attend(p_dtype=bfloat16)``).
+    Returns (B,Sq,Hq,D) in ``q.dtype``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D**-0.5 if scale is None else scale
+    bf = torch.bfloat16
+    qg = q.reshape(B, Sq, Hkv, G, D).to(bf).float()
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, Sk, tile):
+        kk = k[:, k0:k0 + tile].to(bf).float()
+        vv = v[:, k0:k0 + tile].to(bf).float()
+        s, mask = _scores(qg, kk, q_pos, kv_pos[:, k0:k0 + tile], causal,
+                          window, scale)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+        l = l * corr + p.sum(dim=-1)
+        if p_dtype is None:
+            p_hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            pv = torch.einsum("bqhgc,bchd->bqhgd", p_hi, vv)
+            pv = pv + torch.einsum("bqhgc,bchd->bqhgd",
+                                   (p - p_hi).to(bf).float(), vv)
+        else:
+            pv = torch.einsum("bqhgc,bchd->bqhgd", p.to(bf).float(), vv)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)

@@ -51,17 +51,15 @@ def attend(
 ) -> torch.Tensor:
     """Grouped-query attention; returns (B, Sq, Hq, D) in q.dtype.
 
-    On a CUDA device: the flash kernel, which tiles on its own (``chunk``
-    is the CPU scan's KV chunk and is not read) and keeps p in float32; a
-    ``p_dtype`` other than float32 raises there.  On the CPU: the chunked
-    scan, ``chunk`` keys a step."""
+    On a CUDA device: the flash kernels, which tile on their own
+    (``chunk`` is the CPU scan's KV chunk and is not read); p stays in
+    float32, or with ``p_dtype`` bfloat16 p and v are rounded to bf16 before
+    the P V product, accumulated in f32, as the reference's.  On the CPU:
+    the chunked scan, ``chunk`` keys a step."""
     if q.device.type == "cuda":
-        if p_dtype not in (None, torch.float32):
-            raise ValueError(
-                f"attend: the flash kernel keeps p in float32; p_dtype "
-                f"{p_dtype} is not implemented on the card")
         return flash_ops.flash_attend(q, k, v, q_pos, kv_pos, causal=causal,
-                                      window=window, scale=scale)
+                                      window=window, scale=scale,
+                                      p_dtype=p_dtype)
     if q.device.type != "cpu":
         raise ValueError(f"attend: unsupported device {q.device}")
     return _attend_chunked(q, k, v, q_pos, kv_pos, causal=causal,

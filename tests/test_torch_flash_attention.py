@@ -170,3 +170,251 @@ def test_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="do not match"):
         kernel.flash_attention(q, kv, kv, pos[:, :3], pos)
     assert kernel.flash_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The algorithms of the card's kernels (kernels/flash_attention/ref.py:
+# flash_decode_split_ref, the split decode's; attend_tc_ref, the wgmma
+# prefill's) held to the reference
+# ---------------------------------------------------------------------------
+
+# attend_tc_ref on bf16 values against the reference in float32: P carries
+# ~16 bits as P_hi + P_lo (P_hi its top 16 bits, |P - P_hi| < 2^-7 P, and
+# P_lo that rest rounded to bf16, |P - P_hi - P_lo| <= 2^-16 P), so the
+# output moves by at most ~2^-16 max|v| ~ 6e-5 at |v| <= 4 (standard
+# normal v)
+TC_ATOL = 1e-4
+# bf16 outputs of two f32 computations of one function: one bf16 rounding
+# step (2^-8 relative) apart at most, where the f32 values straddle it
+BF16_ATOL = 1e-2
+
+
+def _layout(kind, B, Sq, Sk, seed):
+    """q_pos (B,Sq) and kv_pos (B,Sk) int32 and a window: "decode" (each
+    query at its own position, later slots and 20% of the rest unwritten),
+    "prefill" (queries at the last Sq positions, 20% of the slots
+    unwritten), "ring" (a ring buffer: positions Sk//3 .. at slot position
+    % Sk, so kv_pos is not sorted; every 5th slot unwritten; a window),
+    "dead" (batch row 0 with no written slot, a hole of 21 slots in row
+    1)."""
+    rng = np.random.default_rng(seed)
+    kv = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    q = np.tile(np.arange(Sk - Sq, Sk, dtype=np.int32), (B, 1))
+    window = 0
+    if kind == "decode":
+        q = rng.integers(Sk // 2, Sk, (B, Sq)).astype(np.int32)
+        kv[kv > q.max(axis=1, keepdims=True)] = -1
+        kv[rng.random((B, Sk)) < 0.2] = -1
+    elif kind == "prefill":
+        kv[rng.random((B, Sk)) < 0.2] = -1
+    elif kind == "ring":
+        pos = np.arange(Sk // 3, Sk // 3 + Sk, dtype=np.int32)
+        kv[:, pos % Sk] = pos
+        kv[:, ::5] = -1
+        q = np.tile(pos[Sk - Sq:], (B, 1))
+        window = 24
+    elif kind == "dead":
+        kv[0] = -1
+        kv[min(1, B - 1), 10:31] = -1
+    return q, kv, window
+
+
+def _bf16_values(a):
+    """float32 values that bf16 holds exactly."""
+    return torch.tensor(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("split", [1, 7, 64, 200])
+@pytest.mark.parametrize("kind", ["decode", "prefill", "ring", "dead"])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 4)])
+def test_decode_split_ref_matches_reference(split, kind, Hq, Hkv):
+    """The split decode's algorithm at split sizes 1, 7, 64 and >= Sk,
+    GQA and MHA, with holes, unsorted positions, a window, fully masked
+    splits and rows, against the reference's attend_full_ref in float32."""
+    B, Sq, Sk, D = 3, 2 if kind != "prefill" else 6, 70, 16
+    q, k, v = _normal(7, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    q_pos, kv_pos, window = _layout(kind, B, Sq, Sk, seed=8)
+    want = attend_full_jax(*map(jnp.asarray, (q, k, v, q_pos, kv_pos)),
+                           causal=True, window=window)
+    got = ref.flash_decode_split_ref(
+        *map(torch.tensor, (q, k, v, q_pos, kv_pos)), causal=True,
+        window=window, split=split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    if kind == "dead":
+        assert (got[0] == 0).all() and got[1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("split", [7, 64])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_decode_split_ref_matches_pallas_kernel(split, causal, window):
+    """At arange positions, the reference's Pallas kernel in interpret mode
+    (MHA, the (B,H,S,D) layout)."""
+    B, H, S, D = 2, 2, 100, 32
+    q, k, v = _normal(9, *[(B, H, S, D)] * 3)
+    want = pallas_fa(*map(jnp.asarray, (q, k, v)), causal=causal,
+                     window=window, block_q=64, block_k=64, interpret=True)
+    qt, kt, vt = (torch.tensor(a).transpose(1, 2) for a in (q, k, v))
+    pos = ref.arange_positions(B, S, "cpu")
+    got = ref.flash_decode_split_ref(qt, kt, vt, pos, pos, causal=causal,
+                                     window=window, split=split)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["decode", "ring", "dead"])
+def test_decode_split_ref_bf16_matches_reference(kind):
+    """bf16 inputs and output against the reference's attend in bf16."""
+    B, Sq, Sk, Hq, Hkv, D = 2, 1, 150, 8, 2, 32
+    arrays = _normal(10, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in arrays)
+    q_pos, kv_pos, window = _layout(kind, B, Sq, Sk, seed=11)
+    want = attend_jax(qj, kj, vj, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                      causal=True, window=window, chunk=64)
+    got = ref.flash_decode_split_ref(qt, kt, vt, torch.tensor(q_pos),
+                                     torch.tensor(kv_pos), causal=True,
+                                     window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=BF16_ATOL,
+                               rtol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "ring", "dead"])
+@pytest.mark.parametrize("Hq,Hkv,D", [(8, 2, 64), (4, 4, 16), (4, 2, 120)])
+def test_attend_tc_ref_matches_reference(kind, Hq, Hkv, D):
+    """The wgmma prefill's algorithm on values bf16 holds exactly, against
+    the reference's attend_full_ref in float32, at TC_ATOL."""
+    B, Sq, Sk = 2, 40, 150
+    q, k, v = map(_bf16_values, _normal(
+        12, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    q_pos, kv_pos, window = _layout(kind, B, Sq, Sk, seed=13)
+    want = attend_full_jax(*map(jnp.asarray, (q, k, v, q_pos, kv_pos)),
+                           causal=True, window=window)
+    got = ref.attend_tc_ref(*map(torch.tensor, (q, k, v, q_pos, kv_pos)),
+                            causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TC_ATOL,
+                               rtol=TC_ATOL)
+
+
+def test_single_bf16_pass_of_p_is_another_result():
+    """One bf16 pass of P (p_dtype=bfloat16) moves the output well past
+    TC_ATOL where P_hi + P_lo stays inside it: the split is what keeps the
+    tensor cores' answer the reference's."""
+    B, Sq, Sk, Hq, Hkv, D = 2, 64, 256, 8, 2, 64
+    q, k, v = map(_bf16_values, _normal(
+        14, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    q_pos, kv_pos, _ = _layout("prefill", B, Sq, Sk, seed=15)
+    args = tuple(map(torch.tensor, (q, k, v, q_pos, kv_pos)))
+    want = ref.attend_full_ref(*args).numpy()
+    two = np.abs(ref.attend_tc_ref(*args).numpy() - want).max()
+    one = np.abs(ref.attend_tc_ref(*args, p_dtype=torch.bfloat16).numpy()
+                 - want).max()
+    assert two < TC_ATOL < one
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_attend_tc_ref_matches_pallas_kernel(causal, window):
+    """At arange positions, the reference's Pallas kernel in interpret mode
+    on the same bf16 values, in float32."""
+    B, H, S, D = 2, 2, 130, 32
+    q, k, v = map(_bf16_values, _normal(16, *[(B, H, S, D)] * 3))
+    want = pallas_fa(*map(jnp.asarray, (q, k, v)), causal=causal,
+                     window=window, block_q=64, block_k=64, interpret=True)
+    qt, kt, vt = (torch.tensor(a).transpose(1, 2) for a in (q, k, v))
+    pos = ref.arange_positions(B, S, "cpu")
+    got = ref.attend_tc_ref(qt, kt, vt, pos, pos, causal=causal,
+                            window=window)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=TC_ATOL, rtol=TC_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "ring", "dead"])
+def test_attend_tc_ref_bf16_matches_reference(kind):
+    """bf16 inputs and output against the reference's attend in bf16."""
+    B, Sq, Sk, Hq, Hkv, D = 2, 40, 150, 8, 2, 32
+    arrays = _normal(17, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in arrays)
+    q_pos, kv_pos, window = _layout(kind, B, Sq, Sk, seed=18)
+    want = attend_jax(qj, kj, vj, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                      causal=True, window=window, chunk=64)
+    got = ref.attend_tc_ref(qt, kt, vt, torch.tensor(q_pos),
+                            torch.tensor(kv_pos), causal=True, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=BF16_ATOL,
+                               rtol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("which", ["tc", "split", "flash_attend"])
+def test_p_dtype_bf16_matches_reference(which):
+    """p_dtype=bfloat16 (p and v rounded to bf16, f32 accumulation) against
+    the reference's attend(p_dtype=jnp.bfloat16).  The wgmma prefill's
+    algorithm rounds p where the reference's scan does (exp(s - running
+    max) of each 64-key chunk), but exp differs in its last bits between
+    XLA and PyTorch, so the few p that lie at a bf16 rounding boundary
+    round the other way: held at 1e-3.  The split decode rounds exp(s -
+    its split's max) and the plain path the normalized p, so those may
+    differ from the reference by one bf16 rounding of every p (2^-9
+    relative): |do| <= 2^-8 max|v| ~ 1.6e-2 at the most, held at 1e-2."""
+    B, Sq, Sk, Hq, Hkv, D = 2, 24, 150, 8, 2, 32
+    q, k, v = map(_bf16_values, _normal(
+        19, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    q_pos, kv_pos, _ = _layout("prefill", B, Sq, Sk, seed=20)
+    want = attend_jax(*map(jnp.asarray, (q, k, v, q_pos, kv_pos)),
+                      causal=True, chunk=64, p_dtype=jnp.bfloat16)
+    args = tuple(map(torch.tensor, (q, k, v, q_pos, kv_pos)))
+    fn, tol = {
+        "tc": (ref.attend_tc_ref, 1e-3),
+        "split": (ref.flash_decode_split_ref, BF16_ATOL),
+        "flash_attend": (ops.flash_attend, BF16_ATOL)}[which]
+    got = fn(*args, p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("Sq,Hq,Hkv,D,dtype,want", [
+    (1, 32, 4, 64, torch.bfloat16, "decode_split"),  # tinyllama's step
+    (1, 32, 32, 64, torch.float32, "decode_split"),  # zamba2's, float32
+    (8, 16, 2, 32, torch.bfloat16, "decode_split"),  # 64 rows exactly
+    (65, 4, 4, 32, torch.bfloat16, "prefill_wgmma"),  # 65 rows
+    (65, 4, 4, 32, torch.float32, "simt"),
+    (512, 32, 4, 64, torch.bfloat16, "prefill_wgmma"),  # the prefills
+    (512, 32, 32, 64, torch.bfloat16, "prefill_wgmma"),
+    (512, 32, 4, 64, torch.float32, "simt"),  # the float32 parity run
+    (200, 16, 2, 120, torch.bfloat16, "prefill_wgmma"),  # D % 8 == 0
+    (200, 16, 2, 20, torch.bfloat16, "simt"),  # D % 8 != 0
+    (3, 60, 1, 20, torch.bfloat16, "simt"),  # 180 rows, D % 8 != 0
+    # a decode step whose rows are not 16-byte multiples
+    (1, 60, 1, 20, torch.bfloat16, "simt"),
+    (1, 32, 32, 6, torch.float32, "simt"),
+    (1, 32, 32, 4, torch.float32, "decode_split"),  # 16-byte rows
+    (1, 32, 4, 8, torch.bfloat16, "decode_split"),
+    (1, 32, 32, 128, torch.float32, "decode_split"),
+])
+def test_kernel_for_follows_the_dispatch_table(Sq, Hq, Hkv, D, dtype, want):
+    assert kernel.kernel_for(Sq, Hq, Hkv, D, dtype) == want
+
+
+def test_decode_scratch_covers_every_row_and_split():
+    """(m, l, acc[D]) for each (batch, query, head) row and 64-key split;
+    one split when there is no key."""
+    assert kernel.decode_scratch_numel(4, 1, 544, 32, 4, 64) == (
+        4 * 32 * 9 * 66)
+    assert kernel.decode_scratch_numel(2, 1, 0, 8, 2, 16) == 2 * 8 * 18
+
+
+@pytest.mark.parametrize("which", ["simt", "prefill_wgmma", "decode_split"])
+def test_named_kernel_entry_refuses_cpu_tensors(which):
+    """``kernel._launch`` (chip_smoke.py's entry to one named kernel) checks
+    its inputs as ``flash_attention`` does: a CPU tensor never reaches a
+    launch, and nothing is counted."""
+    q = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
+    pos = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel._launch(q, kv, kv, pos, pos, kernel=which)
+    assert kernel.flash_attention.launches_by_kernel == dict.fromkeys(
+        kernel.KERNELS, 0)

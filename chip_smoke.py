@@ -8,12 +8,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the device: CUDA must be present; prints the card's name and
    ``nvidia-smi``'s name and power limit;
 2. the build: compiles every CUDA library of the port with ``nvcc`` from the
-   sources in this checkout, one ``nvcc`` per library, all at once;
+   sources in this checkout, one ``nvcc`` per library, all at once, and
+   prints ``-Xptxas -v``'s registers and spills of #6's kernels and of the
+   training pair's (#2, #3);
 3. the kernels: each kernel against its plain PyTorch version on the card
-   at the main paths' shapes and a few edge shapes (the backward also run
-   twice, bit for bit), then timed beside the plain version and the library
-   call that computes the same function (for the int8 matmul, which no one
-   PyTorch call computes, ``(x @ q.float()) * scale``; for the one-step
+   at the main paths' shapes and a few edge shapes (the training pair also
+   against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
+   with ragged tiles, one row and a long T; both kernels run twice, bit for
+   bit), then timed beside the plain version and the library call that
+   computes the same function (cuDNN's ``torch.nn.LSTM`` for #1-#3, by CUDA
+   events and by the profiler's device time; for the int8 matmul, which no
+   one PyTorch call computes, ``(x @ q.float()) * scale``; for the one-step
    LSTM cell #5, ``torch.lstm_cell``);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
@@ -140,9 +145,16 @@ KERNEL_CASES = [
 ]
 KERNEL_ATOL = 1e-5
 # the training pair: the speed fit's and the pretrain's step shapes, the
-# reference's gradient-test shapes, the backward's largest H (H=None), bf16
-# x, and bf16 weights (the backward then takes their float32 copies, as
-# ops.lstm_sequence hands them over)
+# reference's gradient-test shapes, the backward's largest H (H=None: one
+# step a chunk), bf16 x, and bf16 weights (the backward then takes their
+# float32 copies, as ops.lstm_sequence hands them over); then a ragged last
+# tile of both kernels' 2-row tiles at 4H = 160 (the reference's shapes
+# leave ragged tiles at their own widths too), one row, a long T (8 chunks
+# of 8 steps in both kernels), two H whose wh stays in shared memory
+# (H = 10, not a multiple of 4; H = 72 > 64), the second over two chunks,
+# and the largest H at F = 449, where #2's shared memory has no room for
+# x (read from global memory instead) and #3 runs one row and one step a
+# block
 TRAIN_SHAPES = ((64, 5, 5, 40), (256, 5, 5, 40))
 TRAIN_CASES = [
     (*TRAIN_SHAPES[0], "float32"),
@@ -153,6 +165,12 @@ TRAIN_CASES = [
     (64, 5, 5, None, "float32"),
     (*TRAIN_SHAPES[0], "bfloat16"),
     (*TRAIN_SHAPES[0], "float32", "bfloat16"),
+    (63, 5, 5, 40, "float32"),
+    (1, 5, 5, 40, "float32"),
+    (64, 64, 5, 40, "float32"),
+    (17, 6, 3, 10, "float32"),
+    (40, 9, 5, 72, "float32"),
+    (3, 4, 449, None, "float32"),
 ]
 # the backward's tolerance is the reference's own for its gradient tests
 # (tests/test_kernels.py); the card sums in another order than the plain
@@ -275,6 +293,10 @@ FLASH_STEP_RTOL, FLASH_STEP_ATOL = 2.0**-8, 1e-3
 # order flips a rounding now and then; a P without P_lo flips far more)
 FLASH_TC_SHARE = 0.01
 # kernel #6's three kernels, by a substring of the profiler's name
+# the training pair's kernels, by a substring of the profiler's name: #2,
+# and #3's two launches a call
+TRAIN_FWD_KERNEL = "lstm_train_fwd_kernel"
+BWD_KERNELS = ["lstm_bwd_time_kernel", "lstm_bwd_combine_kernel"]
 FLASH_KERNELS = {"simt": "flash_attention_kernel",
                  "prefill_wgmma": "flash_prefill_wgmma_kernel",
                  "decode_split": "flash_decode_split_kernel"}
@@ -1204,14 +1226,16 @@ def kernel_phase() -> dict:
             x, wx, wh, b))
         plain_ms = _median_ms(lambda: lstm_sequence_ref(x, wx, wh, b))
         library_ms = _median_ms(lambda: lstm(x))
+        library_device_ms = _device_ms_per_call(lambda: lstm(x))
     bound_ms, bound_by = _lstm_bound(B, T, F, H)
     print(f"timing at {MAIN_SHAPE} float32 (median of 200, CUDA events): "
           f"kernel {kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"torch.nn.LSTM {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by})", flush=True)
+          f"torch.nn.LSTM {library_ms:.6f} ms (device {library_device_ms} ms "
+          f"a call, all its kernels, profiler mean of 100), bound "
+          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
     return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "library_device_ms": library_device_ms}
 
 
 def _train_case(B, T, F, H, dtype, seed, w_dtype="float32"):
@@ -1233,14 +1257,21 @@ def _train_case(B, T, F, H, dtype, seed, w_dtype="float32"):
 
 
 def train_kernel_phase() -> dict:
-    """The training pair against its plain versions at every case, the
-    backward's rerun bit for bit, then both timed at the speed fit's and
-    the pretrain's step shapes beside their plain versions and cuDNN.
-    Returns the numbers of their rows."""
+    """The training pair against its plain versions at every case, and
+    against the plain versions of their own algorithms
+    (``ref.lstm_sequence_fwd_train_tiled_ref``, and
+    ``ref.lstm_sequence_bwd_tiled_ref`` at the tiling the backward reports),
+    both run on the card; each kernel rerun bit for bit.  Then both timed at
+    the speed fit's and the pretrain's step shapes beside their plain
+    versions and cuDNN (CUDA events, and the profiler's device time of
+    cuDNN's calls).  Returns the numbers of their rows."""
     import torch
 
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
     from repro_torch.kernels.lstm_cell import ref
+
+    def within(got, want):
+        return bool(((got - want).abs() <= BWD_ATOL + BWD_RTOL * want.abs()).all())
 
     max_fwd = max_bwd = 0.0
     for i, (B, T, F, H, dtype, *w_dtype) in enumerate(TRAIN_CASES):
@@ -1248,41 +1279,64 @@ def train_kernel_phase() -> dict:
         w_dtype = w_dtype[0] if w_dtype else "float32"
         (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, dtype, 200 + i,
                                                   w_dtype)
+        res_again = lstm_kernel.lstm_sequence_fwd_train(x, wx, wh, b)
         res_ref = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
-        fwd_errs = [float((k - r).abs().max()) for k, r in zip(res, res_ref)]
+        res_tiled = ref.lstm_sequence_fwd_train_tiled_ref(x, wx, wh, b)
+        tiling = lstm_kernel.bwd_tiling(B, T, F, H)
         grads = lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc)
         again = lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc)
         grads_ref = ref.lstm_sequence_bwd_ref(x, *res, wx, wh, dh, dc)
+        grads_tiled = ref.lstm_sequence_bwd_tiled_ref(
+            x, *res, wx, wh, dh, dc, rows=tiling.rows, lanes=tiling.lanes,
+            chunk=tiling.chunk)
         torch.cuda.synchronize()
+        fwd_errs = [float((k - r).abs().max()) for k, r in zip(res, res_ref)]
+        tiled_fwd_errs = [float((k - r).abs().max())
+                          for k, r in zip(res, res_tiled)]
         bwd_errs = [float((k - r).abs().max()) for k, r in zip(grads, grads_ref)]
-        fwd_ok = max(fwd_errs) <= KERNEL_ATOL
-        bwd_ok = all(bool(((k - r).abs() <= BWD_ATOL + BWD_RTOL * r.abs()).all())
-                     for k, r in zip(grads[1:], grads_ref[1:]))
+        tiled_errs = [float((k - r).abs().max())
+                      for k, r in zip(grads, grads_tiled)]
+        fwd_ok = max(fwd_errs + tiled_fwd_errs) <= KERNEL_ATOL
+        bwd_ok = all(within(k, r) for k, r in zip(grads[1:], grads_ref[1:]))
+        tiled_ok = all(within(k, r) for k, r in zip(grads[1:], grads_tiled[1:]))
         if dtype == "float32":
-            bwd_ok = bwd_ok and bool(((grads[0] - grads_ref[0]).abs() <= BWD_ATOL
-                                      + BWD_RTOL * grads_ref[0].abs()).all())
+            bwd_ok = bwd_ok and within(grads[0], grads_ref[0])
+            tiled_ok = tiled_ok and within(grads[0], grads_tiled[0])
             max_fwd, max_bwd = max(max_fwd, *fwd_errs), max(max_bwd, *bwd_errs)
         else:
             # dx goes back in x's type: held to one bf16 step of the value
-            dxk, dxr = grads[0].to(x.dtype).float(), grads_ref[0].to(x.dtype).float()
-            bwd_ok = bwd_ok and bool(
-                ((dxk - dxr).abs() <= 2.0**-7 * dxr.abs() + KERNEL_ATOL).all())
+            def bf16_step(want):
+                dxk, dxr = grads[0].to(x.dtype).float(), want.to(x.dtype).float()
+                return bool(((dxk - dxr).abs()
+                             <= 2.0**-7 * dxr.abs() + KERNEL_ATOL).all())
+
+            bwd_ok = bwd_ok and bf16_step(grads_ref[0])
+            tiled_ok = tiled_ok and bf16_step(grads_tiled[0])
+        same_fwd = all(torch.equal(k, r) for k, r in zip(res, res_again))
         same = all(torch.equal(k, r) for k, r in zip(grads, again))
         print(f"kernel lstm_sequence_fwd_train B={B} T={T} F={F} H={H} "
-              f"{dtype}, {w_dtype} weights: max|d gates, c_seq, h_seq|="
-              f"{max(fwd_errs):.3g} (<= {KERNEL_ATOL}) "
-              f"{'ok' if fwd_ok else 'FAIL'}")
+              f"{dtype}, {w_dtype} weights (one row a block): max|d gates, "
+              f"c_seq, h_seq|={max(fwd_errs):.3g},"
+              f" against its algorithm {max(tiled_fwd_errs):.3g} (<= "
+              f"{KERNEL_ATOL}) {'ok' if fwd_ok else 'FAIL'}; rerun "
+              f"{'bit-identical' if same_fwd else 'DIFFERS'}")
         print(f"kernel lstm_sequence_bwd B={B} T={T} F={F} H={H} {dtype}, "
-              f"{w_dtype} weights: max|d dx, dwx, dwh, db|="
-              f"{', '.join(f'{e:.3g}' for e in bwd_errs)} (atol = rtol = "
-              f"{BWD_ATOL}{'; dx to one bf16 step' if dtype != 'float32' else ''}"
-              f") {'ok' if bwd_ok else 'FAIL'}; rerun "
+              f"{w_dtype} weights ({tiling.rows} rows a block, {tiling.chunk} "
+              f"steps a chunk, dh over {tiling.lanes} lanes, {tiling.blocks} "
+              f"partials): max|d dx, dwx, dwh, db|="
+              f"{', '.join(f'{e:.3g}' for e in bwd_errs)}, against its "
+              f"algorithm {', '.join(f'{e:.3g}' for e in tiled_errs)} (atol "
+              f"= rtol = {BWD_ATOL}"
+              f"{'; dx to one bf16 step' if dtype != 'float32' else ''}) "
+              f"{'ok' if bwd_ok and tiled_ok else 'FAIL'}; rerun "
               f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
-        if not (fwd_ok and bwd_ok and same):
+        if not (fwd_ok and bwd_ok and tiled_ok and same and same_fwd):
             raise AssertionError(
                 f"training pair at B={B} T={T} F={F} H={H} {dtype}, "
-                f"{w_dtype} weights: forward {fwd_errs}, backward "
-                f"{bwd_errs}, rerun identical {same}")
+                f"{w_dtype} weights: forward {fwd_errs}, against its "
+                f"algorithm {tiled_fwd_errs}, rerun identical {same_fwd}; "
+                f"backward {bwd_errs}, against its algorithm {tiled_errs}, "
+                f"rerun identical {same}")
 
     rows = {"lstm_sequence_fwd_train": {"max_abs_err": max_fwd, "by_batch": {}},
             "lstm_sequence_bwd": {"max_abs_err": max_bwd, "by_batch": {}}}
@@ -1324,13 +1378,16 @@ def train_kernel_phase() -> dict:
         }
         for name, (kern, plain, lib, (bound_ms, bound_by)) in timings.items():
             numbers = {"ms": _median_ms(kern), "plain_ms": _median_ms(plain),
-                       "library_ms": _median_ms(lib), "bound_ms": bound_ms,
-                       "bound_by": bound_by}
+                       "library_ms": _median_ms(lib),
+                       "library_device_ms": _device_ms_per_call(lib),
+                       "bound_ms": bound_ms, "bound_by": bound_by}
             rows[name]["by_batch"][B] = numbers
             print(f"timing {name} at {(B, T, F, H)} float32 (median of 200, "
                   f"CUDA events): kernel {numbers['ms']:.6f} ms, plain "
                   f"{numbers['plain_ms']:.6f} ms, torch.nn.LSTM "
-                  f"{numbers['library_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+                  f"{numbers['library_ms']:.6f} ms (device "
+                  f"{numbers['library_device_ms']} ms a call, all its "
+                  f"kernels, profiler mean of 100), bound {bound_ms:.6f} ms "
                   f"({bound_by})", flush=True)
     for row in rows.values():  # the row's own numbers: the speed fit's shape
         row.update(row["by_batch"][TRAIN_SHAPES[0][0]])
@@ -2384,21 +2441,30 @@ def profile_phase(fx: dict) -> dict:
           f"{dev['lstm_sequence_kernel']} ms (median of 100)")
     for B, T, F, H in TRAIN_SHAPES:
         (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, "float32", 300)
-        fwd = _kernel_device_ms(
-            lambda: lstm_kernel.lstm_sequence_fwd_train(x, wx, wh, b),
-            ["lstm_sequence_train_kernel"])["lstm_sequence_train_kernel"]
-        bwd = _kernel_device_ms(
-            lambda: lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc),
-            ["lstm_sequence_bwd_kernel", "lstm_sequence_wgrad_kernel"])
+
+        def fwd_call():
+            lstm_kernel.lstm_sequence_fwd_train(x, wx, wh, b)
+
+        def bwd_call():
+            lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc)
+
+        fwd = _kernel_device_ms(fwd_call, [TRAIN_FWD_KERNEL])[TRAIN_FWD_KERNEL]
+        bwd = _kernel_device_ms(bwd_call, BWD_KERNELS)
         pair = (None if None in bwd.values() else sum(bwd.values()))
-        out.setdefault("lstm_sequence_fwd_train", {})[B] = {"device_ms": fwd}
+        # every device event of a call, by any name: a kernel the names
+        # above missed would show here
+        every = {"fwd": _device_ms_per_call(fwd_call),
+                 "bwd": _device_ms_per_call(bwd_call)}
+        out.setdefault("lstm_sequence_fwd_train", {})[B] = {
+            "device_ms": fwd, "device_ms_every_event": every["fwd"]}
         out.setdefault("lstm_sequence_bwd", {})[B] = {
-            "device_ms": pair, "device_ms_parts": bwd}
+            "device_ms": pair, "device_ms_parts": bwd,
+            "device_ms_every_event": every["bwd"]}
         print(f"profile: device time at {(B, T, F, H)} (median of 100): "
-              f"lstm_sequence_train_kernel {fwd} ms; lstm_sequence_bwd_kernel "
-              f"{bwd['lstm_sequence_bwd_kernel']} ms + "
-              f"lstm_sequence_wgrad_kernel {bwd['lstm_sequence_wgrad_kernel']}"
-              f" ms = {pair} ms")
+              f"{TRAIN_FWD_KERNEL} {fwd} ms; " + " + ".join(
+                  f"{n} {ms} ms" for n, ms in bwd.items()) + f" = {pair} ms; "
+              f"every device event a call (mean of 100): forward "
+              f"{every['fwd']} ms, backward {every['bwd']} ms")
 
     def serve():
         run_main_path(fx, "cuda")
@@ -2666,7 +2732,10 @@ def main() -> int:
           flush=True)
     ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("flash_attention", "")).items() if "flash_" in n}
-    for n, info in ptxas.items():
+    train_ptxas = {n: info for lib in ("lstm_sequence", "lstm_sequence_bwd")
+                   for n, info in _ptxas_lines(_build.LOGS.get(lib, "")).items()
+                   if any(k in n for k in (TRAIN_FWD_KERNEL, *BWD_KERNELS))}
+    for n, info in {**ptxas, **train_ptxas}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -2685,6 +2754,10 @@ def main() -> int:
             "flash_attention": flash_kernel_phase(),
             "rwkv6_scan": wkv_kernel_phase(),
             "ssm_scan": ssm_kernel_phase()}
+    for kname, names in (("lstm_sequence_fwd_train", [TRAIN_FWD_KERNEL]),
+                         ("lstm_sequence_bwd", BWD_KERNELS)):
+        rows[kname]["ptxas"] = {n: info for n, info in train_ptxas.items()
+                                if any(k in n for k in names)}
 
     # phase 4: the serving path
     fx = load_fixture()

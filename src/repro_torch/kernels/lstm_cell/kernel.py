@@ -7,40 +7,49 @@ Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
   x (B,F), h and c (B,H), each float32 or bfloat16, and wx (F,4H),
   wh (H,4H), b (4H) -> (h', c'), h' in ``h.dtype`` and c' in ``c.dtype``.
   The step of the per-step baseline ``ops.lstm_sequence_scan``.
-* ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu``) replaces
-  ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx (F,4H),
-  wh (H,4H) and b (4H) -> the final (h, c), each (B,H) in ``x.dtype``.
-  The serving forward.
-* ``lstm_sequence_fwd_train`` (same source, the same recurrence) replaces
-  ``lstm_sequence_fwd_train``: the same inputs -> the residuals the backward
-  needs, post-activation gates (B,T,4H) and c_seq, h_seq (B,T,H), float32.
-* ``lstm_sequence_bwd`` (``csrc/lstm_sequence_bwd.cu``, a reverse-time
-  kernel and a weight-gradient reduce) replaces ``lstm_sequence_bwd``:
-  x, the residuals, the weights and the cotangents dh, dc (B,H) of the final
-  state -> dx (B,T,F), dwx (F,4H), dwh (H,4H), db (4H), float32.  Reruns on
-  the same inputs are bit-identical (no atomics).
+* ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu: lstm_sequence_kernel``)
+  replaces ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx
+  (F,4H), wh (H,4H) and b (4H) -> the final (h, c), each (B,H) in
+  ``x.dtype``.  The serving forward.
+* ``lstm_sequence_fwd_train`` (same source, ``lstm_train_fwd_kernel``)
+  replaces ``lstm_sequence_fwd_train``: the same inputs -> the residuals the
+  backward needs, post-activation gates (B,T,4H) and c_seq, h_seq (B,T,H),
+  float32.  One thread a (row, gate column), the input projection taken
+  before the recurrence, wx and b staged by a bulk asynchronous copy
+  (``ref.lstm_sequence_fwd_train_tiled_ref`` is its order of summation).
+* ``lstm_sequence_bwd`` (``csrc/lstm_sequence_bwd.cu``: a reverse-time
+  kernel over tiles of batch rows that keeps dz on chip and writes each
+  tile's partial weight gradient, then a kernel that sums the partials in
+  a fixed order) replaces ``lstm_sequence_bwd``: x, the residuals, the weights
+  and the cotangents dh, dc (B,H) of the final state -> dx (B,T,F), dwx
+  (F,4H), dwh (H,4H), db (4H), float32.  Reruns on the same inputs are
+  bit-identical (no atomics).  ``ref.lstm_sequence_bwd_tiled_ref`` is its
+  algorithm, at the tiling ``bwd_tiling`` reports.
 
 Compute is float32; gate order i, f, g, o.  The forward wrappers take the
 weights in float32 or bfloat16, as the reference's kernels do, and cast
-bfloat16 ones to float32 once (exact) before the launch.  What bounds them:
-at the paper's shapes (B of 64 to 256, T=5, F=5, H=40) a call is a few
-MFLOP over a few hundred KB, a fraction of a microsecond at the card's
-float32 or memory rate, so launch latency and the serial T-step chain set
-their time.
+bfloat16 ones to float32 once (exact) before the launch; the training pair
+copies a weight that is not 16-byte aligned once (its bulk copies need the
+alignment).  What bounds them: at the paper's shapes (B of 64 to 256, T=5,
+F=5, H=40) a call is a few MFLOP over a few hundred KB, a fraction of a
+microsecond at the card's float32 or memory rate, so launch latency and the
+serial T-step chain set their time.
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``,
 launches on the current CUDA stream, raises when the launch fails, and counts
-its successful launches in a plain integer ``.launches``; at B=0 it returns
-without launching or counting.  The libraries
-build with ``nvcc`` at the first launch (``kernels/_build``); ``LIBRARIES``
-names them for a caller that builds them all up front.
+its successful launches in a plain integer ``.launches`` (one a call, the
+backward's two kernels included); at B=0 it returns without launching or
+counting.  The libraries build with ``nvcc`` at the first launch
+(``kernels/_build``, which also hashes the ``csrc/*.cuh`` headers beside the
+sources); ``LIBRARIES`` names them for a caller that builds them all up
+front.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -80,6 +89,9 @@ def bwd_library() -> ctypes.CDLL:
                               LIBRARIES["lstm_sequence_bwd"])
     lib.lstm_sequence_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.lstm_sequence_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.lstm_sequence_bwd_tiling.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lib.lstm_sequence_bwd_tiling.restype = ctypes.c_longlong
     lib.lstm_sequence_backward.argtypes = (
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.lstm_sequence_backward.restype = ctypes.c_int
@@ -104,8 +116,32 @@ def smem_bytes(F: int, H: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def bwd_smem_bytes(F: int, H: int) -> int:
-    """Shared memory one block of the reverse-time kernel needs at (F, H)."""
+    """Shared memory one block of the reverse-time kernel needs at (F, H),
+    at its smallest tiling (one row, one step a chunk)."""
     return int(bwd_library().lstm_sequence_bwd_smem_bytes(F, H))
+
+
+class BwdTiling(NamedTuple):
+    """How the reverse-time kernel cuts a call: batch rows a block, steps a
+    chunk of its time loop, lanes a piece of dh is split over (32 where the
+    lanes hold wh in registers, else the unit's 4), blocks, and the floats
+    of the workspace of their partial weight gradients."""
+    rows: int
+    chunk: int
+    lanes: int
+    blocks: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tiling(B: int, T: int, F: int, H: int) -> BwdTiling:
+    """The reverse-time kernel's tiling at (B, T, F, H)."""
+    out = (ctypes.c_int * 4)()
+    floats = int(bwd_library().lstm_sequence_bwd_tiling(B, T, F, H, out))
+    if floats < 0:
+        raise ValueError(f"lstm_sequence_bwd: F={F}, H={H} does not fit a "
+                         "block's shared memory")
+    return BwdTiling(*out, floats)
 
 
 def _largest_h(need, F: int) -> int:
@@ -167,6 +203,12 @@ def f32_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
     return wx.float(), wh.float(), b.float()
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy where its data is not 16-byte aligned (a view
+    into a larger buffer): the bulk copies read 16-byte aligned sources."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_placement(name: str, tensors) -> None:
     x = tensors[0]
     if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
@@ -226,7 +268,7 @@ def lstm_sequence_fwd_train(x: torch.Tensor, wx: torch.Tensor,
     is the final hidden state.  Raises on anything else, and when the launch
     fails."""
     _check_forward_inputs("lstm_sequence_fwd_train", x, wx, wh, b)
-    wx, wh, b = f32_weights(wx, wh, b)
+    wx, wh, b = map(_aligned16, f32_weights(wx, wh, b))
     B, T, F = x.shape
     H = wh.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -255,8 +297,8 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
                       dc: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
-    """Launch the backward pair on the current CUDA stream: the reverse-time
-    kernel, then the weight-gradient reduce (one launch as counted here).
+    """Launch the backward on the current CUDA stream: the reverse-time
+    kernel, then the combine of its partials (one launch as counted here).
 
     x (B,T,F) float32 or bfloat16; the residuals of
     ``lstm_sequence_fwd_train``; wx (F,4H), wh (H,4H); dh, dc (B,H), the
@@ -295,7 +337,8 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
     if B == 0:  # no rows: zero weight gradients, nothing launched or counted
         return (dx, torch.zeros((F, 4 * H), **f32),
                 torch.zeros((H, 4 * H), **f32), torch.zeros((4 * H,), **f32))
-    dz = torch.empty((B, T, 4 * H), **f32)  # workspace of the reduce
+    part = torch.empty((bwd_tiling(B, T, F, H).workspace,), **f32)
+    wx, wh = _aligned16(wx), _aligned16(wh)
     dwx = torch.empty((F, 4 * H), **f32)
     dwh = torch.empty((H, 4 * H), **f32)
     db = torch.empty((4 * H,), **f32)
@@ -304,7 +347,7 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
         err = bwd_library().lstm_sequence_backward(
             x.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(),
             wx.data_ptr(), wh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            dx.data_ptr(), dz.data_ptr(), dwx.data_ptr(), dwh.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), dwx.data_ptr(), dwh.data_ptr(),
             db.data_ptr(), B, T, F, H, int(x.dtype == torch.bfloat16), stream)
     _raise_on_error(name, err, x, H)
     lstm_sequence_bwd.launches += 1

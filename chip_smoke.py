@@ -9,17 +9,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``nvidia-smi``'s name and power limit;
 2. the build: compiles every CUDA library of the port with ``nvcc`` from the
    sources in this checkout, one ``nvcc`` per library, all at once, and
-   prints ``-Xptxas -v``'s registers and spills of #6's kernels and of the
-   training pair's (#2, #3);
+   prints ``-Xptxas -v``'s registers and spills of #6's kernels, of the
+   LSTM sequence kernels' (#1, #2, #3) and of #8's two;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
-   with ragged tiles, one row and a long T; both kernels run twice, bit for
-   bit), then timed beside the plain version and the library call that
-   computes the same function (cuDNN's ``torch.nn.LSTM`` for #1-#3, by CUDA
-   events and by the profiler's device time; for the int8 matmul, which no
-   one PyTorch call computes, ``(x @ q.float()) * scale``; for the one-step
-   LSTM cell #5, ``torch.lstm_cell``);
+   with ragged tiles, one row and a long T; every case of #1, #2, #3, #5,
+   #6's two Hopper kernels, #7 and #8 runs twice, bit for bit), then timed
+   beside the plain version and the library call that computes the same
+   function (cuDNN's ``torch.nn.LSTM`` for #1-#3, by CUDA events and by the
+   profiler's device time, #1's in turns with cuDNN's; for the int8
+   matmul, which no one PyTorch call computes, ``(x @ q.float()) *
+   scale``; for the one-step LSTM cell #5, ``torch.lstm_cell``);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
    models the JAX reference published (``tests/data/
@@ -67,7 +68,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    block through the flash kernel: float32 parity with
    ``tests/data/torch_parity_zamba2_1_2b.npz`` and decode equivalence,
    then in bf16 ``Engine.generate`` (4 x 512 + 32) with exactly 38 x 32
-   launches of the selective-scan kernel, 6 x 32 of the flash kernel (6 of
+   launches of the selective scan (38 of its chunked prefill kernel, 38 x
+   31 of its row-split decode kernel), 6 x 32 of the flash kernel (6 of
    its wgmma prefill, 6 x 31 of its split decode) and no plain scan or
    attention, and ``Engine.serve``;
 11. the scan path, the path of the one-step LSTM cell #5: the per-step
@@ -87,10 +89,15 @@ the rule picks and names it, holds the wgmma prefill's bf16 output also
 within ``FLASH_TC_TOL``, reruns the two new kernels bit for bit, and times
 each new kernel against the SIMT kernel in turns beside SDPA (at
 tinyllama's GQA shapes and at zamba2's MHA ones), by CUDA events and by
-the profiler.  The WKV kernel (#7) and the
-selective-scan kernel (#8) are built in phase 2, held to their plain
-versions (reruns bit for bit) and timed in phase 3, with their device
-times from the profiler; no single PyTorch call computes either.
+the profiler.  The WKV kernel (#7) is built in phase 2, held to its plain
+version (reruns bit for bit) and timed in phase 3, with its device time
+from the profiler.  The selective scan (#8) is two kernels, one launch a
+call, picked by ``kernel.kernel_for``: the row-split decode for T <= 8,
+the chunked SSD prefill on the tensor cores otherwise; phase 3 runs each
+case through the one the rule picks and names it, holds it also to its
+own algorithm (``ref.ssd_chunked_ref`` in 3xTF32, ``ref.
+ssm_decode_rows_ref``) run on the card, and times each at its served
+shape by its profiler name.  No single PyTorch call computes #7 or #8.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -127,7 +134,10 @@ RECORD_COLUMNS = ("window", "rmse_batch", "rmse_speed", "rmse_hybrid",
 # largest H that fits; the weights are float32 unless a case names bfloat16
 # (the wrappers cast those once).  Every row count the main paths give the
 # serving kernel is a case: 250 and 245 (the windows), 256 and 245 (window
-# 0's mask check, padded and not), 2048 and 1595 (the pretrain's mask check)
+# 0's mask check, padded and not), 2048 and 1595 (the pretrain's mask check);
+# then the kernel's other paths: wh from shared memory (H = 10, not a
+# multiple of 4; H = 72, over 64), two chunks of steps (T = 9, 12) and x
+# read from global memory (F = 449, where a chunk of x does not fit)
 MAIN_SHAPE = (250, 5, 5, 40)
 KERNEL_CASES = [
     (*MAIN_SHAPE, "float32"),
@@ -142,6 +152,9 @@ KERNEL_CASES = [
     (*MAIN_SHAPE, "bfloat16"),
     (*MAIN_SHAPE, "float32", "bfloat16"),
     (*MAIN_SHAPE, "bfloat16", "bfloat16"),
+    (33, 9, 5, 10, "float32"),
+    (40, 12, 5, 72, "float32"),
+    (3, 4, 449, None, "float32"),
 ]
 KERNEL_ATOL = 1e-5
 # the training pair: the speed fit's and the pretrain's step shapes, the
@@ -214,8 +227,9 @@ INT8_PRED_ATOL = 1e-5
 # cores, at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-# and the bf16 tensor-core rate (dense)
+# and the bf16 and TF32 tensor-core rates (dense)
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 # the zoo's serving path: tinyllama-1.1b through the port's Engine.  The
 # parity run (tests/data/torch_parity_tinyllama.npz, written by the JAX
 # reference): full width and depth in float32, params from numpy seed
@@ -293,13 +307,20 @@ FLASH_STEP_RTOL, FLASH_STEP_ATOL = 2.0**-8, 1e-3
 # order flips a rounding now and then; a P without P_lo flips far more)
 FLASH_TC_SHARE = 0.01
 # kernel #6's three kernels, by a substring of the profiler's name
-# the training pair's kernels, by a substring of the profiler's name: #2,
+# the LSTM sequence kernels, by a substring of the profiler's name: #1, #2,
 # and #3's two launches a call
+SERVE_FWD_KERNEL = "lstm_serve_fwd_kernel"
 TRAIN_FWD_KERNEL = "lstm_train_fwd_kernel"
 BWD_KERNELS = ["lstm_bwd_time_kernel", "lstm_bwd_combine_kernel"]
 FLASH_KERNELS = {"simt": "flash_attention_kernel",
                  "prefill_wgmma": "flash_prefill_wgmma_kernel",
                  "decode_split": "flash_decode_split_kernel"}
+# kernel #8's two kernels by a substring of the profiler's name, and the
+# kernel of each zoo wrapper that takes a prefill and a decode step
+SSM_KERNELS = {"chunked": "ssm_chunked_kernel",
+               "decode_rows": "ssm_decode_kernel"}
+PREFILL_DECODE = {"flash_attention": ("prefill_wgmma", "decode_split"),
+                  "ssm_scan": ("chunked", "decode_rows")}
 FLASH_TIMED = (("prefill", FLASH_PREFILL, "arange"),
                ("decode", FLASH_DECODE, "last"),
                ("mha_prefill", FLASH_MHA_PREFILL, "arange"),
@@ -1172,8 +1193,10 @@ def _cudnn_lstm(wx, wh, b):
 
 
 def kernel_phase() -> dict:
-    """The serving kernel against its plain version at every case, then
-    timed at the serving path's shape.  Returns the numbers of its row."""
+    """The serving kernel against its plain version at every case, each
+    case run twice (bit for bit), then timed at the serving path's shape
+    beside cuDNN's LSTM, by CUDA events and by the profiler's device time.
+    Returns the numbers of its row."""
     import torch
 
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
@@ -1186,9 +1209,12 @@ def kernel_phase() -> dict:
         x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, seed=i,
                                       w_dtype=w_dtype)
         with torch.inference_mode():
-            h, c = lstm_kernel.lstm_sequence_fused(x, wx, wh, b)
+            runs = [lstm_kernel.lstm_sequence_fused(x, wx, wh, b)
+                    for _ in range(2)]
             h_ref, c_ref = lstm_sequence_ref(x, wx, wh, b, return_state=True)
         torch.cuda.synchronize()
+        h, c = runs[0]
+        same = all(torch.equal(u, v) for u, v in zip(*runs))
         errs = [float((k.float() - r.float()).abs().max())
                 for k, r in ((h, h_ref), (c, c_ref))]
         if dtype == "float32":
@@ -1203,13 +1229,17 @@ def kernel_phase() -> dict:
                            <= 2.0**-7 * r.float().abs() + KERNEL_ATOL).all())
                      for k, r in ((h, h_ref), (c, c_ref)))
             limit = "<= one bf16 step"
+        ok = ok and same
         print(f"kernel lstm_sequence_fused B={B} T={T} F={F} H={H} {dtype}, "
               f"{w_dtype} weights: max|dh|={errs[0]:.3g} max|dc|="
-              f"{errs[1]:.3g} ({limit}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"{errs[1]:.3g} ({limit}); 2 runs "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(
-                f"lstm_sequence_fused disagrees with its plain version at "
-                f"B={B} T={T} F={F} H={H} {dtype}, {w_dtype} weights: {errs}")
+                f"lstm_sequence_fused disagrees with its plain version or "
+                f"with itself at B={B} T={T} F={F} H={H} {dtype}, {w_dtype} "
+                f"weights: {errs}")
 
     B, T, F, H = MAIN_SHAPE
     x, wx, wh, b = _kernel_inputs(B, T, F, H, "float32", seed=100)
@@ -1222,20 +1252,33 @@ def kernel_phase() -> dict:
         if lib_err > 1e-4:
             raise AssertionError("torch.nn.LSTM does not compute the kernel's "
                                  f"function on these weights: {lib_err}")
-        kernel_ms = _median_ms(lambda: lstm_kernel.lstm_sequence_fused(
-            x, wx, wh, b))
+        def kern():
+            return lstm_kernel.lstm_sequence_fused(x, wx, wh, b)
+
+        kernel_ms = _median_ms(kern)
         plain_ms = _median_ms(lambda: lstm_sequence_ref(x, wx, wh, b))
         library_ms = _median_ms(lambda: lstm(x))
-        library_device_ms = _device_ms_per_call(lambda: lstm(x))
+        # device times in turns: kernel, cuDNN, cuDNN, kernel
+        turns = [_kernel_device_ms(kern, [SERVE_FWD_KERNEL])[SERVE_FWD_KERNEL],
+                 _device_ms_per_call(lambda: lstm(x)),
+                 _device_ms_per_call(lambda: lstm(x)),
+                 _kernel_device_ms(kern, [SERVE_FWD_KERNEL])[SERVE_FWD_KERNEL]]
+    device_ms = (None if None in (turns[0], turns[3])
+                 else (turns[0] + turns[3]) / 2)
+    library_device_ms = (None if None in (turns[1], turns[2])
+                         else (turns[1] + turns[2]) / 2)
     bound_ms, bound_by = _lstm_bound(B, T, F, H)
     print(f"timing at {MAIN_SHAPE} float32 (median of 200, CUDA events): "
           f"kernel {kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"torch.nn.LSTM {library_ms:.6f} ms (device {library_device_ms} ms "
-          f"a call, all its kernels, profiler mean of 100), bound "
-          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+          f"torch.nn.LSTM {library_ms:.6f} ms; device time in turns kernel, "
+          f"cuDNN, cuDNN, kernel {turns} ms (the kernel: profiler median of "
+          f"100; cuDNN: all its kernels, mean of 100): kernel {device_ms} "
+          f"ms, torch.nn.LSTM {library_device_ms} ms; bound {bound_ms:.6f} "
+          f"ms ({bound_by})", flush=True)
     return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library_device_ms": library_device_ms}
+            "library_ms": library_ms, "device_ms_phase3": device_ms,
+            "library_device_ms": library_device_ms}
 
 
 def _train_case(B, T, F, H, dtype, seed, w_dtype="float32"):
@@ -2190,18 +2233,27 @@ def _ssm_case(B, T, H, P, N, seed, state=False, dt_scale=1.0):
             for v in (x, b, c, dt, a, d, s0)]
 
 
-def _ssm_bound(B, T, H, P, N, state_in):
+def _ssm_bound(B, T, H, P, N, state_in, chunk=None):
     """Bound of one selective scan at (B,T,H,P,N), float32: x read and y
     written once, b, c, dt, a and d read once, the final state written
     once and the initial one read only when ``state_in`` (the model's
-    prefill starts from zero).  Operations: 5 a state element and step
-    (decay h + u b, a multiply and an FMA; h c summed, an FMA), 3 a (b, t,
-    h, p) (u = dt x; d x added, an FMA) and 2 a (b, t, h) (dt a and its
-    exp)."""
+    prefill starts from zero).  Operations, for the step-by-step
+    recurrence (``chunk`` None, the decode kernel's form): 5 a state
+    element and step (decay h + u b, a multiply and an FMA; h c summed, an
+    FMA), 3 a (b, t, h, p) (u = dt x; d x added, an FMA) and 2 a (b, t, h)
+    (dt a and its exp), at the float32 rate.  For the chunked form in
+    chunks of ``chunk`` steps (the prefill kernel's): its products, C B^T
+    once a batch row and chunk, M x, (e C) h^T and x^T W B a head and
+    chunk, three times over (3xTF32) at the TF32 rate."""
     nbytes = 4 * (2 * B * T * H * P + 2 * B * T * N + B * T * H + 2 * H
                   + (2 if state_in else 1) * B * H * P * N)
-    flops = 5 * B * T * H * P * N + 3 * B * T * H * P + 2 * B * T * H
-    return _bound(nbytes, flops)
+    if chunk is None:
+        flops = 5 * B * T * H * P * N + 3 * B * T * H * P + 2 * B * T * H
+        return _bound(nbytes, flops)
+    chunks = -(-T // chunk)
+    products = 2 * B * chunks * (chunk * chunk * N + H * (
+        chunk * chunk * P + 2 * chunk * N * P))
+    return _bound(nbytes, 3 * products, PEAK_TF32_FLOP_PER_S)
 
 
 def ssm_kernel_phase() -> dict:
@@ -2209,13 +2261,19 @@ def ssm_kernel_phase() -> dict:
     flat (BH,T,P) layout from a zero state (each row its own launch, b and
     c its own, against ``ssm_scan_ref``), the model layout, a nonzero
     state, steps near 0 and large (decays near 1 and near 0), dims that
-    are no power of two, T = 1, the served prefill and decode step, the
+    are no power of two or no multiple of 4, T = 1, the dispatch's edge
+    (T = 8 and 9), T ragged against the chunk (63, 65) and whole chunks
+    (64, 128), the served prefill at B = 4 and 1 and the decode step, the
     state updated in place (``out`` is ``state0``), and T = 0 (no launch),
-    at the reference's tolerance; every case run twice, bit for bit.  Then
-    timed at the served prefill and decode (CUDA events and the profiler's
-    device time) beside the plain version and the bound; no single
-    PyTorch call computes the recurrence.  Returns the numbers of its row,
-    at the prefill shape."""
+    at the reference's tolerance, each through the kernel ``kernel_for``
+    picks; each model-layout case also against that kernel's own
+    algorithm (``ref.ssd_chunked_ref`` in 3xTF32, ``ref.
+    ssm_decode_rows_ref``) run on the card; every case run twice, bit for
+    bit.  Then each kernel timed at its served shape, the chunked at the
+    prefill and the row-split at the decode step (CUDA events and the
+    profiler's device time by kernel name) beside the plain version and
+    the bound; no single PyTorch call computes the recurrence.  Returns
+    the numbers of its row, at the prefill shape."""
     import torch
 
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
@@ -2225,6 +2283,12 @@ def ssm_kernel_phase() -> dict:
     def close(got, want):
         return bool(((got - want).abs() <= SSM_TOL + SSM_TOL * want.abs())
                     .all())
+
+    def algorithm(kind, *args):
+        if kind == "chunked":
+            return ssm_ref.ssd_chunked_ref(*args, chunk=ssm_kernel.CHUNK,
+                                           operand_rounding="tf32x3")
+        return ssm_ref.ssm_decode_rows_ref(*args)
 
     max_err = 0.0
     for i, (BH, T, P, N) in enumerate(SSM_SWEEP):
@@ -2243,9 +2307,10 @@ def ssm_kernel_phase() -> dict:
         err = max(float((g - e).abs().max()) for g, e in zip(got[0], want))
         ok = same and all(close(g, e) for g, e in zip(got[0], want))
         max_err = max(max_err, err)
-        print(f"kernel ssm_scan sweep (BH, T, P, N) = {(BH, T, P, N)} from a "
-              f"zero state: max|d|={err:.3g} (atol = rtol = {SSM_TOL}); 2 "
-              f"runs {'bit-identical' if same else 'DIFFER'} "
+        print(f"kernel ssm_scan [{ssm_kernel.kernel_for(T)}] sweep (BH, T, P, "
+              f"N) = {(BH, T, P, N)} from a zero state: max|d|={err:.3g} "
+              f"(atol = rtol = {SSM_TOL}); 2 runs "
+              f"{'bit-identical' if same else 'DIFFER'} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"ssm_scan disagrees with its plain version "
@@ -2257,14 +2322,25 @@ def ssm_kernel_phase() -> dict:
               ("dt large", (2, 300, 4, 64, 64), {"state": True,
                                                  "dt_scale": 40.0}),
               ("P=24 N=24", (2, 30, 3, 24, 24), {"state": True}),
+              ("P=12 N=10", (2, 70, 3, 12, 10), {"state": True}),
+              ("T=1 N=10", (2, 1, 3, 12, 10), {"state": True}),
               ("T=1", (3, 1, 5, 32, 16), {"state": True}),
+              ("T=8", (2, 8, 3, 64, 64), {"state": True}),
+              ("T=9", (2, 9, 3, 64, 64), {"state": True}),
+              ("T=63", (2, 63, 3, 64, 64), {"state": True}),
+              ("T=64", (2, 64, 3, 64, 64), {"state": True}),
+              ("T=65", (2, 65, 3, 64, 64), {"state": True}),
+              ("T=128", (2, 128, 3, 64, 64), {"state": True}),
               ("prefill", SSM_PREFILL, {}),
+              ("prefill B=1", (1, *SSM_PREFILL[1:]), {}),
               ("decode", SSM_DECODE, {"state": True})]
     for i, (label, shape, kw) in enumerate(checks):
         x, b, c, dt, a, d, s0 = _ssm_case(*shape, seed=1100 + i, **kw)
+        kind = ssm_kernel.kernel_for(shape[1])
         runs = [ssm_ops.selective_scan(x, b, c, dt, a, d, s0)
                 for _ in range(2)]
         want = ssm_ref.selective_scan_ref(x, b, c, dt, a, d, s0)
+        alg = algorithm(kind, x, b, c, dt, a, d, s0)
         if label == "decode":  # in place: the state written over state0
             inplace = s0.clone()
             y, s = ssm_ops.selective_scan(x, b, c, dt, a, d, inplace,
@@ -2276,11 +2352,15 @@ def ssm_kernel_phase() -> dict:
         same = all(torch.equal(u, v) for run in runs[1:]
                    for u, v in zip(runs[0], run))
         err = max(float((g - e).abs().max()) for g, e in zip(runs[0], want))
-        ok = same and all(close(g, e) for g, e in zip(runs[0], want))
+        alg_err = max(float((g - e).abs().max())
+                      for g, e in zip(runs[0], alg))
+        ok = same and all(close(g, e) for g, e in zip(runs[0], want)) and all(
+            close(g, e) for g, e in zip(runs[0], alg))
         max_err = max(max_err, err)
-        print(f"kernel ssm_scan {label} (B, T, H, P, N) = {shape}"
-              f"{' from a state' if s0 is not None else ''}: max|d|={err:.3g} "
-              f"(atol = rtol = {SSM_TOL}); {len(runs)} runs "
+        print(f"kernel ssm_scan [{kind}] {label} (B, T, H, P, N) = {shape}"
+              f"{' from a state' if s0 is not None else ''}: max|d|={err:.3g}"
+              f", against its algorithm max|d|={alg_err:.3g} (atol = rtol = "
+              f"{SSM_TOL}); {len(runs)} runs "
               f"{'bit-identical' if same else 'DIFFER'} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -2298,26 +2378,29 @@ def ssm_kernel_phase() -> dict:
     for label, shape, state in (("prefill", SSM_PREFILL, False),
                                 ("decode", SSM_DECODE, True)):
         x, b, c, dt, a, d, s0 = _ssm_case(*shape, seed=1200, state=state)
+        kind = ssm_kernel.kernel_for(shape[1])
+        name = SSM_KERNELS[kind]
 
         def kern():
             return ssm_kernel.ssm_scan(x, b, c, dt, a, d, s0)
 
-        bound_ms, bound_by = _ssm_bound(*shape, state_in=state)
+        bound_ms, bound_by = _ssm_bound(
+            *shape, state_in=state,
+            chunk=ssm_kernel.CHUNK if kind == "chunked" else None)
         numbers = {
-            "ms": _median_ms(kern),
+            "kernel": kind, "ms": _median_ms(kern),
             "plain_ms": _median_ms(
                 lambda: ssm_ref.selective_scan_ref(x, b, c, dt, a, d, s0),
                 n=10 if label == "prefill" else 50, warmup=2),
-            "device_ms": _kernel_device_ms(kern, ["ssm_scan_kernel"])[
-                "ssm_scan_kernel"],
+            "device_ms": _kernel_device_ms(kern, [name])[name],
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         by_shape[label] = numbers
-        print(f"timing ssm_scan {label} at (B, T, H, P, N) = {shape} float32 "
-              f"(median, CUDA events): kernel {numbers['ms']:.6f} ms "
-              f"(device {numbers['device_ms']} ms, profiler median of 100), "
-              f"plain {numbers['plain_ms']:.6f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}); no single PyTorch call computes it",
-              flush=True)
+        print(f"timing ssm_scan {label} [{kind}, {name}] at (B, T, H, P, N) = "
+              f"{shape} float32 (median, CUDA events): kernel "
+              f"{numbers['ms']:.6f} ms (device {numbers['device_ms']} ms, "
+              f"profiler median of 100), plain {numbers['plain_ms']:.6f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by}); no single PyTorch call "
+              f"computes it", flush=True)
     return {"max_abs_err": max_err, "by_shape": by_shape,
             **by_shape["prefill"]}
 
@@ -2435,10 +2518,10 @@ def profile_phase(fx: dict) -> dict:
     with torch.inference_mode():
         dev = _kernel_device_ms(
             lambda: lstm_kernel.lstm_sequence_fused(x, wx, wh, b),
-            ["lstm_sequence_kernel"])
-    out["lstm_sequence_fused"] = {"device_ms": dev["lstm_sequence_kernel"]}
-    print(f"profile: lstm_sequence_fused device time at {MAIN_SHAPE} "
-          f"{dev['lstm_sequence_kernel']} ms (median of 100)")
+            [SERVE_FWD_KERNEL])
+    out["lstm_sequence_fused"] = {"device_ms": dev[SERVE_FWD_KERNEL]}
+    print(f"profile: lstm_sequence_fused ({SERVE_FWD_KERNEL}) device time at "
+          f"{MAIN_SHAPE} {dev[SERVE_FWD_KERNEL]} ms (median of 100)")
     for B, T, F, H in TRAIN_SHAPES:
         (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, "float32", 300)
 
@@ -2592,11 +2675,14 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
             setattr(mod, attr, saved[label])
     # the prefill and new - 1 decode steps; in bf16 with D % 8 == 0 every
     # prefill attention (S x G > 64 rows a KV head) takes flash attention's
-    # wgmma prefill, every decode step (G <= 64 rows) its split decode
+    # wgmma prefill, every decode step (G <= 64 rows) its split decode; every
+    # prefill scan (T = 512) the chunked selective scan, every decode step
+    # (T = 1) its row-split decode
     expected = {w.__name__: n * new for w, n in kernels.items()}
     expected_by_kernel = {
-        w.__name__: {"simt": 0, "prefill_wgmma": n,
-                     "decode_split": n * (new - 1)}
+        w.__name__: {**dict.fromkeys(w.launches_by_kernel, 0),
+                     PREFILL_DECODE[w.__name__][0]: n,
+                     PREFILL_DECODE[w.__name__][1]: n * (new - 1)}
         for w, n in kernels.items() if hasattr(w, "launches_by_kernel")}
     decode_ms = 1e3 * stats.decode_s / (new - 1)
     print(f"zoo generate {arch} bf16 full width, batch {B}, prompt {S}, "
@@ -2638,7 +2724,7 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     whole = all(launches[w.__name__] % n == 0 if n else
                 not launches[w.__name__] for w, n in kernels.items())
     # bf16 at D % 8 == 0: never the SIMT kernel
-    whole = whole and not any(c["simt"] for c in serve_by_kernel.values())
+    whole = whole and not any(c.get("simt") for c in serve_by_kernel.values())
     print(f"zoo serve {arch}: {len(reqs)} requests (prompts "
           f"{SERVE_PROMPT_LENS}, new tokens {SERVE_NEW_TOKENS}) on "
           f"{SERVE_SLOTS} slots in {wall:.3f} s, "
@@ -2661,7 +2747,7 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
 
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
-    attention's three)."""
+    attention's three, the selective scan's two)."""
     return {w.__name__: dict(w.launches_by_kernel) for w in wrappers
             if hasattr(w, "launches_by_kernel")}
 
@@ -2669,7 +2755,7 @@ def _by_kernel(wrappers) -> dict:
 def _reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
-        if hasattr(w, "launches_by_kernel"):  # flash attention's three
+        if hasattr(w, "launches_by_kernel"):  # flash attention, the scan
             w.launches_by_kernel = dict.fromkeys(w.launches_by_kernel, 0)
 
 
@@ -2734,8 +2820,12 @@ def main() -> int:
         _build.LOGS.get("flash_attention", "")).items() if "flash_" in n}
     train_ptxas = {n: info for lib in ("lstm_sequence", "lstm_sequence_bwd")
                    for n, info in _ptxas_lines(_build.LOGS.get(lib, "")).items()
-                   if any(k in n for k in (TRAIN_FWD_KERNEL, *BWD_KERNELS))}
-    for n, info in {**ptxas, **train_ptxas}.items():
+                   if any(k in n for k in (SERVE_FWD_KERNEL, TRAIN_FWD_KERNEL,
+                                           *BWD_KERNELS))}
+    ssm_ptxas = {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get("ssm_scan", "")).items()
+        if any(k in n for k in SSM_KERNELS.values())}
+    for n, info in {**ptxas, **train_ptxas, **ssm_ptxas}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -2754,10 +2844,12 @@ def main() -> int:
             "flash_attention": flash_kernel_phase(),
             "rwkv6_scan": wkv_kernel_phase(),
             "ssm_scan": ssm_kernel_phase()}
-    for kname, names in (("lstm_sequence_fwd_train", [TRAIN_FWD_KERNEL]),
+    for kname, names in (("lstm_sequence_fused", [SERVE_FWD_KERNEL]),
+                         ("lstm_sequence_fwd_train", [TRAIN_FWD_KERNEL]),
                          ("lstm_sequence_bwd", BWD_KERNELS)):
         rows[kname]["ptxas"] = {n: info for n, info in train_ptxas.items()
                                 if any(k in n for k in names)}
+    rows["ssm_scan"]["ptxas"] = ssm_ptxas
 
     # phase 4: the serving path
     fx = load_fixture()
@@ -3008,12 +3100,13 @@ def main() -> int:
                        **{path: counts.get(kname, 0)
                           for path, counts in bus_launches.items()},
                        "scan": scan["launches"].get(kname, 0)}
-        if kname == flash.__name__:
+        if kname in (flash.__name__, ssm.__name__):
             row["launches_by_kernel_by_path"] = {
                 f"{arch}_{what}": run[f"{what}_launches_by_kernel"][kname]
                 for arch, run in served.items()
                 for what in ("generate", "serve")
                 if run[f"{what}_launches"][kname]}
+        if kname == flash.__name__:
             row["ptxas"] = ptxas
         # each kernel's main path: training for the LSTM sequence kernels,
         # the scan for the one-step cell, the int8 bus replay for the int8

@@ -1,5 +1,6 @@
-// Whole-sequence LSTM forward for Hopper (sm_90a), two kernels:
-//   lstm_sequence_kernel   x (B,T,F) -> final (h, c)                (serving)
+// Whole-sequence LSTM forward for Hopper (sm_90a): one recurrence, two
+// kernels that differ only in what they write:
+//   lstm_serve_fwd_kernel  x (B,T,F) -> final (h, c)                (serving)
 //   lstm_train_fwd_kernel  x (B,T,F) -> gates, c_seq, h_seq         (training)
 //
 // They replace the Pallas TPU kernels
@@ -19,22 +20,14 @@
 // Compute is float32 throughout; only the serving outputs are rounded to x's
 // type.
 //
-// What bounds them: at the paper's shapes (B of 64 to 256, T=5, F=5, H=40)
+// What bounds them: at the paper's shapes (B of 64 to 2048, T=5, F=5, H=40)
 // a call is a few MFLOP over a few hundred KB, well under a microsecond of
 // the card's float32 or memory rate, so the latency of the serial T-step
 // chain, of staging the weights and of the launch sets the time.
 //
-// The serving kernel: each block stages wx, wh and b in shared memory once
-// ((F+H)*4H*4 bytes, 28.8 KB at H=40) with a per-thread load loop, runs all
-// T steps with h double-buffered in shared memory and c in a register, and
-// writes only the final (h, c).  One thread owns one (batch row, hidden
-// unit) and computes that unit's four gate pre-activations; the R = 256/H
-// rows of a block are a tile of the batch, the last tile guarded row by row.
-//
-// The training kernel is built for the short, narrow steps of a speed fit
-// (B=64, 4H=160), where the serving design ran 11 blocks whose every thread
-// chained 4(F+H) FMAs a step:
-//   * one batch row a block, 4H threads: 64 blocks at B=64, 256 at B=256;
+// The design (lstm_forward_row, shared by both kernels):
+//   * one batch row a block, 4H threads: 250 blocks at the serving path's
+//     B=250, 64 at a speed fit's B=64;
 //   * one thread owns one gate column, so its serial chain is the H FMAs
 //     of h.wh a step; the four gates of a unit sit on four neighbouring
 //     lanes (a quad) and meet through __shfl_sync, so a step needs one
@@ -50,9 +43,14 @@
 //     bytes at a time (a bulk copy of wh to shared memory, then a copy into
 //     registers, was slower on the card); otherwise wh comes with the bulk
 //     copy and every step reads it from shared memory.
-// The residuals are written as they are made: each thread its gate, one lane
-// of the quad c and another h.  Reruns are bit-identical: every sum has one
-// fixed order.
+// The training kernel writes the residuals as they are made: each thread its
+// gate, one lane of the quad c and another h.  The serving kernel writes
+// only the final (h, c), one lane of the quad each; it shares this design
+// because one in which a thread chained the 4(F+H) FMAs of a unit's four
+// gates a step through shared memory, x read inside the chain, was slower
+// on the device than cuDNN's LSTM.  Reruns are bit-identical: every sum has
+// one fixed order, the training kernel's
+// (ref.lstm_sequence_fwd_train_tiled_ref).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -61,15 +59,14 @@
 
 namespace {
 
-constexpr int kThreadsPerBlock = 256;
 // dynamic shared memory one block may use on Hopper (227 KB)
 constexpr size_t kSmemLimit = 232448;
-// steps whose input projection a thread of the training kernel holds in
-// registers: its time loop runs in chunks of this many steps
+// steps whose input projection a thread holds in registers: the time loop
+// runs in chunks of this many steps
 constexpr int kTrainChunk = 8;
-constexpr int kTrainMaxThreads = 512;
-// the longest column of wh a thread of the training kernel holds in
-// registers
+// a block's threads, 4H rounded up to whole warps: H <= 128
+constexpr int kMaxThreads = 512;
+// the longest column of wh a thread holds in registers
 constexpr int kRegH = 64;
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
@@ -81,120 +78,35 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Rows of the batch one block of the serving kernel takes: as many as fit
-// kThreadsPerBlock threads of H each, at least one.
-int rows_per_block(int H) {
-  int r = kThreadsPerBlock / H;
-  return r < 1 ? 1 : r;
-}
-
-size_t smem_bytes(int F, int H) {
-  const size_t G = 4 * static_cast<size_t>(H);
-  const size_t R = static_cast<size_t>(rows_per_block(H));
-  // wx, wh, b, then h double-buffered for R rows
-  return sizeof(float) * ((F + H) * G + G + 2 * R * H);
-}
-
-// The training kernel's shared memory: the mbarrier (16 bytes, which keeps
-// what follows 16-byte aligned), wx, wh and b (each a multiple of 16 bytes,
-// as cp.async.bulk needs), h double-buffered, and with stage_x a chunk of x.
-// Without x it is no more than the serving kernel's, so every H the serving
-// kernel takes fits.
-size_t train_smem_bytes(int F, int H, bool stage_x) {
+// A block's shared memory: the mbarrier (16 bytes, which keeps what follows
+// 16-byte aligned), wx, wh and b (each a multiple of 16 bytes, as
+// cp.async.bulk needs), h double-buffered, and with stage_x a chunk of x.
+size_t smem_bytes(int F, int H, bool stage_x) {
   const size_t G = 4 * static_cast<size_t>(H);
   return 16 + sizeof(float) * ((F + H) * G + G + 2 * static_cast<size_t>(H) +
                                (stage_x ? static_cast<size_t>(kTrainChunk) * F
                                         : 0));
 }
 
-// Whether a thread of the training kernel holds its column of wh in
-// registers: H <= kRegH, and H a multiple of 4 (16-byte loads of h).
+// Whether a thread holds its column of wh in registers: H <= kRegH, and H a
+// multiple of 4 (16-byte loads of h).
 bool registers_hold_wh(int H) { return H <= kRegH && H % 4 == 0; }
 
-// The serving recurrence: the final (h, c) in x's type.
-template <typename Tin>
-__global__ void lstm_sequence_kernel(const Tin* __restrict__ x,
-                                     const float* __restrict__ wx,
-                                     const float* __restrict__ wh,
-                                     const float* __restrict__ b,
-                                     Tin* __restrict__ h_out,
-                                     Tin* __restrict__ c_out,
-                                     int B, int T, int F, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int R = blockDim.y;
-  float* s_wx = smem;            // (F, 4H)
-  float* s_wh = s_wx + F * G;    // (H, 4H)
-  float* s_b = s_wh + H * G;     // (4H)
-  float* s_h = s_b + G;          // (2, R, H)
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < F * G; i += nthreads) s_wx[i] = wx[i];
-  for (int i = tid; i < H * G; i += nthreads) s_wh[i] = wh[i];
-  for (int i = tid; i < G; i += nthreads) s_b[i] = b[i];
-  for (int i = tid; i < R * H; i += nthreads) s_h[i] = 0.0f;
-  __syncthreads();
-
-  const int j = threadIdx.x;   // hidden unit
-  const int r = threadIdx.y;   // row within the tile
-  const long long row = static_cast<long long>(blockIdx.x) * R + r;
-  const bool active = row < B;
-
-  float h = 0.0f, c = 0.0f;
-  int cur = 0;
-  for (int t = 0; t < T; ++t) {
-    if (active) {
-      float zi = s_b[j], zf = s_b[H + j], zg = s_b[2 * H + j],
-            zo = s_b[3 * H + j];
-      const Tin* xt = x + (row * T + t) * F;
-      for (int k = 0; k < F; ++k) {
-        const float xv = load_f32(xt + k);
-        const float* w = s_wx + k * G;
-        zi += xv * w[j];
-        zf += xv * w[H + j];
-        zg += xv * w[2 * H + j];
-        zo += xv * w[3 * H + j];
-      }
-      const float* hp = s_h + (cur * R + r) * H;
-      for (int k = 0; k < H; ++k) {
-        const float hv = hp[k];
-        const float* w = s_wh + k * G;
-        zi += hv * w[j];
-        zf += hv * w[H + j];
-        zg += hv * w[2 * H + j];
-        zo += hv * w[3 * H + j];
-      }
-      const float ig = lstm::sigmoidf(zi), fg = lstm::sigmoidf(zf),
-                  gg = tanhf(zg), og = lstm::sigmoidf(zo);
-      c = fg * c + ig * gg;
-      h = og * tanhf(c);
-      s_h[((cur ^ 1) * R + r) * H + j] = h;
-    }
-    cur ^= 1;
-    // every read of buffer `cur` this step is done before the next step
-    // overwrites it
-    __syncthreads();
-  }
-  if (active) {
-    store(h_out + row * H + j, h);
-    store(c_out + row * H + j, c);
-  }
-}
-
-// The training recurrence of one batch row: a 1-d block of 4H threads
-// (rounded up to whole warps), thread p owning gate q = p % 4 of unit
-// j = p / 4, i.e. column q*H + j of the gates.  kRegW: the thread loads its
-// column of wh from global memory into registers as the block starts (only
-// wx and b go through the bulk copy) and reads h 16 bytes at a time;
-// otherwise wh comes to shared memory with them and every step reads it
-// there.
-template <typename Tin, bool kRegW>
-__global__ void __launch_bounds__(kTrainMaxThreads) lstm_train_fwd_kernel(
+// The recurrence of one batch row: a 1-d block of 4H threads (rounded up
+// to whole warps), thread p owning gate q = p % 4 of unit j = p / 4, i.e.
+// column q*H + j of the gates.  kRegW: the thread loads its column of wh
+// from global memory into registers as the block starts (only wx and b go
+// through the bulk copy) and reads h 16 bytes at a time; otherwise wh comes
+// to shared memory with them and every step reads it there.  kResiduals:
+// write every step's gates, c and h (training); otherwise only the final
+// (h, c) in x's type (serving).
+template <typename Tin, bool kRegW, bool kResiduals>
+__device__ __forceinline__ void lstm_forward_row(
     const Tin* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ wh, const float* __restrict__ b,
     float* __restrict__ gates, float* __restrict__ c_seq,
-    float* __restrict__ h_seq, int T, int F, int H, int stage_x) {
+    float* __restrict__ h_seq, Tin* __restrict__ h_out,
+    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 4 * H;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
@@ -259,9 +171,13 @@ __global__ void __launch_bounds__(kTrainMaxThreads) lstm_train_fwd_kernel(
       for (int s = 0; s < kTrainChunk; ++s) xw[s] += xv[s] * wk;
     }
     // the steps, a runtime loop: xw shifts down one register a step
-    const long long rt0 = row * T + t0;
-    float* gate_out = gates + rt0 * G + col;
-    float* state_out = (q == 1 ? c_seq : h_seq) + rt0 * H + j;
+    float* gate_out = nullptr;
+    float* state_out = nullptr;
+    if constexpr (kResiduals) {
+      const long long rt0 = row * T + t0;
+      gate_out = gates + rt0 * G + col;
+      state_out = (q == 1 ? c_seq : h_seq) + rt0 * H + j;
+    }
 #pragma unroll 1
     for (int s = 0; s < n; ++s) {
       const float xw_s = xw[0];
@@ -305,9 +221,11 @@ __global__ void __launch_bounds__(kTrainMaxThreads) lstm_train_fwd_kernel(
         c = fg * c + ig * gg;
         h = og * tanhf(c);
         if (q == 0) s_h[(cur ^ 1) * H + j] = h;
-        gate_out[s * G] = act;
-        if (q == 1) state_out[s * H] = c;
-        if (q == 2) state_out[s * H] = h;
+        if constexpr (kResiduals) {
+          gate_out[s * G] = act;
+          if (q == 1) state_out[s * H] = c;
+          if (q == 2) state_out[s * H] = h;
+        }
       }
       cur ^= 1;
       // h of this step is complete before the next reads it, and every
@@ -315,88 +233,119 @@ __global__ void __launch_bounds__(kTrainMaxThreads) lstm_train_fwd_kernel(
       __syncthreads();
     }
   }
+  if constexpr (!kResiduals) {
+    if (has_row && q == 0) store(h_out + row * H + j, h);
+    if (has_row && q == 1) store(c_out + row * H + j, c);
+  }
 }
 
-// Launches the serving kernel over the batch tiles of (B, F, H) on `stream`
-// and returns cudaGetLastError().
-template <typename Tin>
-cudaError_t launch_serving(int B, int T, int F, int H, cudaStream_t stream,
-                           const void* x, const float* wx, const float* wh,
-                           const float* b, void* h_out, void* c_out) {
-  const int R = rows_per_block(H);
-  const size_t smem = smem_bytes(F, H);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_sequence_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  lstm_sequence_kernel<Tin><<<(B + R - 1) / R, dim3(H, R), smem, stream>>>(
-      static_cast<const Tin*>(x), wx, wh, b, static_cast<Tin*>(h_out),
-      static_cast<Tin*>(c_out), B, T, F, H);
-  return cudaGetLastError();
+// The two kernels: one batch row a block (blockIdx.x), the same recurrence.
+// Each takes both kinds of output pointer and writes only its own.
+template <typename Tin, bool kRegW>
+__global__ void __launch_bounds__(kMaxThreads) lstm_train_fwd_kernel(
+    const Tin* __restrict__ x, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ b,
+    float* __restrict__ gates, float* __restrict__ c_seq,
+    float* __restrict__ h_seq, Tin* __restrict__ h_out,
+    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
+  lstm_forward_row<Tin, kRegW, true>(x, wx, wh, b, gates, c_seq, h_seq,
+                                     h_out, c_out, T, F, H, stage_x);
 }
 
 template <typename Tin, bool kRegW>
-cudaError_t launch_train_as(int B, int T, int F, int H, cudaStream_t stream,
-                            const void* x, const float* wx, const float* wh,
-                            const float* b, float* gates, float* c_seq,
-                            float* h_seq) {
-  const bool stage_x = train_smem_bytes(F, H, true) <= kSmemLimit;
-  const size_t smem = train_smem_bytes(F, H, stage_x);
+__global__ void __launch_bounds__(kMaxThreads) lstm_serve_fwd_kernel(
+    const Tin* __restrict__ x, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ b,
+    float* __restrict__ gates, float* __restrict__ c_seq,
+    float* __restrict__ h_seq, Tin* __restrict__ h_out,
+    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
+  lstm_forward_row<Tin, kRegW, false>(x, wx, wh, b, gates, c_seq, h_seq,
+                                      h_out, c_out, T, F, H, stage_x);
+}
+
+// Launches one of the two kernels over the batch rows on `stream` and
+// returns cudaGetLastError().
+template <typename Tin, bool kRegW, bool kResiduals>
+cudaError_t launch_as(int B, int T, int F, int H, cudaStream_t stream,
+                      const void* x, const float* wx, const float* wh,
+                      const float* b, float* gates, float* c_seq,
+                      float* h_seq, void* h_out, void* c_out) {
+  const bool stage_x = smem_bytes(F, H, true) <= kSmemLimit;
+  const size_t smem = smem_bytes(F, H, stage_x);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = kResiduals ? lstm_train_fwd_kernel<Tin, kRegW>
+                           : lstm_serve_fwd_kernel<Tin, kRegW>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_train_fwd_kernel<Tin, kRegW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int threads = (4 * H + 31) / 32 * 32;
-  lstm_train_fwd_kernel<Tin, kRegW><<<B, threads, smem, stream>>>(
-      static_cast<const Tin*>(x), wx, wh, b, gates, c_seq, h_seq, T, F, H,
+  kernel<<<B, threads, smem, stream>>>(
+      static_cast<const Tin*>(x), wx, wh, b, gates, c_seq, h_seq,
+      static_cast<Tin*>(h_out), static_cast<Tin*>(c_out), T, F, H,
       stage_x ? 1 : 0);
   return cudaGetLastError();
 }
 
-template <typename Tin>
-cudaError_t launch_train(int B, int T, int F, int H, cudaStream_t stream,
-                         const void* x, const float* wx, const float* wh,
-                         const float* b, float* gates, float* c_seq,
-                         float* h_seq) {
-  return registers_hold_wh(H)
-             ? launch_train_as<Tin, true>(B, T, F, H, stream, x, wx, wh, b,
-                                          gates, c_seq, h_seq)
-             : launch_train_as<Tin, false>(B, T, F, H, stream, x, wx, wh, b,
-                                           gates, c_seq, h_seq);
+template <bool kResiduals>
+cudaError_t launch(int B, int T, int F, int H, int x_is_bf16,
+                   cudaStream_t stream, const void* x, const void* wx,
+                   const void* wh, const void* b, float* gates, float* c_seq,
+                   float* h_seq, void* h_out, void* c_out) {
+  const float* w[3] = {static_cast<const float*>(wx),
+                       static_cast<const float*>(wh),
+                       static_cast<const float*>(b)};
+  const bool reg = registers_hold_wh(H);
+  if (x_is_bf16) {
+    return reg ? launch_as<__nv_bfloat16, true, kResiduals>(
+                     B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+                     h_seq, h_out, c_out)
+               : launch_as<__nv_bfloat16, false, kResiduals>(
+                     B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+                     h_seq, h_out, c_out);
+  }
+  return reg ? launch_as<float, true, kResiduals>(B, T, F, H, stream, x, w[0],
+                                                  w[1], w[2], gates, c_seq,
+                                                  h_seq, h_out, c_out)
+             : launch_as<float, false, kResiduals>(B, T, F, H, stream, x,
+                                                   w[0], w[1], w[2], gates,
+                                                   c_seq, h_seq, h_out, c_out);
+}
+
+// The checks both entry points share: 0, or the error to return.
+int check_call(int T, int F, int H, const void* wx, const void* wh,
+               const void* b) {
+  if (T < 1 || F < 1 || H < 1 || 4 * H > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!lstm::aligned16(wx) || !lstm::aligned16(wh) || !lstm::aligned16(b))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of the serving kernel needs for (F, H);
-// the training kernel needs no more.
+// Dynamic shared memory one block of the forward kernels needs at (F, H)
+// at the least (x not staged).
 long long lstm_sequence_smem_bytes(int F, int H) {
-  return static_cast<long long>(smem_bytes(F, H));
+  return static_cast<long long>(smem_bytes(F, H, false));
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x_is_bf16 selects bfloat16 x and outputs; otherwise all are float32.
+// The serving kernel: the final (h, c) (B,H) in x's type.  x_is_bf16
+// selects bfloat16 x and outputs; otherwise all are float32.  wx, wh and b
+// must be 16-byte aligned (the bulk copies).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 int lstm_sequence_forward(const void* x, const void* wx, const void* wh,
                           const void* b, void* h_out, void* c_out, int B,
                           int T, int F, int H, int x_is_bf16, void* stream) {
   if (B <= 0) return 0;
-  if (T < 1 || F < 1 || H < 1 || H > 1024) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* w[3] = {static_cast<const float*>(wx),
-                       static_cast<const float*>(wh),
-                       static_cast<const float*>(b)};
-  const cudaError_t err =
-      x_is_bf16 ? launch_serving<__nv_bfloat16>(B, T, F, H, s, x, w[0], w[1],
-                                                w[2], h_out, c_out)
-                : launch_serving<float>(B, T, F, H, s, x, w[0], w[1], w[2],
-                                        h_out, c_out);
-  return static_cast<int>(err);
+  if (const int err = check_call(T, F, H, wx, wh, b)) return err;
+  return static_cast<int>(launch<false>(
+      B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh, b,
+      nullptr, nullptr, nullptr, h_out, c_out));
 }
 
 // The training kernel: gates (B,T,4H), c_seq and h_seq (B,T,H), float32,
@@ -407,22 +356,11 @@ int lstm_sequence_forward_train(const void* x, const void* wx, const void* wh,
                                 void* h_seq, int B, int T, int F, int H,
                                 int x_is_bf16, void* stream) {
   if (B <= 0) return 0;
-  if (T < 1 || F < 1 || H < 1 || 4 * H > kTrainMaxThreads)
-    return cudaErrorInvalidValue;
-  if (!lstm::aligned16(wx) || !lstm::aligned16(wh) || !lstm::aligned16(b))
-    return cudaErrorMisalignedAddress;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* w[3] = {static_cast<const float*>(wx),
-                       static_cast<const float*>(wh),
-                       static_cast<const float*>(b)};
-  float* out[3] = {static_cast<float*>(gates), static_cast<float*>(c_seq),
-                   static_cast<float*>(h_seq)};
-  const cudaError_t err =
-      x_is_bf16 ? launch_train<__nv_bfloat16>(B, T, F, H, s, x, w[0], w[1],
-                                              w[2], out[0], out[1], out[2])
-                : launch_train<float>(B, T, F, H, s, x, w[0], w[1], w[2],
-                                      out[0], out[1], out[2]);
-  return static_cast<int>(err);
+  if (const int err = check_call(T, F, H, wx, wh, b)) return err;
+  return static_cast<int>(launch<true>(
+      B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh, b,
+      static_cast<float*>(gates), static_cast<float*>(c_seq),
+      static_cast<float*>(h_seq), nullptr, nullptr));
 }
 
 }  // extern "C"

@@ -7,16 +7,18 @@ Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
   x (B,F), h and c (B,H), each float32 or bfloat16, and wx (F,4H),
   wh (H,4H), b (4H) -> (h', c'), h' in ``h.dtype`` and c' in ``c.dtype``.
   The step of the per-step baseline ``ops.lstm_sequence_scan``.
-* ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu: lstm_sequence_kernel``)
+* ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu: lstm_serve_fwd_kernel``)
   replaces ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx
   (F,4H), wh (H,4H) and b (4H) -> the final (h, c), each (B,H) in
   ``x.dtype``.  The serving forward.
 * ``lstm_sequence_fwd_train`` (same source, ``lstm_train_fwd_kernel``)
   replaces ``lstm_sequence_fwd_train``: the same inputs -> the residuals the
   backward needs, post-activation gates (B,T,4H) and c_seq, h_seq (B,T,H),
-  float32.  One thread a (row, gate column), the input projection taken
-  before the recurrence, wx and b staged by a bulk asynchronous copy
-  (``ref.lstm_sequence_fwd_train_tiled_ref`` is its order of summation).
+  float32.
+  The two forward kernels share one recurrence: a batch row a block, a
+  thread a gate column, the input projection taken before the recurrence,
+  wx and b staged by a bulk asynchronous copy
+  (``ref.lstm_sequence_fwd_train_tiled_ref`` is their order of summation).
 * ``lstm_sequence_bwd`` (``csrc/lstm_sequence_bwd.cu``: a reverse-time
   kernel over tiles of batch rows that keeps dz on chip and writes each
   tile's partial weight gradient, then a kernel that sums the partials in
@@ -28,9 +30,10 @@ Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
 
 Compute is float32; gate order i, f, g, o.  The forward wrappers take the
 weights in float32 or bfloat16, as the reference's kernels do, and cast
-bfloat16 ones to float32 once (exact) before the launch; the training pair
-copies a weight that is not 16-byte aligned once (its bulk copies need the
-alignment).  What bounds them: at the paper's shapes (B of 64 to 256, T=5,
+bfloat16 ones to float32 once (exact) before the launch; the sequence
+kernels copy a weight that is not 16-byte aligned once (their bulk copies
+need the alignment; the models' weights are tensors of their own, aligned,
+so the serving and training paths copy nothing).  What bounds them: at the paper's shapes (B of 64 to 256, T=5,
 F=5, H=40) a call is a few MFLOP over a few hundred KB, a fraction of a
 microsecond at the card's float32 or memory rate, so launch latency and the
 serial T-step chain set their time.
@@ -110,7 +113,9 @@ def cell_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def smem_bytes(F: int, H: int) -> int:
-    """Shared memory one block of the forward kernels needs at (F, H)."""
+    """Shared memory one block of the forward kernels needs at (F, H), at
+    the least (x read from global memory where a chunk of it does not
+    fit)."""
     return int(library().lstm_sequence_smem_bytes(F, H))
 
 
@@ -235,7 +240,7 @@ def lstm_sequence_fused(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     contiguous on one CUDA device.  Returns the final (h, c), each (B,H) in
     ``x.dtype``.  Raises on anything else, and when the launch fails."""
     _check_forward_inputs("lstm_sequence_fused", x, wx, wh, b)
-    wx, wh, b = f32_weights(wx, wh, b)
+    wx, wh, b = map(_aligned16, f32_weights(wx, wh, b))
     B, T, F = x.shape
     H = wh.shape[0]
     h = torch.empty((B, H), dtype=x.dtype, device=x.device)

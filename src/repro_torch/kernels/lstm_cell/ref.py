@@ -2,12 +2,13 @@
 step at a time.  The CPU path of ``ops`` and the reference each kernel is
 held to on the card.
 
-``lstm_sequence_fwd_train_tiled_ref`` and ``lstm_sequence_bwd_tiled_ref``
-are the training pair's Hopper algorithms (``csrc/lstm_sequence.cu:
-lstm_train_fwd_kernel``, ``csrc/lstm_sequence_bwd.cu``) step for step:
-their orders of summation, tiles, lane splits and combine order, so that the
-CPU tests hold the decomposition itself to the reference.  Nothing on the
-main path calls them."""
+``lstm_sequence_fwd_train_tiled_ref``, ``lstm_sequence_tiled_ref`` and
+``lstm_sequence_bwd_tiled_ref`` are the Hopper algorithms of the sequence
+kernels (``csrc/lstm_sequence.cu: lstm_train_fwd_kernel`` and
+``lstm_serve_fwd_kernel``, one recurrence; ``csrc/lstm_sequence_bwd.cu``)
+step for step: their orders of summation, tiles, lane splits and combine
+order, so that the CPU tests hold the decomposition itself to the
+reference.  Nothing on the main path calls them."""
 from __future__ import annotations
 
 from typing import Iterator, Tuple
@@ -152,6 +153,16 @@ def lstm_sequence_fwd_train_tiled_ref(x: torch.Tensor, wx: torch.Tensor,
         cs.append(c)
         hs.append(h)
     return torch.stack(gates, 1), torch.stack(cs, 1), torch.stack(hs, 1)
+
+
+def lstm_sequence_tiled_ref(x: torch.Tensor, wx: torch.Tensor,
+                            wh: torch.Tensor, b: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_sequence_ref(..., return_state=True)`` in the serving
+    kernel's order, which is the training kernel's: the final (h, c) of
+    ``lstm_sequence_fwd_train_tiled_ref``, cast to ``x.dtype``."""
+    _, c_seq, h_seq = lstm_sequence_fwd_train_tiled_ref(x, wx, wh, b)
+    return h_seq[:, -1].to(x.dtype), c_seq[:, -1].to(x.dtype)
 
 
 def _butterfly(pieces):

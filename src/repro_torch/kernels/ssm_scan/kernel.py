@@ -1,5 +1,4 @@
-"""The Mamba2 selective scan on the card: the wrapper around
-``csrc/ssm_scan.cu``.
+"""The Mamba2 selective scan on the card: the wrapper around ``csrc/``.
 
 ``ssm_scan`` replaces the Pallas TPU kernel of
 ``src/repro/kernels/ssm_scan/kernel.py``: the selective-state recurrence
@@ -8,16 +7,29 @@ and c (B,T,N) read by every head, dt (B,T,H), a and d (H,)), float32 in
 and out, from a given state (zero when none is given) to the final state.
 With a zero state it computes the Pallas kernel's function; with any other
 it computes the reference's oracle ``ssm_scan_ref(..., state0)``.  What
-bounds it: ~5 B T H P N float32 operations against the bytes of x, y, b,
-c, dt and the state (see the source for the design and its distance from
-the bound).
+bounds it: the bytes of x, y, b, c, dt and the state (see the sources for
+each design and its distance from the bound).
+
+One library holds two kernels, and every call launches exactly one of
+them, by ``kernel_for``:
+
+- ``decode_rows`` (``csrc/ssm_decode.cu``), T <= ``DECODE_MAX_T``: every
+  decode step.  The recurrence step by step, each state row split over
+  ``ref.decode_lanes(N)`` lanes with 16-byte accesses
+  (``ref.ssm_decode_rows_ref`` is its order of summation);
+- ``chunked`` (``csrc/ssm_chunked.cu``), longer T: every prefill.  Mamba2's
+  chunked SSD form in chunks of ``CHUNK`` steps, its products on the
+  tensor cores in 3xTF32 (``ref.ssd_chunked_ref(..., chunk=CHUNK,
+  operand_rounding="tf32x3")`` is its algorithm).
 
 The wrapper checks its inputs, allocates y (and the state, unless given
 ``out``) with ``torch.empty``, launches on the current CUDA stream, raises
 when the launch fails, and counts its successful launches in a plain
-integer ``.launches``; at T = 0 it launches nothing and counts nothing.
-The library builds with ``nvcc`` at the first launch (``kernels/_build``);
-``LIBRARIES`` names it for a caller that builds every library up front.
+integer ``.launches`` and by kernel in ``.launches_by_kernel``; at T = 0
+it launches nothing and counts nothing.  The library builds with ``nvcc``
+at the first launch (``kernels/_build``, which also hashes the
+``csrc/*.cuh`` header beside the sources); ``LIBRARIES`` names it for a
+caller that builds every library up front.
 """
 from __future__ import annotations
 
@@ -30,13 +42,29 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "ssm_scan.cu"
+CHUNKED_SOURCE = CSRC / "ssm_chunked.cu"
+DECODE_SOURCE = CSRC / "ssm_decode.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"ssm_scan": [SOURCE]}
-# the largest head dim (thread p keeps row p of the state) and state dim
-# (the row's N floats in registers)
+LIBRARIES = {"ssm_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE]}
+# the largest head dim and state dim the kernels take
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 64
+# the largest H and B (the grid's y and z dims)
+MAX_GRID = 65535
+# the chunked kernel's steps a chunk; the longest T the decode kernel takes
+CHUNK = 64
+DECODE_MAX_T = 8
+# the kernels by name, as the C entry point numbers them
+KERNELS = {"chunked": 0, "decode_rows": 1}
+
+
+def kernel_for(T: int) -> str:
+    """The kernel that takes a call of T >= 1 steps: ``decode_rows`` for
+    T <= DECODE_MAX_T (every decode step), ``chunked`` otherwise (every
+    prefill)."""
+    return "decode_rows" if T <= DECODE_MAX_T else "chunked"
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +72,7 @@ def library() -> ctypes.CDLL:
     """The kernel's library, built (or loaded) at the first call."""
     lib = _build.load_library("ssm_scan", LIBRARIES["ssm_scan"])
     lib.ssm_scan_forward.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.ssm_scan_forward.restype = ctypes.c_int
     return lib
 
@@ -54,13 +82,13 @@ def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              state0: Optional[torch.Tensor] = None, *,
              out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current CUDA stream.
+    """Launch the kernel ``kernel_for(T)`` picks on the current CUDA stream.
 
     x (B,T,H,P); b, c (B,T,N); dt (B,T,H); a, d (H,); state0 and ``out``
     (B,H,P,N) or None; all float32, contiguous, on one CUDA device;
-    1 <= P, N <= 64.  ``out`` receives the final state and may be
-    ``state0`` itself.  Returns (y (B,T,H,P), final state).  Raises on
-    anything else, and when the launch fails."""
+    1 <= P, N <= 64, 1 <= B, H <= 65535.  ``out`` receives the final state
+    and may be ``state0`` itself.  Returns (y (B,T,H,P), final state).
+    Raises on anything else, and when the launch fails."""
     name = "ssm_scan"
     if x.dim() != 4:
         raise ValueError(f"{name}: expected x (B,T,H,P), got x "
@@ -75,11 +103,11 @@ def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             raise ValueError(f"{name}: {label} must be {want} for x "
                              f"{tuple(x.shape)} and N = {N}, got "
                              f"{tuple(t.shape)}")
-    if (not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE_DIM or B < 1
-            or H < 1 or B * H > 2**31 - 1):
+    if (not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE_DIM
+            or not 1 <= B <= MAX_GRID or not 1 <= H <= MAX_GRID):
         raise ValueError(f"{name}: need 1 <= P <= {MAX_HEAD_DIM}, 1 <= N <= "
-                         f"{MAX_STATE_DIM} and 1 <= B*H < 2**31, got B={B}, "
-                         f"H={H}, P={P}, N={N}")
+                         f"{MAX_STATE_DIM} and 1 <= B, H <= {MAX_GRID}, got "
+                         f"B={B}, H={H}, P={P}, N={N}")
     tensors = [t for t in (x, b, c, dt, a, d, state0, out) if t is not None]
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"{name}: inputs must be float32, got "
@@ -98,19 +126,23 @@ def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         elif state is not state0:
             state.copy_(state0)
         return y, state
+    which = kernel_for(T)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().ssm_scan_forward(
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             a.data_ptr(), d.data_ptr(),
             None if state0 is None else state0.data_ptr(), y.data_ptr(),
-            state.data_ptr(), B, T, H, P, N, stream)
+            state.data_ptr(), B, T, H, P, N, KERNELS[which], stream)
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           f"(B={B}, T={T}, H={H}, P={P}, N={N})")
+        raise RuntimeError(f"{name}: launch of {which} failed with CUDA "
+                           f"error {err} (B={B}, T={T}, H={H}, P={P}, N={N})")
     ssm_scan.launches += 1
+    ssm_scan.launches_by_kernel[which] += 1
     return y, state
 
 
-# launches of the kernel since the last reset; only a successful launch counts
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
 ssm_scan.launches = 0
+ssm_scan.launches_by_kernel = dict.fromkeys(KERNELS, 0)

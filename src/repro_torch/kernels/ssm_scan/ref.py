@@ -14,6 +14,14 @@ scalar skip d per head, from the state h_0 (zero unless given):
 and c (BH,T,N), dt (BH,T), a and d (BH,), each row one head of its own
 batch row.  Both step through time one token at a time in float32 and
 return y in x's dtype and the final state in float32.
+
+``ssd_chunked_ref`` and ``ssm_decode_rows_ref`` are the two Hopper
+kernels' algorithms (``csrc/ssm_chunked.cu``, ``csrc/ssm_decode.cu``) in
+the model layout, step for step: the chunked SSD form with its float64
+segment sums and, on request, its 3xTF32 rounding of the products'
+operands; the decode kernel's split of a state row over lanes and its
+order of summation.  The CPU tests hold them to the reference; nothing on
+the main path calls them.
 """
 from __future__ import annotations
 
@@ -69,3 +77,149 @@ def ssm_scan_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  dt.float()[..., None], a.float()[:, None],
                  d.float()[:, None], h)
     return y[:, :, 0].to(x.dtype), h[:, 0]
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 mantissa bits, ties away from zero (a half
+    unit added to the magnitude's bits, then the low 13 bits cleared)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` with its low 13 mantissa bits cleared: TF32 rounded
+    toward zero, as the tensor core reads a float32 operand."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, rounding: Optional[str]
+            ) -> torch.Tensor:
+    """a @ b in float32 with the operands rounded as the kernel's products
+    round them: None exact, "tf32" each operand once to TF32, "tf32x3"
+    each split as hi + lo, hi rounded to TF32 and lo = v - hi read by the
+    tensor core in TF32 (rounded toward zero), and the product a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (the a_lo b_lo term dropped)."""
+    if rounding is None:
+        return a @ b
+    if rounding == "tf32":
+        return _tf32(a) @ _tf32(b)
+    if rounding != "tf32x3":
+        raise ValueError(f"operand_rounding must be None, 'tf32' or "
+                         f"'tf32x3', got {rounding!r}")
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def ssd_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                    state0: Optional[torch.Tensor] = None, chunk: int = 64,
+                    operand_rounding: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's algorithm: ``selective_scan_ref``'s function
+    (same arguments and results) by Mamba2's chunked SSD form.
+
+    T is cut into chunks of ``chunk`` steps, the last padded with dt = 0
+    (the identity step).  In a chunk, with la = dt a (float32) and its
+    prefix sums pfx taken in float64 from the chunk's start:
+    G = C B^T; M[t, s] = exp(pfx_t - pfx_s) dt_s G[t, s] for s <= t;
+    y = M x + exp(pfx_t) (C h^T) + d x; and the state
+    h = exp(pfx_last) h + (x exp(pfx_last - pfx_s) dt_s)^T B, each
+    difference of prefix sums taken in float64 and rounded to float32
+    only in front of exp.  ``operand_rounding`` rounds the products'
+    operands as ``_matmul`` says ("tf32x3" is the kernel's)."""
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    x, b, c, dt, a, d = (t.float() for t in (x, b, c, dt, a, d))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state0 is None else state0.float().clone())
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ys = []
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+
+        def piece(v):  # steps t0..t0+n of v, zero-padded to the chunk
+            v = v[:, t0:t0 + n]
+            return torch.cat([v, v.new_zeros((B, chunk - n, *v.shape[2:]))],
+                             1)
+
+        xc, bc, cc, dtc = piece(x), piece(b), piece(c), piece(dt)
+        pfx = torch.cumsum((dtc * a).double(), 1)  # (B, C, H)
+        total = pfx[:, -1]  # (B, H)
+        seg = (pfx[:, :, None] - pfx[:, None]).float()  # (B, t, s, H)
+        e = torch.exp(pfx.float())
+        w = torch.exp((total[:, None] - pfx).float()) * dtc
+        g = _matmul(cc, bc.transpose(1, 2), operand_rounding)  # (B, t, s)
+        m = torch.where(mask[None, :, :, None],
+                        torch.exp(seg) * dtc[:, None] * g[..., None], 0.0)
+        xh = xc.permute(0, 2, 1, 3)  # (B, H, s, p)
+        y = (_matmul(m.permute(0, 3, 1, 2), xh, operand_rounding)
+             + e.transpose(1, 2)[..., None] * _matmul(
+                 cc[:, None], h.transpose(-1, -2), operand_rounding)
+             + d[:, None, None] * xh)  # (B, H, t, p)
+        ys.append(y[:, :, :n].transpose(1, 2))
+        xw = (xc * w[..., None]).permute(0, 2, 3, 1)  # (B, H, p, s)
+        h = (torch.exp(total.float())[..., None, None] * h
+             + _matmul(xw, bc[:, None], operand_rounding))
+    y = (torch.cat(ys, 1) if ys else
+         torch.zeros((B, 0, H, P), dtype=torch.float32, device=x.device))
+    return y, h
+
+
+def _butterfly(pieces):
+    """The sum of ``pieces`` (one a lane) as ``__shfl_xor_sync`` adds them
+    with offsets n/2, n/4, ..., 1, as the first lane holds it."""
+    off = len(pieces) // 2
+    while off:
+        pieces = [pieces[i] + pieces[i ^ off] for i in range(len(pieces))]
+        off //= 2
+    return pieces[0]
+
+
+def decode_lanes(N: int) -> int:
+    """The lanes the decode kernel splits a state row of N over, 4 floats
+    a lane: the power of two >= N / 4 (``csrc/ssm_decode.cu:
+    decode_lanes``)."""
+    lanes = 1
+    while 4 * lanes < N:
+        lanes *= 2
+    return lanes
+
+
+def ssm_decode_rows_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                        state0: Optional[torch.Tensor] = None,
+                        lanes: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's algorithm: ``selective_scan_ref``'s function
+    step by step, with y_p summed as the kernel sums it.  A state row of N
+    is split over ``lanes`` lanes (default the kernel's, ``decode_lanes``),
+    4 consecutive n a lane; a lane adds its 4 products in n order, and the
+    lanes' partials are added by the xor butterfly."""
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    lanes = decode_lanes(N) if lanes is None else lanes
+    if lanes < 1 or lanes & (lanes - 1) or 4 * lanes < N:
+        raise ValueError(f"lanes must be a power of two with 4 lanes >= N = "
+                         f"{N}, got {lanes}")
+    x, b, c, dt, a, d = (t.float() for t in (x, b, c, dt, a, d))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state0 is None else state0.float().clone())
+    pad = 4 * lanes - N
+    ys = []
+    for t in range(T):
+        decay = torch.exp(dt[:, t] * a)[..., None, None]  # (B, H, 1, 1)
+        u = (dt[:, t, :, None] * x[:, t])[..., None]  # (B, H, P, 1)
+        h = decay * h + u * b[:, t, None, None, :]
+        prod = h * c[:, t, None, None, :]
+        prod = torch.cat([prod, prod.new_zeros((B, H, P, pad))], -1)
+        prod = prod.reshape(B, H, P, lanes, 4)
+        part = prod[..., 0]
+        for i in range(1, 4):
+            part = part + prod[..., i]
+        ys.append(_butterfly(list(part.unbind(-1))) + d[:, None] * x[:, t])
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, 0, H, P), dtype=torch.float32, device=x.device))
+    return y, h

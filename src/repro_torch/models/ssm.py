@@ -11,12 +11,13 @@ with a causal depthwise conv on (x, B, C), softplus dt, and a gated RMSNorm
 
 The counterpart of the reference's ``models/ssm.py``, function for
 function, with its casts.  Every scan goes through
-``kernels.ssm_scan.ops.selective_scan``: the CUDA kernel on the card, the
-per-step plain version on the CPU, both with the skip ``D`` inside the
-scan where the reference adds it after (the same sum, taken in one
-place).  The reference's chunked SSD form (``ssd_chunked``, chosen by
-``cfg.scan_chunked``) is not ported: nothing sets that switch for the
-hybrid, and the port's hybrid ignores it on every device.
+``kernels.ssm_scan.ops.selective_scan``: the CUDA kernels on the card (a
+prefill through the chunked SSD form on the tensor cores, a decode step
+through the step-by-step kernel), the per-step plain version on the CPU,
+all with the skip ``D`` inside the scan where the reference adds it after
+(the same sum, taken in one place).  The reference's switch between its
+two XLA forms (``cfg.scan_chunked``) is not ported: nothing sets it for
+the hybrid, and the port's hybrid ignores it on every device.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """The fused LSTM sequence kernel's plain version against the reference's
-Pallas kernel (interpret mode) and its oracle, on the same numpy inputs.
+Pallas kernel (interpret mode) and its oracle, on the same numpy inputs;
+and the serving kernel's Hopper algorithm (``ref.lstm_sequence_tiled_ref``,
+the training kernel's order of summation) against the Pallas kernel.
 
 The CUDA kernel itself runs only on a card, and the card's machine has no JAX
 for this suite: ``chip_smoke.py`` holds the kernel to the plain version there.
@@ -13,7 +15,10 @@ from repro.kernels.lstm_cell.kernel import lstm_sequence_fused as jax_fused
 from repro.kernels.lstm_cell.ref import lstm_sequence_ref as jax_ref
 from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 from repro_torch.kernels.lstm_cell import ops
-from repro_torch.kernels.lstm_cell.ref import lstm_sequence_ref
+from repro_torch.kernels.lstm_cell.ref import (
+    lstm_sequence_ref,
+    lstm_sequence_tiled_ref,
+)
 
 
 def _inputs(B, T, F, H, seed=0):
@@ -70,6 +75,36 @@ def test_plain_version_with_bf16_weights_matches_pallas_kernel(x_dtype, B, T,
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), rtol=0,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("B,T,F,H", [(250, 5, 5, 40), (4, 5, 5, 117),
+                                     (7, 5, 3, 10), (9, 12, 5, 72),
+                                     (3, 4, 449, 30)])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_serving_algorithm_matches_pallas_kernel(x_dtype, w_dtype, B, T, F,
+                                                 H):
+    """The serving kernel's order of summation (the input projection first,
+    h.wh in four interleaved partial sums) against the Pallas
+    ``lstm_sequence_fused`` in interpret mode: the paper's shape, the
+    largest H the kernel takes at F = 5 (117, wh from shared memory), H not
+    a multiple of 4, H over 64 with two chunks of steps, and a wide F (x
+    read from global memory on the card).  Float32 outputs within 1e-5; bf16
+    outputs, each side's float32 result rounded once, within one bf16 step
+    (2^-7 of the value) and 1e-5, as ``chip_smoke.py`` holds the kernel."""
+    x, *w = _inputs(B, T, F, H, seed=7 * B + T + F + H)
+    xt = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    wt = [torch.from_numpy(a).to(getattr(torch, w_dtype)) for a in w]
+    h, c = lstm_sequence_tiled_ref(xt, *wt)
+    hj, cj = jax_fused(jnp.asarray(x).astype(getattr(jnp, x_dtype)),
+                       *(jnp.asarray(a).astype(getattr(jnp, w_dtype))
+                         for a in w), interpret=True)
+    for got, want in ((h, hj), (c, cj)):
+        assert got.dtype == xt.dtype and got.shape == (B, H)
+        got = got.float().numpy()
+        want = np.asarray(want, np.float32)
+        rtol = 0.0 if x_dtype == "float32" else 2.0**-7
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-5)
 
 
 def test_cpu_dispatch_takes_plain_version_and_launches_nothing():

@@ -10,17 +10,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. the build: compiles every CUDA library of the port with ``nvcc`` from the
    sources in this checkout, one ``nvcc`` per library, all at once, and
    prints ``-Xptxas -v``'s registers and spills of #6's kernels, of the
-   LSTM sequence kernels' (#1, #2, #3) and of #8's two;
+   LSTM sequence kernels' (#1, #2, #3), of #4's, and of #7's and #8's
+   two;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
    with ragged tiles, one row and a long T; every case of #1, #2, #3, #5,
-   #6's two Hopper kernels, #7 and #8 runs twice, bit for bit), then timed
-   beside the plain version and the library call that computes the same
-   function (cuDNN's ``torch.nn.LSTM`` for #1-#3, by CUDA events and by the
-   profiler's device time, #1's in turns with cuDNN's; for the int8
+   #4, #6's two Hopper kernels, #7 and #8 runs twice, bit for bit), then
+   timed beside the plain version and the library call that computes the
+   same function (cuDNN's ``torch.nn.LSTM`` for #1-#3, by CUDA events and
+   by the profiler's device time, #1's in turns with cuDNN's; for the int8
    matmul, which no one PyTorch call computes, ``(x @ q.float()) *
-   scale``; for the one-step LSTM cell #5, ``torch.lstm_cell``);
+   scale``, both by CUDA events and by device time; for the one-step LSTM
+   cell #5, ``torch.lstm_cell``);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
    models the JAX reference published (``tests/data/
@@ -49,19 +51,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. the zoo's serving path: ``tinyllama-1.1b`` at full width and depth
    through the port's ``Engine``, every attention through the flash kernel.
    In float32, params from a numpy seed must reproduce the JAX reference's
-   greedy tokens and logits (``tests/data/torch_parity_tinyllama.npz``) and
-   step-by-step decode must equal one full forward; in the config's bf16,
+   greedy tokens and logits (``tests/data/torch_parity_tinyllama.npz``),
+   step-by-step decode must equal one full forward, and ``Engine.serve`` of
+   the fixture's four requests on two slots (a slot freed and refilled
+   twice, prefill buckets of 32 and 64) must give the reference's tokens,
+   admission and finish ticks (a differing token only where the
+   reference's top-2 margin is below ``ZOO_LOGIT_ATOL``, a near tie that
+   ends that request's comparison); in the config's bf16,
    ``Engine.generate`` (4 x 512 prompt + 32 tokens) must launch the flash
    kernel exactly 22 x 32 times (22 of its wgmma prefill, 22 x 31 of its
    split decode, none of its SIMT kernel) and no plain attention, and
    ``Engine.serve`` must finish every request; prefill and decode times,
-   tokens/s and the device's idle share over a warm generate are printed;
+   tokens/s, the device's idle share over a warm generate and the device
+   time of every port kernel in it are printed;
 9. the zoo's RWKV6 path: ``rwkv6-3b`` at full width and depth through the
    same ``Engine`` and the same checks, every WKV recurrence through the
    WKV kernel: float32 parity with ``tests/data/torch_parity_rwkv6_3b.npz``
-   and decode equivalence, then in bf16 ``Engine.generate`` (4 x 512 + 32)
-   with exactly 32 x 32 launches of the WKV kernel and no plain WKV call,
-   and ``Engine.serve``;
+   and decode equivalence and the float32 serve, then in bf16
+   ``Engine.generate`` (4 x 512 + 32) with exactly 32 x 32 launches of the
+   WKV scan (32 of its chunked prefill kernel, 32 x 31 of its row-split
+   decode kernel) and no plain WKV call, and ``Engine.serve``;
 10. the zoo's hybrid path: ``zamba2-1.2b`` at full width and depth through
    the same ``Engine`` and the same checks, every Mamba2 scan through the
    selective-scan kernel and every application of the shared attention
@@ -89,15 +98,15 @@ the rule picks and names it, holds the wgmma prefill's bf16 output also
 within ``FLASH_TC_TOL``, reruns the two new kernels bit for bit, and times
 each new kernel against the SIMT kernel in turns beside SDPA (at
 tinyllama's GQA shapes and at zamba2's MHA ones), by CUDA events and by
-the profiler.  The WKV kernel (#7) is built in phase 2, held to its plain
-version (reruns bit for bit) and timed in phase 3, with its device time
-from the profiler.  The selective scan (#8) is two kernels, one launch a
-call, picked by ``kernel.kernel_for``: the row-split decode for T <= 8,
-the chunked SSD prefill on the tensor cores otherwise; phase 3 runs each
-case through the one the rule picks and names it, holds it also to its
-own algorithm (``ref.ssd_chunked_ref`` in 3xTF32, ``ref.
-ssm_decode_rows_ref``) run on the card, and times each at its served
-shape by its profiler name.  No single PyTorch call computes #7 or #8.
+the profiler.  The WKV scan (#7) and the selective scan (#8) are two
+kernels each, one launch a call, picked by ``kernel.kernel_for``: the
+row-split decode for T <= 8, the chunked prefill on the tensor cores
+otherwise; phase 3 runs each case through the one the rule picks and
+names it, holds it also to its own algorithm (``ref.wkv_chunked_ref`` and
+``ref.ssd_chunked_ref`` in 3xTF32, ``ref.wkv_decode_rows_ref`` and
+``ref.ssm_decode_rows_ref``) run on the card, and times each at its
+served shape by its profiler name.  No single PyTorch call computes #7
+or #8.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  The helpers above ``main`` need no
@@ -251,6 +260,16 @@ SERVE_MAX_LEN = 544
 SERVE_PROMPT_LENS = (17, 300, 64, 129, 33, 250, 100, 200)
 SERVE_NEW_TOKENS = (8, 32, 16, 24, 12, 32, 8, 20)
 SERVE_SLOTS = 4
+# Engine.serve held to the reference in float32 at full width (the parity
+# fixtures' serve_* arrays): four requests on two slots, so that two slots
+# are freed and refilled (the cache scatter); the first tick prefills a
+# bucket of 32 (prompts 17 and 30), each refill one of 64 (prompts 64 and
+# 33), so #6, #7 and #8 take their prefill kernels at two T
+SERVE_CHECK_PROMPT_LENS = (17, 30, 64, 33)
+SERVE_CHECK_NEW_TOKENS = (8, 12, 16, 10)
+SERVE_CHECK_SLOTS = 2
+SERVE_CHECK_MAX_LEN = 80
+SERVE_CHECK_SEED = ZOO_SEED + 3
 # step-by-step decode against one full forward, float32 on the card (the
 # reference's tests/test_decode_equivalence.py tolerance)
 DECODE_EQ_ATOL = 2e-3
@@ -319,8 +338,18 @@ FLASH_KERNELS = {"simt": "flash_attention_kernel",
 # kernel of each zoo wrapper that takes a prefill and a decode step
 SSM_KERNELS = {"chunked": "ssm_chunked_kernel",
                "decode_rows": "ssm_decode_kernel"}
+# kernel #7's two kernels by a substring of the profiler's name
+WKV_KERNELS = {"chunked": "rwkv6_chunked_kernel",
+               "decode_rows": "rwkv6_decode_kernel"}
+# every kernel of the port by a substring of the profiler's name: a zoo
+# generate's device time is summed for each
+PORT_KERNELS = (SERVE_FWD_KERNEL, TRAIN_FWD_KERNEL, *BWD_KERNELS,
+                "lstm_cell_kernel", "int8_matmul_kernel",
+                *FLASH_KERNELS.values(), *WKV_KERNELS.values(),
+                *SSM_KERNELS.values())
 PREFILL_DECODE = {"flash_attention": ("prefill_wgmma", "decode_split"),
-                  "ssm_scan": ("chunked", "decode_rows")}
+                  "ssm_scan": ("chunked", "decode_rows"),
+                  "rwkv6_scan": ("chunked", "decode_rows")}
 FLASH_TIMED = (("prefill", FLASH_PREFILL, "arange"),
                ("decode", FLASH_DECODE, "last"),
                ("mha_prefill", FLASH_MHA_PREFILL, "arange"),
@@ -972,14 +1001,25 @@ def logit_summary(steps: list, k: int = ZOO_TOPK) -> dict:
 
 def zoo_fixture_arrays(arch: str, reduced: bool, seed: int,
                        prompts: np.ndarray, tokens: np.ndarray, steps: list,
-                       max_len: int) -> dict:
+                       max_len: int, serve: dict) -> dict:
     """The parity fixture's arrays: the run's metadata, its prompts and
-    greedy tokens, and ``logit_summary`` of its steps.  No weights: the
+    greedy tokens, ``logit_summary`` of its steps, and the ``serve_*``
+    arrays of its serve run (``serve_fixture_run``).  No weights: the
     params are ``numpy_params(config, seed)``."""
     return {"arch": np.array(arch), "reduced": np.array(reduced),
             "seed": np.array(seed), "max_len": np.array(max_len),
             "prompts": np.asarray(prompts, np.int32),
-            "tokens": np.asarray(tokens, np.int32), **logit_summary(steps)}
+            "tokens": np.asarray(tokens, np.int32), **logit_summary(steps),
+            **serve}
+
+
+def serve_fixture_run(engine_cls, request_cls, cfg, params) -> dict:
+    """``serve_check`` on an engine class (the reference's, which writes
+    the fixtures), each call's logits recorded; returns
+    ``serve_fixture_arrays``."""
+    engine = engine_cls(cfg, params, max_len=SERVE_CHECK_MAX_LEN)
+    calls = record_serve_calls(engine)
+    return serve_fixture_arrays(serve_check(engine, cfg, request_cls), calls)
 
 
 def zoo_config(fx: dict):
@@ -1081,18 +1121,160 @@ def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
     return err
 
 
-def zoo_requests(cfg, seed: int = ZOO_SEED) -> list:
-    """Engine.serve's request mix: prompt lengths ``SERVE_PROMPT_LENS``,
-    ``SERVE_NEW_TOKENS`` new tokens each, prompts from numpy ``seed``."""
-    _import_port()
-    from repro_torch.serving.batching import Request
+def zoo_requests(cfg, seed: int = ZOO_SEED, lens=SERVE_PROMPT_LENS,
+                 new_tokens=SERVE_NEW_TOKENS, request_cls=None) -> list:
+    """Engine.serve's requests: prompts of ``lens`` tokens from numpy
+    ``seed``, ``new_tokens`` new tokens each, as ``request_cls`` (the
+    port's ``Request`` unless the reference's is given)."""
+    if request_cls is None:
+        _import_port()
+        from repro_torch.serving.batching import Request as request_cls
 
     rng = np.random.default_rng(seed)
-    return [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size, (n,),
-                                               dtype=np.int32),
-                    max_new_tokens=new)
-            for i, (n, new) in enumerate(zip(SERVE_PROMPT_LENS,
-                                             SERVE_NEW_TOKENS))]
+    return [request_cls(uid=i, prompt=rng.integers(1, cfg.vocab_size, (n,),
+                                                   dtype=np.int32),
+                        max_new_tokens=new)
+            for i, (n, new) in enumerate(zip(lens, new_tokens))]
+
+
+def serve_check(engine, cfg, request_cls=None) -> list:
+    """The float32 serve check's run: ``SERVE_CHECK_*``'s requests through
+    ``engine.serve`` (an engine of ``SERVE_CHECK_MAX_LEN``, the port's or
+    the reference's) on ``SERVE_CHECK_SLOTS`` slots; the finished
+    requests."""
+    return engine.serve(zoo_requests(cfg, SERVE_CHECK_SEED,
+                                     SERVE_CHECK_PROMPT_LENS,
+                                     SERVE_CHECK_NEW_TOKENS, request_cls),
+                        n_slots=SERVE_CHECK_SLOTS)
+
+
+def record_serve_calls(engine) -> list:
+    """Wrap ``engine``'s prefill and decode so that each call lands in the
+    returned list as (kind, the prefill's tokens or None, its logits as
+    float32 numpy (n_slots, V)).  Works on the port's Engine and the
+    reference's."""
+    calls = []
+    prefill, decode = engine._prefill, engine._decode
+
+    def _prefill(params, batch):
+        logits, cache = prefill(params, batch)
+        toks = batch["tokens"]
+        toks = toks.cpu().numpy() if hasattr(toks, "detach") else toks
+        calls.append(("prefill", np.asarray(toks), _host(logits)))
+        return logits, cache
+
+    def _decode(params, batch, cache):
+        logits, cache = decode(params, batch, cache)
+        calls.append(("decode", None, _host(logits)))
+        return logits, cache
+
+    engine._prefill, engine._decode = _prefill, _decode
+    return calls
+
+
+def serve_margins(done: list, calls: list, pad_id: int = 0) -> dict:
+    """uid -> the top-2 logit margin behind each token ``Engine.serve``
+    generated for that request, from ``record_serve_calls``' list.  Each
+    tick runs at most one prefill and then at most one decode, so a call
+    opens a new tick unless it is a decode after a prefill; a request's
+    row is the one whose left-padded prompt is its own, its first token
+    comes from the prefill at ``admitted_at`` and its n-th from the decode
+    at tick ``admitted_at + n - 1``."""
+    ticks, tick, last = [], -1, None
+    for kind, _, _ in calls:
+        if not (kind == "decode" and last == "prefill"):
+            tick += 1
+        ticks.append(tick)
+        last = kind
+    prefills = {t: (toks, lg) for t, (kind, toks, lg) in zip(ticks, calls)
+                if kind == "prefill"}
+    decodes = {t: lg for t, (kind, _, lg) in zip(ticks, calls)
+               if kind == "decode"}
+
+    def margin(row):
+        top = np.sort(row.astype(np.float64))[-2:]
+        return float(top[1] - top[0])
+
+    out = {}
+    for r in done:
+        a, n = int(r.admitted_at), len(r.prompt)
+        toks, lg = prefills[a]
+        rows = [i for i in range(toks.shape[0])
+                if (toks[i, -n:] == r.prompt).all()
+                and (toks[i, :-n] == pad_id).all()]
+        if len(rows) != 1:
+            raise AssertionError(f"request {r.uid}: its prompt is in rows "
+                                 f"{rows} of the prefill at tick {a}")
+        row = rows[0]
+        steps = [lg[row]] + [decodes[a + m][row]
+                             for m in range(len(r.generated) - 1)]
+        if [int(np.argmax(s)) for s in steps] != list(r.generated):
+            raise AssertionError(f"request {r.uid}: the recorded logits do "
+                                 "not give its tokens")
+        out[r.uid] = [margin(s) for s in steps]
+    return out
+
+
+def serve_fixture_arrays(done: list, calls: list) -> dict:
+    """The parity fixture's ``serve_*`` arrays of a finished
+    ``serve_check``: per request (rows in uid order) its generated tokens
+    (-1 past its end), ``admitted_at``, ``finished_at`` and each token's
+    top-2 logit margin (NaN past its end)."""
+    done = sorted(done, key=lambda r: r.uid)
+    margins = serve_margins(done, calls)
+    width = max(r.max_new_tokens for r in done)
+    tokens = np.full((len(done), width), -1, np.int32)
+    margin = np.full((len(done), width), np.nan, np.float32)
+    for i, r in enumerate(done):
+        tokens[i, :len(r.generated)] = r.generated
+        margin[i, :len(r.generated)] = margins[r.uid]
+    return {"serve_tokens": tokens,
+            "serve_admitted_at": np.array([r.admitted_at for r in done],
+                                          np.int32),
+            "serve_finished_at": np.array([r.finished_at for r in done],
+                                          np.int32),
+            "serve_margin": margin}
+
+
+def check_zoo_serve(fx: dict, done: list, atol: float) -> dict:
+    """Hold a finished ``serve_check`` to the fixture: every request's
+    ``admitted_at`` and ``finished_at`` equal, its tokens equal.  A token
+    may differ only where the reference's top-2 margin at that step is
+    below ``atol`` (a near tie); that request is compared up to there.  Returns {"tokens": tokens compared,
+    "near_ties": [(uid, step, margin)], "min_margin": the smallest
+    reference margin among the tokens compared}."""
+    by_uid = {r.uid: r for r in done}
+    if sorted(by_uid) != list(range(fx["serve_tokens"].shape[0])):
+        raise AssertionError(f"serve finished requests {sorted(by_uid)}")
+    compared, near_ties, min_margin = 0, [], float("inf")
+    for uid in sorted(by_uid):
+        r = by_uid[uid]
+        want = fx["serve_tokens"][uid]
+        want = want[want >= 0]
+        stamps = (r.admitted_at, r.finished_at)
+        ref_stamps = (int(fx["serve_admitted_at"][uid]),
+                      int(fx["serve_finished_at"][uid]))
+        if stamps != ref_stamps or len(r.generated) != len(want):
+            raise AssertionError(f"request {uid}: admitted, finished at "
+                                 f"{stamps} with {len(r.generated)} tokens; "
+                                 f"the reference's {ref_stamps} with "
+                                 f"{len(want)}")
+        got = np.asarray(r.generated)
+        diff = np.flatnonzero(got != want)
+        last = int(diff[0]) if diff.size else len(want)
+        margins = fx["serve_margin"][uid]
+        if diff.size:
+            if margins[last] >= atol:
+                raise AssertionError(
+                    f"request {uid}: token {last} is {got[last]}, the "
+                    f"reference's {want[last]} (top-2 margin "
+                    f"{margins[last]:.3g} >= {atol})")
+            near_ties.append((uid, last, float(margins[last])))
+        compared += last
+        if last:
+            min_margin = min(min_margin, float(margins[:last].min()))
+    return {"tokens": compared, "near_ties": near_ties,
+            "min_margin": min_margin}
 
 
 # ---------------------------------------------------------------------------
@@ -1665,11 +1847,13 @@ def _int8_bound(M, K, N):
 
 
 def int8_kernel_phase() -> dict:
-    """Kernel #4 against its plain version at every case, then timed at the
-    bus path's three shapes beside the plain version and the library
-    yardstick ``(x @ q.float()) * scale`` (cuBLAS and two elementwise
-    launches: no single PyTorch call computes the function).  Returns the
-    numbers of its row, at the recurrent step's shape ``INT8_MAIN``."""
+    """Kernel #4 against its plain version at every case (each run twice,
+    bit for bit), then timed at the bus path's three shapes (CUDA events
+    and the profiler's device time) beside the plain version and the
+    library yardstick ``(x @ q.float()) * scale`` (cuBLAS and two
+    elementwise launches: no single PyTorch call computes the function),
+    its device time every kernel of the call.  Returns the numbers of its
+    row, at the recurrent step's shape ``INT8_MAIN``."""
     import torch
 
     from repro_torch.kernels.int8_matmul import kernel as int8_kernel
@@ -1679,8 +1863,12 @@ def int8_kernel_phase() -> dict:
     for i, (M, K, N, dtype) in enumerate(INT8_CASES):
         x, q, scale = _int8_inputs(M, K, N, dtype, seed=400 + i)
         y = int8_kernel.int8_matmul(x, q, scale)
+        again = int8_kernel.int8_matmul(x, q, scale)
         y_ref = int8_matmul_ref(x, q, scale)
         torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"int8_matmul differs from itself at M={M} "
+                                 f"K={K} N={N} {dtype}")
         err = float((y.float() - y_ref.float()).abs().max())
         if dtype == "float32":
             tol = INT8_TOL if K <= 40 else INT8_TOL_DEEP
@@ -1693,7 +1881,8 @@ def int8_kernel_phase() -> dict:
                        <= 2.0**-7 * y_ref.float().abs() + INT8_TOL).all())
             limit = "<= one bf16 step"
         print(f"kernel int8_matmul M={M} K={K} N={N} {dtype}: max|dy|="
-              f"{err:.3g} ({limit}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"{err:.3g} ({limit}); 2 runs bit-identical "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"int8_matmul disagrees with its plain "
                                  f"version at M={M} K={K} N={N} {dtype}: "
@@ -1703,17 +1892,29 @@ def int8_kernel_phase() -> dict:
     for M, K, N in INT8_SHAPES:
         x, q, scale = _int8_inputs(M, K, N, "float32", seed=500)
         bound_ms, bound_by = _int8_bound(M, K, N)
+        def kern():
+            return int8_kernel.int8_matmul(x, q, scale)
+
+        def library():
+            return (x @ q.float()) * scale
+
         numbers = {
-            "ms": _median_ms(lambda: int8_kernel.int8_matmul(x, q, scale)),
+            "ms": _median_ms(kern),
             "plain_ms": _median_ms(lambda: int8_matmul_ref(x, q, scale)),
-            "library_ms": _median_ms(lambda: (x @ q.float()) * scale),
+            "library_ms": _median_ms(library),
+            "device_ms": _kernel_device_ms(kern, ["int8_matmul_kernel"])[
+                "int8_matmul_kernel"],
+            "library_device_ms": _device_ms_per_call(library),
             "bound_ms": bound_ms, "bound_by": bound_by}
         by_shape[f"{M}x{K}x{N}"] = numbers
         print(f"timing int8_matmul at (M, K, N) = {(M, K, N)} float32 "
-              f"(median of 200, CUDA events): kernel {numbers['ms']:.6f} ms, "
+              f"(median of 200, CUDA events): kernel {numbers['ms']:.6f} ms "
+              f"(device {numbers['device_ms']} ms, profiler median of 100), "
               f"plain {numbers['plain_ms']:.6f} ms, (x @ q.float()) * scale "
-              f"{numbers['library_ms']:.6f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by})", flush=True)
+              f"{numbers['library_ms']:.6f} ms (device "
+              f"{numbers['library_device_ms']} ms, every kernel of the call, "
+              f"mean of 100), bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
     return {"max_abs_err": max_err, "by_shape": by_shape,
             **by_shape["{}x{}x{}".format(*INT8_MAIN)]}
 
@@ -2085,19 +2286,22 @@ def flash_kernel_phase() -> dict:
             **by_shape["prefill"]}
 
 
-def _wkv_case(B, T, H, N, seed, state=False, decay=None):
+def _wkv_case(B, T, H, N, seed, state=False, decay=None, dw=None):
     """Inputs of kernel #7 on the card, float32, drawn as the reference's
     test draws them: r, k, v 0.5 normal, w = sigmoid(normal) * 0.5 + 0.45
-    (or uniform on ``decay`` = (low, high)), u (H,N) 0.1 normal; state0
-    normal when ``state``, else None."""
+    (or uniform on ``decay`` = (low, high), or the model's own
+    w = exp(-exp(dw)) with dw uniform on ``dw`` = (low, high)), u (H,N)
+    0.1 normal; state0 normal when ``state``, else None."""
     import torch
 
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, N)) * 0.5 for _ in range(3))
-    if decay is None:
-        w = 0.5 / (1 + np.exp(-rng.standard_normal((B, T, H, N)))) + 0.45
-    else:
+    if dw is not None:
+        w = np.exp(-np.exp(rng.uniform(*dw, (B, T, H, N))))
+    elif decay is not None:
         w = rng.uniform(*decay, (B, T, H, N))
+    else:
+        w = 0.5 / (1 + np.exp(-rng.standard_normal((B, T, H, N)))) + 0.45
     u = rng.standard_normal((H, N)) * 0.1
     s0 = rng.standard_normal((B, H, N, N)) if state else None
     return [None if a is None else torch.tensor(a, dtype=torch.float32,
@@ -2105,35 +2309,68 @@ def _wkv_case(B, T, H, N, seed, state=False, decay=None):
             for a in (r, k, v, w, u, s0)]
 
 
-def _wkv_bound(B, T, H, N, state_in):
+def _wkv_bound(B, T, H, N, state_in, chunk=None):
     """Bound of one WKV scan at (B,T,H,N), float32: r, k, v, w read and y
     written once, u read once, the final state written once and the
     initial one read only when ``state_in`` (the model's prefill passes
-    none).  Operations: 5 a state element and step (r_i S_ij summed, one
-    FMA; w_i S_ij + k_i v_j, a multiply and an FMA) and 5 a (b, t, h, j)
-    for the bonus, factored as y_j += v_j (sum_i r_i u_i k_i): 3 an i for
-    the sum, 2 a j for its product and add."""
+    none).  Operations, for the step-by-step recurrence (``chunk`` None,
+    the decode kernel's form): 5 a state element and step (r_i S_ij
+    summed, one FMA; w_i S_ij + k_i v_j, a multiply and an FMA) and 5 a
+    (b, t, h, j) for the bonus, factored as y_j += v_j (sum_i r_i u_i k_i),
+    at the float32 rate.  For the chunked form in chunks of ``chunk``
+    steps (the prefill kernel's): its three products a head and chunk
+    (r~ S, A V, k~^T V), three times over (3xTF32) at the TF32 rate, and on
+    the CUDA cores at the float32 rate its pairwise term A (a multiply and
+    an FMA a pair s < t and i) and decays (r~, k~, D: 4 a step and i)."""
     nbytes = 4 * (5 * B * T * H * N + H * N
                   + (2 if state_in else 1) * B * H * N * N)
-    return _bound(nbytes, 5 * B * T * H * N * (N + 1))
+    if chunk is None:
+        return _bound(nbytes, 5 * B * T * H * N * (N + 1))
+    chunks = -(-T // chunk)
+    products = 2 * B * H * chunks * (2 * chunk * N * N + chunk * chunk * N)
+    pairwise = B * H * chunks * (chunk * (chunk - 1) // 2 * 3 * N
+                                 + 4 * chunk * N)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = (3 * products / PEAK_TF32_FLOP_PER_S
+             + pairwise / PEAK_F32_FLOP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
 
 
 def wkv_kernel_phase() -> dict:
     """Kernel #7 against its plain version: the reference's sweep in the
     flat (BH,T,N) layout from a zero state (against ``rwkv6_scan_ref``),
-    the model layout, a nonzero state, decays near 0 and near 1, a head
-    size that is no power of two, T = 1, the served prefill and decode
-    step, the state updated in place, and T = 0 (no launch), at the
-    reference's tolerance; every case run twice, bit for bit.  Then timed
-    at the served prefill and decode (CUDA events and the profiler's
-    device time) beside the plain version and the bound; no single
-    PyTorch call computes the recurrence.  Returns the numbers of its
-    row, at the prefill shape."""
+    the model layout, a nonzero state, decays near 0 and near 1, the
+    model's own decays exp(-exp(dw)) with dw up to 5 (many exactly 0), head
+    sizes that are no power of two or no multiple of 4, T = 1, the
+    dispatch's edge (T = 8 and 9), T around the chunk (16 and 17) and
+    ragged against it (45), the served prefill and decode step, the state
+    updated in place (``out`` is ``state0``), and T = 0 (no launch), at the
+    reference's tolerance, each through the kernel ``kernel_for`` picks;
+    each model-layout case also against that kernel's own algorithm
+    (``ref.wkv_chunked_ref`` in 3xTF32, ``ref.wkv_decode_rows_ref``) run
+    on the card; every case run twice, bit for bit.  Then each kernel
+    timed at its served shape, the chunked at the prefill and the
+    row-split at the decode step (CUDA events and the profiler's device
+    time by kernel name) beside the plain version and the bound; no single
+    PyTorch call computes the recurrence.  Returns the numbers of its row,
+    at the prefill shape."""
     import torch
 
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    def close(got, want):
+        return bool(((got - want).abs() <= WKV_TOL + WKV_TOL * want.abs())
+                    .all())
+
+    def algorithm(kind, *args):
+        if kind == "chunked":
+            return wkv_ref.wkv_chunked_ref(
+                *args, chunk=wkv_kernel.CHUNK, cols=wkv_kernel.COLS,
+                operand_rounding="tf32x3")
+        return wkv_ref.wkv_decode_rows_ref(*args)
 
     checks = [("sweep", (1, T, BH, N), {}) for BH, T, N in WKV_SWEEP]
     checks += [("model", (2, 40, 3, 16), {}),
@@ -2142,8 +2379,19 @@ def wkv_kernel_phase() -> dict:
                                             "decay": (1e-6, 1e-3)}),
                ("decay~1", (2, 300, 4, 64), {"state": True,
                                              "decay": (0.999, 1 - 1e-7)}),
+               ("dw to 5", (2, 100, 4, 64), {"state": True,
+                                             "dw": (-6.0, 5.0)}),
+               ("dw to 5 T=1", (2, 1, 4, 64), {"state": True,
+                                               "dw": (-6.0, 5.0)}),
                ("N=24", (2, 30, 3, 24), {"state": True}),
+               ("N=10", (2, 37, 3, 10), {"state": True}),
+               ("T=1 N=10", (2, 1, 3, 10), {"state": True}),
                ("T=1", (3, 1, 5, 32), {"state": True}),
+               ("T=8", (2, 8, 3, 64), {"state": True}),
+               ("T=9", (2, 9, 3, 64), {"state": True}),
+               ("T=16", (2, 16, 3, 64), {"state": True}),
+               ("T=17", (2, 17, 3, 64), {"state": True}),
+               ("T=45", (2, 45, 3, 64), {"state": True}),
                ("prefill", WKV_PREFILL, {}),
                ("decode", WKV_DECODE, {"state": True})]
     max_err = 0.0
@@ -2152,25 +2400,38 @@ def wkv_kernel_phase() -> dict:
         if label == "prefill":  # the model's prefill passes a zero state
             s0 = torch.zeros(shape[0], shape[2], shape[3], shape[3],
                              device="cuda")
+        kind = wkv_kernel.kernel_for(shape[1])
         runs = [wkv_ops.wkv(r, k, v, w, u, s0) for _ in range(2)]
         want = wkv_ref.wkv_ref(r, k, v, w, u, s0)
+        alg = None
         if label == "sweep":  # the reference's test: the flat (BH,T,N)
             flat = [a[0].transpose(0, 1) for a in (r, k, v, w)]
             y, s = wkv_ref.rwkv6_scan_ref(*flat, u)
             want = (wkv_ref.to_model_layout(y), s[None])
+        else:
+            alg = algorithm(kind, r, k, v, w, u, s0)
         if label == "decode":  # in place: the state written over state0
             inplace = s0.clone()
-            runs.append(wkv_ops.wkv(r, k, v, w, u, inplace, out=inplace))
+            y, s = wkv_ops.wkv(r, k, v, w, u, inplace, out=inplace)
+            if s is not inplace:
+                raise AssertionError("rwkv6_scan: out is not the state0 "
+                                     "given")
+            runs.append((y, s))
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for run in runs[1:]
                    for a, b in zip(runs[0], run))
         d = max(float((g - e).abs().max()) for g, e in zip(runs[0], want))
-        ok = same and all(bool(((g - e).abs() <= WKV_TOL + WKV_TOL * e.abs())
-                               .all()) for g, e in zip(runs[0], want))
+        ok = same and all(close(g, e) for g, e in zip(runs[0], want))
+        against = ""
+        if alg is not None:
+            alg_err = max(float((g - e).abs().max())
+                          for g, e in zip(runs[0], alg))
+            ok = ok and all(close(g, e) for g, e in zip(runs[0], alg))
+            against = f", against its algorithm max|d|={alg_err:.3g}"
         max_err = max(max_err, d)
-        print(f"kernel rwkv6_scan {label} (B, T, H, N) = {shape}"
-              f"{' from a state' if s0 is not None else ''}: max|d|={d:.3g} "
-              f"(atol = rtol = {WKV_TOL}); {len(runs)} runs "
+        print(f"kernel rwkv6_scan [{kind}] {label} (B, T, H, N) = {shape}"
+              f"{' from a state' if s0 is not None else ''}: max|d|={d:.3g}"
+              f"{against} (atol = rtol = {WKV_TOL}); {len(runs)} runs "
               f"{'bit-identical' if same else 'DIFFER'} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -2188,26 +2449,29 @@ def wkv_kernel_phase() -> dict:
     for label, shape, state in (("prefill", WKV_PREFILL, False),
                                 ("decode", WKV_DECODE, True)):
         r, k, v, w, u, s0 = _wkv_case(*shape, seed=900, state=state)
+        kind = wkv_kernel.kernel_for(shape[1])
+        name = WKV_KERNELS[kind]
 
         def kern():
             return wkv_kernel.rwkv6_scan(r, k, v, w, u, s0)
 
-        bound_ms, bound_by = _wkv_bound(*shape, state_in=state)
+        bound_ms, bound_by = _wkv_bound(
+            *shape, state_in=state,
+            chunk=wkv_kernel.CHUNK if kind == "chunked" else None)
         numbers = {
-            "ms": _median_ms(kern),
+            "kernel": kind, "ms": _median_ms(kern),
             "plain_ms": _median_ms(lambda: wkv_ref.wkv_ref(r, k, v, w, u, s0),
                                    n=10 if label == "prefill" else 50,
                                    warmup=2),
-            "device_ms": _kernel_device_ms(kern, ["rwkv6_scan_kernel"])[
-                "rwkv6_scan_kernel"],
+            "device_ms": _kernel_device_ms(kern, [name])[name],
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         by_shape[label] = numbers
-        print(f"timing rwkv6_scan {label} at (B, T, H, N) = {shape} float32 "
-              f"(median, CUDA events): kernel {numbers['ms']:.6f} ms "
-              f"(device {numbers['device_ms']} ms, profiler median of 100), "
-              f"plain {numbers['plain_ms']:.6f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}); no single PyTorch call computes it",
-              flush=True)
+        print(f"timing rwkv6_scan {label} [{kind}, {name}] at (B, T, H, N) = "
+              f"{shape} float32 (median, CUDA events): kernel "
+              f"{numbers['ms']:.6f} ms (device {numbers['device_ms']} ms, "
+              f"profiler median of 100), plain {numbers['plain_ms']:.6f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by}); no single PyTorch call "
+              f"computes it", flush=True)
     return {"max_abs_err": max_err, "by_shape": by_shape,
             **by_shape["prefill"]}
 
@@ -2639,7 +2903,34 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     out.update(parity_logit_err=parity["logit_err"],
                parity_lse_err=parity["lse_err"],
                near_ties=parity["near_ties"], decode_equivalence_err=eq)
-    del params
+
+    # Engine.serve in float32 on the same params, held to the reference's
+    # serve run request by request
+    _reset_launches(*kernels)
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, max_len=SERVE_CHECK_MAX_LEN, device="cuda")
+    done = serve_check(engine, cfg)
+    torch.cuda.synchronize()
+    served = check_zoo_serve(fx, done, ZOO_LOGIT_ATOL)
+    order = sorted(done, key=lambda r: r.uid)
+    ties = (f", then near ties {served['near_ties']}"
+            if served["near_ties"] else "")
+    print(f"zoo serve parity {arch} float32 full width: {len(done)} "
+          f"requests (prompts {[len(r.prompt) for r in order]}, new tokens "
+          f"{[r.max_new_tokens for r in order]}) on "
+          f"{SERVE_CHECK_SLOTS} slots in "
+          f"{time.perf_counter() - t0:.3f} s; admitted at "
+          f"{[r.admitted_at for r in order]}, finished at "
+          f"{[r.finished_at for r in order]} as the reference's; "
+          f"{served['tokens']} tokens equal the reference's{ties} (smallest "
+          f"reference margin among them {served['min_margin']:.3g}, a near "
+          f"tie below {ZOO_LOGIT_ATOL}); launches "
+          f"{ {w.__name__: w.launches for w in kernels} }, by kernel "
+          f"{_by_kernel(kernels)}", flush=True)
+    out.update(serve_parity_tokens=served["tokens"],
+               serve_parity_near_ties=served["near_ties"],
+               serve_parity_min_margin=served["min_margin"])
+    del params, engine
     torch.cuda.empty_cache()
 
     # (c) the served run, in the config's bf16
@@ -2706,6 +2997,18 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
                generate_launches_by_kernel=by_kernel)
     out["busy"] = _busy(lambda: engine.generate(prompts, new),
                         f"zoo generate {arch} {B} x {S} + {new}, bf16")
+    by_name = out["busy"].get("device_ms_by_name", {})
+    port_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
+               for k in PORT_KERNELS}
+    port_ms = {k: ms for k, ms in port_ms.items() if ms}
+    out["busy"]["port_kernel_ms"] = port_ms
+    for k, ms in port_ms.items():
+        print(f"profile zoo generate {arch}: port kernel {k} device time "
+              f"{ms:.6f} ms in all")
+    if by_name:
+        print(f"profile zoo generate {arch}: the port's kernels "
+              f"{sum(port_ms.values()):.6f} ms of {out['busy']['busy_ms']:.6f}"
+              f" ms busy")
 
     reqs = zoo_requests(cfg, ZOO_SEED + 2)
     _reset_launches(*kernels)
@@ -2825,7 +3128,14 @@ def main() -> int:
     ssm_ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("ssm_scan", "")).items()
         if any(k in n for k in SSM_KERNELS.values())}
-    for n, info in {**ptxas, **train_ptxas, **ssm_ptxas}.items():
+    wkv_ptxas = {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get("rwkv6_scan", "")).items()
+        if any(k in n for k in WKV_KERNELS.values())}
+    int8_ptxas = {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get("int8_matmul", "")).items()
+        if "int8_matmul_kernel" in n}
+    for n, info in {**ptxas, **train_ptxas, **ssm_ptxas, **wkv_ptxas,
+                    **int8_ptxas}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -2850,6 +3160,8 @@ def main() -> int:
         rows[kname]["ptxas"] = {n: info for n, info in train_ptxas.items()
                                 if any(k in n for k in names)}
     rows["ssm_scan"]["ptxas"] = ssm_ptxas
+    rows["rwkv6_scan"]["ptxas"] = wkv_ptxas
+    rows["int8_matmul"]["ptxas"] = int8_ptxas
 
     # phase 4: the serving path
     fx = load_fixture()
@@ -3100,7 +3412,7 @@ def main() -> int:
                        **{path: counts.get(kname, 0)
                           for path, counts in bus_launches.items()},
                        "scan": scan["launches"].get(kname, 0)}
-        if kname in (flash.__name__, ssm.__name__):
+        if kname in (flash.__name__, ssm.__name__, wkv.__name__):
             row["launches_by_kernel_by_path"] = {
                 f"{arch}_{what}": run[f"{what}_launches_by_kernel"][kname]
                 for arch, run in served.items()

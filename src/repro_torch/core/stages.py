@@ -214,7 +214,7 @@ class ModelSync(Stage):
         if signature is not None or sig_key is not None:
             raise NotImplementedError(
                 "model_sync: signature verification comes with the health "
-                "slice of the port (slice 10)")
+                "slice of the port")
         if checksum is not None:
             if tree_checksum(params) != checksum:
                 self.corrupt_rejected += 1

@@ -22,6 +22,8 @@ from typing import Dict, Mapping, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+# the headers more than one library includes (-I): the 3xTF32 products
+COMMON_CSRC = Path(__file__).resolve().parent / "csrc"
 # -Xptxas -v: the compiler's registers, shared memory and spills of every
 # kernel, kept in LOGS
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,11 +48,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
-    """The library's path, named by a hash of the flags, the sources and
-    the headers (``*.cuh``) beside them."""
+    """The library's path, named by a hash of the flags, the sources, the
+    headers (``*.cuh``) beside them and the common ones."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted({h for src in sources
-                      for h in Path(src).parent.glob("*.cuh")})
+                      for h in Path(src).parent.glob("*.cuh")}
+                     | set(COMMON_CSRC.glob("*.cuh")))
     for src in [*sources, *headers]:
         digest.update(Path(src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -75,7 +78,8 @@ def build_all(libraries: Mapping[str, Sequence[Path]]) -> Dict[str, float]:
         # loads a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(COMMON_CSRC), "-o", tmp,
+               *map(str, sources)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, cmd, tmp, out, time.perf_counter())

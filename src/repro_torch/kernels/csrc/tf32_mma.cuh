@@ -1,5 +1,8 @@
-// Warp-level tensor-core products in three-pass TF32 (3xTF32) for the
-// chunked selective scan (ssm_chunked.cu), sm_80 and later.
+// Warp-level tensor-core products in three-pass TF32 (3xTF32), sm_80 and
+// later: the products of the chunked selective scan (ssm_scan/csrc/
+// ssm_chunked.cu) and of the chunked WKV scan (rwkv6_scan/csrc/
+// rwkv6_chunked.cu).  Every library's build includes this directory and
+// hashes its headers (kernels/_build.py).
 //
 // mma.sync m16n8k8 with tf32 operands multiplies a 16x8 tile of A by an 8x8
 // tile of B into a 16x8 float32 accumulator held by the 32 lanes of a warp.
@@ -10,9 +13,9 @@
 // product, is dropped).  hi is rounded with two integer instructions (a half
 // unit added to the bits, the low 13 cleared: to nearest, ties away from
 // zero), not cvt.rna.tf32.f32, which issues at a quarter of their rate and
-// took most of the time of the kernel's products; lo goes to the tensor
-// core as float32 bits, whose low 13 it ignores (rounds toward zero), as
-// CUTLASS's fast 3xTF32 passes it.  ref.ssd_chunked_ref(operand_rounding=
+// took most of the time of the selective scan's products; lo goes to the
+// tensor core as float32 bits, whose low 13 it ignores (rounds toward
+// zero), as CUTLASS's fast 3xTF32 passes it.  kernels/_fp.py: matmul(...,
 // "tf32x3") rounds the same way on the CPU.
 //
 // Fragments, lane = 4 g + q (g = lane / 4, q = lane % 4), as PTX lays out
@@ -29,7 +32,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace ssm {
+namespace tf32x3 {
 
 // v = hi + lo: hi rounded to TF32 (to nearest, ties away from zero, as
 // cvt.rna.tf32.f32 rounds), lo = v - hi exact, its low 13 bits left for the
@@ -98,4 +101,4 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace ssm
+}  // namespace tf32x3

@@ -17,27 +17,27 @@
 // What bounds it: on the serving path (B = 250 windows of T = 5 steps,
 // F = 5, H = 40) the products are (1250, 5, 160), (250, 40, 160) and
 // (250, 40, 10): a few MFLOP over a few hundred KB, a fraction of a
-// microsecond at the card's memory or float32 rate, so launch latency sets
-// the time.  The design is the simple tiled one: one block of 256 threads
-// per 64 x 64 output tile, each thread a 4 x 4 register tile; the K loop
-// stages a 64 x 32 tile of x (float32, transposed, at a padded stride
-// against bank conflicts) and a 32 x 64 tile of q (int8, read as one 4-byte
-// word per thread and step) in shared memory; the FMAs are float32 on the
-// CUDA cores.  Weight-only int8 with float activations cannot use the int8
-// tensor cores (IMMA needs int8 on both sides), and the port keeps float32
-// numerics, so there is no mma here.
+// microsecond at the card's memory or float32 rate, so latency sets the
+// time: one round trip to device memory, the FMAs of one output's K, one
+// store, in as many blocks as the card takes at once.  PR 13's 64 x 64 tiles
+// launched 12, 40 and 4 blocks at those shapes, each walking K in 32-deep
+// stages with two barriers a stage.  Here the tiles fit the shapes: 16 x 32
+// outputs a block of 128 threads, a thread 4 neighbouring columns of one
+// row (80 blocks at (250, 40, 160), 395 at (1250, 5, 160)), and for N <= 16
+// 2 x 16 outputs a block of 32 threads, a thread one output (125 blocks at
+// (250, 40, 10)).  The whole K is staged at once when K <= 64 (every shape
+// on the path; deeper K in 64-deep stages): x as float32 rows, q converted
+// from int8 to float32 once per staged element, not once per FMA.  The FMAs
+// are float32 on the CUDA cores in k order: weight-only int8 with float
+// activations cannot use the int8 tensor cores (IMMA needs int8 on both
+// sides), and the port keeps float32 numerics, so there is no mma here.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 64;  // rows of x (and y) per block
-constexpr int kBN = 64;  // columns of q (and y) per block
-constexpr int kBK = 32;  // depth of one staged tile
-constexpr int kTM = 4;   // rows per thread
-constexpr int kTN = 4;   // columns per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+constexpr int kKT = 64;  // depth staged at once: the whole K on the path
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -48,80 +48,91 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// A block takes BM x BN outputs, a thread one row of TN neighbouring
+// columns (TN 1 or 4).
+template <typename T, int BM, int BN, int TN>
+__global__ void __launch_bounds__(BM * BN / TN)
 int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                    const float* __restrict__ scale, T* __restrict__ y, int M,
                    int K, int N) {
-  // x tile transposed (k-major) so a thread's 4 rows are 4 neighbouring
-  // words; the +1 keeps the transposing stores free of bank conflicts
-  __shared__ float xs[kBK][kBM + 1];
-  __shared__ __align__(16) int8_t qs[kBK][kBN];
+  constexpr int kThreads = BM * BN / TN;
+  constexpr int kGroups = BN / TN;  // column groups a row
+  // x rows at a padded stride (a warp reads up to 4 rows at once); q as
+  // float32, converted once here
+  __shared__ float xs[BM][kKT + 1];
+  __shared__ __align__(16) float qs[kKT][BN];
 
   const int tid = threadIdx.x;
-  const int tn = tid % (kBN / kTN);  // column group of this thread
-  const int tm = tid / (kBN / kTN);  // row group of this thread
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int row = tid / kGroups, cg = tid % kGroups;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
 
-  float acc[kTM][kTN];
+  float acc[TN];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  for (int j = 0; j < TN; ++j) acc[j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  for (int k0 = 0; k0 < K; k0 += kKT) {
+    const int depth = min(kKT, K - k0);
+    if (k0 > 0) __syncthreads();  // the last stage is read by all
     // neighbouring threads load neighbouring elements of a row of x and q
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, c = e % kBK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[c][r] = (gm < M && gk < K)
-                     ? load_f32(x + static_cast<long long>(gm) * K + gk)
+    for (int e = tid; e < BM * depth; e += kThreads) {
+      const int r = e / depth, c = e - r * depth;
+      const int gm = m0 + r;
+      xs[r][c] = gm < M
+                     ? load_f32(x + static_cast<long long>(gm) * K + k0 + c)
                      : 0.0f;
     }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int r = e / kBN, c = e % kBN;
-      const int gk = k0 + r, gn = n0 + c;
-      qs[r][c] = (gk < K && gn < N) ? q[static_cast<long long>(gk) * N + gn]
-                                    : static_cast<int8_t>(0);
+    for (int e = tid; e < depth * BN; e += kThreads) {
+      const int r = e / BN, c = e % BN;
+      const int gn = n0 + c;
+      qs[r][c] = gn < N ? static_cast<float>(
+                              q[static_cast<long long>(k0 + r) * N + gn])
+                        : 0.0f;
     }
     __syncthreads();
-    const int depth = min(kBK, K - k0);
     for (int kk = 0; kk < depth; ++kk) {
-      const char4 w = *reinterpret_cast<const char4*>(&qs[kk][tn * kTN]);
-      const float b[kTN] = {static_cast<float>(w.x), static_cast<float>(w.y),
-                            static_cast<float>(w.z), static_cast<float>(w.w)};
+      const float a = xs[row][kk];
+      if constexpr (TN == 4) {
+        const float4 b = *reinterpret_cast<const float4*>(&qs[kk][4 * cg]);
+        acc[0] = fmaf(a, b.x, acc[0]);
+        acc[1] = fmaf(a, b.y, acc[1]);
+        acc[2] = fmaf(a, b.z, acc[2]);
+        acc[3] = fmaf(a, b.w, acc[3]);
+      } else {
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float a = xs[kk][tm * kTM + i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j)
+          acc[j] = fmaf(a, qs[kk][TN * cg + j], acc[j]);
       }
     }
-    __syncthreads();
   }
 
+  const int m = m0 + row;
+  if (m >= M) return;
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int n = n0 + tn * kTN + j;
-    if (n >= N) continue;
-    const float s = __ldg(scale + n);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int m = m0 + tm * kTM + i;
-      if (m < M) store(y + static_cast<long long>(m) * N + n, acc[i][j] * s);
-    }
+  for (int j = 0; j < TN; ++j) {
+    const int n = n0 + TN * cg + j;
+    if (n < N)
+      store(y + static_cast<long long>(m) * N + n, acc[j] * __ldg(scale + n));
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* q, const void* scale, void* y,
-                   int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  int8_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
+template <typename T, int BM, int BN, int TN>
+cudaError_t launch_tiles(const void* x, const void* q, const void* scale,
+                         void* y, int M, int K, int N, cudaStream_t stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  int8_matmul_kernel<T, BM, BN, TN><<<grid, BM * BN / TN, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(y), M, K, N);
   return cudaGetLastError();
+}
+
+// 2 x 16 tiles of single outputs for N <= 16, else 16 x 32 tiles
+template <typename T>
+cudaError_t launch(const void* x, const void* q, const void* scale, void* y,
+                   int M, int K, int N, cudaStream_t stream) {
+  return N <= 16 ? launch_tiles<T, 2, 16, 1>(x, q, scale, y, M, K, N, stream)
+                 : launch_tiles<T, 16, 32, 4>(x, q, scale, y, M, K, N,
+                                              stream);
 }
 
 }  // namespace
@@ -134,7 +145,7 @@ int int8_matmul_forward(const void* x, const void* q, const void* scale,
                         void* y, int M, int K, int N, int x_is_bf16,
                         void* stream) {
   if (M <= 0) return 0;
-  if (K < 1 || N < 1 || (N + kBN - 1) / kBN > 65535)
+  if (K < 1 || N < 1 || (N + 31) / 32 > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

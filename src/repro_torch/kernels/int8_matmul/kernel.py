@@ -7,7 +7,8 @@ q (K,N) int8, scale (N,) float32 -> y = (x @ q) * scale, (M,N) in
 ``x.dtype``, the sum float32 and the scale applied once per output after the
 K loop.  What bounds it: at the serving path's shapes a call is a few MFLOP
 over a few hundred KB, far under a microsecond of the card's rates, so
-launch latency sets its time (see the source for the design).
+latency sets its time: tiles sized to those shapes, the whole K staged at
+once (see the source for the design).
 
 The wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on the current CUDA stream, raises when the launch fails, and
@@ -29,9 +30,9 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "int8_matmul.cu"
 # every library of this package: name -> its sources
 LIBRARIES = {"int8_matmul": [SOURCE]}
-# output columns one block takes (the kernel's kBN); the grid's second axis
-# holds at most 65535 such tiles
-BLOCK_N = 64
+# output columns one block takes for N > 16 (a 16 x 32 tile); the grid's
+# second axis holds at most 65535 such tiles
+BLOCK_N = 32
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,4 @@
-"""The RWKV6 WKV scan on the card: the wrapper around
-``csrc/rwkv6_scan.cu``.
+"""The RWKV6 WKV scan on the card: the wrapper around ``csrc/``.
 
 ``rwkv6_scan`` replaces the Pallas TPU kernel of
 ``src/repro/kernels/rwkv6_scan/kernel.py``: the WKV recurrence of every
@@ -7,16 +6,31 @@
 given state (zero when none is given) to the final state.  With a zero
 state it computes the Pallas kernel's function; with any other it computes
 the reference's oracle ``rwkv6_scan_ref(..., state0)``.  What bounds it:
-the bytes of r, k, v, w, y and the state, and ~8 B T H N^2 float32
-operations (see the source for the design and its distance from the
-bound).
+the bytes of r, k, v, w, y and the state (see the sources for each design
+and its distance from the bound).
+
+One library holds two kernels, and every call launches exactly one of
+them, by ``kernel_for``:
+
+- ``decode_rows`` (``csrc/rwkv6_decode.cu``), T <= ``DECODE_MAX_T``: every
+  decode step.  The recurrence step by step, each state column split over
+  ``ref.decode_lanes(N)`` lanes of 4 rows, 16-byte accesses
+  (``ref.wkv_decode_rows_ref`` is its order of summation);
+- ``chunked`` (``csrc/rwkv6_chunked.cu``), longer T: every prefill.  The
+  chunked WKV form in chunks of ``CHUNK`` steps, its decays as running
+  products of w, its products on the tensor cores in 3xTF32, a block per
+  ``COLS`` value columns (``ref.wkv_chunked_ref(..., chunk=CHUNK,
+  cols=COLS, operand_rounding="tf32x3")`` is its algorithm).
 
 The wrapper checks its inputs, allocates y (and the state, unless given
 ``out``) with ``torch.empty``, launches on the current CUDA stream, raises
 when the launch fails, and counts its successful launches in a plain
-integer ``.launches``; at T = 0 it launches nothing and counts nothing.
-The library builds with ``nvcc`` at the first launch (``kernels/_build``);
-``LIBRARIES`` names it for a caller that builds every library up front.
+integer ``.launches`` and by kernel in ``.launches_by_kernel``; at T = 0
+it launches nothing and counts nothing.  The library builds with ``nvcc``
+at the first launch (``kernels/_build``, which also hashes the
+``*.cuh`` headers beside the sources and the common ``kernels/csrc/
+tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
+library up front.
 """
 from __future__ import annotations
 
@@ -29,19 +43,38 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "rwkv6_scan.cu"
+CHUNKED_SOURCE = CSRC / "rwkv6_chunked.cu"
+DECODE_SOURCE = CSRC / "rwkv6_decode.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"rwkv6_scan": [SOURCE]}
-# the largest head size: thread j keeps column j of the state in registers
+LIBRARIES = {"rwkv6_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE]}
+# the largest head size the kernels take
 MAX_HEAD_SIZE = 64
+# the largest H and B (the grid's y and z dims)
+MAX_GRID = 65535
+# the chunked kernel's steps a chunk and value columns a block; the
+# longest T the decode kernel takes
+CHUNK = 16
+COLS = 32
+DECODE_MAX_T = 8
+# the kernels by name, as the C entry point numbers them
+KERNELS = {"chunked": 0, "decode_rows": 1}
+
+
+def kernel_for(T: int) -> str:
+    """The kernel that takes a call of T >= 1 steps: ``decode_rows`` for
+    T <= DECODE_MAX_T (every decode step), ``chunked`` otherwise (every
+    prefill)."""
+    return "decode_rows" if T <= DECODE_MAX_T else "chunked"
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernel's library, built (or loaded) at the first call."""
+    """The kernels' library, built (or loaded) at the first call."""
     lib = _build.load_library("rwkv6_scan", LIBRARIES["rwkv6_scan"])
     lib.rwkv6_scan_forward.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.rwkv6_scan_forward.restype = ctypes.c_int
     return lib
 
@@ -51,11 +84,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                state0: Optional[torch.Tensor] = None, *,
                out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current CUDA stream.
+    """Launch the kernel ``kernel_for(T)`` picks on the current CUDA stream.
 
     r, k, v, w (B,T,H,N); u (H,N); state0 and ``out`` (B,H,N,N) or None;
-    all float32, contiguous, on one
-    CUDA device; 1 <= N <= 64.  ``out`` receives the final state and may be
+    all float32, contiguous, on one CUDA device; 1 <= N <= 64,
+    1 <= B, H <= 65535.  ``out`` receives the final state and may be
     ``state0`` itself.  Returns (y (B,T,H,N), final state).  Raises on
     anything else, and when the launch fails."""
     name = "rwkv6_scan"
@@ -73,9 +106,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if s is not None and tuple(s.shape) != (B, H, N, N):
             raise ValueError(f"{name}: {label} must be (B,H,N,N) = "
                              f"{(B, H, N, N)}, got {tuple(s.shape)}")
-    if not 1 <= N <= MAX_HEAD_SIZE or B < 1 or H < 1 or B * H > 2**31 - 1:
+    if (not 1 <= N <= MAX_HEAD_SIZE or not 1 <= B <= MAX_GRID
+            or not 1 <= H <= MAX_GRID):
         raise ValueError(f"{name}: need 1 <= N <= {MAX_HEAD_SIZE} and 1 <= "
-                         f"B*H < 2**31, got B={B}, H={H}, N={N}")
+                         f"B, H <= {MAX_GRID}, got B={B}, H={H}, N={N}")
     tensors = [t for t in (r, k, v, w, u, state0, out) if t is not None]
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"{name}: inputs must be float32, got "
@@ -94,19 +128,23 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif state is not state0:
             state.copy_(state0)
         return y, state
+    which = kernel_for(T)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().rwkv6_scan_forward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if state0 is None else state0.data_ptr(),
-            y.data_ptr(),
-            state.data_ptr(), B, T, H, N, stream)
+            y.data_ptr(), state.data_ptr(), B, T, H, N, KERNELS[which],
+            stream)
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           f"(B={B}, T={T}, H={H}, N={N})")
+        raise RuntimeError(f"{name}: launch of {which} failed with CUDA "
+                           f"error {err} (B={B}, T={T}, H={H}, N={N})")
     rwkv6_scan.launches += 1
+    rwkv6_scan.launches_by_kernel[which] += 1
     return y, state
 
 
-# launches of the kernel since the last reset; only a successful launch counts
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
 rwkv6_scan.launches = 0
+rwkv6_scan.launches_by_kernel = dict.fromkeys(KERNELS, 0)

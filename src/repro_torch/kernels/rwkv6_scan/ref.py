@@ -11,12 +11,22 @@ Per (batch, head), head size N, from the state S_0 (zero unless given):
 ``kernels/rwkv6_scan/ref.py: rwkv6_scan_ref``, the flat (BH,T,N) layout
 with u (BH,N): the model layout's BH heads of one batch row.  Both step through time one token at a time
 in float32 and return y in r's dtype and the final state in float32.
+
+``wkv_chunked_ref`` and ``wkv_decode_rows_ref`` are the two Hopper
+kernels' algorithms (``csrc/rwkv6_chunked.cu``, ``csrc/rwkv6_decode.cu``)
+in the model layout, step for step: the chunked form with its decays as
+running products of w and, on request, its 3xTF32 rounding of the
+products' operands; the decode kernel's split of a state column over lanes
+and its order of summation.  The CPU tests hold them to the reference;
+nothing on the main path calls them.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels._fp import butterfly, decode_lanes, matmul
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,3 +64,109 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y, S = wkv_ref(*map(to_model_layout, (r, k, v, w)), u,
                    None if state0 is None else state0[None])
     return y[0].transpose(0, 1), S[0]
+
+
+def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor,
+                    state0: Optional[torch.Tensor] = None, *,
+                    chunk: int = 16, cols: int = 32,
+                    operand_rounding: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's algorithm: ``wkv_ref``'s function (same
+    arguments and results, y float32) by the chunked WKV form.
+
+    T is cut into chunks of ``chunk`` steps, the last zero-padded.  In a
+    chunk of n real steps, every product of w a running product of its
+    factors in step order: D_t = prod_{q < t} w_q and r~_t = r_t D_t;
+    k~_s = k_s prod_{s < q < n} w_q; A[t, s] = sum_i r_t,i k_s,i
+    prod_{s < q < t} w_q,i for s < t (r_t multiplied by w_{t-1}, w_{t-2},
+    ... as s walks down), A[t, t] = sum_i (r_t,i u_i) k_t,i (the bonus);
+    then, per block of ``cols`` value columns (the kernel's grid), y =
+    r~ S + A V and S = diag(D_n) S + k~^T V.  ``operand_rounding`` rounds
+    the three products' operands as ``_fp.matmul`` says ("tf32x3" is the
+    kernel's)."""
+    B, T, H, N = r.shape
+    if chunk < 1 or cols < 1:
+        raise ValueError(f"chunk and cols must be >= 1, got {chunk}, {cols}")
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float().clone())
+    ys = []
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+
+        def piece(a):  # steps t0..t0+n, zero-padded to the chunk: (B,H,C,N)
+            a = a[:, t0:t0 + n].permute(0, 2, 1, 3)
+            return torch.cat([a, a.new_zeros((B, H, chunk - n, N))], 2)
+
+        rc, kc, vc, wc = piece(r), piece(k), piece(v), piece(w)
+        D = torch.ones((B, H, N), dtype=torch.float32, device=r.device)
+        rt = torch.empty_like(rc)
+        for t in range(chunk):
+            rt[:, :, t] = rc[:, :, t] * D
+            if t < n:
+                D = D * wc[:, :, t]
+        E = torch.ones_like(D)
+        kt = torch.zeros_like(kc)
+        for s in reversed(range(n)):
+            kt[:, :, s] = kc[:, :, s] * E
+            E = E * wc[:, :, s]
+        A = torch.zeros((B, H, chunk, chunk), dtype=torch.float32,
+                        device=r.device)
+        A[:, :, range(chunk), range(chunk)] = (rc * u[None, :, None]
+                                               * kc).sum(-1)
+        qv = rc.clone()
+        for m in range(chunk - 1):  # the pairs (t, t - 1 - m)
+            ts = torch.arange(m + 1, chunk, device=r.device)
+            if m > 0:
+                qv[:, :, ts] = qv[:, :, ts] * wc[:, :, ts - m]
+            A[:, :, ts, ts - 1 - m] = (qv[:, :, ts]
+                                       * kc[:, :, ts - 1 - m]).sum(-1)
+        y = torch.empty_like(vc)
+        for j0 in range(0, N, cols):
+            Vb, Sb = vc[..., j0:j0 + cols], S[..., j0:j0 + cols]
+            y[..., j0:j0 + cols] = (matmul(rt, Sb, operand_rounding)
+                                    + matmul(A, Vb, operand_rounding))
+            S[..., j0:j0 + cols] = D[..., None] * Sb + matmul(
+                kt.transpose(-1, -2), Vb, operand_rounding)
+        ys.append(y[:, :, :n].permute(0, 2, 1, 3))
+    y = (torch.cat(ys, 1) if ys else
+         torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
+    return y, S
+
+
+def wkv_decode_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state0: Optional[torch.Tensor] = None,
+                        lanes: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's algorithm: ``wkv_ref``'s function step by step
+    (y float32), with y_j summed as the kernel sums it.  A state column of
+    N is split over ``lanes`` lanes (default the kernel's,
+    ``decode_lanes``), 4 consecutive rows i a lane; a lane adds its 4 terms
+    r_i (S[i][j] + (u_i k_i) v_j) in i order, and the lanes' partials are
+    added by the xor butterfly."""
+    B, T, H, N = r.shape
+    lanes = decode_lanes(N) if lanes is None else lanes
+    if lanes < 1 or lanes & (lanes - 1) or 4 * lanes < N:
+        raise ValueError(f"lanes must be a power of two with 4 lanes >= N = "
+                         f"{N}, got {lanes}")
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float().clone())
+    pad = 4 * lanes - N
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = (a[:, t] for a in (r, k, v, w))  # (B,H,N)
+        uk = u * kt
+        terms = rt[..., None] * (S + uk[..., None] * vt[..., None, :])
+        terms = torch.cat([terms, terms.new_zeros((B, H, pad, N))], 2)
+        terms = terms.reshape(B, H, lanes, 4, N)
+        part = terms[:, :, :, 0]
+        for i in range(1, 4):
+            part = part + terms[:, :, :, i]
+        ys.append(butterfly(list(part.unbind(2))))
+        S = wt[..., None] * S + kt[..., None] * vt[..., None, :]
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
+    return y, S

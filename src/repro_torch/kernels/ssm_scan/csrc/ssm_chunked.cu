@@ -207,13 +207,13 @@ ssm_chunked_kernel(const float* __restrict__ x, const float* __restrict__ b,
       for (int e = 0; e < 4; ++e) yacc[j][e] = 0.0f;
     for (int kk = 0; kk < kN; ++kk) {
       float av[4];
-      ssm::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
-      const ssm::FragA fa = ssm::split_a(av);
-      ssm::FragB fb[4];
+      tf32x3::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
+      const tf32x3::FragA fa = tf32x3::split_a(av);
+      tf32x3::FragB fb[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        fb[j] = ssm::load_b(&sm.h[8 * j][8 * kk], 1, kRS, g, q);
-      ssm::mma_3xtf32(yacc, fa, fb);
+        fb[j] = tf32x3::load_b(&sm.h[8 * j][8 * kk], 1, kRS, g, q);
+      tf32x3::mma_3xtf32(yacc, fa, fb);
     }
     float gacc[2][4][4];
 #pragma unroll
@@ -224,17 +224,17 @@ ssm_chunked_kernel(const float* __restrict__ x, const float* __restrict__ b,
         for (int e = 0; e < 4; ++e) gacc[jg][j][e] = 0.0f;
     for (int kk = 0; kk < kN; ++kk) {
       float av[4];
-      ssm::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
-      const ssm::FragA fa = ssm::split_a(av);
+      tf32x3::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
+      const tf32x3::FragA fa = tf32x3::split_a(av);
 #pragma unroll
       for (int jg = 0; jg < 2; ++jg) {
         if (4 * jg < jmax) {
-          ssm::FragB fb[4];
+          tf32x3::FragB fb[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            fb[j] = ssm::load_b(&sm.b[8 * (4 * jg + j)][8 * kk], 1, kRS, g,
+            fb[j] = tf32x3::load_b(&sm.b[8 * (4 * jg + j)][8 * kk], 1, kRS, g,
                                 q);
-          ssm::mma_3xtf32(gacc[jg], fa, fb);
+          tf32x3::mma_3xtf32(gacc[jg], fa, fb);
         }
       }
     }
@@ -283,13 +283,13 @@ ssm_chunked_kernel(const float* __restrict__ x, const float* __restrict__ b,
       const int kS = min(jmax, (steps + 7) / 8);
       for (int kk = 0; kk < kS; ++kk) {
         float av[4];
-        ssm::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
-        const ssm::FragA fa = ssm::split_a(av);
-        ssm::FragB fb[4];
+        tf32x3::load_a(&sm.c[16 * warp][8 * kk], kRS, 1, g, q, av);
+        const tf32x3::FragA fa = tf32x3::split_a(av);
+        tf32x3::FragB fb[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          fb[j] = ssm::load_b(&sm.x[8 * kk][8 * j], kXS, 1, g, q);
-        ssm::mma_3xtf32(yacc, fa, fb);
+          fb[j] = tf32x3::load_b(&sm.x[8 * kk][8 * j], kXS, 1, g, q);
+        tf32x3::mma_3xtf32(yacc, fa, fb);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -314,18 +314,18 @@ ssm_chunked_kernel(const float* __restrict__ x, const float* __restrict__ b,
       const int kS = (steps + 7) / 8;
       for (int kk = 0; kk < kS; ++kk) {
         float av[4];
-        ssm::load_a(&sm.x[8 * kk][pr], 1, kXS, g, q, av);
+        tf32x3::load_a(&sm.x[8 * kk][pr], 1, kXS, g, q, av);
         const float w_lo = sm.w[8 * kk + q], w_hi = sm.w[8 * kk + q + 4];
         av[0] *= w_lo;
         av[1] *= w_lo;
         av[2] *= w_hi;
         av[3] *= w_hi;
-        const ssm::FragA fa = ssm::split_a(av);
-        ssm::FragB fb[4];
+        const tf32x3::FragA fa = tf32x3::split_a(av);
+        tf32x3::FragB fb[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          fb[j] = ssm::load_b(&sm.b[8 * kk][nc + 8 * j], kRS, 1, g, q);
-        ssm::mma_3xtf32(hacc, fa, fb);
+          fb[j] = tf32x3::load_b(&sm.b[8 * kk][nc + 8 * j], kRS, 1, g, q);
+        tf32x3::mma_3xtf32(hacc, fa, fb);
       }
     }
     // every read of this chunk's tiles and of the old state is done before

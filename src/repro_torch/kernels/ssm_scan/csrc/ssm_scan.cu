@@ -79,14 +79,14 @@ extern "C" int ssm_scan_forward(const float* x, const float* b,
   }
   cudaError_t err;
   if (kernel == 0) {
-    const bool vec = ssm::aligned16(x) && ssm::aligned16(b) &&
-                     ssm::aligned16(c) && P % 4 == 0 && N % 4 == 0;
+    const bool vec = tf32x3::aligned16(x) && tf32x3::aligned16(b) &&
+                     tf32x3::aligned16(c) && P % 4 == 0 && N % 4 == 0;
     err = ssm_chunked_launch(x, b, c, dt, a, d, state0, y, state_out, B, T,
                              H, P, N, vec, stream);
   } else {
-    const bool vec = ssm::aligned16(b) && ssm::aligned16(c) &&
-                     (state0 == nullptr || ssm::aligned16(state0)) &&
-                     ssm::aligned16(state_out) && N % 4 == 0;
+    const bool vec = tf32x3::aligned16(b) && tf32x3::aligned16(c) &&
+                     (state0 == nullptr || tf32x3::aligned16(state0)) &&
+                     tf32x3::aligned16(state_out) && N % 4 == 0;
     err = ssm_decode_launch(x, b, c, dt, a, d, state0, y, state_out, B, T, H,
                             P, N, vec, stream);
   }

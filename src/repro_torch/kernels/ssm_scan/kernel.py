@@ -28,8 +28,9 @@ when the launch fails, and counts its successful launches in a plain
 integer ``.launches`` and by kernel in ``.launches_by_kernel``; at T = 0
 it launches nothing and counts nothing.  The library builds with ``nvcc``
 at the first launch (``kernels/_build``, which also hashes the
-``csrc/*.cuh`` header beside the sources); ``LIBRARIES`` names it for a
-caller that builds every library up front.
+``*.cuh`` headers beside the sources and the common ``kernels/csrc/
+tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
+library up front.
 """
 from __future__ import annotations
 

@@ -29,6 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._fp import butterfly as _butterfly
+from repro_torch.kernels._fp import decode_lanes
+from repro_torch.kernels._fp import matmul as _matmul
+
 
 def _scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
           dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
@@ -77,39 +81,6 @@ def ssm_scan_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  dt.float()[..., None], a.float()[:, None],
                  d.float()[:, None], h)
     return y[:, :, 0].to(x.dtype), h[:, 0]
-
-
-def _tf32(v: torch.Tensor) -> torch.Tensor:
-    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
-    the nearest value with 10 mantissa bits, ties away from zero (a half
-    unit added to the magnitude's bits, then the low 13 bits cleared)."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_truncated(v: torch.Tensor) -> torch.Tensor:
-    """float32 ``v`` with its low 13 mantissa bits cleared: TF32 rounded
-    toward zero, as the tensor core reads a float32 operand."""
-    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _matmul(a: torch.Tensor, b: torch.Tensor, rounding: Optional[str]
-            ) -> torch.Tensor:
-    """a @ b in float32 with the operands rounded as the kernel's products
-    round them: None exact, "tf32" each operand once to TF32, "tf32x3"
-    each split as hi + lo, hi rounded to TF32 and lo = v - hi read by the
-    tensor core in TF32 (rounded toward zero), and the product a_lo b_hi +
-    a_hi b_lo + a_hi b_hi (the a_lo b_lo term dropped)."""
-    if rounding is None:
-        return a @ b
-    if rounding == "tf32":
-        return _tf32(a) @ _tf32(b)
-    if rounding != "tf32x3":
-        raise ValueError(f"operand_rounding must be None, 'tf32' or "
-                         f"'tf32x3', got {rounding!r}")
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 def ssd_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -166,26 +137,6 @@ def ssd_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     y = (torch.cat(ys, 1) if ys else
          torch.zeros((B, 0, H, P), dtype=torch.float32, device=x.device))
     return y, h
-
-
-def _butterfly(pieces):
-    """The sum of ``pieces`` (one a lane) as ``__shfl_xor_sync`` adds them
-    with offsets n/2, n/4, ..., 1, as the first lane holds it."""
-    off = len(pieces) // 2
-    while off:
-        pieces = [pieces[i] + pieces[i ^ off] for i in range(len(pieces))]
-        off //= 2
-    return pieces[0]
-
-
-def decode_lanes(N: int) -> int:
-    """The lanes the decode kernel splits a state row of N over, 4 floats
-    a lane: the power of two >= N / 4 (``csrc/ssm_decode.cu:
-    decode_lanes``)."""
-    lanes = 1
-    while 4 * lanes < N:
-        lanes *= 2
-    return lanes
 
 
 def ssm_decode_rows_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

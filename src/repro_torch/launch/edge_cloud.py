@@ -220,19 +220,19 @@ def parse_args(argv=None) -> argparse.Namespace:
 
     if args.chaos is not None:
         p.error("--chaos: the chaos scenarios come with the port's chaos and "
-                "health slice (slice 10)")
+                "health slice")
     if args.streams > 1:
         p.error("--streams > 1: the fleet executors come with the port's "
-                "fleet slice (slice 8)")
+                "fleet slice")
     if args.gated:
         p.error("--gated: drift-gated retraining comes with the port's "
-                "fleet slice (slice 8)")
+                "fleet slice")
     if args.qps > 0:
         p.error("--qps: the request plane comes with the port's request-plane "
-                "slice (slice 9)")
+                "slice")
     if args.elastic:
         p.error("--elastic: the placement plane comes with the port's "
-                "elastic slice (slice 10)")
+                "elastic slice")
     if not args.real:
         p.error("the calibrated simulation (the default without --real) "
                 "replays benchmarks/calibrate.py's constants and comes with "

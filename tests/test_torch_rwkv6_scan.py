@@ -170,5 +170,9 @@ def test_kernel_wrapper_checks_its_inputs():
         m = x.to("meta")
         ops.wkv(m, m, m, m, u.to("meta"))
     assert kernel.rwkv6_scan.launches == 0
-    assert kernel.LIBRARIES == {"rwkv6_scan": [kernel.SOURCE]}
-    assert kernel.SOURCE.is_file()
+    assert kernel.rwkv6_scan.launches_by_kernel == {"chunked": 0,
+                                                    "decode_rows": 0}
+    sources = [kernel.SOURCE, kernel.CHUNKED_SOURCE, kernel.DECODE_SOURCE]
+    assert kernel.LIBRARIES == {"rwkv6_scan": sources}
+    assert all(src.is_file() for src in sources)
+    assert (kernel.CSRC / "cp_async.cuh").is_file()

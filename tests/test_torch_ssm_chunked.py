@@ -26,6 +26,7 @@ import torch
 from repro.kernels.ssm_scan.kernel import ssm_scan as pallas_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as oracle_jax
 from repro.models import ssm as ssm_jax
+from repro_torch.kernels import _fp
 from repro_torch.kernels.ssm_scan import kernel, ref
 
 TOL = 1e-4
@@ -149,13 +150,13 @@ def test_single_tf32_products_miss_the_tolerance():
 
 
 def test_tf32_rounding_is_round_to_nearest_ties_away():
-    """``_tf32`` rounds as ``cvt.rna.tf32.f32``: 10 mantissa bits kept,
+    """``_fp.tf32`` rounds as ``cvt.rna.tf32.f32``: 10 mantissa bits kept,
     a half unit rounded away from zero, the exponent carried."""
     ulp = 2.0**-10
     v = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 4,
                       2.0 - ulp / 2, 3.0], dtype=torch.float32)
     want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 2.0, 3.0])
-    assert torch.equal(ref._tf32(v), want)
+    assert torch.equal(_fp.tf32(v), want)
     with pytest.raises(ValueError, match="operand_rounding"):
         ref.ssd_chunked_ref(*_torch(_case("T=1")), operand_rounding="bf16")
 

@@ -79,7 +79,8 @@ def _reduced():
 def build_fixture(reduced: bool) -> dict:
     """The reference's parity run: ``smoke.numpy_params`` loaded into the
     reference, ``smoke.zoo_prompts`` through its ``Engine.generate``, each
-    step's logits recorded."""
+    step's logits recorded; then ``smoke.serve_check_requests`` through
+    its ``Engine.serve``, each token's top-2 margin recorded."""
     cfg_ref = get_config_ref(ARCH)
     cfg_ref = cfg_ref.reduced() if reduced else smoke.zoo_parity_config(
         cfg_ref)
@@ -89,8 +90,9 @@ def build_fixture(reduced: bool) -> dict:
     engine = EngineRef(cfg_ref, params, max_len=max_len)
     steps = smoke.record_logits(engine)
     tokens, _ = engine.generate(prompts, smoke.ZOO_NEW_TOKENS)
+    serve = smoke.serve_fixture_run(EngineRef, RequestRef, cfg_ref, params)
     return smoke.zoo_fixture_arrays(ARCH, reduced, smoke.ZOO_SEED, prompts,
-                                    tokens, steps, max_len)
+                                    tokens, steps, max_len, serve)
 
 
 def _requests(cls, vocab):
@@ -182,7 +184,7 @@ def test_reduced_fixture_matches_format_and_port_reproduces_it():
     for k in fx:
         assert fx[k].dtype == committed[k].dtype, k
         assert fx[k].shape == committed[k].shape, k
-    cfg, _, tokens, steps = smoke.run_zoo_parity(fx, "cpu")
+    cfg, params, tokens, steps = smoke.run_zoo_parity(fx, "cpu")
     assert cfg == get_config(ARCH).reduced()
     np.testing.assert_array_equal(tokens, fx["tokens"])
     got = smoke.check_zoo_parity(fx, tokens, steps, atol=ATOL)
@@ -192,6 +194,39 @@ def test_reduced_fixture_matches_format_and_port_reproduces_it():
     bad[3][1, fx["top_ids"][1, 3, 5]] += 10 * ATOL
     with pytest.raises(AssertionError, match="logits off"):
         smoke.check_zoo_parity(fx, tokens, bad, atol=ATOL)
+    # the serve run: the port's Engine.serve on the same requests
+    done = smoke.serve_check(
+        Engine(cfg, params, max_len=smoke.SERVE_CHECK_MAX_LEN, device="cpu"),
+        cfg)
+    served = smoke.check_zoo_serve(fx, done, atol=ATOL)
+    assert served["near_ties"] == []
+    assert served["tokens"] == sum(smoke.SERVE_CHECK_NEW_TOKENS)
+    # a token changed where the reference's margin is wide is caught
+    first = next(r for r in done if r.uid == 0)
+    first.generated[2] = (first.generated[2] + 1) % cfg.vocab_size
+    with pytest.raises(AssertionError, match="top-2 margin"):
+        smoke.check_zoo_serve(fx, done, atol=ATOL)
+
+
+def test_fixture_carries_the_serve_run():
+    """The committed fixture holds the reference's full-width float32
+    ``Engine.serve`` of ``smoke.serve_check``'s requests: four requests on
+    two slots, each slot freed and refilled once, prefill buckets of 32 and
+    64, every token with its reference margin."""
+    fx = smoke.load_fixture(smoke.ZAMBA_FIXTURE)
+    cfg = smoke.zoo_config(fx)
+    n = len(smoke.SERVE_CHECK_PROMPT_LENS)
+    width = max(smoke.SERVE_CHECK_NEW_TOKENS)
+    assert fx["serve_tokens"].shape == fx["serve_margin"].shape == (n, width)
+    assert fx["serve_admitted_at"].shape == fx["serve_finished_at"].shape == (
+        n,)
+    live = fx["serve_tokens"] >= 0
+    assert list(live.sum(1)) == list(smoke.SERVE_CHECK_NEW_TOKENS)
+    assert (fx["serve_tokens"][live] < cfg.vocab_size).all()
+    margin = fx["serve_margin"]
+    assert (margin[live] >= 0).all() and np.isnan(margin[~live]).all()
+    assert list(fx["serve_admitted_at"]) == [0, 0, 7, 11]
+    assert list(fx["serve_finished_at"]) == [6, 10, 21, 19]
 
 
 if __name__ == "__main__":

@@ -9,9 +9,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``nvidia-smi``'s name and power limit;
 2. the build: compiles every CUDA library of the port with ``nvcc`` from the
    sources in this checkout, one ``nvcc`` per library, all at once, and
-   prints ``-Xptxas -v``'s registers and spills of #6's kernels, of the
-   LSTM sequence kernels' (#1, #2, #3), of #4's, and of #7's and #8's
-   two;
+   prints ``-Xptxas -v``'s registers and spills of every kernel: #6's
+   three, the LSTM sequence kernels' (#1, #2, #3), the one-step cell's
+   (#5), #4's, and #7's and #8's two;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
@@ -22,7 +22,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    by the profiler's device time, #1's in turns with cuDNN's; for the int8
    matmul, which no one PyTorch call computes, ``(x @ q.float()) *
    scale``, both by CUDA events and by device time; for the one-step LSTM
-   cell #5, ``torch.lstm_cell``);
+   cell #5, ``torch.lstm_cell``, device times in turns, and #5 also at 1, 2
+   and 4 rows a block and at H = 512; each #5 case prints its tiling);
 4. the serving path: the paper's per-window loop (``HybridStreamAnalytics.
    run``) on the card in every weighting mode, serving the stream with the
    models the JAX reference published (``tests/data/
@@ -381,6 +382,13 @@ CELL_CASES = [
     (*CELL_MAIN, ("float32", "bfloat16", "float32", "float32")),
 ]
 CELL_ATOL = 2e-5
+# kernel #5's profiler name (a part of both its kernels' names); the rows
+# a block its device time is measured at (kernel.cell_tiling takes 1 at
+# CELL_MAIN); a width beyond the sequence kernels' shared memory it is also
+# timed at
+CELL_KERNEL = "lstm_cell_kernel"
+CELL_ROWS_TIMED = (1, 2, 4)
+CELL_WIDE = (250, 5, 512)
 
 
 def _import_port():
@@ -1654,13 +1662,24 @@ def _cell_bound(B, F, H):
     return _bound(nbytes, 2 * B * (F + H) * 4 * H)
 
 
+def _tiling_text(B, F, H, rows=None) -> str:
+    """Kernel #5's tiling at (B, F, H), as phase 3 prints it."""
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+
+    t = lstm_kernel.cell_tiling(B, F, H, rows)
+    return (f"{t.rows} rows x {t.units} units a block, {t.threads} threads, "
+            f"grid {t.grid[0]} x {t.grid[1]}")
+
+
 def cell_kernel_phase() -> dict:
     """Kernel #5 against its plain version at every case of CELL_CASES, each
-    run twice, bit for bit, and at B = 0 (no launch).  Then timed at the
-    serving step (250, 5, 40) float32: CUDA events, the profiler's device
-    time, the plain version, and ``torch.lstm_cell``, the one PyTorch call
-    that computes the same function (held to the kernel first).  Returns
-    the numbers of its row."""
+    run twice, bit for bit, and at B = 0 (no launch); each case's tiling
+    printed.  Then timed at the serving step (250, 5, 40) float32: CUDA
+    events, the plain version, and ``torch.lstm_cell``, the one PyTorch call
+    that computes the same function (held to the kernel first); device
+    times in turns, kernel, library, library, kernel; the kernel's device
+    time at each of CELL_ROWS_TIMED rows a block; and kernel and library at
+    CELL_WIDE.  Returns the numbers of its row."""
     import torch
 
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
@@ -1681,7 +1700,7 @@ def cell_kernel_phase() -> dict:
         max_err = max([max_err, *(e for e, w in zip(errs, want)
                                   if w.dtype == torch.float32)])
         print(f"kernel lstm_cell B={B} F={F} H={H} x, h, c, weights "
-              f"{'/'.join(dtypes)}: max|dh'|="
+              f"{'/'.join(dtypes)} ({_tiling_text(B, F, H)}): max|dh'|="
               f"{errs[0]:.3g} max|dc'|={errs[1]:.3g} (float32 <= {CELL_ATOL},"
               f" bf16 one step); 2 runs "
               f"{'bit-identical' if same else 'DIFFER'} "
@@ -1710,24 +1729,57 @@ def cell_kernel_phase() -> dict:
     if lib_err > 1e-4:
         raise AssertionError("torch.lstm_cell does not compute the kernel's "
                              f"function on these weights: {lib_err}")
+
+    def kernel_device_ms(call):
+        return _kernel_device_ms(call, [CELL_KERNEL])[CELL_KERNEL]
+
+    def mean(a, b):
+        return None if None in (a, b) else (a + b) / 2
+
     bound_ms, bound_by = _cell_bound(B, F, H)
+    # device times in turns: kernel, torch.lstm_cell, torch.lstm_cell, kernel
+    turns = [kernel_device_ms(lambda: cell(*args)),
+             _device_ms_per_call(library), _device_ms_per_call(library),
+             kernel_device_ms(lambda: cell(*args))]
     numbers = {
         "max_abs_err": max_err, "ms": _median_ms(lambda: cell(*args)),
-        "device_ms": _kernel_device_ms(lambda: cell(*args),
-                                       ["lstm_cell_kernel"])[
-                                           "lstm_cell_kernel"],
+        "device_ms": mean(turns[0], turns[3]),
         "plain_ms": _median_ms(lambda: ref.lstm_cell_ref(*args)),
         "library_ms": _median_ms(library),
-        "library_device_ms": _device_ms_per_call(library),
+        "library_device_ms": mean(turns[1], turns[2]),
+        "device_ms_turns": turns,
+        "tiling": lstm_kernel.cell_tiling(B, F, H)._asdict(),
         "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"timing lstm_cell at (B, F, H) = {CELL_MAIN} float32 (median of "
-          f"200, CUDA events): kernel {numbers['ms']:.6f} ms (device "
-          f"{numbers['device_ms']} ms, profiler median of 100), plain "
-          f"{numbers['plain_ms']:.6f} ms, torch.lstm_cell "
-          f"{numbers['library_ms']:.6f} ms (device "
-          f"{numbers['library_device_ms']} ms a call, all its kernels, "
-          f"profiler mean of 100), bound {bound_ms:.6f} ms ({bound_by})",
+    print(f"timing lstm_cell at (B, F, H) = {CELL_MAIN} float32 "
+          f"({_tiling_text(B, F, H)}; median of 200, CUDA events): kernel "
+          f"{numbers['ms']:.6f} ms, plain {numbers['plain_ms']:.6f} ms, "
+          f"torch.lstm_cell {numbers['library_ms']:.6f} ms; device time in "
+          f"turns kernel, torch.lstm_cell, torch.lstm_cell, kernel {turns} "
+          f"ms (the kernel: profiler median of 100; torch.lstm_cell: all its "
+          f"kernels, mean of 100): kernel {numbers['device_ms']} ms, "
+          f"torch.lstm_cell {numbers['library_device_ms']} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+    numbers["device_ms_by_rows"] = {
+        rows: kernel_device_ms(lambda: cell(*args, rows=rows))
+        for rows in CELL_ROWS_TIMED}
+    print(f"timing lstm_cell at {CELL_MAIN} by rows a block (device, "
+          f"profiler median of 100): " + ", ".join(
+              f"{rows} ({_tiling_text(B, F, H, rows)}) {ms} ms"
+              for rows, ms in numbers["device_ms_by_rows"].items()),
           flush=True)
+
+    B, F, H = CELL_WIDE
+    x, h, c, wx, wh, b = args = _cell_case(B, F, H, F32, seed=1200)
+    w_ih, w_hh, zeros = wx.t(), wh.t(), torch.zeros_like(b)
+    wide = {"device_ms": kernel_device_ms(lambda: cell(*args)),
+            "library_device_ms": _device_ms_per_call(library),
+            "bound_ms": _cell_bound(B, F, H)[0]}
+    numbers["wide"] = wide
+    print(f"timing lstm_cell at (B, F, H) = {CELL_WIDE} float32 "
+          f"({_tiling_text(B, F, H)}): device {wide['device_ms']} ms "
+          f"(profiler median of 100), torch.lstm_cell "
+          f"{wide['library_device_ms']} ms (all its kernels, mean of 100), "
+          f"bound {wide['bound_ms']:.6f} ms", flush=True)
     return numbers
 
 
@@ -3134,8 +3186,10 @@ def main() -> int:
     int8_ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("int8_matmul", "")).items()
         if "int8_matmul_kernel" in n}
+    cell_ptxas = {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get("lstm_cell", "")).items() if CELL_KERNEL in n}
     for n, info in {**ptxas, **train_ptxas, **ssm_ptxas, **wkv_ptxas,
-                    **int8_ptxas}.items():
+                    **int8_ptxas, **cell_ptxas}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -3162,6 +3216,7 @@ def main() -> int:
     rows["ssm_scan"]["ptxas"] = ssm_ptxas
     rows["rwkv6_scan"]["ptxas"] = wkv_ptxas
     rows["int8_matmul"]["ptxas"] = int8_ptxas
+    rows["lstm_cell"]["ptxas"] = cell_ptxas
 
     # phase 4: the serving path
     fx = load_fixture()

@@ -16,9 +16,9 @@ from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (_lstm_paper, _tinyllama, _rwkv6, _zamba2)}
 
-# the reference's other archs -> the slice of the port that brings them
+# the reference's other archs -> the part of the port that brings them
 # (ROADMAP.md, Queue A)
-_REST_OF_ZOO = "slice 11 (the rest of the model zoo)"
+_REST_OF_ZOO = "the rest of the model zoo"
 UNPORTED: Dict[str, str] = {name: _REST_OF_ZOO for name in (
     "paligemma-3b", "h2o-danube-3-4b", "codeqwen1.5-7b", "nemotron-4-15b",
     "grok-1-314b", "kimi-k2-1t-a32b", "seamless-m4t-medium")}

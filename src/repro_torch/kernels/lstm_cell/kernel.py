@@ -6,7 +6,10 @@ Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
 * ``lstm_cell`` (``csrc/lstm_cell.cu``) replaces ``lstm_cell``: one step,
   x (B,F), h and c (B,H), each float32 or bfloat16, and wx (F,4H),
   wh (H,4H), b (4H) -> (h', c'), h' in ``h.dtype`` and c' in ``c.dtype``.
-  The step of the per-step baseline ``ops.lstm_sequence_scan``.
+  The step of the per-step baseline ``ops.lstm_sequence_scan``.  A block
+  owns a few batch rows and up to 128 hidden units, a thread a gate column,
+  the grid one or two blocks an SM: ``cell_tiling`` computes it, the
+  wrapper passes it, and the library refuses a tiling it cannot launch.
 * ``lstm_sequence_fused`` (``csrc/lstm_sequence.cu: lstm_serve_fwd_kernel``)
   replaces ``lstm_sequence_fused``: x (B,T,F) in float32 or bfloat16, wx
   (F,4H), wh (H,4H) and b (4H) -> the final (h, c), each (B,H) in
@@ -52,7 +55,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,6 +71,15 @@ LIBRARIES = {"lstm_sequence": [SOURCE], "lstm_sequence_bwd": [BWD_SOURCE],
 FLOATS = (torch.float32, torch.bfloat16)
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
+# the card's SMs: the one-step kernel sizes its grid to them
+SMS = 132
+# the one-step kernel's rows a block (its accumulators a thread), the units
+# a block owns at most (four threads each: a 512-thread block), and the
+# depth K = F + H up to which a thread holds its weight column in registers
+# (kMaxThreads / 4 and kRegK of csrc/lstm_cell.cu)
+CELL_ROWS = (1, 2, 4, 8)
+CELL_MAX_UNITS = 128
+CELL_REG_K = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,7 +118,7 @@ def cell_library() -> ctypes.CDLL:
     """The one-step kernel's library, built (or loaded) at the first call."""
     lib = _build.load_library("lstm_cell", LIBRARIES["lstm_cell"])
     lib.lstm_cell_forward.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.lstm_cell_forward.restype = ctypes.c_int
     return lib
 
@@ -147,6 +159,49 @@ def bwd_tiling(B: int, T: int, F: int, H: int) -> BwdTiling:
         raise ValueError(f"lstm_sequence_bwd: F={F}, H={H} does not fit a "
                          "block's shared memory")
     return BwdTiling(*out, floats)
+
+
+class CellTiling(NamedTuple):
+    """How the one-step kernel cuts a call: batch rows and hidden units a
+    block, its threads (four a unit: thread p owns gate p % 4 of the tile's
+    unit p // 4, for every row of the block) and its grid (row tiles, unit
+    tiles)."""
+    rows: int
+    units: int
+    threads: int
+    grid: Tuple[int, int]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cell_tiling(B: int, F: int, H: int, rows: Optional[int] = None
+                ) -> CellTiling:
+    """The one-step kernel's tiling at (B, F, H).  A block owns all H units
+    where 4H <= 512 threads; above that the units are cut into equal tiles
+    of at most 128, a multiple of 8 (whole warps).  ``rows`` (1, 2, 4 or 8)
+    forces the rows a block.  By default they are the fewest that keep the
+    grid within two blocks an SM where K = F + H <= CELL_REG_K (a thread
+    holds its weight column in registers and the step is bound by the
+    latency of its chain, which more blocks in flight hide), else within
+    one wave (the column streams from L2, and every row tile reads all the
+    weights again)."""
+    if B < 0 or F < 0 or H < 1:
+        raise ValueError(f"lstm_cell: need B, F >= 0 and H >= 1, got "
+                         f"B={B}, F={F}, H={H}")
+    units = H
+    if H > CELL_MAX_UNITS:
+        units = 8 * _ceil_div(_ceil_div(H, _ceil_div(H, CELL_MAX_UNITS)), 8)
+    tiles = _ceil_div(H, units)
+    if rows is None:
+        most = (2 if F + H <= CELL_REG_K else 1) * SMS
+        rows = next((r for r in CELL_ROWS
+                     if _ceil_div(B, r) * tiles <= most), CELL_ROWS[-1])
+    elif rows not in CELL_ROWS:
+        raise ValueError(f"lstm_cell: rows a block must be one of "
+                         f"{CELL_ROWS}, got {rows}")
+    return CellTiling(rows, units, 4 * units, (_ceil_div(B, rows), tiles))
 
 
 def _largest_h(need, F: int) -> int:
@@ -363,14 +418,16 @@ lstm_sequence_bwd.launches = 0
 
 
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-              wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+              wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
+              rows: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one fused LSTM step on the current CUDA stream.
 
     x (B,F), h and c (B,H), wx (F,4H), wh (H,4H), b (4H), each float32 or
     bfloat16, all contiguous on one CUDA device.  Returns (h', c'), h' in
-    ``h.dtype`` and c' in ``c.dtype``.  Raises on anything else, and when
-    the launch fails."""
+    ``h.dtype`` and c' in ``c.dtype``.  ``rows`` forces the batch rows a
+    block (``cell_tiling``), to measure the choice.  Raises on anything
+    else, and when the launch fails."""
     name = "lstm_cell"
     if (x.dim(), h.dim(), c.dim(), wx.dim(), wh.dim(), b.dim()) != (
             2, 2, 2, 2, 2, 1):
@@ -393,6 +450,7 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     _check_floats(name, (("x", x), ("h", h), ("c", c), ("wx", wx),
                          ("wh", wh), ("b", b)))
     _check_placement(name, (x, h, c, wx, wh, b))
+    tiling = cell_tiling(B, F, H, rows)
     wx, wh, b = f32_weights(wx, wh, b)
     h_out = torch.empty((B, H), dtype=h.dtype, device=x.device)
     c_out = torch.empty((B, H), dtype=c.dtype, device=x.device)
@@ -405,11 +463,12 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         err = cell_library().lstm_cell_forward(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
             wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            B, F, H, dtypes, stream)
+            B, F, H, dtypes, tiling.rows, tiling.units, tiling.threads,
+            *tiling.grid, stream)
     if err != 0:
         raise RuntimeError(
             f"{name}: launch failed with CUDA error {err} (B={B}, F={F}, "
-            f"H={H}, {x.dtype}, {h.dtype}, {c.dtype})")
+            f"H={H}, {x.dtype}, {h.dtype}, {c.dtype}, {tiling})")
     lstm_cell.launches += 1
     return h_out, c_out
 

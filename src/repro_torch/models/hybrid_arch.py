@@ -31,7 +31,7 @@ from repro_torch.models.attention import attend
 
 Params = Dict[str, Any]
 
-_LATER = "slice 11 (the rest of the model zoo)"
+_LATER = "the rest of the model zoo"
 
 
 def _split(cfg: ModelConfig) -> Tuple[int, int, int]:

@@ -23,12 +23,12 @@ from repro_torch.configs.base import ModelConfig
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
 
-# the reference's other families -> the slice of the port that brings them
+# the reference's other families -> the part of the port that brings them
 # (ROADMAP.md, Queue A)
 UNPORTED_FAMILIES = {
-    "moe": "slice 11 (the rest of the model zoo)",
-    "vlm": "slice 11 (the rest of the model zoo)",
-    "audio": "slice 11 (the rest of the model zoo)",
+    "moe": "the rest of the model zoo",
+    "vlm": "the rest of the model zoo",
+    "audio": "the rest of the model zoo",
 }
 
 

@@ -39,7 +39,7 @@ Params = Dict[str, Any]
 N_MIX = 5  # r, k, v, g, w
 MIX_LORA = 32  # rank of the ddlerp LoRA
 
-_LATER = "slice 11 (the rest of the model zoo)"
+_LATER = "the rest of the model zoo"
 
 
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:

@@ -366,7 +366,7 @@ def test_unported_parts_raise_naming_their_slice():
     _, cfg = _configs()
     p = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
         get_model(cfg).loss_fn(p, batch)
 
 

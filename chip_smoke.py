@@ -87,7 +87,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a serving window (250 x 5 x 5, H = 40), in float32 and with bf16 x; each
    call must launch #5 exactly T = 5 times and no sequence kernel, match
    the plain scan (whose carry is in x's type, as the reference's) and, in
-   float32, the fused #1; then timed beside #1 and ``torch.nn.LSTM``.
+   float32, the fused #1; then timed beside #1 and ``torch.nn.LSTM``;
+12. the fleet, the stream axis of #1-#4 (``fleet_kernel_phase``,
+   ``fleet_phase``): each stream-axis kernel against its plain version at
+   S = 1, 3 and 8, rerun bit for bit, every stream equal bit for bit to a
+   single-stream launch, nothing launched at S = 0 or B = 0, then timed at
+   the fleet shapes at S = 1, 8 and 64 beside S times one stream's bound
+   (#4 also beside ``torch.bmm``); the fixture's fleet
+   (``tests/data/torch_parity_fleet.npz``, 3 streams x 4 windows)
+   replayed from the reference's draws through ``InProcessFleetExecutor``
+   and ``FleetBusExecutor`` (float, int8 and gated sync), every fit and
+   record within ``FLEET_ATOL``; ``lstm-paper`` fleets of 8 and 64
+   streams x 8 windows x 250 records with the port's own draws, one
+   launch of #2 and of #3 a fit step and of #1 a stacked predict whatever
+   S, seven of #4 an int8 fleet predict, streams 0, S/2 and S-1 of a
+   fleet fit equal to sequential fits with the same keys; one window's
+   fit timed at S = 1, 8 and 64 beside 8 sequential fits (wall, device
+   busy time, idle share); and the fleet launcher (``--streams 8
+   --windows 4 --fast --gated``).
 
 Every kernel is built in phase 2 and held to its plain version in phase 3.
 The one-step cell (#5) is held there at the reference's sweep, the serving
@@ -391,6 +408,35 @@ CELL_ROWS_TIMED = (1, 2, 4)
 CELL_WIDE = (250, 5, 512)
 
 
+# the fleet: S streams of the paper's LSTM (lstm-paper at its published
+# width, H 40, F 5, lag 5), BENCH_fleet.json's configuration (8 streams x 8
+# windows x 250 records, 10 epochs, batch 64), then 64 streams
+FLEET_STREAMS = (8, 64)
+FLEET_WINDOWS = 8
+FLEET_RPW = 250
+FLEET_EPOCHS = 10
+FLEET_BATCH = 64
+# the rows a fleet predict hands #1 and #4 at a window of 250 records: the
+# batch padded to its power-of-two bucket
+FLEET_PREDICT_ROWS = 256
+# the fixture of the fleet's parity (tests/test_torch_fleet.py writes it from
+# the JAX reference), held on the card to the records' tolerance
+FLEET_FIXTURE = ROOT / "tests" / "data" / "torch_parity_fleet.npz"
+FLEET_ATOL = 1e-4
+# the stream-axis kernels against their plain versions: S, and (B, T, F, H,
+# x dtype) of #1 and of #2 + #3 (a serving window, a speed-fit step, a
+# ragged batch with wh in shared memory and bf16 x), and (M, K, N, x dtype)
+# of #4 (the int8 fleet predict's three products and bf16 x)
+FLEET_KERNEL_S = (1, 3, 8)
+FLEET_LSTM_CASES = ((250, 5, 5, 40, "float32"), (64, 5, 5, 40, "float32"),
+                    (37, 5, 5, 10, "bfloat16"))
+FLEET_INT8_SHAPES = ((5 * FLEET_PREDICT_ROWS, 5, 160),
+                     (FLEET_PREDICT_ROWS, 40, 160),
+                     (FLEET_PREDICT_ROWS, 40, 10))
+FLEET_INT8_CASES = (*((*shape, "float32") for shape in FLEET_INT8_SHAPES),
+                    (250, 40, 160, "bfloat16"))
+
+
 def _import_port():
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -668,6 +714,160 @@ def expected_training_launches(fx: dict, modes=tuple(MODES)) -> dict:
         fused += checks + 2 * len(sizes) + 2 * len(fx[f"records/{name}"])
     return {"lstm_sequence_fwd_train": steps, "lstm_sequence_bwd": steps,
             "lstm_sequence_fused": fused}
+
+
+# ---------------------------------------------------------------------------
+# The fleet, on any device
+# ---------------------------------------------------------------------------
+
+
+def fleet_data(setup: dict):
+    """The fleet of the fixture's setup, from the port's own sources:
+    ({stream id: WindowedStream}, the first stream's scaled history)."""
+    _import_port()
+    from repro_torch.streams.sources import fleet_windowed_streams
+
+    return fleet_windowed_streams(
+        int(setup["n_streams"]), int(setup["n_windows"]),
+        int(setup["records_per_window"]),
+        [str(x) for x in setup["scenarios"]], seed=int(setup["seed"]),
+        hist_len=int(setup["hist_len"]),
+        alphas=np.full(5, float(setup["drift_alpha"])))
+
+
+def fleet_window_keys(setup: dict, ids) -> dict:
+    """{training key: (stream, window)} of a fleet run of the fixture's
+    setup: every stream's chain under ``run_key`` (``fleet_key_chains``).
+    The bus executor's warm-up fits with the window-0 keys, so it replays
+    window 0's draws."""
+    _import_port()
+    from repro_torch.runtime.executor import fleet_key_chains
+
+    chains = fleet_key_chains(int(setup["run_key"]), list(ids),
+                              int(setup["n_windows"]))
+    return {k: (sid, w) for sid, chain in chains.items()
+            for w, k in enumerate(chain)}
+
+
+def fleet_draws(fx: dict) -> dict:
+    """{(stream, window): (init params, permutation indices)} of the
+    reference's fleet fits."""
+    ids = [str(x) for x in fx["fsetup/ids"]]
+    return {(sid, w): (unflatten(fx, f"init_{sid}_w{w}"),
+                       fx[f"idx_{sid}_w{w}"])
+            for sid in ids for w in range(int(fx["fsetup/n_windows"]))}
+
+
+def fleet_replay(ff, draws: dict, keys: dict, device):
+    """Replace ``ff.train_fleet`` with a fit from draws made elsewhere: the
+    draws of (stream, window) ``keys`` maps each key to go to
+    ``ff.fit_fleet_window``.  Returns ``fits``, {(stream, window): [(params,
+    per-step losses), ...]} of every fit it makes, in order."""
+    from repro_torch.convert import params_from_numpy
+
+    fits: dict = {}
+
+    def train_fleet(datas, ks):
+        t0 = time.perf_counter()
+        sw = [keys[int(k)] for k in ks]
+        out = ff.fit_fleet_window(
+            datas, [params_from_numpy(draws[x][0], device) for x in sw],
+            [draws[x][1] for x in sw])
+        wall = time.perf_counter() - t0
+        for x, p, losses in zip(sw, out, ff.last_losses):
+            fits.setdefault(x, []).append((p, losses))
+        return out, wall
+
+    ff.train_fleet = train_fleet
+    return fits
+
+
+# the reference's fleet runs in the fixture: name -> (bus?, int8 sync?,
+# drift-gated?), all in the integrated deployment
+FLEET_RUNS = {"inproc": (False, False, False),
+              "bus_float": (True, False, False),
+              "bus_int8": (True, True, False),
+              "bus_gated": (True, False, True)}
+
+
+def run_fleet_replay(fx: dict, device, name: str):
+    """The fixture's fleet through the port on ``device``: the run ``name``
+    of ``FLEET_RUNS``, every fit from the reference's draws.  Returns (the
+    run's result, its fits as ``fleet_replay`` collects them, the fleet
+    forecaster)."""
+    _import_port()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import FleetStages, lstm_fleet_forecaster
+    from repro_torch.core.drift import DriftGate
+    from repro_torch.runtime import (
+        CostModel,
+        FleetBusExecutor,
+        InProcessFleetExecutor,
+        edge_cloud_integrated,
+        paper_topology,
+    )
+
+    setup = unflatten(fx, "fsetup")
+    streams, _ = fleet_data(setup)
+    ff = lstm_fleet_forecaster(get_config("lstm-paper"),
+                               epochs=int(setup["speed_epochs"]),
+                               batch_size=int(setup["speed_batch_size"]),
+                               device=device)
+    fits = fleet_replay(ff, fleet_draws(fx),
+                        fleet_window_keys(setup, streams), device)
+    stages = FleetStages.build(ff, mode="dynamic")
+    bp = params_from_numpy(unflatten(fx, "batch"), device)
+    bus, quantized, gated = FLEET_RUNS[name]
+    gate = DriftGate() if gated else None
+    if bus:
+        ex = FleetBusExecutor(stages, edge_cloud_integrated(),
+                              paper_topology(),
+                              CostModel(ingest_s=BUS_INGEST_S), gate=gate,
+                              quantized_sync=quantized)
+    else:
+        ex = InProcessFleetExecutor(stages, gate=gate)
+    return ex.run(streams, bp, int(setup["run_key"])), fits, ff
+
+
+def check_fleet_records(fx: dict, name: str, res, rtol: float,
+                        atol: float) -> float:
+    """Hold run ``name``'s per-stream records to the fixture's (windows
+    equal, RMSEs to ``rtol``, weights to ``atol``) and, for a gated run, its
+    retrain log exactly.  Returns the largest relative RMSE error."""
+    worst = 0.0
+    for sid, r in res.results.items():
+        worst = max(worst, check_records(
+            {f"records/{name}_{sid}": fx[f"records/{name}/{sid}"]},
+            {f"{name}_{sid}": r}, rtol=rtol, atol=atol))
+        if f"retrain/{name}/{sid}" in fx:
+            want = fx[f"retrain/{name}/{sid}"].tolist()
+            if res.retrain_log[sid] != want:
+                raise AssertionError(f"{name} {sid}: retrain log "
+                                     f"{res.retrain_log[sid]}, the "
+                                     f"reference's {want}")
+    return worst
+
+
+def check_fleet_fits(fx: dict, fits: dict, atol: float) -> float:
+    """Hold every (stream, window) fit of a replay to the reference's fleet
+    fit: params and per-step losses to ``atol``.  Returns the largest
+    difference."""
+    _import_port()
+    from repro_torch.stacked import materialize_params
+
+    worst = 0.0
+    for (sid, w), runs in sorted(fits.items()):
+        want = unflatten(fx, f"fit_{sid}_w{w}")
+        want_losses = fx[f"loss_{sid}_w{w}"]
+        for p, losses in runs:
+            worst = max(worst, check_params(
+                want, materialize_params(p), atol, f"fit {sid} w{w}"))
+            np.testing.assert_allclose(losses, want_losses, rtol=0,
+                                       atol=atol,
+                                       err_msg=f"losses {sid} w{w}")
+            worst = max(worst, float(np.max(np.abs(losses - want_losses))))
+    return worst
 
 
 def run_bus_replay(fx: dict, device, deployment: str, quantized=False,
@@ -2721,6 +2921,269 @@ def ssm_kernel_phase() -> dict:
             **by_shape["prefill"]}
 
 
+def _stacked(make, S, seed):
+    """``make(seed + s)`` for each of S streams, each output stacked along a
+    new leading stream axis."""
+    import torch
+
+    parts = [make(seed + s) for s in range(S)]
+    return tuple(torch.stack(p).contiguous() for p in zip(*parts))
+
+
+def _fleet_lstm_inputs(S, B, T, F, H, dtype, seed):
+    """A fleet of S LSTMs on the card: x (S,B,T,F), stacked weights, and
+    random cotangents dh (S,B,H) of the final state."""
+    import torch
+
+    def one(k):
+        x, wx, wh, b = _kernel_inputs(B, T, F, H, dtype, k)
+        g = torch.Generator(device="cuda").manual_seed(k)
+        return x, wx, wh, b, torch.randn((B, H), generator=g, device="cuda")
+
+    return _stacked(one, S, seed)
+
+
+def _fleet_int8_inputs(S, M, K, N, dtype, seed):
+    return _stacked(lambda k: _int8_inputs(M, K, N, dtype, k), S, seed)
+
+
+def fleet_kernel_phase() -> dict:
+    """The stream axis of #1, #2 + #3 and #4: each held to its plain
+    version (the single-stream plain version on every stream) at S in
+    ``FLEET_KERNEL_S``, rerun bit for bit, every stream of a fleet launch
+    equal bit for bit to a single-stream launch of that stream, and S = 0
+    and B = 0 launching nothing.  Then each timed at the fleet path's shapes
+    at S in ``FLEET_STREAMS`` (and S = 1): CUDA events and the profiler's
+    device time, beside its bound (S times one stream's), the plain
+    version, and for #4 the yardstick ``torch.bmm(x, q.float()) * scale``
+    (three calls: no single PyTorch call computes it); #1-#3 have no
+    library call that runs a fleet of LSTMs with per-stream weights, so S
+    calls of ``torch.nn.LSTM`` are timed for context only.  Returns
+    {kernel name: its fleet numbers}."""
+    import torch
+
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ref
+
+    fused = lstm_kernel.lstm_sequence_fused
+    fwd_train = lstm_kernel.lstm_sequence_fwd_train
+    bwd = lstm_kernel.lstm_sequence_bwd
+    int8 = int8_kernel.int8_matmul
+
+    def within(got, want, atol, rtol):
+        return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+    errs = {"lstm_sequence_fused": 0.0, "lstm_sequence_fwd_train": 0.0,
+            "lstm_sequence_bwd": 0.0, "int8_matmul": 0.0}
+    for S in FLEET_KERNEL_S:
+        for i, (B, T, F, H, dtype) in enumerate(FLEET_LSTM_CASES):
+            x, wx, wh, b, dh = _fleet_lstm_inputs(S, B, T, F, H, dtype,
+                                                  700 + 10 * i)
+            dc = torch.zeros_like(dh)
+            with torch.inference_mode():
+                h, c = fused(x, wx, wh, b)
+                again = fused(x, wx, wh, b)
+                h_ref, c_ref = ref.lstm_sequence_ref(x, wx, wh, b,
+                                                     return_state=True)
+                ones = [fused(x[s], wx[s], wh[s], b[s]) for s in range(S)]
+                res = fwd_train(x, wx, wh, b)
+                res_again = fwd_train(x, wx, wh, b)
+                res_ref = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
+                res_ones = [fwd_train(x[s], wx[s], wh[s], b[s])
+                            for s in range(S)]
+                g = bwd(x, *res, wx, wh, dh, dc)
+                g_again = bwd(x, *res, wx, wh, dh, dc)
+                g_ref = ref.lstm_sequence_bwd_ref(x, *res, wx, wh, dh, dc)
+                g_ones = [bwd(x[s], *(r[s] for r in res), wx[s], wh[s],
+                              dh[s], dc[s]) for s in range(S)]
+            torch.cuda.synchronize()
+            same = (torch.equal(h, again[0]) and torch.equal(c, again[1])
+                    and all(torch.equal(u, v) for u, v in zip(res, res_again))
+                    and all(torch.equal(u, v) for u, v in zip(g, g_again)))
+            per_stream = all(
+                torch.equal(h[s], ones[s][0]) and torch.equal(c[s], ones[s][1])
+                and all(torch.equal(u[s], v)
+                        for u, v in zip(res, res_ones[s]))
+                and all(torch.equal(u[s], v) for u, v in zip(g, g_ones[s]))
+                for s in range(S))
+            fwd_err = max(float((u.float() - v.float()).abs().max())
+                          for u, v in zip((h, c, *res),
+                                          (h_ref, c_ref, *res_ref)))
+            bwd_err = max(float((u - v).abs().max())
+                          for u, v in zip(g, g_ref))
+            if dtype == "float32":
+                ok = (fwd_err <= KERNEL_ATOL and all(
+                    within(u, v, BWD_ATOL, BWD_RTOL) for u, v in zip(g, g_ref)))
+                errs["lstm_sequence_fused"] = max(
+                    errs["lstm_sequence_fused"],
+                    float((h - h_ref).abs().max()),
+                    float((c - c_ref).abs().max()))
+                errs["lstm_sequence_fwd_train"] = max(
+                    errs["lstm_sequence_fwd_train"],
+                    *(float((u - v).abs().max())
+                      for u, v in zip(res, res_ref)))
+                errs["lstm_sequence_bwd"] = max(errs["lstm_sequence_bwd"],
+                                                bwd_err)
+            else:
+                ok = (_within(h, h_ref, KERNEL_ATOL)
+                      and _within(c, c_ref, KERNEL_ATOL)
+                      and max(float((u - v).abs().max())
+                              for u, v in zip(res, res_ref)) <= KERNEL_ATOL
+                      and _within(g[0].to(x.dtype), g_ref[0].to(x.dtype),
+                                  KERNEL_ATOL)
+                      and all(within(u, v, BWD_ATOL, BWD_RTOL)
+                              for u, v in zip(g[1:], g_ref[1:])))
+            ok = ok and same and per_stream
+            print(f"fleet kernels #1, #2, #3 S={S} B={B} T={T} F={F} H={H} "
+                  f"{dtype}: forward max|d|={fwd_err:.3g}, backward "
+                  f"max|d|={bwd_err:.3g}; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}; every stream "
+                  f"{'equal to' if per_stream else 'DIFFERS from'} its "
+                  f"single-stream launch {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"the LSTM kernels' stream axis at S={S} B={B} T={T} "
+                    f"F={F} H={H} {dtype}: forward {fwd_err}, backward "
+                    f"{bwd_err}, reruns {same}, per stream {per_stream}")
+        for i, (M, K, N, dtype) in enumerate(FLEET_INT8_CASES):
+            x, q, scale = _fleet_int8_inputs(S, M, K, N, dtype, 800 + 10 * i)
+            y, again = int8(x, q, scale), int8(x, q, scale)
+            y_ref = int8_matmul_ref(x, q, scale)
+            ones = [int8(x[s], q[s], scale[s]) for s in range(S)]
+            torch.cuda.synchronize()
+            same = torch.equal(y, again)
+            per_stream = all(torch.equal(y[s], ones[s]) for s in range(S))
+            err = float((y.float() - y_ref.float()).abs().max())
+            if dtype == "float32":
+                tol = INT8_TOL if K <= 40 else INT8_TOL_DEEP
+                ok = within(y, y_ref, tol, tol)
+                errs["int8_matmul"] = max(errs["int8_matmul"], err)
+            else:
+                ok = _within(y, y_ref, KERNEL_ATOL)
+            ok = ok and same and per_stream
+            print(f"fleet kernel #4 S={S} M={M} K={K} N={N} {dtype}: "
+                  f"max|dy|={err:.3g}; rerun "
+                  f"{'bit-identical' if same else 'DIFFERS'}; every stream "
+                  f"{'equal to' if per_stream else 'DIFFERS from'} its "
+                  f"single-stream launch {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"int8_matmul's stream axis at S={S} M={M} K={K} N={N} "
+                    f"{dtype}: {err}, rerun {same}, per stream {per_stream}")
+
+    # nothing launched, nothing counted, at S = 0 and at B = 0
+    _reset_launches(fused, fwd_train, bwd, int8)
+    for S, B in ((0, 64), (3, 0)):
+        x, wx, wh, b, dh = _fleet_lstm_inputs(max(S, 1), max(B, 1), 5, 5, 40,
+                                              "float32", 900)
+        x, wx, wh, b, dh = x[:S, :B], wx[:S], wh[:S], b[:S], dh[:S, :B]
+        x, dh = x.contiguous(), dh.contiguous()
+        h, _ = fused(x, wx, wh, b)
+        res = fwd_train(x, wx, wh, b)
+        grads = bwd(x, *res, wx, wh, dh, torch.zeros_like(dh))
+        xq, q, scale = _fleet_int8_inputs(max(S, 1), max(B, 1), 40, 160,
+                                          "float32", 901)
+        y = int8(xq[:S, :B].contiguous(), q[:S], scale[:S])
+        shapes_ok = (tuple(h.shape) == (S, B, 40)
+                     and tuple(grads[1].shape) == (S, 5, 160)
+                     and not bool(grads[1].abs().sum())
+                     and tuple(y.shape) == (S, B, 160))
+        if not shapes_ok:
+            raise AssertionError(f"S={S}, B={B}: outputs {tuple(h.shape)}, "
+                                 f"{tuple(grads[1].shape)}, {tuple(y.shape)}")
+    counted = {w.__name__: w.launches for w in (fused, fwd_train, bwd, int8)}
+    print(f"fleet kernels at S = 0 and B = 0: launches {counted} (none)",
+          flush=True)
+    if any(counted.values()):
+        raise AssertionError(f"an empty fleet launched: {counted}")
+
+    # timed at the fleet path's shapes
+    out = {name: {"max_abs_err": err, "by_streams": {}}
+           for name, err in errs.items()}
+    B_pred, B_fit, T, F, H = FLEET_PREDICT_ROWS, FLEET_BATCH, 5, 5, 40
+    for S in (1, *FLEET_STREAMS):
+        x, wx, wh, b, _ = _fleet_lstm_inputs(S, B_pred, T, F, H, "float32",
+                                             1000)
+        xf, wxf, whf, bf, dh = _fleet_lstm_inputs(S, B_fit, T, F, H,
+                                                  "float32", 1100)
+        dc = torch.zeros_like(dh)
+        res = fwd_train(xf, wxf, whf, bf)
+        lstms = [_cudnn_lstm(wx[s], wh[s], b[s]) for s in range(S)]
+        cases = {
+            "lstm_sequence_fused": (
+                lambda: fused(x, wx, wh, b),
+                lambda: ref.lstm_sequence_ref(x, wx, wh, b),
+                [SERVE_FWD_KERNEL], _lstm_bound(B_pred, T, F, H),
+                (B_pred, T, F, H)),
+            "lstm_sequence_fwd_train": (
+                lambda: fwd_train(xf, wxf, whf, bf),
+                lambda: ref.lstm_sequence_fwd_train_ref(xf, wxf, whf, bf),
+                [TRAIN_FWD_KERNEL], _fwd_train_bound(B_fit, T, F, H),
+                (B_fit, T, F, H)),
+            "lstm_sequence_bwd": (
+                lambda: bwd(xf, *res, wxf, whf, dh, dc),
+                lambda: ref.lstm_sequence_bwd_ref(xf, *res, wxf, whf, dh, dc),
+                BWD_KERNELS, _bwd_bound(B_fit, T, F, H), (B_fit, T, F, H)),
+        }
+        with torch.inference_mode():
+            lstm_ms = _median_ms(lambda: [lstm(x[s]) for s, lstm
+                                          in enumerate(lstms)], n=50)
+            for name, (kern, plain, names, (one_ms, by), shape) in \
+                    cases.items():
+                dev = _kernel_device_ms(kern, names, calls=50)
+                numbers = {
+                    "shape": (S, *shape), "ms": _median_ms(kern, n=100),
+                    "device_ms": (None if None in dev.values()
+                                  else sum(dev.values())),
+                    "plain_ms": _median_ms(plain, n=5, warmup=1),
+                    "bound_ms": S * one_ms, "bound_by": by,
+                    "library_ms": None,
+                    "nn_lstm_x_S_ms": (lstm_ms if name == "lstm_sequence_fused"
+                                       else None)}
+                out[name]["by_streams"][S] = numbers
+                print(f"timing fleet {name} at S={S} {(S, *shape)} float32: "
+                      f"kernel {numbers['ms']:.6f} ms (CUDA events, median of "
+                      f"100), device {numbers['device_ms']} ms (profiler, "
+                      f"median of 50), plain {numbers['plain_ms']:.6f} ms, "
+                      f"bound {numbers['bound_ms']:.6f} ms ({by}); no library "
+                      f"call computes a fleet of LSTMs"
+                      + (f"; {S} calls of torch.nn.LSTM (context only) "
+                         f"{lstm_ms:.6f} ms" if name == "lstm_sequence_fused"
+                         else ""), flush=True)
+        for M, K, N in FLEET_INT8_SHAPES:
+            xq, q, scale = _fleet_int8_inputs(S, M, K, N, "float32", 1200)
+            one_ms, by = _int8_bound(M, K, N)
+
+            def library():
+                return torch.bmm(xq, q.float()) * scale[:, None, :]
+
+            numbers = {
+                "shape": (S, M, K, N),
+                "ms": _median_ms(lambda: int8(xq, q, scale), n=100),
+                "device_ms": _kernel_device_ms(
+                    lambda: int8(xq, q, scale), ["int8_matmul_kernel"],
+                    calls=50)["int8_matmul_kernel"],
+                "plain_ms": _median_ms(lambda: int8_matmul_ref(xq, q, scale),
+                                       n=5, warmup=1),
+                "library_ms": _median_ms(library, n=100),
+                "library_device_ms": _device_ms_per_call(library, calls=50),
+                "bound_ms": S * one_ms, "bound_by": by}
+            out["int8_matmul"]["by_streams"].setdefault(S, {})[
+                f"{M}x{K}x{N}"] = numbers
+            print(f"timing fleet int8_matmul at S={S} {(S, M, K, N)} "
+                  f"float32: kernel {numbers['ms']:.6f} ms (device "
+                  f"{numbers['device_ms']} ms), plain "
+                  f"{numbers['plain_ms']:.6f} ms, bmm(x, q.float()) * scale "
+                  f"{numbers['library_ms']:.6f} ms (device "
+                  f"{numbers['library_device_ms']} ms, its three calls), "
+                  f"bound {numbers['bound_ms']:.6f} ms ({by})", flush=True)
+    return out
+
+
 def _device_intervals(prof):
     """(name, start_us, end_us) of every device-side event of a profile:
     kernels, copies and memsets."""
@@ -3100,6 +3563,217 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     return out
 
 
+def expected_fleet_launches(datas_by_window: list, epochs: int,
+                            batch_size: int) -> dict:
+    """The launches one ungated ``InProcessFleetExecutor`` run must make,
+    from its windows' sizes (``datas_by_window[t]``: window t's data of
+    every stream): a fleet fit a window, one launch of #2 and one of #3 a
+    step (epochs x the bucket's steps), whatever S; one launch of #1 per
+    stacked predict (2 eval predicts a window, batch and speed inference
+    from window 1 on) and 2 for the mask check of each padded bucket."""
+    _import_port()
+    from repro_torch.training.compiled import bucket_examples
+
+    steps = fused = 0
+    padded = set()
+    for t, datas in enumerate(datas_by_window):
+        sizes = [len(d["x"]) for d in datas]
+        nb = bucket_examples(max(sizes), batch_size)
+        steps += epochs * nb // batch_size
+        if min(sizes) < nb:
+            padded.add(nb)
+        fused += 2 + (2 if t >= 1 else 0)
+    return {"lstm_sequence_fwd_train": steps, "lstm_sequence_bwd": steps,
+            "lstm_sequence_fused": fused + 2 * len(padded),
+            "int8_matmul": 0}
+
+
+def fleet_phase() -> dict:
+    """The fleet on the card.  (a) The fixture's four runs replayed from
+    the reference's draws (``run_fleet_replay``): every fit and every
+    record within ``FLEET_ATOL``.  (b) At scale with the port's own draws,
+    ``lstm-paper`` at its published width: ``InProcessFleetExecutor`` over
+    ``FLEET_WINDOWS`` windows of ``FLEET_RPW`` records, ``FLEET_EPOCHS``
+    epochs at batch ``FLEET_BATCH``, at each S of ``FLEET_STREAMS``; window
+    0's fit of streams 0, S/2 and S-1 against a sequential
+    ``CompiledForecaster.train`` with the same key, to 1e-5.  (c) Its
+    launches: one of #2 and one of #3 a fit step, one of #1 a stacked
+    predict, whatever S; an int8 fleet predict seven of #4.  (e) The
+    per-window fleet fit's wall, device busy time and idle share at S = 1
+    and each S, beside S = 8 sequential single-stream fits.  (f) The fleet
+    launcher, ``--streams 8 --windows 4 --fast --gated --deployment
+    integrated``.  (d), the kernels, is ``fleet_kernel_phase``.  Returns
+    the phase's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        FleetStages,
+        lstm_fleet_forecaster,
+        lstm_forecaster,
+        pretrain_batch_model,
+    )
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.launch import edge_cloud
+    from repro_torch.runtime import InProcessFleetExecutor
+    from repro_torch.runtime.executor import fleet_key_chains
+    from repro_torch.serving.quantize import quantize_fleet
+    from repro_torch.streams.sources import fleet_windowed_streams
+    from repro_torch.training.optimizer import tree_leaves
+
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+
+    # (a) the fixture's replays
+    fx = load_fixture(FLEET_FIXTURE)
+    worst_fit = worst_rec = 0.0
+    t0 = time.perf_counter()
+    for name in FLEET_RUNS:
+        res, fits, _ = run_fleet_replay(fx, "cuda", name)
+        worst_fit = max(worst_fit, check_fleet_fits(fx, fits, FLEET_ATOL))
+        worst_rec = max(worst_rec, check_fleet_records(
+            fx, name, res, rtol=FLEET_ATOL, atol=FLEET_ATOL))
+    print(f"fleet (a): the fixture's {len(FLEET_RUNS)} runs "
+          f"({', '.join(FLEET_RUNS)}) replayed from the reference's draws in "
+          f"{time.perf_counter() - t0:.3f} s: every fit within "
+          f"{worst_fit:.3g} of the reference's, every record within "
+          f"{worst_rec:.3g} relative (<= {FLEET_ATOL})", flush=True)
+    out["replay"] = {"worst_fit": worst_fit, "worst_record": worst_rec}
+
+    # (b), (c) and (e) at scale
+    cfg = get_config("lstm-paper")
+    for S in FLEET_STREAMS:
+        streams, hist0 = fleet_windowed_streams(
+            S, FLEET_WINDOWS, FLEET_RPW, "gradual",
+            alphas=np.full(5, 1.5e-3))
+        ids = list(streams)
+        bp, _ = pretrain_batch_model(
+            lstm_forecaster(cfg, epochs=8, batch_size=256, device="cuda"),
+            hist0, 0)
+        ff = lstm_fleet_forecaster(cfg, epochs=FLEET_EPOCHS,
+                                   batch_size=FLEET_BATCH, device="cuda")
+        first = {}
+        train_fleet = ff.train_fleet
+
+        def keeping(datas, keys, train_fleet=train_fleet, first=first):
+            params, wall = train_fleet(datas, keys)
+            first.setdefault("fit", (datas, keys, params))
+            return params, wall
+
+        ff.train_fleet = keeping
+        want = expected_fleet_launches(
+            [[streams[sid].supervised(t) for sid in ids]
+             for t in range(FLEET_WINDOWS)], FLEET_EPOCHS, FLEET_BATCH)
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        res = InProcessFleetExecutor(FleetStages.build(ff)).run(
+            streams, bp, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {w.__name__: w.launches for w in wrappers}
+        out["launches"][f"fleet_S{S}"] = got
+        walls = [r.t_speed_train for rr in res.results.values()
+                 for r in rr.records]
+        print(f"fleet (b) S={S}: {FLEET_WINDOWS} windows x {FLEET_RPW} "
+              f"records, {FLEET_EPOCHS} epochs, batch {FLEET_BATCH}, in "
+              f"{wall:.3f} s (fit wall median "
+              f"{1e3 * statistics.median(walls):.3f} ms); launches {got}, "
+              f"expected {want}; fleet mean RMSE {res.mean_rmse()}",
+              flush=True)
+        if got != want or res.train_dispatches != FLEET_WINDOWS:
+            raise AssertionError(f"fleet S={S}: launches {got}, expected "
+                                 f"{want}; {res.train_dispatches} fits")
+        if any(len(r.records) != FLEET_WINDOWS - 1
+               for r in res.results.values()):
+            raise AssertionError(f"fleet S={S}: a stream missed a window")
+        datas, keys, params = first["fit"]
+        worst = 0.0
+        for i in (0, S // 2, S - 1):
+            seq, _ = ff.single.train(datas[i], None, keys[i])
+            worst = max(worst, max(
+                float((a - b).abs().max()) for a, b in zip(
+                    tree_leaves(seq), tree_leaves(params[i]))))
+        print(f"fleet (b) S={S}: window 0's fit of streams 0, {S // 2}, "
+              f"{S - 1} against sequential CompiledForecaster.train with "
+              f"the same keys: max|dparam| {worst:.3g} (<= 1e-5)",
+              flush=True)
+        if worst > 1e-5:
+            raise AssertionError(f"fleet S={S}: the fleet fit differs from "
+                                 f"the sequential fits by {worst}")
+        xs = [d["x"] for d in datas]
+        q8 = quantize_fleet(params, min_size=64)
+        _reset_launches(*wrappers)
+        preds = ff.predict_fleet(q8, xs)
+        int8_launches = int8_kernel.int8_matmul.launches
+        _reset_launches(*wrappers)
+        ff.predict_fleet(params, xs)
+        fused_launches = lstm_kernel.lstm_sequence_fused.launches
+        lag = xs[0].shape[1]
+        print(f"fleet (c) S={S}: an int8 fleet predict launched #4 "
+              f"{int8_launches} times (expected {lag + 2}), a float one #1 "
+              f"{fused_launches} time(s) (expected 1); int8 predictions "
+              f"finite {all(np.isfinite(p).all() for p in preds)}",
+              flush=True)
+        if int8_launches != lag + 2 or fused_launches != 1 or not all(
+                np.isfinite(p).all() and p.shape == (len(x), 1)
+                for p, x in zip(preds, xs)):
+            raise AssertionError(f"fleet S={S}: int8 predict launched "
+                                 f"{int8_launches}, float {fused_launches}")
+
+        # (e) one window's fit: the fleet at S, one stream, and (at S = 8)
+        # the S streams one after another
+        d1 = [streams[sid].supervised(1) for sid in ids]
+        k1 = [fleet_key_chains(1, ids, 2)[sid][1] for sid in ids]
+        times = {f"fleet_S{S}": _busy(lambda: train_fleet(d1, k1),
+                                      f"fleet fit S={S}, one window")}
+        if S == FLEET_STREAMS[0]:
+            times["fleet_S1"] = _busy(lambda: train_fleet(d1[:1], k1[:1]),
+                                      "fleet fit S=1, one window")
+            times[f"sequential_x{S}"] = _busy(
+                lambda: [ff.single.train(d, None, k)
+                         for d, k in zip(d1, k1)],
+                f"{S} sequential single-stream fits, one window")
+        out.setdefault("fits", {}).update(times)
+
+    # (f) the fleet launcher
+    _reset_launches(*wrappers)
+    t0 = time.perf_counter()
+    runs = edge_cloud.run_real_fleet(edge_cloud.parse_args(
+        ["--real", "--streams", "8", "--windows", "4", "--fast", "--gated",
+         "--deployment", "integrated"]), device="cuda")
+    torch.cuda.synchronize()
+    res = runs["edge-cloud-integrated"]
+    got = {w.__name__: w.launches for w in wrappers}
+    out["launches"]["launcher"] = got
+    # the pretrain (8 epochs of 1595 -> 2048 rows at 256) and the warm-up's
+    # fit besides the run's fits, each 10 epochs x 4 steps
+    steps = 8 * 8 + 10 * 4 * (res.train_dispatches + 1)
+    print(f"fleet (f) launcher --streams 8 --windows 4 --fast --gated: "
+          f"{time.perf_counter() - t0:.3f} s, {res.train_dispatches} fleet "
+          f"fits for {res.total_retrains()} retrains "
+          f"({res.skipped_retrains()} skipped), e2e {res.mean_e2e_s():.6f} "
+          f"s, launches {got} (training kernels expected {steps} each)",
+          flush=True)
+    if (any(len(r.records) != 3 for r in res.results.values())
+            or got["lstm_sequence_fwd_train"] != steps
+            or got["lstm_sequence_bwd"] != steps
+            or not got["lstm_sequence_fused"] or got["int8_matmul"]):
+        raise AssertionError(f"fleet launcher: launches {got}, records "
+                             f"{[len(r.records) for r in res.results.values()]}")
+    out["launcher"] = {"fits": res.train_dispatches,
+                       "retrains": res.total_retrains(),
+                       "skipped": res.skipped_retrains(),
+                       "table3": res.table3(), "e2e_s": res.mean_e2e_s()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"fleet phase: {out['wall_s']:.3f} s without its kernel checks",
+          flush=True)
+    return out
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -3419,6 +4093,18 @@ def main() -> int:
     # phase 11: the scan path, kernel #5 under ops.lstm_sequence_scan
     scan = scan_phase(fx)
 
+    # phase 12: the fleet, the stream axis of #1-#4: the kernels, then the
+    # fleet's paths (each launch count read over its own run)
+    t0 = time.perf_counter()
+    _reset_launches(flash, wkv, ssm, cell)
+    fleet_rows = fleet_kernel_phase()
+    fleet = fleet_phase()
+    print(f"fleet phase: {time.perf_counter() - t0:.3f} s with its kernel "
+          "checks", flush=True)
+    if flash.launches or wkv.launches or ssm.launches or cell.launches:
+        raise AssertionError("the fleet launched a zoo kernel or the "
+                             "one-step lstm_cell")
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -3466,7 +4152,11 @@ def main() -> int:
                        "training": training_launches.get(kname, 0),
                        **{path: counts.get(kname, 0)
                           for path, counts in bus_launches.items()},
-                       "scan": scan["launches"].get(kname, 0)}
+                       "scan": scan["launches"].get(kname, 0),
+                       **{path: counts.get(kname, 0)
+                          for path, counts in fleet["launches"].items()}}
+            row["fleet"] = fleet_rows[kname] if kname in fleet_rows \
+                else None
         if kname in (flash.__name__, ssm.__name__, wkv.__name__):
             row["launches_by_kernel_by_path"] = {
                 f"{arch}_{what}": run[f"{what}_launches_by_kernel"][kname]
@@ -3487,6 +4177,8 @@ def main() -> int:
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
     print(json.dumps({"scan": scan}))
+    print(json.dumps({"fleet": {k: v for k, v in fleet.items()
+                                if k != "launcher"}}, default=str))
     for arch, run in served.items():
         print(json.dumps({arch: {k: v for k, v in run.items()
                                  if k not in ("busy", "near_ties")} | {

@@ -5,10 +5,24 @@ from repro_torch.core.hybrid import (  # noqa: F401
     HybridRunResult,
     HybridStreamAnalytics,
     WindowRecord,
+    lstm_fleet_forecaster,
     lstm_forecaster,
     pretrain_batch_model,
 )
-from repro_torch.core.stages import PipelineStages  # noqa: F401
+from repro_torch.core.drift import DriftGate  # noqa: F401
+from repro_torch.core.stages import (  # noqa: F401
+    BatchRefresh,
+    FleetInference,
+    FleetSpeedTraining,
+    FleetStage,
+    FleetStages,
+    FleetState,
+    PipelineStages,
+    ServingStage,
+    StreamId,
+    StreamState,
+    resolve_fleet_params,
+)
 from repro_torch.core.weighting import (  # noqa: F401
     combine,
     dwa_closed_form,

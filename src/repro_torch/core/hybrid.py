@@ -15,7 +15,9 @@ kernels (``repro_torch.training.compiled.CompiledForecaster``).  A caller
 may replace ``train`` (``dataclasses.replace(forecaster, train=...)``): with
 a trainer that installs speed models published elsewhere, the edge's view of
 the paper's edge-cloud deployment, or with one that hands the engine draws
-made elsewhere.
+made elsewhere.  ``lstm_fleet_forecaster`` lifts it to a fleet of streams
+(``FleetForecaster``: one stacked fit and one stacked predict per window for
+the whole fleet).
 
 The per-window work lives in ``repro_torch.core.stages`` as pipeline
 stages; ``HybridStreamAnalytics.run`` drives them through
@@ -34,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.windows import WindowedStream
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models.model import get_model
-from repro_torch.training.compiled import CompiledForecaster
+from repro_torch.training.compiled import CompiledForecaster, FleetForecaster
 
 Params = Any
 
@@ -63,17 +65,39 @@ def lstm_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
     windows padded to a fixed shape bucket, the epoch permutations drawn up
     front, no host sync inside the step loop."""
     dev = resolve_device(device)
+    eng = CompiledForecaster(get_model(cfg), epochs=epochs,
+                             batch_size=batch_size, lr=lr,
+                             warm_start=warm_start,
+                             predict_fn=_host_predict(cfg, dev), device=dev)
+    return Forecaster(train=eng.train, predict=eng.predict, engine=eng)
+
+
+def _host_predict(cfg: ModelConfig, dev: torch.device
+                  ) -> Callable[[Params, np.ndarray], np.ndarray]:
+    """predict(params on ``dev``, host x) -> host predictions."""
 
     def predict(params: Params, x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
             return lstm_mod.predict(cfg, params, xt).cpu().numpy()
 
-    eng = CompiledForecaster(get_model(cfg), epochs=epochs,
-                             batch_size=batch_size, lr=lr,
-                             warm_start=warm_start, predict_fn=predict,
-                             device=dev)
-    return Forecaster(train=eng.train, predict=eng.predict, engine=eng)
+    return predict
+
+
+def lstm_fleet_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
+                          lr: float = 1e-3,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> FleetForecaster:
+    """The paper's LSTM speed layer lifted to a fleet of streams on
+    ``device`` (the current CUDA device by default): a ``FleetForecaster``
+    that trains every stream's speed model in one stacked fit per window,
+    each step one launch of each LSTM training kernel for the whole fleet,
+    and satisfies the single-stream ``Forecaster`` protocol by delegating
+    to its wrapped ``CompiledForecaster``."""
+    dev = resolve_device(device)
+    return FleetForecaster(get_model(cfg), epochs=epochs,
+                           batch_size=batch_size, lr=lr,
+                           predict_fn=_host_predict(cfg, dev), device=dev)
 
 
 @dataclass

@@ -17,10 +17,16 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """``x @ dequant(qt)``: ``x`` is (..., K) float32 or bfloat16, ``qt``
     wraps an int8 (K, N) matrix and its (N,) float32 scale; the result is
     (..., N) in ``x.dtype``.  The leading dims are flattened to one M axis
-    for the kernel and restored after."""
+    for the kernel and restored after.  A stacked ``qt`` (q (S,K,N), scale
+    (S,N): a fleet's weights) takes x (S, ..., K) and gives (S, ..., N),
+    the S products in one launch."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    scale = qt.scale.reshape(-1)
+    if qt.q.dim() == 3:
+        x2 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+        scale = qt.scale.reshape(qt.q.shape[0], -1)
+    else:
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        scale = qt.scale.reshape(-1)
     if x.device.type == "cuda":
         y = kernel.int8_matmul(x2, qt.q, scale)
     elif x.device.type == "cpu":

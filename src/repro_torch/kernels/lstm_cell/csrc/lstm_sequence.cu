@@ -1,20 +1,25 @@
 // Whole-sequence LSTM forward for Hopper (sm_90a): one recurrence, two
 // kernels that differ only in what they write:
-//   lstm_serve_fwd_kernel  x (B,T,F) -> final (h, c)                (serving)
-//   lstm_train_fwd_kernel  x (B,T,F) -> gates, c_seq, h_seq         (training)
+//   lstm_serve_fwd_kernel  x (S,B,T,F) -> final (h, c)              (serving)
+//   lstm_train_fwd_kernel  x (S,B,T,F) -> gates, c_seq, h_seq       (training)
+// over a stream axis S: a fleet of S independent LSTMs, each with its own
+// weights, in one launch (the reference batches its pallas_call under
+// jax.vmap, which adds a grid axis).  A single LSTM is the S = 1 case.
 //
 // They replace the Pallas TPU kernels
 //   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_fused (_sequence_kernel)
 //   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_fwd_train
 //                                          (_sequence_train_kernel).
 //
-// Layouts are the reference's, row-major and contiguous:
-//   x  (B, T, F) float32 or bfloat16
-//   wx (F, 4H)   float32, gates along the columns in the order i, f, g, o
-//   wh (H, 4H)   float32, same column layout
-//   b  (4H)      float32
-//   h_out, c_out (B, H) in x's type                       (serving)
-//   gates (B, T, 4H), c_seq (B, T, H), h_seq (B, T, H) float32  (training):
+// Layouts are the reference's with a leading stream axis, row-major and
+// contiguous:
+//   x  (S, B, T, F) float32 or bfloat16
+//   wx (S, F, 4H)   float32, gates along the columns in the order i, f, g, o
+//   wh (S, H, 4H)   float32, same column layout
+//   b  (S, 4H)      float32
+//   h_out, c_out (S, B, H) in x's type                       (serving)
+//   gates (S, B, T, 4H), c_seq (S, B, T, H), h_seq (S, B, T, H) float32
+//   (training):
 //     the post-activation gates i, f, g, o and the cell and hidden state of
 //     every step, the residuals the backward (lstm_sequence_bwd.cu) reads.
 // Compute is float32 throughout; only the serving outputs are rounded to x's
@@ -26,8 +31,11 @@
 // chain, of staging the weights and of the launch sets the time.
 //
 // The design (lstm_forward_row, shared by both kernels):
-//   * one batch row a block, 4H threads: 250 blocks at the serving path's
-//     B=250, 64 at a speed fit's B=64;
+//   * one batch row of one stream a block, 4H threads, the grid (B, S): 250
+//     blocks a stream at the serving path's B=250, 64 at a speed fit's
+//     B=64, so a fleet of 8 speed fits fills 512 blocks where one filled 64
+//     of the 132 SMs; a block takes its stream's weights and its row of
+//     the S*B rows, and the per-stream sums are those of an S = 1 launch;
 //   * one thread owns one gate column, so its serial chain is the H FMAs
 //     of h.wh a step; the four gates of a unit sit on four neighbouring
 //     lanes (a quad) and meet through __shfl_sync, so a step needs one
@@ -92,9 +100,11 @@ size_t smem_bytes(int F, int H, bool stage_x) {
 // multiple of 4 (16-byte loads of h).
 bool registers_hold_wh(int H) { return H <= kRegH && H % 4 == 0; }
 
-// The recurrence of one batch row: a 1-d block of 4H threads (rounded up
-// to whole warps), thread p owning gate q = p % 4 of unit j = p / 4, i.e.
-// column q*H + j of the gates.  kRegW: the thread loads its column of wh
+// The recurrence of one batch row, ``row`` of the (S*B) rows of x, gates,
+// c_seq, h_seq, h_out and c_out (stream s's row r is row s*B + r; wx, wh
+// and b come already offset to the row's stream): a 1-d block of 4H
+// threads (rounded up to whole warps), thread p owning gate q = p % 4 of
+// unit j = p / 4, i.e. column q*H + j of the gates.  kRegW: the thread loads its column of wh
 // from global memory into registers as the block starts (only wx and b go
 // through the bulk copy) and reads h 16 bytes at a time; otherwise wh comes
 // to shared memory with them and every step reads it there.  kResiduals:
@@ -106,7 +116,8 @@ __device__ __forceinline__ void lstm_forward_row(
     const float* __restrict__ wh, const float* __restrict__ b,
     float* __restrict__ gates, float* __restrict__ c_seq,
     float* __restrict__ h_seq, Tin* __restrict__ h_out,
-    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
+    Tin* __restrict__ c_out, long long row, int T, int F, int H,
+    int stage_x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 4 * H;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
@@ -131,7 +142,6 @@ __device__ __forceinline__ void lstm_forward_row(
   const bool has_row = tid < G;
   const int j = tid >> 2, q = tid & 3;
   const int col = q * H + j;
-  const long long row = blockIdx.x;
   const unsigned quad = lstm::quad_mask();
 
   float w[kRegW ? kRegH : 1];  // wh[:, col]
@@ -239,42 +249,55 @@ __device__ __forceinline__ void lstm_forward_row(
   }
 }
 
-// The two kernels: one batch row a block (blockIdx.x), the same recurrence.
-// Each takes both kinds of output pointer and writes only its own.
-template <typename Tin, bool kRegW>
+// The two kernels: one batch row (blockIdx.x) of one stream (blockIdx.y) a
+// block, the same recurrence.  Each takes both kinds of output pointer and
+// writes only its own.  The row's data is row blockIdx.y * B + blockIdx.x
+// of the streams' rows taken together, so the pointers to it stay kernel
+// parameters (offsetting them in registers made the register-held-wh
+// instances spill); only the weights, read once as the block starts, are
+// offset to the stream.  A stream's slice of wx, wh or b is 16F*H, 16H*H or
+// 16H bytes, so a 16-byte aligned base keeps every stream's bulk copies
+// aligned.  kStreams = false is the S = 1 instance of the same body, the
+// stream index a constant 0: even the few registers of the offsets cost a
+// single-stream launch 1-2 us on the card at 128 registers a thread.
+template <typename Tin, bool kRegW, bool kStreams>
 __global__ void __launch_bounds__(kMaxThreads) lstm_train_fwd_kernel(
     const Tin* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ wh, const float* __restrict__ b,
     float* __restrict__ gates, float* __restrict__ c_seq,
     float* __restrict__ h_seq, Tin* __restrict__ h_out,
-    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
-  lstm_forward_row<Tin, kRegW, true>(x, wx, wh, b, gates, c_seq, h_seq,
-                                     h_out, c_out, T, F, H, stage_x);
+    Tin* __restrict__ c_out, int B, int T, int F, int H, int stage_x) {
+  const long long s = kStreams ? blockIdx.y : 0, G = 4 * H;
+  lstm_forward_row<Tin, kRegW, true>(
+      x, wx + s * F * G, wh + s * H * G, b + s * G, gates, c_seq, h_seq,
+      h_out, c_out, s * B + blockIdx.x, T, F, H, stage_x);
 }
 
-template <typename Tin, bool kRegW>
+template <typename Tin, bool kRegW, bool kStreams>
 __global__ void __launch_bounds__(kMaxThreads) lstm_serve_fwd_kernel(
     const Tin* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ wh, const float* __restrict__ b,
     float* __restrict__ gates, float* __restrict__ c_seq,
     float* __restrict__ h_seq, Tin* __restrict__ h_out,
-    Tin* __restrict__ c_out, int T, int F, int H, int stage_x) {
-  lstm_forward_row<Tin, kRegW, false>(x, wx, wh, b, gates, c_seq, h_seq,
-                                      h_out, c_out, T, F, H, stage_x);
+    Tin* __restrict__ c_out, int B, int T, int F, int H, int stage_x) {
+  const long long s = kStreams ? blockIdx.y : 0, G = 4 * H;
+  lstm_forward_row<Tin, kRegW, false>(
+      x, wx + s * F * G, wh + s * H * G, b + s * G, gates, c_seq, h_seq,
+      h_out, c_out, s * B + blockIdx.x, T, F, H, stage_x);
 }
 
-// Launches one of the two kernels over the batch rows on `stream` and
-// returns cudaGetLastError().
-template <typename Tin, bool kRegW, bool kResiduals>
-cudaError_t launch_as(int B, int T, int F, int H, cudaStream_t stream,
+// Launches one of the two kernels over the streams' batch rows on `stream`
+// and returns cudaGetLastError().
+template <typename Tin, bool kRegW, bool kResiduals, bool kStreams>
+cudaError_t launch_as(int S, int B, int T, int F, int H, cudaStream_t stream,
                       const void* x, const float* wx, const float* wh,
                       const float* b, float* gates, float* c_seq,
                       float* h_seq, void* h_out, void* c_out) {
   const bool stage_x = smem_bytes(F, H, true) <= kSmemLimit;
   const size_t smem = smem_bytes(F, H, stage_x);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = kResiduals ? lstm_train_fwd_kernel<Tin, kRegW>
-                           : lstm_serve_fwd_kernel<Tin, kRegW>;
+  auto kernel = kResiduals ? lstm_train_fwd_kernel<Tin, kRegW, kStreams>
+                           : lstm_serve_fwd_kernel<Tin, kRegW, kStreams>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -282,15 +305,30 @@ cudaError_t launch_as(int B, int T, int F, int H, cudaStream_t stream,
     if (err != cudaSuccess) return err;
   }
   const int threads = (4 * H + 31) / 32 * 32;
-  kernel<<<B, threads, smem, stream>>>(
+  kernel<<<dim3(B, S), threads, smem, stream>>>(
       static_cast<const Tin*>(x), wx, wh, b, gates, c_seq, h_seq,
-      static_cast<Tin*>(h_out), static_cast<Tin*>(c_out), T, F, H,
+      static_cast<Tin*>(h_out), static_cast<Tin*>(c_out), B, T, F, H,
       stage_x ? 1 : 0);
   return cudaGetLastError();
 }
 
+// The instance for S: the S = 1 one where S is 1.
+template <typename Tin, bool kRegW, bool kResiduals>
+cudaError_t launch_streams(int S, int B, int T, int F, int H,
+                           cudaStream_t stream, const void* x, const float* wx,
+                           const float* wh, const float* b, float* gates,
+                           float* c_seq, float* h_seq, void* h_out,
+                           void* c_out) {
+  return S > 1 ? launch_as<Tin, kRegW, kResiduals, true>(
+                     S, B, T, F, H, stream, x, wx, wh, b, gates, c_seq, h_seq,
+                     h_out, c_out)
+               : launch_as<Tin, kRegW, kResiduals, false>(
+                     S, B, T, F, H, stream, x, wx, wh, b, gates, c_seq, h_seq,
+                     h_out, c_out);
+}
+
 template <bool kResiduals>
-cudaError_t launch(int B, int T, int F, int H, int x_is_bf16,
+cudaError_t launch(int S, int B, int T, int F, int H, int x_is_bf16,
                    cudaStream_t stream, const void* x, const void* wx,
                    const void* wh, const void* b, float* gates, float* c_seq,
                    float* h_seq, void* h_out, void* c_out) {
@@ -299,25 +337,29 @@ cudaError_t launch(int B, int T, int F, int H, int x_is_bf16,
                        static_cast<const float*>(b)};
   const bool reg = registers_hold_wh(H);
   if (x_is_bf16) {
-    return reg ? launch_as<__nv_bfloat16, true, kResiduals>(
-                     B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+    return reg ? launch_streams<__nv_bfloat16, true, kResiduals>(
+                     S, B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
                      h_seq, h_out, c_out)
-               : launch_as<__nv_bfloat16, false, kResiduals>(
-                     B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+               : launch_streams<__nv_bfloat16, false, kResiduals>(
+                     S, B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
                      h_seq, h_out, c_out);
   }
-  return reg ? launch_as<float, true, kResiduals>(B, T, F, H, stream, x, w[0],
-                                                  w[1], w[2], gates, c_seq,
-                                                  h_seq, h_out, c_out)
-             : launch_as<float, false, kResiduals>(B, T, F, H, stream, x,
-                                                   w[0], w[1], w[2], gates,
-                                                   c_seq, h_seq, h_out, c_out);
+  return reg ? launch_streams<float, true, kResiduals>(
+                   S, B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+                   h_seq, h_out, c_out)
+             : launch_streams<float, false, kResiduals>(
+                   S, B, T, F, H, stream, x, w[0], w[1], w[2], gates, c_seq,
+                   h_seq, h_out, c_out);
 }
 
-// The checks both entry points share: 0, or the error to return.
-int check_call(int T, int F, int H, const void* wx, const void* wh,
+// The streams a launch may take: gridDim.y
+constexpr int kMaxStreams = 65535;
+
+// The checks both entry points share: 0, or the error to return.  The
+// stacked bases must be 16-byte aligned; every stream's slice then is.
+int check_call(int S, int T, int F, int H, const void* wx, const void* wh,
                const void* b) {
-  if (T < 1 || F < 1 || H < 1 || 4 * H > kMaxThreads)
+  if (S > kMaxStreams || T < 1 || F < 1 || H < 1 || 4 * H > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!lstm::aligned16(wx) || !lstm::aligned16(wh) || !lstm::aligned16(b))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -334,32 +376,35 @@ long long lstm_sequence_smem_bytes(int F, int H) {
   return static_cast<long long>(smem_bytes(F, H, false));
 }
 
-// The serving kernel: the final (h, c) (B,H) in x's type.  x_is_bf16
-// selects bfloat16 x and outputs; otherwise all are float32.  wx, wh and b
-// must be 16-byte aligned (the bulk copies).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// The serving kernel over S streams: the final (h, c) (S,B,H) in x's type.
+// x_is_bf16 selects bfloat16 x and outputs; otherwise all are float32.  wx,
+// wh and b must be 16-byte aligned (the bulk copies).  Launches nothing at
+// S = 0 or B = 0; otherwise launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 int lstm_sequence_forward(const void* x, const void* wx, const void* wh,
-                          const void* b, void* h_out, void* c_out, int B,
-                          int T, int F, int H, int x_is_bf16, void* stream) {
-  if (B <= 0) return 0;
-  if (const int err = check_call(T, F, H, wx, wh, b)) return err;
+                          const void* b, void* h_out, void* c_out, int S,
+                          int B, int T, int F, int H, int x_is_bf16,
+                          void* stream) {
+  if (S <= 0 || B <= 0) return 0;
+  if (const int err = check_call(S, T, F, H, wx, wh, b)) return err;
   return static_cast<int>(launch<false>(
-      B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh, b,
-      nullptr, nullptr, nullptr, h_out, c_out));
+      S, B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh,
+      b, nullptr, nullptr, nullptr, h_out, c_out));
 }
 
-// The training kernel: gates (B,T,4H), c_seq and h_seq (B,T,H), float32,
-// whatever x's type.  wx, wh and b must be 16-byte aligned (the bulk
-// copies).  Launches on `stream` and returns cudaGetLastError().
+// The training kernel over S streams: gates (S,B,T,4H), c_seq and h_seq
+// (S,B,T,H), float32, whatever x's type.  wx, wh and b must be 16-byte
+// aligned (the bulk copies).  Launches nothing at S = 0 or B = 0; otherwise
+// launches on `stream` and returns cudaGetLastError().
 int lstm_sequence_forward_train(const void* x, const void* wx, const void* wh,
                                 const void* b, void* gates, void* c_seq,
-                                void* h_seq, int B, int T, int F, int H,
-                                int x_is_bf16, void* stream) {
-  if (B <= 0) return 0;
-  if (const int err = check_call(T, F, H, wx, wh, b)) return err;
+                                void* h_seq, int S, int B, int T, int F,
+                                int H, int x_is_bf16, void* stream) {
+  if (S <= 0 || B <= 0) return 0;
+  if (const int err = check_call(S, T, F, H, wx, wh, b)) return err;
   return static_cast<int>(launch<true>(
-      B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh, b,
-      static_cast<float*>(gates), static_cast<float*>(c_seq),
+      S, B, T, F, H, x_is_bf16, static_cast<cudaStream_t>(stream), x, wx, wh,
+      b, static_cast<float*>(gates), static_cast<float*>(c_seq),
       static_cast<float*>(h_seq), nullptr, nullptr));
 }
 

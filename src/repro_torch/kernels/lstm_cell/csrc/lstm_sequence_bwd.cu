@@ -1,16 +1,20 @@
 // Whole-sequence LSTM backward for Hopper (sm_90a), two kernels, launched
-// back to back on one stream:
-//   lstm_bwd_time_kernel     the reverse-time loop of a tile of batch rows:
-//                            dx (B,T,F), and the tile's partial weight
-//                            gradient [x; h_prev; 1]^T dz, (F+H+1, 4H)
-//   lstm_bwd_combine_kernel  the partials summed in block order -> dwx (F,4H),
-//                            dwh (H,4H), db (4H)
+// back to back on one stream, over a stream axis S (a fleet of S
+// independent LSTMs, each with its own weights; one LSTM is S = 1):
+//   lstm_bwd_time_kernel     the reverse-time loop of a tile of batch rows of
+//                            one stream: dx (B,T,F), and the tile's partial
+//                            weight gradient [x; h_prev; 1]^T dz, (F+H+1, 4H)
+//   lstm_bwd_combine_kernel  each stream's partials summed in block order ->
+//                            dwx (F,4H), dwh (H,4H), db (4H) of the stream
+// Every array below carries a leading S; the grids are (tiles, S) and
+// (elements, S), and a block offsets its pointers by its stream
+// (blockIdx.y), so one stream's sums are those of an S = 1 launch.
 //
 // Together they replace the Pallas TPU kernel
 //   src/repro/kernels/lstm_cell/kernel.py: lstm_sequence_bwd
 //                                          (_sequence_bwd_kernel).
 //
-// Inputs are the primal x (B,T,F) in float32 or bfloat16 and the residuals
+// Inputs, per stream, are the primal x (B,T,F) in float32 or bfloat16 and the residuals
 // of the training forward (lstm_sequence.cu): post-activation gates
 // (B,T,4H) in the order i, f, g, o, c_seq and h_seq (B,T,H), all float32;
 // wx (F,4H) and wh (H,4H); dh and dc (B,H), the cotangents of the final
@@ -152,8 +156,9 @@ bool registers_hold_wh(int H) { return H <= kRegH && H % 8 == 0; }
 // (L+1)*H/8 - 1 of the rows of wh of the warp's 8 units, and takes their
 // pieces of dh over those columns (unit_sums); otherwise lane q of unit j
 // takes the columns qH .. qH + H - 1 from shared memory, and the quad adds
-// the four pieces.
-template <typename Tin, bool kRegW>
+// the four pieces.  kStreams = false is the S = 1 instance of the same
+// body (no stream offsets), as in lstm_sequence.cu.
+template <typename Tin, bool kRegW, bool kStreams>
 __global__ void __launch_bounds__(kRegW ? kTargetThreads : kMaxThreads)
     lstm_bwd_time_kernel(const Tin* __restrict__ x,
                          const float* __restrict__ gates,
@@ -167,6 +172,21 @@ __global__ void __launch_bounds__(kRegW ? kTargetThreads : kMaxThreads)
                          int B, int T, int F, int H, int R, int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 4 * H, K = F + H + 1, KA = (K + 3) / 4 * 4;
+  // the block's stream: its slices of every array, and its own run of
+  // partials (gridDim.x of them a stream)
+  if (kStreams) {
+    const long long s = blockIdx.y, BT = static_cast<long long>(B) * T;
+    x += s * BT * F;
+    gates += s * BT * G;
+    c_seq += s * BT * H;
+    h_seq += s * BT * H;
+    wx += s * F * G;
+    wh += s * H * G;
+    dh_in += s * B * H;
+    dc_in += s * B * H;
+    dx += s * BT * F;
+    part += s * gridDim.x * static_cast<long long>(K) * G;
+  }
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   float* s_wx = reinterpret_cast<float*>(smem_raw + 16);  // (F, 4H)
   float* s_wh = s_wx + F * G;                 // (H, 4H), unless kRegW
@@ -434,6 +454,7 @@ __global__ void __launch_bounds__(kRegW ? kTargetThreads : kMaxThreads)
 // (run, element) sums its run in block order, up to 32 loads in flight, and
 // the first run's thread adds the runs' sums in run order.  A run of 32 or
 // fewer partials costs one round trip to memory.
+template <bool kStreams>
 __global__ void __launch_bounds__(kCombineThreads) lstm_bwd_combine_kernel(
     const float* __restrict__ part, int blocks, int F, int H,
     float* __restrict__ dwx, float* __restrict__ dwh,
@@ -441,6 +462,14 @@ __global__ void __launch_bounds__(kCombineThreads) lstm_bwd_combine_kernel(
   __shared__ float s_run[kRuns][kCombineThreads / kRuns];
   const int G = 4 * H;
   const long long n = static_cast<long long>(F + H + 1) * G;
+  // the block's stream (blockIdx.y): its `blocks` partials and its outputs
+  if (kStreams) {
+    const long long s = blockIdx.y;
+    part += s * blocks * n;
+    dwx += s * F * G;
+    dwh += s * H * G;
+    db += s * G;
+  }
   const int per_block = kCombineThreads / kRuns;
   const int run = threadIdx.x / per_block, slot = threadIdx.x % per_block;
   const long long e = static_cast<long long>(blockIdx.x) * per_block + slot;
@@ -472,20 +501,22 @@ __global__ void __launch_bounds__(kCombineThreads) lstm_bwd_combine_kernel(
     db[e - static_cast<long long>(F + H) * G] = sum;
 }
 
-template <typename Tin, bool kRegW>
-cudaError_t launch_time(const Tiling& tl, int threads, cudaStream_t stream,
+template <typename Tin, bool kRegW, bool kStreams>
+cudaError_t launch_time(const Tiling& tl, int S, int threads,
+                        cudaStream_t stream,
                         const void* x, const void* gates, const void* c_seq,
                         const void* h_seq, const void* wx, const void* wh,
                         const void* dh, const void* dc, void* dx, void* part,
                         int B, int T, int F, int H) {
   if (tl.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_time_kernel<Tin, kRegW>,
+        lstm_bwd_time_kernel<Tin, kRegW, kStreams>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(tl.smem));
     if (err != cudaSuccess) return err;
   }
-  lstm_bwd_time_kernel<Tin, kRegW><<<tl.blocks, threads, tl.smem, stream>>>(
+  lstm_bwd_time_kernel<Tin, kRegW, kStreams>
+      <<<dim3(tl.blocks, S), threads, tl.smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const float*>(gates),
       static_cast<const float*>(c_seq), static_cast<const float*>(h_seq),
       static_cast<const float*>(wx), static_cast<const float*>(wh),
@@ -495,28 +526,28 @@ cudaError_t launch_time(const Tiling& tl, int threads, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <typename Tin>
+template <typename Tin, bool kStreams>
 cudaError_t launch(const void* x, const void* gates, const void* c_seq,
                    const void* h_seq, const void* wx, const void* wh,
                    const void* dh, const void* dc, void* dx, void* part,
-                   void* dwx, void* dwh, void* db, int B, int T, int F, int H,
-                   cudaStream_t stream) {
+                   void* dwx, void* dwh, void* db, int S, int B, int T, int F,
+                   int H, cudaStream_t stream) {
   const Tiling tl = tiling(B, T, F, H);
   if (tl.rows == 0) return cudaErrorInvalidValue;
   const int threads = (tl.rows * 4 * H + 31) / 32 * 32;
   const cudaError_t err =
       registers_hold_wh(H)
-          ? launch_time<Tin, true>(tl, threads, stream, x, gates, c_seq,
-                                   h_seq, wx, wh, dh, dc, dx, part, B, T, F, H)
-          : launch_time<Tin, false>(tl, threads, stream, x, gates, c_seq,
-                                    h_seq, wx, wh, dh, dc, dx, part, B, T, F,
-                                    H);
+          ? launch_time<Tin, true, kStreams>(tl, S, threads, stream, x, gates,
+                                             c_seq, h_seq, wx, wh, dh, dc, dx,
+                                             part, B, T, F, H)
+          : launch_time<Tin, false, kStreams>(tl, S, threads, stream, x,
+                                              gates, c_seq, h_seq, wx, wh, dh,
+                                              dc, dx, part, B, T, F, H);
   if (err != cudaSuccess) return err;
   const long long n_out = static_cast<long long>(F + H + 1) * 4 * H;
   const int per_block = kCombineThreads / kRuns;
-  lstm_bwd_combine_kernel<<<static_cast<int>((n_out + per_block - 1) /
-                                             per_block),
-                            kCombineThreads, 0, stream>>>(
+  const dim3 grid(static_cast<int>((n_out + per_block - 1) / per_block), S);
+  lstm_bwd_combine_kernel<kStreams><<<grid, kCombineThreads, 0, stream>>>(
       static_cast<const float*>(part), tl.blocks, F, H,
       static_cast<float*>(dwx), static_cast<float*>(dwh),
       static_cast<float*>(db));
@@ -533,10 +564,11 @@ long long lstm_sequence_bwd_smem_bytes(int F, int H) {
   return static_cast<long long>(smem_bytes(F, H, 1, 1));
 }
 
-// The time kernel's tiling of (B, T, F, H): out = {rows, chunk, lanes a
-// piece of dh is split over, blocks};
-// returns the floats of the partials' workspace, blocks * (F+H+1) * 4H, or
-// -1 where (F, H) does not fit.
+// The time kernel's tiling of one stream's (B, T, F, H): out = {rows,
+// chunk, lanes a piece of dh is split over, blocks a stream};
+// returns the floats of one stream's partials, blocks * (F+H+1) * 4H, or
+// -1 where (F, H) does not fit.  The workspace of an S-stream call is S
+// times that.
 long long lstm_sequence_bwd_tiling(int B, int T, int F, int H, int* out) {
   const Tiling tl = tiling(B, T, F, H);
   out[0] = tl.rows;
@@ -547,27 +579,31 @@ long long lstm_sequence_bwd_tiling(int B, int T, int F, int H, int* out) {
   return static_cast<long long>(tl.blocks) * (F + H + 1) * 4 * H;
 }
 
-// Launches both kernels on `stream`, in order, and returns the first
-// cudaGetLastError() that is not 0 (0 on success).  part is the workspace
-// of lstm_sequence_bwd_tiling's size; wx and wh must be 16-byte aligned (the
-// bulk copies).  x_is_bf16 selects a bfloat16 x; everything else is float32.
+// Launches both kernels over S streams on `stream`, in order, and returns
+// the first cudaGetLastError() that is not 0 (0 on success).  part is the
+// workspace, S times lstm_sequence_bwd_tiling's size; wx and wh must be
+// 16-byte aligned (the bulk copies; each stream's slice then is).
+// x_is_bf16 selects a bfloat16 x; everything else is float32.  Launches
+// nothing at S = 0 or B = 0 (the caller zeroes the weight gradients).
 int lstm_sequence_backward(const void* x, const void* gates,
                            const void* c_seq, const void* h_seq,
                            const void* wx, const void* wh, const void* dh,
                            const void* dc, void* dx, void* part, void* dwx,
-                           void* dwh, void* db, int B, int T, int F, int H,
-                           int x_is_bf16, void* stream) {
-  if (B < 1 || T < 1 || F < 1 || H < 1 || 4 * H > kMaxThreads)
+                           void* dwh, void* db, int S, int B, int T, int F,
+                           int H, int x_is_bf16, void* stream) {
+  if (S <= 0 || B <= 0) return 0;
+  if (S > 65535 || T < 1 || F < 1 || H < 1 || 4 * H > kMaxThreads)
     return cudaErrorInvalidValue;
   if (!lstm::aligned16(wx) || !lstm::aligned16(wh))
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_is_bf16
-          ? launch<__nv_bfloat16>(x, gates, c_seq, h_seq, wx, wh, dh, dc, dx,
-                                  part, dwx, dwh, db, B, T, F, H, s)
-          : launch<float>(x, gates, c_seq, h_seq, wx, wh, dh, dc, dx, part,
-                          dwx, dwh, db, B, T, F, H, s);
+  // S = 1 takes the instances without stream offsets
+  auto run = S > 1 ? (x_is_bf16 ? launch<__nv_bfloat16, true>
+                                : launch<float, true>)
+                   : (x_is_bf16 ? launch<__nv_bfloat16, false>
+                                : launch<float, false>);
+  const cudaError_t err = run(x, gates, c_seq, h_seq, wx, wh, dh, dc, dx,
+                              part, dwx, dwh, db, S, B, T, F, H, s);
   return static_cast<int>(err);
 }
 

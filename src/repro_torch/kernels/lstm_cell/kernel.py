@@ -31,6 +31,13 @@ Four hand-written CUDA kernels, each replacing a Pallas TPU kernel of
   bit-identical (no atomics).  ``ref.lstm_sequence_bwd_tiled_ref`` is its
   algorithm, at the tiling ``bwd_tiling`` reports.
 
+The three sequence kernels take a stream axis: x (S,B,T,F) with stacked
+weights wx (S,F,4H), wh (S,H,4H), b (S,4H), every output with a leading S,
+is one launch over a fleet of S independent LSTMs (a grid axis, as the
+reference's ``pallas_call`` gains one under ``jax.vmap``); each stream's
+sums are those of a single-stream launch.  A 3-D x with 2-D weights is the
+S = 1 case, and its outputs come back without the stream axis.
+
 Compute is float32; gate order i, f, g, o.  The forward wrappers take the
 weights in float32 or bfloat16, as the reference's kernels do, and cast
 bfloat16 ones to float32 once (exact) before the launch; the sequence
@@ -43,9 +50,9 @@ serial T-step chain set their time.
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``,
 launches on the current CUDA stream, raises when the launch fails, and counts
-its successful launches in a plain integer ``.launches`` (one a call, the
-backward's two kernels included); at B=0 it returns without launching or
-counting.  The libraries build with ``nvcc`` at the first launch
+its successful launches in a plain integer ``.launches`` (one a call,
+whatever S, the backward's two kernels included); at S=0 or B=0 it returns
+without launching or counting.  The libraries build with ``nvcc`` at the first launch
 (``kernels/_build``, which also hashes the ``csrc/*.cuh`` headers beside the
 sources); ``LIBRARIES`` names them for a caller that builds them all up
 front.
@@ -89,10 +96,10 @@ def library() -> ctypes.CDLL:
     lib.lstm_sequence_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.lstm_sequence_smem_bytes.restype = ctypes.c_longlong
     lib.lstm_sequence_forward.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_sequence_forward.restype = ctypes.c_int
     lib.lstm_sequence_forward_train.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_sequence_forward_train.restype = ctypes.c_int
     return lib
 
@@ -108,7 +115,7 @@ def bwd_library() -> ctypes.CDLL:
         [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
     lib.lstm_sequence_bwd_tiling.restype = ctypes.c_longlong
     lib.lstm_sequence_backward.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_sequence_backward.restype = ctypes.c_int
     return lib
 
@@ -139,10 +146,11 @@ def bwd_smem_bytes(F: int, H: int) -> int:
 
 
 class BwdTiling(NamedTuple):
-    """How the reverse-time kernel cuts a call: batch rows a block, steps a
-    chunk of its time loop, lanes a piece of dh is split over (32 where the
-    lanes hold wh in registers, else the unit's 4), blocks, and the floats
-    of the workspace of their partial weight gradients."""
+    """How the reverse-time kernel cuts one stream: batch rows a block,
+    steps a chunk of its time loop, lanes a piece of dh is split over (32
+    where the lanes hold wh in registers, else the unit's 4), blocks, and
+    the floats of the workspace of their partial weight gradients (an
+    S-stream call takes S such workspaces, one after another)."""
     rows: int
     chunk: int
     lanes: int
@@ -221,23 +229,42 @@ def max_hidden_bwd(F: int) -> int:
     return _largest_h(bwd_smem_bytes, F)
 
 
+# the streams one launch takes (the grid's y axis)
+MAX_STREAMS = 65_535
+
+
+def _with_streams(x: torch.Tensor, *rest: torch.Tensor):
+    """(single, x, *rest) with a leading stream axis: a 3-D x (one LSTM) and
+    its arguments gain an S = 1 axis (views, no copy); a 4-D x passes as
+    it is.  ``single`` says to drop the axis from the outputs."""
+    if x.dim() == 3:
+        return (True, x[None], *(t[None] for t in rest))
+    return (False, x, *rest)
+
+
 def _check_forward_inputs(name: str, x: torch.Tensor, wx: torch.Tensor,
                           wh: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise unless (x, wx, wh, b) is what the forward kernels take."""
-    if x.dim() != 3 or wx.dim() != 2 or wh.dim() != 2 or b.dim() != 1:
+    """Raise unless (x, wx, wh, b), with their stream axis, is what the
+    forward kernels take."""
+    if x.dim() != 4 or wx.dim() != 3 or wh.dim() != 3 or b.dim() != 2:
         raise ValueError(
-            f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H), "
-            f"b (4H); got {tuple(x.shape)}, {tuple(wx.shape)}, "
+            f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H), b (4H), or "
+            f"with a stream axis x (S,B,T,F), wx (S,F,4H), wh (S,H,4H), "
+            f"b (S,4H); got {tuple(x.shape)}, {tuple(wx.shape)}, "
             f"{tuple(wh.shape)}, {tuple(b.shape)}")
-    B, T, F = x.shape
-    H = wh.shape[0]
-    if (tuple(wx.shape) != (F, 4 * H) or tuple(wh.shape) != (H, 4 * H)
-            or tuple(b.shape) != (4 * H,)):
+    S, B, T, F = x.shape
+    H = wh.shape[1]
+    if (tuple(wx.shape) != (S, F, 4 * H) or tuple(wh.shape) != (S, H, 4 * H)
+            or tuple(b.shape) != (S, 4 * H)):
         raise ValueError(
             f"{name}: weight shapes {tuple(wx.shape)}, "
-            f"{tuple(wh.shape)}, {tuple(b.shape)} do not match F={F}, H={H}")
+            f"{tuple(wh.shape)}, {tuple(b.shape)} do not match S={S}, F={F}, "
+            f"H={H}")
     if T < 1 or H < 1:
         raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
+    if S > MAX_STREAMS:
+        raise ValueError(f"{name}: at most {MAX_STREAMS} streams a launch, "
+                         f"got {S}")
     _check_floats(name, (("x", x), ("wx", wx), ("wh", wh), ("b", b)))
     _check_placement(name, (x, wx, wh, b))
     need = smem_bytes(F, H)
@@ -265,7 +292,9 @@ def f32_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy where its data is not 16-byte aligned (a view
-    into a larger buffer): the bulk copies read 16-byte aligned sources."""
+    into a larger buffer): the bulk copies read 16-byte aligned sources.  A
+    stream's slice of a stacked weight is a multiple of 16 bytes, so an
+    aligned base aligns every stream."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -281,36 +310,38 @@ def _check_placement(name: str, tensors) -> None:
 
 def _raise_on_error(name: str, err: int, x: torch.Tensor, H: int) -> None:
     if err != 0:
-        B, T, F = x.shape
+        S, B, T, F = x.shape
         raise RuntimeError(
             f"{name}: launch failed with CUDA error {err} "
-            f"(B={B}, T={T}, F={F}, H={H}, {x.dtype})")
+            f"(S={S}, B={B}, T={T}, F={F}, H={H}, {x.dtype})")
 
 
 def lstm_sequence_fused(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                         b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the fused sequence kernel on the current CUDA stream.
 
-    x (B,T,F), wx (F,4H), wh (H,4H), b (4H), each float32 or bfloat16, all
-    contiguous on one CUDA device.  Returns the final (h, c), each (B,H) in
-    ``x.dtype``.  Raises on anything else, and when the launch fails."""
+    x (B,T,F), wx (F,4H), wh (H,4H), b (4H), or all with a leading stream
+    axis (x (S,B,T,F), wx (S,F,4H), ...), each float32 or bfloat16, all
+    contiguous on one CUDA device.  Returns the final (h, c), each (B,H) or
+    (S,B,H) in ``x.dtype``.  Raises on anything else, and when the launch
+    fails."""
+    single, x, wx, wh, b = _with_streams(x, wx, wh, b)
     _check_forward_inputs("lstm_sequence_fused", x, wx, wh, b)
     wx, wh, b = map(_aligned16, f32_weights(wx, wh, b))
-    B, T, F = x.shape
-    H = wh.shape[0]
-    h = torch.empty((B, H), dtype=x.dtype, device=x.device)
-    c = torch.empty((B, H), dtype=x.dtype, device=x.device)
-    if B == 0:  # nothing to launch, nothing counted
-        return h, c
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().lstm_sequence_forward(
-            x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            h.data_ptr(), c.data_ptr(), B, T, F, H,
-            int(x.dtype == torch.bfloat16), stream)
-    _raise_on_error("lstm_sequence_fused", err, x, H)
-    lstm_sequence_fused.launches += 1
-    return h, c
+    S, B, T, F = x.shape
+    H = wh.shape[1]
+    h = torch.empty((S, B, H), dtype=x.dtype, device=x.device)
+    c = torch.empty((S, B, H), dtype=x.dtype, device=x.device)
+    if S and B:  # else nothing to launch, nothing counted
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = library().lstm_sequence_forward(
+                x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+                h.data_ptr(), c.data_ptr(), S, B, T, F, H,
+                int(x.dtype == torch.bfloat16), stream)
+        _raise_on_error("lstm_sequence_fused", err, x, H)
+        lstm_sequence_fused.launches += 1
+    return (h[0], c[0]) if single else (h, c)
 
 
 # launches of the kernel since the last reset; only a successful launch counts
@@ -324,27 +355,29 @@ def lstm_sequence_fwd_train(x: torch.Tensor, wx: torch.Tensor,
     """Launch the residual-emitting forward on the current CUDA stream.
 
     Takes what ``lstm_sequence_fused`` takes.  Returns the post-activation
-    gates (B,T,4H) and c_seq, h_seq (B,T,H), all float32; ``h_seq[:, -1]``
-    is the final hidden state.  Raises on anything else, and when the launch
-    fails."""
+    gates (B,T,4H) and c_seq, h_seq (B,T,H), all float32, each with a
+    leading S where x has one; ``h_seq[..., -1, :]`` is the final hidden
+    state.  Raises on anything else, and when the launch fails."""
+    single, x, wx, wh, b = _with_streams(x, wx, wh, b)
     _check_forward_inputs("lstm_sequence_fwd_train", x, wx, wh, b)
     wx, wh, b = map(_aligned16, f32_weights(wx, wh, b))
-    B, T, F = x.shape
-    H = wh.shape[0]
+    S, B, T, F = x.shape
+    H = wh.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
-    gates = torch.empty((B, T, 4 * H), **f32)
-    c_seq = torch.empty((B, T, H), **f32)
-    h_seq = torch.empty((B, T, H), **f32)
-    if B == 0:  # nothing to launch, nothing counted
-        return gates, c_seq, h_seq
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().lstm_sequence_forward_train(
-            x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(), B, T, F, H,
-            int(x.dtype == torch.bfloat16), stream)
-    _raise_on_error("lstm_sequence_fwd_train", err, x, H)
-    lstm_sequence_fwd_train.launches += 1
+    gates = torch.empty((S, B, T, 4 * H), **f32)
+    c_seq = torch.empty((S, B, T, H), **f32)
+    h_seq = torch.empty((S, B, T, H), **f32)
+    if S and B:  # else nothing to launch, nothing counted
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = library().lstm_sequence_forward_train(
+                x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+                gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(), S, B,
+                T, F, H, int(x.dtype == torch.bfloat16), stream)
+        _raise_on_error("lstm_sequence_fwd_train", err, x, H)
+        lstm_sequence_fwd_train.launches += 1
+    if single:
+        return gates[0], c_seq[0], h_seq[0]
     return gates, c_seq, h_seq
 
 
@@ -362,27 +395,36 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
 
     x (B,T,F) float32 or bfloat16; the residuals of
     ``lstm_sequence_fwd_train``; wx (F,4H), wh (H,4H); dh, dc (B,H), the
-    cotangents of the final (h, c); all but x float32, contiguous, on one
-    CUDA device.  Returns (dx (B,T,F), dwx, dwh, db), float32.  Raises on
-    anything else, and when a launch fails."""
+    cotangents of the final (h, c); or all with a leading stream axis; all
+    but x float32, contiguous, on one CUDA device.  Returns (dx (B,T,F),
+    dwx, dwh, db), float32, each with a leading S where x has one: every
+    stream's own weight gradients, its partials summed in a fixed order.
+    Raises on anything else, and when a launch fails."""
     name = "lstm_sequence_bwd"
-    if x.dim() != 3 or wx.dim() != 2 or wh.dim() != 2:
-        raise ValueError(f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H); "
-                         f"got {tuple(x.shape)}, {tuple(wx.shape)}, "
-                         f"{tuple(wh.shape)}")
-    B, T, F = x.shape
-    H = wh.shape[0]
-    want = {"gates": (gates, (B, T, 4 * H)), "c_seq": (c_seq, (B, T, H)),
-            "h_seq": (h_seq, (B, T, H)), "wx": (wx, (F, 4 * H)),
-            "wh": (wh, (H, 4 * H)), "dh": (dh, (B, H)), "dc": (dc, (B, H))}
+    single, x, gates, c_seq, h_seq, wx, wh, dh, dc = _with_streams(
+        x, gates, c_seq, h_seq, wx, wh, dh, dc)
+    if x.dim() != 4 or wx.dim() != 3 or wh.dim() != 3:
+        raise ValueError(f"{name}: expected x (B,T,F), wx (F,4H), wh (H,4H), "
+                         f"or with a stream axis x (S,B,T,F), wx (S,F,4H), "
+                         f"wh (S,H,4H); got {tuple(x.shape)}, "
+                         f"{tuple(wx.shape)}, {tuple(wh.shape)}")
+    S, B, T, F = x.shape
+    H = wh.shape[1]
+    want = {"gates": (gates, (S, B, T, 4 * H)),
+            "c_seq": (c_seq, (S, B, T, H)), "h_seq": (h_seq, (S, B, T, H)),
+            "wx": (wx, (S, F, 4 * H)), "wh": (wh, (S, H, 4 * H)),
+            "dh": (dh, (S, B, H)), "dc": (dc, (S, B, H))}
     for tname, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {tname} is {tuple(t.shape)}, expected "
-                             f"{shape} for B={B}, T={T}, F={F}, H={H}")
+                             f"{shape} for S={S}, B={B}, T={T}, F={F}, H={H}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {tname} must be float32, got {t.dtype}")
     if T < 1 or H < 1:
         raise ValueError(f"{name}: need T, H >= 1, got {T}, {H}")
+    if S > MAX_STREAMS:
+        raise ValueError(f"{name}: at most {MAX_STREAMS} streams a launch, "
+                         f"got {S}")
     _check_floats(name, (("x", x),))
     _check_placement(name, (x, *(t for t, _ in want.values())))
     need = bwd_smem_bytes(F, H)
@@ -393,25 +435,30 @@ def lstm_sequence_bwd(x: torch.Tensor, gates: torch.Tensor,
             f"largest H that fits at F={F} is {max_hidden_bwd(F)}")
 
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((B, T, F), **f32)
-    if B == 0:  # no rows: zero weight gradients, nothing launched or counted
-        return (dx, torch.zeros((F, 4 * H), **f32),
-                torch.zeros((H, 4 * H), **f32), torch.zeros((4 * H,), **f32))
-    part = torch.empty((bwd_tiling(B, T, F, H).workspace,), **f32)
-    wx, wh = _aligned16(wx), _aligned16(wh)
-    dwx = torch.empty((F, 4 * H), **f32)
-    dwh = torch.empty((H, 4 * H), **f32)
-    db = torch.empty((4 * H,), **f32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = bwd_library().lstm_sequence_backward(
-            x.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), h_seq.data_ptr(),
-            wx.data_ptr(), wh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), dwx.data_ptr(), dwh.data_ptr(),
-            db.data_ptr(), B, T, F, H, int(x.dtype == torch.bfloat16), stream)
-    _raise_on_error(name, err, x, H)
-    lstm_sequence_bwd.launches += 1
-    return dx, dwx, dwh, db
+    dx = torch.empty((S, B, T, F), **f32)
+    if S == 0 or B == 0:
+        # no rows: zero weight gradients, nothing launched or counted
+        grads = (dx, torch.zeros((S, F, 4 * H), **f32),
+                 torch.zeros((S, H, 4 * H), **f32),
+                 torch.zeros((S, 4 * H), **f32))
+    else:
+        part = torch.empty((S * bwd_tiling(B, T, F, H).workspace,), **f32)
+        wx, wh = _aligned16(wx), _aligned16(wh)
+        dwx = torch.empty((S, F, 4 * H), **f32)
+        dwh = torch.empty((S, H, 4 * H), **f32)
+        db = torch.empty((S, 4 * H), **f32)
+        grads = (dx, dwx, dwh, db)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = bwd_library().lstm_sequence_backward(
+                x.data_ptr(), gates.data_ptr(), c_seq.data_ptr(),
+                h_seq.data_ptr(), wx.data_ptr(), wh.data_ptr(), dh.data_ptr(),
+                dc.data_ptr(), dx.data_ptr(), part.data_ptr(), dwx.data_ptr(),
+                dwh.data_ptr(), db.data_ptr(), S, B, T, F, H,
+                int(x.dtype == torch.bfloat16), stream)
+        _raise_on_error(name, err, x, H)
+        lstm_sequence_bwd.launches += 1
+    return tuple(g[0] for g in grads) if single else grads
 
 
 lstm_sequence_bwd.launches = 0

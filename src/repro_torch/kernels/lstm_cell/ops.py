@@ -10,6 +10,11 @@ call goes through ``_LSTMSequence``, the counterpart of the reference's
 (``kernel.lstm_sequence_fwd_train``) and its backward the reverse-time pair
 (``kernel.lstm_sequence_bwd``), or their plain versions on the CPU.
 
+``lstm_sequence`` takes a leading stream axis as its kernels do: x
+(S,B,T,F) with stacked weights wx (S,F,4H), wh (S,H,4H), b (S,4H) is a
+fleet of S LSTMs in one launch of each kernel, h (S,B,H) out, and under a
+gradient every stream's own weight gradients.
+
 ``lstm_step`` is one step through the one-step kernel (``kernel.lstm_cell``),
 and ``lstm_sequence_scan`` the pre-fusion baseline: one such launch a
 timestep, the launch-overhead comparison the fused sequence kernel replaced.
@@ -28,7 +33,8 @@ from repro_torch.kernels.lstm_cell import kernel, ref
 
 class _LSTMSequence(torch.autograd.Function):
     """x, wx, wh, b -> final hidden (B,H) in ``x.dtype``, differentiable in
-    all four.  Saves the residuals (post-activation gates, c_seq, h_seq, all
+    all four; with a stream axis, x (S,B,T,F) and stacked weights -> h
+    (S,B,H), and the gradients per stream (S,F,4H), (S,H,4H), (S,4H).  Saves the residuals (post-activation gates, c_seq, h_seq, all
     float32) and the float32 weights, so the backward re-runs no product of
     the forward; the weights' gradients come back in the weights' types."""
 
@@ -41,7 +47,7 @@ class _LSTMSequence(torch.autograd.Function):
         else:
             gates, c_seq, h_seq = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
         ctx.save_for_backward(x, gates, c_seq, h_seq, wx, wh)
-        return h_seq[:, -1].to(dtype=x.dtype, copy=True)
+        return h_seq[..., -1, :].to(dtype=x.dtype, copy=True)
 
     @staticmethod
     def backward(ctx, dh):
@@ -66,7 +72,8 @@ def lstm_sequence(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Fused full-sequence LSTM: x (B,T,F) -> final hidden (B,H) in
     ``x.dtype``.  ``wx`` is (F,4H), ``wh`` (H,4H), ``b`` (4H) with gate order
-    (i, f, g, o), float32 or bfloat16; compute is float32."""
+    (i, f, g, o), float32 or bfloat16; compute is float32.  A fleet: x
+    (S,B,T,F), wx (S,F,4H), wh (S,H,4H), b (S,4H) -> (S,B,H)."""
     _check_device("lstm_sequence", x)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, wx, wh, b)):

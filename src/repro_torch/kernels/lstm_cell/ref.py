@@ -8,12 +8,20 @@ kernels (``csrc/lstm_sequence.cu: lstm_train_fwd_kernel`` and
 ``lstm_serve_fwd_kernel``, one recurrence; ``csrc/lstm_sequence_bwd.cu``)
 step for step: their orders of summation, tiles, lane splits and combine
 order, so that the CPU tests hold the decomposition itself to the
-reference.  Nothing on the main path calls them."""
+reference.  Nothing on the main path calls them.
+
+The sequence functions take a leading stream axis as the kernels do: x
+(S,B,T,F) with every other argument stacked (wx (S,F,4H), dh (S,B,H), ...)
+is S independent LSTMs, each computed as a single one is
+(``over_streams``), so a stream of a fleet gives exactly its single-stream
+result."""
 from __future__ import annotations
 
 from typing import Iterator, Tuple
 
 import torch
+
+from repro_torch.kernels._streams import over_streams
 
 
 def lstm_cell_ref(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -65,6 +73,7 @@ def _steps(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
         yield i, f, g, o, c, h
 
 
+@over_streams(3)
 def lstm_sequence_ref(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                       b: torch.Tensor, return_state: bool = False):
     """x (B,T,F) -> final hidden (B,H), or the final ``(h, c)`` with
@@ -76,6 +85,7 @@ def lstm_sequence_ref(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     return (h, c) if return_state else h
 
 
+@over_streams(3)
 def lstm_sequence_fwd_train_ref(x: torch.Tensor, wx: torch.Tensor,
                                 wh: torch.Tensor, b: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -91,6 +101,7 @@ def lstm_sequence_fwd_train_ref(x: torch.Tensor, wx: torch.Tensor,
     return torch.stack(gates, 1), torch.stack(cs, 1), torch.stack(hs, 1)
 
 
+@over_streams(3)
 def lstm_sequence_bwd_ref(x: torch.Tensor, gates: torch.Tensor,
                           c_seq: torch.Tensor, h_seq: torch.Tensor,
                           wx: torch.Tensor, wh: torch.Tensor,
@@ -128,6 +139,7 @@ def lstm_sequence_bwd_ref(x: torch.Tensor, gates: torch.Tensor,
     return dx, dwx, dwh, db
 
 
+@over_streams(3)
 def lstm_sequence_fwd_train_tiled_ref(x: torch.Tensor, wx: torch.Tensor,
                                       wh: torch.Tensor, b: torch.Tensor
                                       ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -155,6 +167,7 @@ def lstm_sequence_fwd_train_tiled_ref(x: torch.Tensor, wx: torch.Tensor,
     return torch.stack(gates, 1), torch.stack(cs, 1), torch.stack(hs, 1)
 
 
+@over_streams(3)
 def lstm_sequence_tiled_ref(x: torch.Tensor, wx: torch.Tensor,
                             wh: torch.Tensor, b: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,6 +188,7 @@ def _butterfly(pieces):
     return pieces[0]
 
 
+@over_streams(3)
 def lstm_sequence_bwd_tiled_ref(x: torch.Tensor, gates: torch.Tensor,
                                 c_seq: torch.Tensor, h_seq: torch.Tensor,
                                 wx: torch.Tensor, wh: torch.Tensor,

@@ -6,11 +6,16 @@ stage's wall measured on the card and rescaled to its site's hardware class
     PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
         --deployment all --fast [--quantized] [--period S] [--windows N] \\
         [--scenario none|gradual|abrupt|seasonal] [--static]
+    PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
+        --streams 8 --windows 4 --fast --gated --deployment integrated
 
 It prints each deployment's Table-3 breakdown, its mean end-to-end window
 latency and model-topic bytes, and the paper's claims as measured, PASS or
-FAIL.  The port has the single-stream ``--real`` mode only; the reference's
-other modes raise, naming the slice that brings each.
+FAIL.  With ``--streams N > 1`` it runs a fleet of N correlated turbines
+through ``FleetBusExecutor`` (``--gated``: drift-gated retraining;
+``--quantized``: per-stream int8 sync).  The reference's other modes
+(``--qps``, ``--elastic``, ``--chaos``, the calibrated simulation) raise,
+naming the slice that brings each.
 """
 from __future__ import annotations
 
@@ -87,6 +92,114 @@ def build_real_pipeline(n_windows: int, fast: bool = True, mode="dynamic",
     # throttle and the training-job memory footprint (capacity model)
     cost = CostModel(ingest_s=rpw / 7.0 * 0.45)
     return stages, bp, stream, cost
+
+
+def build_fleet_pipeline(n_streams: int, n_windows: int, fast: bool = True,
+                         mode="dynamic", records_per_window: int = 250,
+                         scenario="gradual", verbose: bool = False,
+                         device: Optional[Union[str, torch.device]] = None):
+    """The fleet analog of :func:`build_real_pipeline` on ``device``: N
+    correlated turbines (``streams.sources.fleet_windowed_streams``), each
+    scaled by its own history, all served by one shared pre-trained batch
+    model (key 0); returns (fleet_stages, batch_params, {stream_id:
+    WindowedStream}, cost), as the reference's does.  ``scenario`` is one
+    drift scenario for the whole fleet or one per stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        FleetStages,
+        lstm_fleet_forecaster,
+        lstm_forecaster,
+        pretrain_batch_model,
+    )
+    from repro_torch.runtime import CostModel
+    from repro_torch.streams.sources import fleet_windowed_streams
+
+    batch_epochs, speed_epochs = (8, 10) if fast else (50, 100)
+    rpw = records_per_window
+    cfg = get_config("lstm-paper")
+    has_gradual = ("gradual" in scenario if not isinstance(scenario, str)
+                   else scenario == "gradual")
+    alphas = np.full(5, 1.5e-3) if has_gradual else None
+    streams, hist0 = fleet_windowed_streams(
+        n_streams, n_windows, rpw, scenario, alphas=alphas)
+
+    fc_batch = lstm_forecaster(cfg, epochs=batch_epochs, batch_size=256,
+                               device=device)
+    if verbose:
+        print(f"pretraining shared batch model M^b ({batch_epochs} epochs, "
+              f"{n_streams} streams) ...")
+    bp, t_pre = pretrain_batch_model(fc_batch, hist0, 0)
+    if verbose:
+        print(f"  done in {t_pre:.1f}s")
+
+    fleet_fc = lstm_fleet_forecaster(cfg, epochs=speed_epochs, batch_size=64,
+                                     device=device)
+    stages = FleetStages.build(fleet_fc, mode=mode)
+    cost = CostModel(ingest_s=rpw / 7.0 * 0.45)
+    return stages, bp, streams, cost
+
+
+def run_real_fleet(args, device=None) -> Dict[str, Any]:
+    """N streams on real LSTM compute through the TopicBus on ``device``
+    (the current CUDA device by default): per-stream topics under one
+    deployment, the whole fleet's speed training one stacked fit a window,
+    optionally drift-gated.  Prints each deployment's breakdown and returns
+    {deployment name: FleetBusRunResult}."""
+    from repro_torch.core.drift import DriftGate
+    from repro_torch.runtime import (
+        ALL_DEPLOYMENTS,
+        FleetBusExecutor,
+        paper_topology,
+    )
+
+    mode = ("static", 0.5) if args.static else "dynamic"
+    stages, bp, streams, cost = build_fleet_pipeline(
+        args.streams, args.windows, fast=args.fast, mode=mode,
+        scenario=args.scenario, verbose=True, device=device)
+
+    deps = {
+        "edge": ["edge-centric"],
+        "cloud": ["cloud-centric"],
+        "integrated": ["edge-cloud-integrated"],
+        "all": list(ALL_DEPLOYMENTS),
+    }[args.deployment]
+
+    results = {}
+    for name in deps:
+        dep = ALL_DEPLOYMENTS[name]()
+        gate = DriftGate() if args.gated else None
+        ex = FleetBusExecutor(stages, dep, paper_topology(), cost,
+                              window_period_s=args.period, gate=gate,
+                              quantized_sync=args.quantized)
+        res = results[name] = ex.run(streams, bp, 1)
+        print(f"\n[{dep.name}] {args.streams} streams x {args.windows} "
+              f"windows ({args.scenario} scenario"
+              f"{', drift-gated' if args.gated else ''}"
+              f"{', int8 sync' if args.quantized else ''}), measured "
+              f"Table-3 breakdown:")
+        _print_table(res.table3(),
+                     e2e=(res.mean_e2e_s()
+                          if any(res.e2e_s.values()) else None))
+        if any(r.records for r in res.results.values()):
+            m = res.mean_rmse()
+            print(f"  fleet mean RMSE: batch={m['batch']:.4f} "
+                  f"speed={m['speed']:.4f} hybrid={m['hybrid']:.4f}")
+        else:
+            print("  (no inference windows: window 0 only trains; "
+                  "use --windows >= 2)")
+        print(f"  speed training: {res.train_dispatches} fleet fits "
+              f"for {res.total_retrains()} retrains "
+              f"({res.skipped_retrains()} skipped)")
+        if res.gate_stats is not None:
+            per = res.gate_stats["per_stream"]
+            gated = " ".join(
+                f"{sid}:{st['retrained']}R/{st['skipped']}S"
+                for sid, st in sorted(per.items()))
+            print(f"  gate: {gated}")
+        if res.failures:
+            print(f"  !! {len(res.failures)} capacity failures "
+                  f"(first: {res.failures[0]})")
+    return results
 
 
 def table3_claim_checks(results) -> Dict[str, bool]:
@@ -205,14 +318,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fast", action="store_true")
     p.add_argument("--real", action="store_true",
                    help="run real LSTM compute through the TopicBus "
-                        "(BusExecutor); the port has no other mode yet")
+                        "(BusExecutor, or FleetBusExecutor with --streams "
+                        "> 1); the port has no other mode yet")
     p.add_argument("--period", type=float, default=30.0,
                    help="virtual seconds between stream windows; shrink it "
                         "below the training time to watch stale-model "
                         "inference emerge from event ordering")
+    p.add_argument("--streams", type=int, default=1,
+                   help="fleet size: >1 multiplexes N correlated turbine "
+                        "streams over per-stream topics under one "
+                        "deployment, the whole fleet's speed models trained "
+                        "in one stacked fit per window")
+    p.add_argument("--gated", action="store_true",
+                   help="drift-gated retraining (fleet mode): stationary "
+                        "streams skip their window's speed training and "
+                        "keep serving the prior model")
     # the reference's other modes, refused until their slices land
-    p.add_argument("--streams", type=int, default=1)
-    p.add_argument("--gated", action="store_true")
     p.add_argument("--qps", type=float, default=0.0)
     p.add_argument("--elastic", nargs="?", const="proactive", default=None)
     p.add_argument("--chaos", default=None)
@@ -221,12 +342,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.chaos is not None:
         p.error("--chaos: the chaos scenarios come with the port's chaos and "
                 "health slice")
-    if args.streams > 1:
-        p.error("--streams > 1: the fleet executors come with the port's "
-                "fleet slice")
-    if args.gated:
-        p.error("--gated: drift-gated retraining comes with the port's "
-                "fleet slice")
+    if args.gated and args.streams <= 1:
+        p.error("--gated requires --streams > 1 (drift-gated retraining is "
+                "a fleet-executor policy)")
     if args.qps > 0:
         p.error("--qps: the request plane comes with the port's request-plane "
                 "slice")
@@ -241,7 +359,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> None:
-    run_real(parse_args(argv))
+    args = parse_args(argv)
+    if args.streams > 1:
+        run_real_fleet(args)
+    else:
+        run_real(args)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,12 @@ versions on the CPU.  A tree with ``QTensor`` leaves (an int8-synced speed
 model) serves through ``_forward_int8``, whose every quantized product is
 ``kernels.int8_matmul.ops.qmatmul``.  ``loss_fn`` is the masked MSE the
 trainers differentiate.
+
+A fleet's params are one stacked tree, every leaf with a leading stream axis
+S (a stacked ``QTensor``: q (S,K,N), scale (S,N)), and its inputs carry the
+same axis: ``forward`` maps x (S,B,lag,F) to (S,B,out), the recurrence one
+launch of the stream-axis kernels for the whole fleet, Dense(10) and the
+head batched products; ``loss_fn`` returns each stream's loss, shape (S,).
 """
 from __future__ import annotations
 
@@ -60,6 +66,18 @@ def _forget_bias(H: int, dt: torch.dtype, device: torch.device) -> torch.Tensor:
     return b.to(dt)
 
 
+def stacked(p: Params) -> bool:
+    """Whether ``p`` is a fleet's stacked tree (leaves with a leading
+    stream axis) rather than one stream's."""
+    k = p["lstm"]["kernel"]
+    return (k.q if isinstance(k, QTensor) else k).dim() == 3
+
+
+def _row(b: torch.Tensor) -> torch.Tensor:
+    """A bias added to (B, N) rows: a fleet's (S, N) gains the row axis."""
+    return b if b.dim() == 1 else b.unsqueeze(-2)
+
+
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w, through the int8 dequantizing matmul when ``w`` is a
     ``QTensor`` (float leaves multiply as usual, so a partly quantized tree,
@@ -76,32 +94,41 @@ def _forward_int8(cfg: ModelConfig, p: Params, x: torch.Tensor
     ``qmatmul`` of (B*T, F), the recurrent projection one ``qmatmul`` of
     (B, H) a step (t = 0 included), the gate math in plain torch, and
     Dense(10) one ``qmatmul``; activations stay float (weight-only
-    quantization)."""
+    quantization).  A stacked tree takes x (S,B,T,F): every ``qmatmul`` is
+    then one launch for the fleet."""
     H = cfg.lstm.hidden
-    B, T, _ = x.shape
+    T = x.shape[-2]
+    lead = x.shape[:-2]  # (B,) or (S, B)
     lp = p["lstm"]
-    zx = _mm(x.reshape(B * T, -1), lp["kernel"]).reshape(B, T, 4 * H)
-    h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
-    c = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    zx = _mm(x.reshape(*x.shape[:-3], -1, x.shape[-1]),
+             lp["kernel"]).reshape(*lead, T, 4 * H)
+    h = torch.zeros((*lead, H), dtype=x.dtype, device=x.device)
+    c = torch.zeros((*lead, H), dtype=x.dtype, device=x.device)
     for t in range(T):
-        z = zx[:, t] + _mm(h, lp["recurrent"]) + lp["bias"]
+        z = zx[..., t, :] + _mm(h, lp["recurrent"]) + _row(lp["bias"])
         i, f, g, o = z.split(H, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
         c = f * c + i * torch.tanh(g)
         h = o * torch.tanh(c)
-    d = torch.relu(_mm(h, p["dense"]["dense_w"]) + p["dense"]["dense_b"])
-    return _mm(d, p["head"]["head_w"]) + p["head"]["head_b"]
+    d = torch.relu(_mm(h, p["dense"]["dense_w"])
+                   + _row(p["dense"]["dense_b"]))
+    return _mm(d, p["head"]["head_w"]) + _row(p["head"]["head_b"])
 
 
 def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, lag, F) -> prediction (B, out_dim).  A tree with ``QTensor``
-    leaves serves through ``_forward_int8``."""
+    """x: (B, lag, F) -> prediction (B, out_dim); a stacked tree takes x
+    (S, B, lag, F) -> (S, B, out_dim).  A tree with ``QTensor`` leaves
+    serves through ``_forward_int8``."""
     if any(isinstance(v, QTensor) for sub in p.values() for v in sub.values()):
         return _forward_int8(cfg, p, x)
     lp = p["lstm"]
     h = lstm_ops.lstm_sequence(x, lp["kernel"], lp["recurrent"], lp["bias"])
-    d = torch.relu(h @ p["dense"]["dense_w"] + p["dense"]["dense_b"])
-    return d @ p["head"]["head_w"] + p["head"]["head_b"]
+    if not stacked(p):
+        d = torch.relu(h @ p["dense"]["dense_w"] + p["dense"]["dense_b"])
+        return d @ p["head"]["head_w"] + p["head"]["head_b"]
+    d = torch.relu(torch.bmm(h, p["dense"]["dense_w"])
+                   + _row(p["dense"]["dense_b"]))
+    return torch.bmm(d, p["head"]["head_w"]) + _row(p["head"]["head_b"])
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
@@ -109,12 +136,23 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
     optional per-example validity "mask" (B,): 1 for real examples, 0 for
     the padding the fixed-shape-bucket trainer adds.  A masked batch yields
     exactly the unpadded mean, so every shape bucket trains the same loss.
-    Returns ``(loss, {"mse", "rmse"})``, all float32 scalars."""
+    Returns ``(loss, {"mse", "rmse"})``, all float32 scalars.  A stacked
+    tree takes a stacked batch (x (S,B,lag,F), y (S,B,out), mask (S,B)) and
+    returns each stream's loss and metrics, shape (S,): a stream whose mask
+    is all zero (a padded slot) has loss 0 and gradient 0."""
     pred = forward(cfg, p, batch["x"])
     err = (pred - batch["y"]).float()
     sq = err * err
     mask = batch.get("mask")
-    if mask is None:
+    if stacked(p):
+        dims = (1, 2)
+        if mask is None:
+            loss = sq.mean(dim=dims)
+        else:
+            m = mask.float()[..., None]
+            denom = torch.clamp(m.sum(dim=dims), min=1.0) * sq.shape[-1]
+            loss = (sq * m).sum(dim=dims) / denom
+    elif mask is None:
         loss = sq.mean()
     else:
         m = mask.float()[:, None]

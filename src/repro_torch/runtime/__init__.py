@@ -1,6 +1,7 @@
 """The port's runtime: the topic bus and its sites and links, the paper's
 three deployments, latency accounting, and the executors (the synchronous
-loop and the bus-driven ``BusExecutor``)."""
+loop and the bus-driven ``BusExecutor``, and their fleet counterparts
+``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
 from repro_torch.runtime.bus import (  # noqa: F401
     CapacityError,
     DeadLetter,
@@ -24,7 +25,14 @@ from repro_torch.runtime.deployment import (  # noqa: F401
 from repro_torch.runtime.executor import (  # noqa: F401
     BusExecutor,
     BusRunResult,
+    FleetBusExecutor,
+    FleetBusRunResult,
+    FleetRunResult,
     InProcessExecutor,
+    InProcessFleetExecutor,
+    fleet_key_chains,
+    refresh_key_chains,
+    stream_roots,
     window_seeds,
 )
 from repro_torch.runtime.latency import CostModel, LatencyLedger  # noqa: F401

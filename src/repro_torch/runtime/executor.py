@@ -20,17 +20,36 @@ speed layer serves the batch model (paper Sec. 6.2).  With
 ``quantized_sync=True`` the training site publishes the int8 tree and the
 edge serves it through the int8 kernel.
 
-The fleet executors come with the fleet slice.
+The fleet executors lift both to N streams under one deployment:
+``InProcessFleetExecutor`` is the synchronous loop over a ``FleetStages``
+set, and ``FleetBusExecutor`` multiplexes the bus topics per stream
+(``stream/window/t03``, one wildcard subscription per module).  Each window
+costs one stacked fleet fit (each step one launch of each training kernel
+for the whole fleet) and one stacked predict per inference stage; the bus
+executor aggregates every stream's window-``t`` payload at a stage before
+it fires, then fans the per-stream results back onto their own topics.
+Both consult an optional ``DriftGate`` so stationary streams skip their
+retrain and keep serving their prior model.  Stream ``i``'s training keys
+are the chain a single-stream run seeded with its root gets
+(``fleet_key_chains``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.drift import DriftGate
 from repro_torch.core.hybrid import HybridRunResult, WindowRecord
-from repro_torch.core.stages import PipelineStages
+from repro_torch.core.stages import (
+    BatchRefresh,
+    FleetStages,
+    FleetState,
+    PipelineStages,
+    StreamId,
+    resolve_fleet_params,
+)
 from repro_torch.core.weighting import rmse
 from repro_torch.core.windows import WindowedStream
 from repro_torch.runtime.bus import (
@@ -46,14 +65,18 @@ from repro_torch.runtime.modules import (
     T_BATCH,
     T_HYBRID,
     T_MODEL,
+    T_RESYNC,
     T_SPEED,
     T_STREAM,
+    stream_topic,
 )
 from repro_torch.serving.quantize import (
+    quantize_fleet,
     quantize_tree,
     tree_checksum,
     tree_nbytes,
 )
+from repro_torch.stacked import materialize_params
 from repro_torch.streams.injection import BusInjector
 
 Params = Any
@@ -535,4 +558,867 @@ class BusExecutor(_BusRuntime):
             e2e_s=dict(self.e2e_s),
             message_log=self.bus.log,
             mode=str(self.stages.mode),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Fleet executors: N streams, one deployment, one stacked fit per window
+# ---------------------------------------------------------------------------
+
+# the spawn key of the streams' roots, and the salt of the batch-refresh
+# roots: neither derivation meets the window keys or the warm-up key
+_FLEET_SPAWN = 1
+_REFRESH_SALT = 0x0BA7C4
+
+
+def _gate_decision(gate: Optional[DriftGate], sid: StreamId, y: np.ndarray,
+                   must: bool) -> bool:
+    """One stream's retrain decision.  A stream with no serving model must
+    retrain regardless of drift; the gate is told (``force_retrain``) so its
+    reference window keeps tracking what the model actually trained on and
+    its stats stay consistent with the executor's retrain log."""
+    if gate is None:
+        return True
+    if must:
+        gate.force_retrain(sid, y)
+        return True
+    return gate.decide(sid, y)
+
+
+def stream_roots(key: int, n: int) -> List[int]:
+    """The roots of ``n`` streams under one integer ``key``: stream ``i``'s
+    is the first integer of ``SeedSequence(key, spawn_key=(1, i))``, which
+    depends on ``i`` alone, not on the fleet's size."""
+    return [int(np.random.SeedSequence(
+        int(key), spawn_key=(_FLEET_SPAWN, i)).generate_state(1)[0])
+        for i in range(n)]
+
+
+def fleet_key_chains(key: Union[int, Mapping[StreamId, int]],
+                     ids: List[StreamId], n: int
+                     ) -> Dict[StreamId, List[int]]:
+    """Per-stream training-key chains.  A mapping gives each stream's root
+    explicitly; an integer derives stream ``i``'s root as
+    ``stream_roots(key, S)[i]`` in fleet order.  Each root then runs
+    ``window_seeds``, the chain of the single-stream executors, so stream
+    ``i`` of a fleet run trains with exactly the keys of a single-stream run
+    seeded with its root."""
+    if isinstance(key, Mapping):
+        roots = [int(key[sid]) for sid in ids]
+    else:
+        roots = stream_roots(key, len(ids))
+    return {sid: window_seeds(root, n) for sid, root in zip(ids, roots)}
+
+
+def _salted(root: int) -> int:
+    return int(np.random.SeedSequence(
+        [int(root), _REFRESH_SALT]).generate_state(1)[0])
+
+
+def refresh_key_chains(key: Union[int, Mapping[StreamId, int]],
+                       ids: List[StreamId], n: int
+                       ) -> Dict[StreamId, List[int]]:
+    """Per-stream key chains of the batch-model refresh: the derivation of
+    ``fleet_key_chains`` from roots salted with a fixed constant, so a
+    refresh at window ``t`` never reuses the speed-training key of that
+    window."""
+    if isinstance(key, Mapping):
+        return fleet_key_chains({sid: _salted(key[sid]) for sid in ids},
+                                ids, n)
+    return fleet_key_chains(_salted(key), ids, n)
+
+
+@dataclass
+class FleetRunResult:
+    """What a fleet run produced: per-stream window records plus the
+    fleet-level training accounting (how many device dispatches the whole
+    fleet's speed training cost, and which windows each stream's drift gate
+    skipped)."""
+
+    results: Dict[StreamId, HybridRunResult]
+    train_dispatches: int
+    retrain_log: Dict[StreamId, List[bool]]
+    gate_stats: Optional[Dict[str, Any]]
+    n_windows: int
+    mode: str
+    # the batch-model refresh plane, when the run had a BatchRefresh stage:
+    # rounds fired, fleet dispatches spent, per-stream refresh counts, and
+    # the total refresh training wall
+    refresh: Optional[Dict[str, Any]] = None
+
+    def skipped_retrains(self) -> int:
+        return sum(not fired for log in self.retrain_log.values()
+                   for fired in log)
+
+    def total_retrains(self) -> int:
+        return sum(fired for log in self.retrain_log.values()
+                   for fired in log)
+
+    def mean_rmse(self) -> Dict[str, float]:
+        """Fleet mean of the per-stream mean RMSEs (nan when no stream has
+        inference records yet, e.g. a one-window run)."""
+        per = [r.mean_rmse() for r in self.results.values() if r.records]
+        if not per:
+            return {k: float("nan") for k in ("batch", "speed", "hybrid")}
+        return {k: float(np.mean([p[k] for p in per]))
+                for k in ("batch", "speed", "hybrid")}
+
+
+@dataclass
+class FleetBusRunResult(FleetRunResult):
+    """Fleet run under the topic bus: adds the measured latency ledger,
+    capacity failures, per-stream end-to-end window latency, the message
+    log, every undeliverable publish, the batch and speed inference
+    stages' windows served and stacked predicts spent, and each stream's
+    final speed-model params (materialized).  The request plane's, the
+    chaos plane's, the placement plane's and the health plane's results
+    come with those planes."""
+
+    ledger: LatencyLedger = field(default_factory=LatencyLedger)
+    failures: List[str] = field(default_factory=list)
+    e2e_s: Dict[StreamId, Dict[int, float]] = field(default_factory=dict)
+    message_log: List[Message] = field(default_factory=list)
+    dead_letters: List[Any] = field(default_factory=list)
+    infer_dispatches: Optional[Dict[str, Dict[str, int]]] = None
+    final_params: Optional[Dict[StreamId, Any]] = None
+
+    def table3(self) -> Dict[str, Dict[str, float]]:
+        return self.ledger.table()
+
+    def mean_e2e_s(self) -> float:
+        vals = [v for per in self.e2e_s.values() for v in per.values()]
+        return float(np.mean(vals)) if vals else float("nan")
+
+
+class InProcessFleetExecutor:
+    """The paper's synchronous per-window loop lifted to a fleet of streams.
+
+    Per window ``t``: per-stream inference through the fleet-lifted stages
+    (the same single-stream stage math and timing conventions as
+    ``InProcessExecutor`` — a one-stream fleet reproduces its records
+    exactly), then **one** whole-fleet speed-training dispatch
+    (``FleetSpeedTraining`` -> ``FleetForecaster.train_fleet``) covering the
+    streams whose drift gate said retrain — all of them when no gate is
+    given, the paper's every-window policy.  Skipped streams keep serving
+    their prior speed model and their prior Algorithm-1 eval predictions.
+
+    ``key`` is an integer (stream ``i``'s root is ``stream_roots(key, S)
+    [i]``) or a mapping of each stream's root; see ``fleet_key_chains``.
+
+    With a :class:`BatchRefresh` stage, every gate-fired window is also
+    archived, and the refresh cadence periodically retrains the *batch*
+    models of streams with enough archived drifted windows — one extra
+    fleet fit per refresh round, replacing those streams' batch params for
+    all subsequent windows."""
+
+    def __init__(self, stages: FleetStages, *, start_window: int = 1,
+                 gate: Optional[DriftGate] = None,
+                 batch_refresh: Optional[BatchRefresh] = None):
+        self.stages = stages
+        self.start_window = start_window
+        self.gate = gate
+        self.batch_refresh = batch_refresh
+
+    def run(self, streams: Dict[StreamId, WindowedStream], batch_params: Any,
+            key: Union[int, Mapping[StreamId, int]],
+            n_windows: Optional[int] = None) -> FleetRunResult:
+        st = self.stages
+        ids = list(streams)
+        n = min(len(s) for s in streams.values())
+        if n_windows is not None:
+            n = min(n, n_windows)
+        keys = fleet_key_chains(key, ids, n)
+        rf = self.batch_refresh
+        rkeys = refresh_key_chains(key, ids, n) if rf is not None else {}
+        if rf is not None:
+            rf.reset()
+        bp = resolve_fleet_params(batch_params, ids)
+        fleet = FleetState()
+        records: Dict[StreamId, List[WindowRecord]] = {sid: [] for sid in ids}
+        retrain_log: Dict[StreamId, List[bool]] = {sid: [] for sid in ids}
+        fc = st.speed_training.forecaster
+        dispatches0 = fc.train_dispatches
+
+        for t in range(n):
+            data = {sid: streams[sid].supervised(t) for sid in ids}
+            infer = [sid for sid in ids
+                     if t >= self.start_window
+                     and fleet.state(sid).speed_params is not None
+                     and len(data[sid]["x"]) > 0]
+            if infer:
+                b = st.batch_inference(fleet={
+                    sid: dict(batch_params=bp[sid], x=data[sid]["x"])
+                    for sid in infer})["fleet"]
+                s = st.speed_inference(fleet={
+                    sid: dict(speed_params=fleet.state(sid).speed_params,
+                              x=data[sid]["x"])
+                    for sid in infer})["fleet"]
+                w = st.weight_solve(fleet={
+                    sid: dict(prev_preds=fleet.state(sid).prev_preds,
+                              prev_y=fleet.state(sid).prev_y)
+                    for sid in infer})["fleet"]
+                h = st.hybrid_combine(fleet={
+                    sid: dict(pred_speed=s[sid]["pred"],
+                              pred_batch=b[sid]["pred"],
+                              w_speed=w[sid]["w_speed"],
+                              w_batch=w[sid]["w_batch"])
+                    for sid in infer})["fleet"]
+                for sid in infer:
+                    y = data[sid]["y"]
+                    t_w = (w[sid].wall_s
+                           if st.single.weight_solve.is_dynamic
+                           and fleet.state(sid).prev_preds is not None
+                           else 0.0)
+                    records[sid].append(WindowRecord(
+                        window=t,
+                        rmse_batch=rmse(y, b[sid]["pred"]),
+                        rmse_speed=rmse(y, s[sid]["pred"]),
+                        rmse_hybrid=rmse(y, h[sid]["pred"]),
+                        w_speed=w[sid]["w_speed"],
+                        w_batch=w[sid]["w_batch"],
+                        t_batch_infer=b[sid].wall_s,
+                        t_speed_infer=s[sid].wall_s,
+                        t_hybrid_infer=h[sid].wall_s + t_w,
+                        t_weight_solve=t_w,
+                    ))
+            # training phase: drift-gated whole-fleet dispatch
+            train_ids = []
+            for sid in ids:
+                fire = _gate_decision(
+                    self.gate, sid, data[sid]["y"],
+                    must=fleet.state(sid).speed_params is None)
+                retrain_log[sid].append(fire)
+                if fire:
+                    train_ids.append(sid)
+                    if rf is not None:
+                        rf.archive(sid, data[sid])
+            if train_ids:
+                tr = st.speed_training(
+                    fleet_data={sid: data[sid] for sid in train_ids},
+                    batch_params={sid: bp[sid] for sid in train_ids},
+                    keys={sid: keys[sid][t] for sid in train_ids})
+                for sid in train_ids:
+                    out = tr["fleet"][sid]
+                    ss = fleet.state(sid)
+                    ss.speed_params = out["params"]
+                    ss.window = t
+                    if out["eval_preds"] is not None:
+                        ss.prev_preds = out["eval_preds"]
+                        ss.prev_y = out["eval_y"]
+                    if records[sid] and records[sid][-1].window == t:
+                        records[sid][-1].t_speed_train = tr["train_wall_s"]
+            # cloud-side heavy retraining: the queued gated batch-model
+            # refresh rides the same fleet fit on its cadence
+            if rf is not None and rf.due(t):
+                ref = rf(keys={sid: rkeys[sid][t] for sid in ids})
+                for sid, p in ref["fleet"].items():
+                    bp[sid] = p
+
+        return FleetRunResult(
+            results={sid: HybridRunResult(records=records[sid],
+                                          mode=str(st.mode))
+                     for sid in ids},
+            # refresh dispatches ride the same forecaster counter; report
+            # them under ``refresh`` so this stays speed-training-only
+            train_dispatches=(fc.train_dispatches - dispatches0
+                              - (rf.dispatches if rf is not None else 0)),
+            retrain_log=retrain_log,
+            gate_stats=self.gate.stats() if self.gate is not None else None,
+            n_windows=n,
+            mode=str(st.mode),
+            refresh=(None if rf is None else {
+                "rounds": rf.rounds,
+                "dispatches": rf.dispatches,
+                "refreshed": dict(rf.refreshed),
+                "train_wall_s": rf.train_wall_s,
+            }),
+        )
+
+
+# the FleetBusExecutor arguments of the planes the port has not yet, and the
+# plane that brings each (ROADMAP.md, Queue A)
+_UNPORTED_PLANES = {
+    "qps": "the request plane", "query_trace": "the request plane",
+    "fault_plane": "the chaos plane", "health_plane": "the health plane",
+    "elastic": "the placement plane",
+    "controller_factory": "the placement plane",
+    "control_interval_s": "the placement plane",
+}
+
+
+class FleetBusExecutor(_BusRuntime):
+    """``BusExecutor`` lifted to a fleet: N streams multiplexed over
+    per-stream topics (``stream/window/<sid>`` and so on, one wildcard
+    subscription per module) under **one** ``Deployment``, per-stream
+    serving state in a ``FleetState``, and every stream's window-``t``
+    payload aggregated into one whole-fleet call per stage: speed training
+    (``FleetSpeedTraining``, one stacked fit) and batch and speed inference
+    (``FleetInference``, one stacked predict).  Once the window's last
+    stream message reaches a module's site, the fleet computes at once and
+    the per-stream results fan back out onto their own topics, each charged
+    the one shared wall.
+
+    Fresh models publish per stream on ``model/latest/<sid>`` with that
+    stream's real parameter bytes and a ``tree_checksum``; with a
+    ``DriftGate``, stationary streams neither train nor transfer and keep
+    serving their prior model, and the shared fit's wall goes only to the
+    streams that trained.  ``quantized_sync=True`` quantizes every
+    retrained stream's model at the publish boundary in one pass
+    (``quantize_fleet``), ships the int8 tree with its int8 bytes, and the
+    edge serves the fleet through the int8 kernel's stream axis.
+
+    Robustness, as in the reference: ``ModelSync`` verifies each publish's
+    checksum and a corrupt one is never installed (the sync site
+    re-requests it on ``model/rerequest/<sid>``; the training site re-sends
+    its last publish, at most ``max_resync`` times a (stream, window)); an
+    aggregation armed with an ``agg_timeout_s`` flush dispatches the
+    streams that arrived and quarantines a stream after
+    ``quarantine_after`` missed training windows (the flush is armed by
+    the chaos plane's fault plane, which comes with that plane); the
+    staleness watchdog (``_serving_params``, called by the request plane,
+    which comes with that plane) serves the batch model for a stream whose
+    model lags its context by more than ``staleness_bound`` windows.  Until
+    those planes are ported, no run reaches the flush or the watchdog.
+    ``stage_costs`` (module -> seconds) replaces measured walls
+    with fixed virtual costs; ``batch_refresh`` retrains batch models from
+    archived drifted windows on its cadence.
+
+    The request plane (``qps``, ``query_trace``), the chaos plane
+    (``fault_plane``), the health plane (``health_plane``) and the
+    placement plane (``elastic``, ``controller_factory``,
+    ``control_interval_s``) raise ``NotImplementedError`` naming the plane
+    that brings them."""
+
+    def __init__(
+        self,
+        stages: FleetStages,
+        deployment: Deployment,
+        topo: Topology,
+        cost: Optional[CostModel] = None,
+        *,
+        start_window: int = 1,
+        window_period_s: float = 30.0,
+        strict_capacity: bool = False,
+        gate: Optional[DriftGate] = None,
+        quantized_sync: bool = False,
+        quant_min_size: int = 64,
+        qps: float = 0.0,
+        query_trace: Optional[List[Any]] = None,
+        fault_plane: Optional[Any] = None,
+        health_plane: Optional[Any] = None,
+        stage_costs: Optional[Dict[str, float]] = None,
+        staleness_bound: int = 1,
+        agg_timeout_s: Optional[float] = None,
+        quarantine_after: int = 2,
+        max_resync: int = 3,
+        elastic: Union[bool, str] = False,
+        controller_factory: Optional[Callable[[], Any]] = None,
+        control_interval_s: Optional[float] = None,
+        batch_refresh: Optional[BatchRefresh] = None,
+    ):
+        given = {"qps": qps > 0, "query_trace": query_trace is not None,
+                 "fault_plane": fault_plane is not None,
+                 "health_plane": health_plane is not None,
+                 "elastic": bool(elastic),
+                 "controller_factory": controller_factory is not None,
+                 "control_interval_s": control_interval_s is not None}
+        for arg, on in given.items():
+            if on:
+                raise NotImplementedError(
+                    f"FleetBusExecutor({arg}=...): {_UNPORTED_PLANES[arg]} "
+                    "comes with its own slice of the port")
+        self.stages = stages
+        self.dep = deployment
+        self.topo = topo
+        self.cost = cost or CostModel()
+        self.start_window = start_window
+        self.period = window_period_s
+        self.strict = strict_capacity
+        self.gate = gate
+        self.quantized_sync = quantized_sync
+        self.quant_min_size = quant_min_size
+        self.fault_plane = None
+        self.stage_costs = stage_costs
+        self.staleness_bound = staleness_bound
+        self.agg_timeout_s = (agg_timeout_s if agg_timeout_s is not None
+                              else 0.25 * window_period_s)
+        self.quarantine_after = quarantine_after
+        self.max_resync = max_resync
+        self.batch_refresh = batch_refresh
+
+    @property
+    def _single_stages(self) -> PipelineStages:
+        return self.stages.single
+
+    # -- per-run state -------------------------------------------------------
+
+    def _reset(self, ids: List[StreamId]) -> None:
+        self._init_runtime()
+        self.ids = list(ids)
+        self._fleet = FleetState()
+        self._records: Dict[Tuple[StreamId, int], WindowRecord] = {}
+        self._train_walls: Dict[Tuple[StreamId, int], float] = {}
+        self._pending: Dict[Tuple[StreamId, int], Dict[str, Message]] = {}
+        # per-stage aggregation: (kind, window) -> arrived stream messages;
+        # kind in {"batch", "speed", "train"}
+        self._pending_agg: Dict[Tuple[str, int], Dict[StreamId, Message]] = {}
+        self._dispatched: set = set()
+        self._flush_armed: set = set()
+        self._quarantined: Dict[StreamId, int] = {}
+        self._miss: Dict[StreamId, int] = {sid: 0 for sid in ids}
+        self._last_model_pub: Dict[StreamId, Tuple[Dict[str, Any], float]] = {}
+        self._resync_sent: Dict[Tuple[StreamId, int], int] = {}
+        self._retrain_log: Dict[StreamId, List[bool]] = {
+            sid: [] for sid in ids}
+        self._inject_t: Dict[Tuple[StreamId, int], float] = {}
+        self.e2e_s: Dict[StreamId, Dict[int, float]] = {sid: {} for sid in ids}
+        self._ys: Dict[Tuple[StreamId, int], np.ndarray] = {}
+        self._squant_bp: Dict[StreamId, Any] = {}
+        self._wire()
+
+    def _wire(self) -> None:
+        dep, bus = self.dep, self.bus
+        sub = lambda base, module, fn: bus.subscribe(
+            base + "/+", dep.site_of(module), fn)
+        sub(T_STREAM, "batch_inference", self._on_batch)
+        sub(T_STREAM, "speed_inference", self._on_speed)
+        sub(T_BATCH, "hybrid_inference", self._on_part)
+        sub(T_SPEED, "hybrid_inference", self._on_part)
+        sub(T_MODEL, "model_sync", self._on_model_sync)
+        sub(T_STREAM, "speed_training", self._on_train)
+        sub(T_STREAM, "data_sync", self._on_data_sync)
+        sub(T_HYBRID, "archiving", self._on_archive)
+        sub(T_HYBRID, "data_injection", self._on_user)
+        # checksum-failure recovery: the sync site asks the training site to
+        # re-publish a corrupted model
+        sub(T_RESYNC, "speed_training", self._on_resync)
+
+    # -- handlers ------------------------------------------------------------
+
+    def _gather(self, kind: str, msg: Message
+                ) -> Optional[Dict[StreamId, Message]]:
+        """Collect window ``w``'s per-stream messages for one aggregated
+        stage call (``kind`` in batch/speed/train).  Returns the complete
+        set, every stream not quarantined arrived, else None.
+
+        A delivery from a quarantined stream revives it; a delivery for an
+        already-dispatched (kind, window) is a late straggler and is
+        dropped; under a fault plane the first delivery arms a flush
+        (``agg_timeout_s``) that dispatches whoever showed up
+        (:meth:`_flush`)."""
+        sid, w = msg.payload["stream"], msg.payload["window"]
+        # the delivered window's y is the ground truth of (sid, w) from
+        # here on
+        self._ys[(sid, w)] = msg.payload["y"]
+        if sid in self._quarantined:
+            del self._quarantined[sid]
+            self._miss[sid] = 0
+        key = (kind, w)
+        if key in self._dispatched:
+            return None
+        pend = self._pending_agg.setdefault(key, {})
+        pend[sid] = msg
+        self._miss[sid] = 0
+        expected = [s for s in self.ids if s not in self._quarantined]
+        if all(s in pend for s in expected):
+            self._dispatched.add(key)
+            return self._pending_agg.pop(key)
+        if self.fault_plane is not None and key not in self._flush_armed:
+            self._flush_armed.add(key)
+            self.kernel.after(self.agg_timeout_s,
+                              lambda: self._flush(kind, w))
+        return None
+
+    def _flush(self, kind: str, w: int) -> None:
+        """Aggregation timeout: dispatch the streams whose window arrived.
+        Streams that missed ``quarantine_after`` consecutive training
+        flushes are quarantined: later aggregations stop waiting for them,
+        so one dead sensor cannot stall the fleet."""
+        key = (kind, w)
+        if key in self._dispatched:
+            return
+        self._dispatched.add(key)
+        pend = self._pending_agg.pop(key, {})
+        if kind == "train":
+            for s in self.ids:
+                if s in pend or s in self._quarantined:
+                    continue
+                self._miss[s] += 1
+                if self._miss[s] >= self.quarantine_after:
+                    self._quarantined[s] = w
+        if not pend:
+            return
+        if kind == "train":
+            self._dispatch_train(w, pend)
+        else:
+            self._dispatch_infer(kind, w, pend)
+
+    def _on_batch(self, msg: Message) -> None:
+        w = msg.payload["window"]
+        if w < self.start_window:
+            return
+        pend = self._gather("batch", msg)
+        if pend is not None:
+            self._dispatch_infer("batch", w, pend)
+
+    def _on_speed(self, msg: Message) -> None:
+        w = msg.payload["window"]
+        if w < self.start_window:
+            return
+        pend = self._gather("speed", msg)
+        if pend is not None:
+            self._dispatch_infer("speed", w, pend)
+
+    def _dispatch_infer(self, kind: str, w: int,
+                        pend: Dict[StreamId, Message]) -> None:
+        # the window's arrived streams are at the inference site: one
+        # stacked predict, the per-stream results fan back out, each group
+        # of streams at one site charged the shared wall
+        sids = [s for s in self.ids if s in pend]
+        if kind == "batch":
+            stage, topic = self.stages.batch_inference, T_BATCH
+            out = stage(fleet={
+                sid: dict(batch_params=self._bp[sid],
+                          x=pend[sid].payload["x"])
+                for sid in sids})["fleet"]
+        else:
+            stage, topic = self.stages.speed_inference, T_SPEED
+            out = stage(fleet={
+                sid: dict(speed_params=self._fleet.state(sid).speed_params,
+                          x=pend[sid].payload["x"],
+                          fallback_params=self._bp[sid])
+                for sid in sids})["fleet"]
+        wall = out[sids[0]].wall_s
+        module = "batch_inference" if kind == "batch" else "speed_inference"
+        groups: Dict[str, List[StreamId]] = {}
+        for sid in sids:
+            groups.setdefault(self.dep.site_of(module, sid), []).append(sid)
+        for site_name, gsids in groups.items():
+            comm = max(pend[s].deliver_time - pend[s].publish_time
+                       for s in gsids) + self.cost.ingest_s
+
+            def publish_preds(gsids=gsids, site_name=site_name):
+                for sid in gsids:
+                    o = out[sid]
+                    self.bus.publish(
+                        stream_topic(topic, sid),
+                        {"stream": sid, "window": w, "kind": kind,
+                         "pred": o["pred"], "wall_s": o.wall_s,
+                         "fallback": o.values.get("fallback", False)},
+                        _nbytes(o["pred"]), site_name)
+
+            self._schedule(module, wall, comm, publish_preds,
+                           site_name=site_name)
+
+    def _on_part(self, msg: Message) -> None:
+        sid, w = msg.payload["stream"], msg.payload["window"]
+        parts = self._pending.setdefault((sid, w), {})
+        parts[msg.payload["kind"]] = msg
+        if len(parts) < 2:
+            return
+        st = self.stages.single
+        state = self._fleet.state(sid)
+        bmsg, smsg = parts["batch"], parts["speed"]
+        comm = max(m.deliver_time - m.publish_time for m in parts.values())
+        wsol = st.weight_solve(prev_preds=state.prev_preds,
+                               prev_y=state.prev_y)
+        t_w = (wsol.wall_s if st.weight_solve.is_dynamic
+               and state.prev_preds is not None else 0.0)
+        hc = st.hybrid_combine(
+            pred_speed=smsg.payload["pred"], pred_batch=bmsg.payload["pred"],
+            w_speed=wsol["w_speed"], w_batch=wsol["w_batch"])
+        y = self._ys[(sid, w)]
+        rec = WindowRecord(
+            window=w,
+            rmse_batch=rmse(y, bmsg.payload["pred"]),
+            rmse_speed=rmse(y, smsg.payload["pred"]),
+            rmse_hybrid=rmse(y, hc["pred"]),
+            w_speed=wsol["w_speed"],
+            w_batch=wsol["w_batch"],
+            t_speed_train=self._train_walls.get((sid, w), 0.0),
+            t_batch_infer=bmsg.payload["wall_s"],
+            t_speed_infer=smsg.payload["wall_s"],
+            t_hybrid_infer=hc.wall_s + t_w,
+            t_weight_solve=t_w,
+        )
+        self._records[(sid, w)] = rec
+        hy_site = self.dep.site_of("hybrid_inference", sid)
+        self._schedule(
+            "hybrid_inference", wsol.wall_s + hc.wall_s, comm,
+            lambda: self.bus.publish(
+                stream_topic(T_HYBRID, sid),
+                {"stream": sid, "window": w, "rmse_hybrid": rec.rmse_hybrid,
+                 "w_speed": rec.w_speed},
+                _nbytes(hc["pred"]), hy_site),
+            site_name=hy_site)
+
+    def _on_train(self, msg: Message) -> None:
+        w = msg.payload["window"]
+        pend = self._gather("train", msg)
+        if pend is not None:
+            self._dispatch_train(w, pend)
+
+    def _dispatch_train(self, w: int, pend: Dict[StreamId, Message]) -> None:
+        # the window's arrived streams are at the training site: one
+        # drift-gated, stream-count-bucketed fleet fit
+        comm = max(m.deliver_time - m.publish_time for m in pend.values())
+        if not self._train_fits_site(comm):
+            return
+        train_ids = []
+        for s in self.ids:
+            if s not in pend:
+                continue
+            fire = _gate_decision(
+                self.gate, s, pend[s].payload["y"],
+                must=self._fleet.state(s).speed_params is None)
+            self._retrain_log[s].append(fire)
+            if fire:
+                train_ids.append(s)
+                if self.batch_refresh is not None:
+                    self.batch_refresh.archive(
+                        s, {"x": pend[s].payload["x"],
+                            "y": pend[s].payload["y"]})
+        self._maybe_refresh(w)
+        if not train_ids:
+            return
+        out = self.stages.speed_training(
+            fleet_data={s: {"x": pend[s].payload["x"],
+                            "y": pend[s].payload["y"]} for s in train_ids},
+            batch_params={s: self._bp[s] for s in train_ids},
+            keys={s: self._keys[s][w] for s in train_ids})
+        for s in train_ids:
+            # the shared fit's wall, charged only to the streams that
+            # trained: a gate-skipped stream's record keeps t_speed_train 0
+            self._train_walls[(s, w)] = out["train_wall_s"]
+            if (s, w) in self._records:
+                self._records[(s, w)].t_speed_train = out["train_wall_s"]
+
+        def publish_models():
+            pubs = [out["fleet"][s]["params"] for s in train_ids]
+            if self.quantized_sync:
+                # the publish boundary: each stacked fit output quantizes in
+                # one pass, the model topics carry the int8 bytes, and the
+                # edge serves the fleet through the int8 kernel
+                pubs = quantize_fleet(pubs, min_size=self.quant_min_size)
+            for s, params_pub in zip(train_ids, pubs):
+                o = out["fleet"][s]
+                payload = {"stream": s, "window": w, "params": params_pub,
+                           "eval_preds": o["eval_preds"],
+                           "eval_y": o["eval_y"],
+                           "checksum": tree_checksum(params_pub)}
+                nbytes = _nbytes(params_pub)
+                # the last publish, so a re-request re-sends it untrained
+                self._last_model_pub[s] = (payload, nbytes)
+                self.bus.publish(stream_topic(T_MODEL, s), payload, nbytes,
+                                 self.dep.site_of("speed_training"))
+
+        self._schedule("speed_training", out.wall_s, comm, publish_models)
+
+    def _maybe_refresh(self, w: int) -> None:
+        """The training site's queued batch-model refresh: when due, one
+        more fleet fit retrains the batch models of the streams with enough
+        archived drifted windows.  The refreshed params install at the
+        scheduled completion, as a model publish does, and serve every later
+        batch inference and weight solve."""
+        rf = self.batch_refresh
+        if rf is None or not rf.due(w) or not rf.ready():
+            return
+        out = rf(keys={s: self._rkeys[s][w] for s in self.ids})
+
+        def install():
+            for s, p in out["fleet"].items():
+                self._bp[s] = p
+
+        self._schedule("speed_training", out.wall_s, 0.0, install)
+
+    def _on_model_sync(self, msg: Message) -> None:
+        sid = msg.payload["stream"]
+        state = self._fleet.state(sid)
+        # verify before the ordering guard: every corrupted delivery is
+        # detected and counted, whether or not it would have installed
+        out = self.stages.single.model_sync(
+            params=msg.payload["params"],
+            eval_preds=msg.payload["eval_preds"],
+            eval_y=msg.payload["eval_y"],
+            checksum=msg.payload.get("checksum"))
+        if not out["ok"]:
+            # the transfer happened, but a corrupt model is never served;
+            # ask the training site to re-send
+            self.ledger.add("model_sync", comp_s=0.0,
+                            comm_s=msg.deliver_time - msg.publish_time)
+            self._request_resync(sid, msg.payload["window"])
+            return
+        if msg.payload["window"] <= state.window:
+            # never install an older model over a newer one
+            self.ledger.add("model_sync", comp_s=0.0,
+                            comm_s=msg.deliver_time - msg.publish_time)
+            return
+        state.speed_params = out["speed_params"]
+        state.prev_preds = out["prev_preds"]
+        state.prev_y = out["prev_y"]
+        state.window = msg.payload["window"]
+        self._schedule("model_sync", out.wall_s,
+                       msg.deliver_time - msg.publish_time,
+                       site_name=self.dep.site_of("model_sync", sid))
+
+    def _request_resync(self, sid: StreamId, w: int) -> None:
+        sent = self._resync_sent.get((sid, w), 0)
+        if sent >= self.max_resync:
+            return
+        self._resync_sent[(sid, w)] = sent + 1
+        self.bus.publish(stream_topic(T_RESYNC, sid),
+                         {"stream": sid, "window": w}, 64.0,
+                         self.dep.site_of("model_sync", sid))
+
+    def _on_resync(self, msg: Message) -> None:
+        cached = self._last_model_pub.get(msg.payload["stream"])
+        if cached is None:
+            return
+        payload, nbytes = cached
+        if payload["window"] < msg.payload["window"]:
+            return
+        self.bus.publish(stream_topic(T_MODEL, payload["stream"]), payload,
+                         nbytes, self.dep.site_of("speed_training"))
+
+    def _on_user(self, msg: Message) -> None:
+        sid, w = msg.payload["stream"], msg.payload["window"]
+        if (sid, w) in self._inject_t:
+            self.e2e_s[sid][w] = msg.deliver_time - self._inject_t[(sid, w)]
+
+    # -- the serving set and its staleness watchdog --------------------------
+
+    def _serving_fallback(self, sid: StreamId) -> Params:
+        """What a stream serves before its first model sync: the batch
+        model, quantized once (and cached) under int8 sync, so the fleet's
+        stacked serving tree keeps one structure whatever mix of synced and
+        unsynced streams it holds."""
+        if not self.quantized_sync:
+            return self._bp[sid]
+        p = self._squant_bp.get(sid)
+        if p is None:
+            p = self._squant_bp[sid] = quantize_tree(
+                self._bp[sid], min_size=self.quant_min_size)
+        return p
+
+    def _serving_params(self, context_window: Mapping[StreamId, int]
+                        ) -> Tuple[List[Params], Dict[StreamId, int],
+                                   Dict[StreamId, bool]]:
+        """The serving set in fleet order: each stream's installed speed
+        model (a ``FleetParamView`` under float sync, an int8 tree under
+        int8 sync) or its batch fallback, the training window each model
+        came from, and whether each stream serves the fallback.
+
+        The staleness watchdog: a stream whose installed model lags its
+        freshest context window (``context_window``, which the request
+        plane tracks) by more than ``staleness_bound`` windows serves the
+        batch model instead of an ever staler speed model."""
+        params: List[Params] = []
+        windows: Dict[StreamId, int] = {}
+        fallback: Dict[StreamId, bool] = {}
+        for sid in self.ids:
+            st = self._fleet.state(sid)
+            stale = (st.window >= 0 and context_window[sid] - st.window
+                     > self.staleness_bound)
+            use_fb = st.speed_params is None or stale
+            params.append(self._serving_fallback(sid) if use_fb
+                          else st.speed_params)
+            windows[sid] = st.window
+            fallback[sid] = use_fb
+        return params, windows, fallback
+
+    # -- the run -------------------------------------------------------------
+
+    def _warmup(self, streams: Dict[StreamId, WindowedStream]) -> None:
+        """Run every path once before the measured windows (the whole
+        fleet's fit on window 0 with its window-0 keys, and the stacked
+        batch and speed predicts; with int8 sync the int8 speed predict),
+        so they are steady-state windows.  Outside the event loop: the drift
+        gate never sees it, and the dispatch counters are read after it."""
+        data = {sid: streams[sid].supervised(0) for sid in self.ids}
+        tr = self.stages.speed_training(
+            fleet_data=data, batch_params=self._bp,
+            keys={sid: self._keys[sid][0] for sid in self.ids})
+        if all(len(data[sid]["x"]) > 0 for sid in self.ids):
+            self.stages.batch_inference(fleet={
+                sid: dict(batch_params=self._bp[sid], x=data[sid]["x"])
+                for sid in self.ids})
+            sp_list = [tr["fleet"][sid]["params"] for sid in self.ids]
+            if self.quantized_sync:
+                sp_list = quantize_fleet(sp_list,
+                                         min_size=self.quant_min_size)
+            sp = dict(zip(self.ids, sp_list))
+            self.stages.speed_inference(fleet={
+                sid: dict(speed_params=sp[sid], x=data[sid]["x"],
+                          fallback_params=self._bp[sid])
+                for sid in self.ids})
+
+    def run(self, streams: Dict[StreamId, WindowedStream], batch_params: Any,
+            key: Union[int, Mapping[StreamId, int]],
+            n_windows: Optional[int] = None) -> FleetBusRunResult:
+        ids = list(streams)
+        self._reset(ids)
+        n = min(len(s) for s in streams.values())
+        if n_windows is not None:
+            n = min(n, n_windows)
+        self._bp = resolve_fleet_params(batch_params, ids)
+        self._keys = fleet_key_chains(key, ids, n)
+        if self.batch_refresh is not None:
+            self.batch_refresh.reset()
+            self._rkeys = refresh_key_chains(key, ids, n)
+        self._warmup(streams)
+        fc = self.stages.speed_training.forecaster
+        dispatches0 = fc.train_dispatches
+        bi, si = self.stages.batch_inference, self.stages.speed_inference
+        infer0 = {"batch": (bi.ticks, bi.dispatches),
+                  "speed": (si.ticks, si.dispatches)}
+
+        for sid in ids:
+            injector = BusInjector(self.kernel, self.bus, T_STREAM,
+                                   self.dep.site_of("data_injection"),
+                                   period_s=self.period, stream_id=sid)
+            for w in range(n):
+                data = streams[sid].supervised(w)
+                self._ys[(sid, w)] = data["y"]
+                self._inject_t[(sid, w)] = injector.schedule_window(w, data)
+        self.kernel.run()
+
+        results = {}
+        for sid in ids:
+            recs = [self._records[(s, w)]
+                    for (s, w) in sorted(self._records) if s == sid]
+            results[sid] = HybridRunResult(records=recs,
+                                           mode=str(self.stages.mode))
+        final_params = {}
+        for sid in ids:
+            p = self._fleet.state(sid).speed_params
+            final_params[sid] = (materialize_params(p) if p is not None
+                                 else None)
+        rf = self.batch_refresh
+        return FleetBusRunResult(
+            results=results,
+            # refresh fits share the forecaster's counter; they are
+            # reported under ``refresh``
+            train_dispatches=(fc.train_dispatches - dispatches0
+                              - (rf.dispatches if rf is not None else 0)),
+            retrain_log={sid: list(log)
+                         for sid, log in self._retrain_log.items()},
+            gate_stats=self.gate.stats() if self.gate is not None else None,
+            n_windows=n,
+            mode=str(self.stages.mode),
+            refresh=(None if rf is None else {
+                "rounds": rf.rounds,
+                "dispatches": rf.dispatches,
+                "refreshed": dict(rf.refreshed),
+                "train_wall_s": rf.train_wall_s,
+            }),
+            ledger=self.ledger,
+            failures=self.failures,
+            e2e_s={sid: dict(per) for sid, per in self.e2e_s.items()},
+            message_log=self.bus.log,
+            dead_letters=list(self.bus.dead_letters),
+            infer_dispatches={
+                kind: {"ticks": st.ticks - infer0[kind][0],
+                       "dispatches": st.dispatches - infer0[kind][1]}
+                for kind, st in (("batch", bi), ("speed", si))},
+            final_params=final_params,
         )

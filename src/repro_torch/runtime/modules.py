@@ -8,7 +8,9 @@ orchestration:
                                \--> speed_training -> model publish
   model publish --(model topic)--> model_sync (edge) -> next-window speed model
 
-``BusExecutor`` subscribes the stages to these topics.  The reference's
+``BusExecutor`` subscribes the stages to these topics; the fleet executor
+multiplexes them per stream (``stream_topic``) and adds ``T_RESYNC``, the
+sync site's re-request of a model whose checksum failed.  The reference's
 calibrated simulation (``EdgeCloudSimulation``) comes with the slice that
 ports the launcher's calibrated mode.
 """
@@ -18,3 +20,12 @@ T_BATCH = "results/batch"
 T_SPEED = "results/speed"
 T_HYBRID = "results/hybrid"
 T_MODEL = "model/latest"
+T_RESYNC = "model/rerequest"
+
+
+def stream_topic(base: str, stream_id: str) -> str:
+    """Per-stream multiplexing of a base topic: ``stream/window`` ->
+    ``stream/window/t03``.  Fleet executors subscribe ``base + "/+"`` (the
+    bus's single-level wildcard) to receive every stream of a fleet with
+    one subscription."""
+    return f"{base}/{stream_id}"

@@ -1,3 +1,11 @@
 """Serving of the port: int8 weight quantization for the edge's model sync
-(``quantize``), request batching (``batching``) and the model zoo's serving
-engine (``engine``)."""
+(``quantize``; a fleet's in one pass, ``quantize_fleet``), request batching
+(``batching``) and the model zoo's serving engine (``engine``)."""
+from repro_torch.serving.quantize import (  # noqa: F401
+    QTensor,
+    dequantize_tree,
+    quantize_fleet,
+    quantize_tree,
+    tree_checksum,
+    tree_nbytes,
+)

@@ -21,6 +21,12 @@ Params are nested dicts of tensors, as elsewhere in the port.
 its ``q`` then its ``scale``: the order of ``jax.tree_util.tree_leaves`` on
 the reference's pytree, so checksums (``tree_checksum``, the model sync's
 integrity stamp) and byte counts agree leaf for leaf.
+
+A ``FleetParamView`` (one stream of a fleet's stacked fit output) is the
+per-stream tree it stands for to every function here; ``tree_checksum``
+reads its slice of the fleet's one host copy.  ``quantize_fleet``
+quantizes a whole fleet's views in one pass over the stacked tree, each
+stream's ``q`` and ``scale`` bit for bit those of its own ``quantize``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,12 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.stacked import (
+    FleetParamView,
+    host_params,
+    materialize_params,
+)
 
 Params = Any
 
@@ -75,6 +87,7 @@ def _is_quantizable(x, min_size: int = MIN_QUANT_SIZE) -> bool:
 def _map(fn: Callable[[Any], Any], tree: Params) -> Params:
     """``fn`` over the leaves of nested dicts, a ``QTensor`` being one leaf;
     keys in sorted order."""
+    tree = materialize_params(tree)
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
@@ -90,6 +103,48 @@ def quantize_tree(params: Params, min_size: int = MIN_QUANT_SIZE) -> Params:
                 params)
 
 
+def _quantize_stacked(w: torch.Tensor) -> QTensor:
+    """``quantize`` of every stream of a stacked (S, ..., N) leaf at once:
+    the absolute maximum over every axis but the stream axis and the last,
+    then the same elementwise steps, so each stream's ``q`` and ``scale``
+    are bit for bit its own ``quantize``'s."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=tuple(range(1, w.dim() - 1)), keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / torch.tensor(127.0,
+                                                        device=w.device)
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return QTensor(q=q, scale=scale[..., 0, :],
+                   orig_dtype=str(w.dtype).removeprefix("torch."))
+
+
+def quantize_fleet(params_seq, min_size: int = MIN_QUANT_SIZE) -> list:
+    """``quantize_tree`` of each stream of a fleet, batched:
+    ``FleetParamView`` handles are grouped by their stacked fit output and each
+    group quantizes in one pass over the stacked tree on the device; every
+    stream's ``QTensor`` leaves are slices of the result, bit for bit the
+    ``q`` and ``scale`` of a per-stream ``quantize_tree``.  Any other tree
+    takes ``quantize_tree``."""
+    seq = list(params_seq)
+    out: list = [None] * len(seq)
+    groups: dict = {}
+    for i, p in enumerate(seq):
+        if isinstance(p, FleetParamView):
+            groups.setdefault(id(p.owner), (p.owner, []))[1].append(i)
+        else:
+            out[i] = quantize_tree(p, min_size)
+    for owner, idxs in groups.values():
+        # quantizability is a per-stream property: judged on slot 0
+        staged = _map(lambda x: _quantize_stacked(x)
+                      if _is_quantizable(x[0], min_size) else x,
+                      owner.stacked)
+        for i in idxs:
+            j = seq[i].slot
+            out[i] = _map(lambda x: QTensor(q=x.q[j], scale=x.scale[j],
+                                            orig_dtype=x.orig_dtype)
+                          if isinstance(x, QTensor) else x[j], staged)
+    return out
+
+
 def dequantize_tree(qparams: Params) -> Params:
     return _map(lambda x: dequantize(x) if isinstance(x, QTensor) else x,
                 qparams)
@@ -98,6 +153,7 @@ def dequantize_tree(qparams: Params) -> Params:
 def _items(tree: Any) -> Iterator[Any]:
     """Leaves in sorted key order, a ``QTensor`` as one item; ``None`` is an
     empty subtree, as in ``jax.tree_util``."""
+    tree = materialize_params(tree)
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k])
@@ -140,6 +196,7 @@ def tree_checksum(tree: Any) -> int:
     and another shape or type do not collide.  The training site stamps
     every model publish with it and ``ModelSync`` verifies it; equal to the
     reference's ``runtime.faults.tree_checksum`` on the same tree."""
+    tree = host_params(tree)
     c = 0
     for leaf in tree_leaves(tree):
         if isinstance(leaf, torch.Tensor):

@@ -18,12 +18,15 @@ the same series from the same seeds.
   ({"none", "gradual", "abrupt"} from the paper's Sec. 6.1.3, plus
   "seasonal").
 
-The multi-stream sources (``turbine_fleet``, ``fleet_windowed_streams``)
-come with the fleet slice, ``token_stream`` with the model zoo.
+* ``turbine_fleet`` / ``fleet_windowed_streams`` — a fleet of correlated
+  turbines, each on its own drift schedule, split into history and windowed
+  live streams: the multi-stream entry points' data.
+
+``token_stream`` comes with the model zoo.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -162,3 +165,83 @@ def apply_scenario(
     if scenario == "seasonal":
         return seasonal_drift(series, seed=seed, start=start)
     raise ValueError(f"unknown scenario {scenario!r}; pick from {SCENARIOS}")
+
+
+def turbine_fleet(
+    n_streams: int,
+    n: int,
+    seed: int = 0,
+    scenarios: Union[str, Sequence[str]] = "none",
+    shared_frac: float = 0.35,
+    alphas: Optional[np.ndarray] = None,
+    drift_start: int = 0,
+) -> Dict[str, np.ndarray]:
+    """A fleet of N correlated turbines: ``{stream_id: (n, 5) series}``.
+
+    Every turbine mixes a *shared* ambient component (the farm's common
+    weather, weight ``shared_frac``) with its own independently-seeded
+    series, so the streams are cross-correlated the way one site's turbines
+    are.  ``scenarios`` is either one scenario name for the whole fleet or
+    one per stream ({"none", "gradual", "abrupt"}), applied after the
+    deviations-from-base mixing so each stream drifts (or doesn't) on its
+    own schedule — the per-stream dynamic the drift-gated retraining policy
+    exploits.
+
+    Stream ids are ``"t00"``, ``"t01"``, ... (lexicographically ordered, so
+    iteration order is deterministic)."""
+    if isinstance(scenarios, str):
+        scenarios = [scenarios] * n_streams
+    if len(scenarios) != n_streams:
+        raise ValueError(
+            f"{n_streams} streams but {len(scenarios)} scenarios")
+    shared = wind_turbine_series(n, seed=seed)
+    shared_dev = shared - shared.mean(axis=0, keepdims=True)
+    fleet: Dict[str, np.ndarray] = {}
+    for i, scenario in enumerate(scenarios):
+        own = wind_turbine_series(n, seed=seed + 1000 + i)
+        mixed = (own + shared_frac * shared_dev).astype(np.float32)
+        fleet[f"t{i:02d}"] = apply_scenario(
+            mixed, scenario, seed=seed + 2000 + i, alphas=alphas,
+            start=drift_start)
+    return fleet
+
+
+def fleet_windowed_streams(
+    n_streams: int,
+    n_windows: int,
+    records_per_window: int,
+    scenarios: Union[str, Sequence[str]] = "none",
+    *,
+    seed: int = 0,
+    hist_len: int = 1600,
+    alphas: Optional[np.ndarray] = None,
+    lag: int = 5,
+):
+    """A :func:`turbine_fleet` split the way every fleet entrypoint consumes
+    it: per stream, the first ``hist_len`` records are history, the rest is
+    the windowed live stream, and each stream is min-max scaled by *its own*
+    history.  Drift (when a stream's scenario has any) starts where the live
+    stream does.
+
+    Returns ``({stream_id: WindowedStream}, hist0_supervised)`` where
+    ``hist0_supervised`` is the first stream's scaled history as supervised
+    pairs — what the fleet's shared batch model pre-trains on.  Single
+    source of truth for the launcher's ``--streams`` mode
+    (``launch.edge_cloud.build_fleet_pipeline``) and the fleet tests."""
+    from repro_torch.core.windows import (WindowedStream, WindowPlan,
+                                         make_supervised)
+    from repro_torch.streams.normalize import MinMaxScaler
+
+    fleet_raw = turbine_fleet(
+        n_streams, hist_len + records_per_window * n_windows + lag,
+        seed=seed, scenarios=scenarios, alphas=alphas, drift_start=hist_len)
+    streams, hist0 = {}, None
+    for sid, series in fleet_raw.items():
+        hist, tail = series[:hist_len], series[hist_len:]
+        scaler = MinMaxScaler.fit(hist)
+        if hist0 is None:
+            hist0 = make_supervised(scaler.transform(hist), lag, 0)
+        streams[sid] = WindowedStream(
+            scaler.transform(tail),
+            WindowPlan(n_windows, records_per_window, lag=lag))
+    return streams, hist0

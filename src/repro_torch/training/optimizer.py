@@ -11,6 +11,13 @@ leaves (the global norm) add in the reference's order.  Where the reference
 returns new arrays, ``update`` writes the new params and moments into the
 tensors it was given: the caller hands the trained tree over.  Nothing in an
 update reads a device value on the host.
+
+A fleet's tree is stacked, every leaf with a leading stream axis S, and
+``update(..., stacked=True)`` is the reference's update under ``jax.vmap``:
+each stream clips by its own global norm (``global_norm(..., stacked=True)``,
+shape (S,)) and the rest is elementwise.  A ``FleetParamView`` (one stream
+of a stacked fit output) passes through the tree functions as the
+per-stream tree it stands for.
 """
 from __future__ import annotations
 
@@ -19,12 +26,15 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.stacked import materialize_params
+
 Params = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 def tree_leaves(tree: Params) -> List[torch.Tensor]:
     """The tensors of a nested dict, in sorted key order."""
+    tree = materialize_params(tree)
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
@@ -33,6 +43,7 @@ def tree_leaves(tree: Params) -> List[torch.Tensor]:
 def tree_map(fn: Callable[..., Any], tree: Params, *rest: Params) -> Params:
     """``fn`` applied leaf by leaf over nested dicts of one structure, in
     sorted key order."""
+    tree = materialize_params(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
@@ -63,8 +74,14 @@ def constant(lr: float) -> Schedule:
                                    device=step.device)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params, stacked: bool = False) -> torch.Tensor:
+    """The norm over every leaf, a scalar; with ``stacked``, each stream's
+    over its slices of every leaf, shape (S,)."""
     leaves = tree_leaves(tree)
+    if stacked:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2,
+                                        dim=tuple(range(1, x.dim())))
+                              for x in leaves))
     return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
 
 
@@ -85,10 +102,11 @@ def adamw(
                            device=tree_leaves(params)[0].device)
         return OptState(step=step, mu=zeros, nu=tree_map(torch.clone, zeros))
 
-    def update(grads: Params, state: OptState, params: Params):
+    def update(grads: Params, state: OptState, params: Params,
+               stacked: bool = False):
         step = state.step + 1
         stepf = step.float()
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, stacked)
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
         if clip_norm is not None:
             limit = torch.full((), clip_norm, dtype=torch.float32,
@@ -101,7 +119,9 @@ def adamw(
         with torch.no_grad():
             for g, m, v, p in zip(*map(tree_leaves,
                                        (grads, state.mu, state.nu, params))):
-                g = g.float() * scale
+                # a stream's clip scale over its slice of the leaf
+                g = g.float() * (scale.view(-1, *(1,) * (g.dim() - 1))
+                                 if stacked else scale)
                 m.copy_(b1 * m + (1 - b1) * g)
                 v.copy_(b2 * v + (1 - b2) * g * g)
                 delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)

@@ -2,7 +2,10 @@
 
 ``make_train_step(model, opt)`` takes the gradient of ``model.loss_fn`` with
 ``torch.autograd.grad`` and hands it to the optimizer, which updates the
-params in place.
+params in place.  With ``stacked=True`` it steps a fleet's stacked tree: the
+gradient of the **sum** of the per-stream losses, which is each stream's own
+gradient (a mean would scale every stream by 1/S), and each stream clipped
+by its own norm.
 """
 from __future__ import annotations
 
@@ -23,10 +26,10 @@ Params = Any
 Batch = Dict[str, torch.Tensor]
 
 
-def make_train_step(model: Model, opt: Optimizer):
+def make_train_step(model: Model, opt: Optimizer, stacked: bool = False):
     """(params, opt_state, batch) -> (params, opt_state, metrics).  The
     params tree is updated in place and returned; metrics stay on the
-    device."""
+    device, each of shape (S,) with ``stacked``."""
 
     def train_step(params: Params, opt_state: OptState, batch: Batch):
         with torch.enable_grad():
@@ -34,9 +37,10 @@ def make_train_step(model: Model, opt: Optimizer):
             # graph so the caller's tensors never require grad
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
             loss, metrics = model.loss_fn(live, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
+            grads = torch.autograd.grad(loss.sum() if stacked else loss,
+                                        tree_leaves(live))
         params, opt_state, opt_metrics = opt.update(
-            tree_unflatten(live, grads), opt_state, params)
+            tree_unflatten(live, grads), opt_state, params, stacked=stacked)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **opt_metrics,
                                    "loss": loss.detach()}

@@ -272,8 +272,8 @@ def test_stage_sync_sees_quantized_leaves():
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--real", "--streams", "3"], "fleet slice"),
-    (["--real", "--gated"], "fleet slice"),
+    (["--real", "--gated"], "requires --streams > 1"),
+    (["--real", "--streams", "3", "--qps", "8"], "request-plane slice"),
     (["--real", "--qps", "8"], "request-plane slice"),
     (["--real", "--elastic"], "elastic slice"),
     (["--chaos", "site_crash"], "chaos and health slice"),

@@ -54,6 +54,12 @@ ZAMBA2_MODULES = {"repro_torch.configs.zamba2_1_2b",
                   "repro_torch.kernels.ssm_scan.ops",
                   "repro_torch.kernels.ssm_scan.ref",
                   "repro_torch.models.ssm", "repro_torch.models.hybrid_arch"}
+# the modules of the fleet slice
+FLEET_MODULES = {"repro_torch.core.drift", "repro_torch.core.stages",
+                 "repro_torch.stacked", "repro_torch.kernels._streams",
+                 "repro_torch.runtime.executor", "repro_torch.runtime.modules",
+                 "repro_torch.streams.sources", "repro_torch.serving.quantize",
+                 "repro_torch.launch.edge_cloud"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -67,6 +73,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert ZOO_MODULES <= names
     assert RWKV_MODULES <= names
     assert ZAMBA2_MODULES <= names
+    assert FLEET_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

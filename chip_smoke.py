@@ -105,6 +105,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fit timed at S = 1, 8 and 64 beside 8 sequential fits (wall, device
    busy time, idle share); and the fleet launcher (``--streams 8
    --windows 4 --fast --gated``).
+13. the request plane (``request_phase``): the reference's serving runs
+   of ``tests/data/torch_parity_requests.npz`` (``serve_float``,
+   ``serve_int8``: the fleet fixture's fleet answering an open-loop trace
+   on 4 slots under fixed stage costs) replayed from the reference's
+   draws, every answer within ``REQUEST_ATOL`` and every stamp, latency
+   and statistic exactly; a mix of point, horizon and what-if queries
+   batched against unbatched within ``UNBATCHED_ATOL``, float and int8; a
+   float tick exactly one launch of #1, an int8 tick exactly seven of #4,
+   no plain version, at S = 3, 8 and 64 and with streams that have no
+   rows; ``lstm-paper`` fleets of 8 streams at 20 qps on 4 slots and 64 at
+   200 qps on 16 (4 windows x 250 records, measured walls), every request
+   answered at one stacked predict a tick, sustained >= offered QPS, with
+   the latency percentiles, tick walls, a warm tick's idle share,
+   staleness and restacks printed;
+14. the placement plane (``placement_phase``): the ``LoadForecaster``'s
+   fits (H = 8, F = 1) replayed from the reference's draws, every forecast
+   within ``FORECAST_RTOL``, one launch of #2 and of #3 a fit step and one
+   of #1 a forecast, #1-#3 at its shapes against their plain versions
+   twice, bit for bit; the reference's ``elastic_spike`` run replayed
+   (migrations, scale events and final workers exactly); the fleet
+   launcher with both planes on (``--streams 8 --windows 4 --fast --qps 20
+   --slots 4 --elastic``), float and ``--quantized``, every request
+   answered and no window dropped; then #1-#4 timed at the planes' shapes
+   (``plane_kernel_timings``).
 
 Every kernel is built in phase 2 and held to its plain version in phase 3.
 The one-step cell (#5) is held there at the reference's sweep, the serving
@@ -132,6 +156,7 @@ GPU; the port's CPU tests drive the same paths through them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -161,7 +186,9 @@ RECORD_COLUMNS = ("window", "rmse_batch", "rmse_speed", "rmse_hybrid",
 # largest H that fits; the weights are float32 unless a case names bfloat16
 # (the wrappers cast those once).  Every row count the main paths give the
 # serving kernel is a case: 250 and 245 (the windows), 256 and 245 (window
-# 0's mask check, padded and not), 2048 and 1595 (the pretrain's mask check);
+# 0's mask check, padded and not), 2048 and 1595 (the pretrain's mask check),
+# and the placement plane's LoadForecaster (16 rows, its mask check, and one,
+# its forecast, at T = 4, F = 1, H = 8: 32 gate columns, one warp);
 # then the kernel's other paths: wh from shared memory (H = 10, not a
 # multiple of 4; H = 72, over 64), two chunks of steps (T = 9, 12) and x
 # read from global memory (F = 449, where a chunk of x does not fit)
@@ -182,6 +209,8 @@ KERNEL_CASES = [
     (33, 9, 5, 10, "float32"),
     (40, 12, 5, 72, "float32"),
     (3, 4, 449, None, "float32"),
+    (16, 4, 1, 8, "float32"),
+    (1, 4, 1, 8, "float32"),
 ]
 KERNEL_ATOL = 1e-5
 # the training pair: the speed fit's and the pretrain's step shapes, the
@@ -194,7 +223,8 @@ KERNEL_ATOL = 1e-5
 # (H = 10, not a multiple of 4; H = 72 > 64), the second over two chunks,
 # and the largest H at F = 449, where #2's shared memory has no room for
 # x (read from global memory instead) and #3 runs one row and one step a
-# block
+# block; last the LoadForecaster's fit (16 rows, T = 4, F = 1, H = 8) and
+# one row of it
 TRAIN_SHAPES = ((64, 5, 5, 40), (256, 5, 5, 40))
 TRAIN_CASES = [
     (*TRAIN_SHAPES[0], "float32"),
@@ -211,6 +241,8 @@ TRAIN_CASES = [
     (17, 6, 3, 10, "float32"),
     (40, 9, 5, 72, "float32"),
     (3, 4, 449, None, "float32"),
+    (16, 4, 1, 8, "float32"),
+    (1, 4, 1, 8, "float32"),
 ]
 # the backward's tolerance is the reference's own for its gradient tests
 # (tests/test_kernels.py); the card sums in another order than the plain
@@ -426,15 +458,52 @@ FLEET_ATOL = 1e-4
 # the stream-axis kernels against their plain versions: S, and (B, T, F, H,
 # x dtype) of #1 and of #2 + #3 (a serving window, a speed-fit step, a
 # ragged batch with wh in shared memory and bf16 x), and (M, K, N, x dtype)
-# of #4 (the int8 fleet predict's three products and bf16 x)
+# of #4 (the int8 fleet predict's three products and bf16 x); then a
+# serving tick's row bucket (4 rows, the slots) and its three int8 products
 FLEET_KERNEL_S = (1, 3, 8)
 FLEET_LSTM_CASES = ((250, 5, 5, 40, "float32"), (64, 5, 5, 40, "float32"),
-                    (37, 5, 5, 10, "bfloat16"))
+                    (37, 5, 5, 10, "bfloat16"), (4, 5, 5, 40, "float32"))
 FLEET_INT8_SHAPES = ((5 * FLEET_PREDICT_ROWS, 5, 160),
                      (FLEET_PREDICT_ROWS, 40, 160),
                      (FLEET_PREDICT_ROWS, 40, 10))
 FLEET_INT8_CASES = (*((*shape, "float32") for shape in FLEET_INT8_SHAPES),
-                    (250, 40, 160, "bfloat16"))
+                    (250, 40, 160, "bfloat16"), (20, 5, 160, "float32"),
+                    (4, 40, 160, "float32"), (4, 40, 10, "float32"))
+
+# the request and placement planes: the reference's runs on the fixture's
+# fleet (tests/test_torch_query_plane.py writes them from the JAX package)
+REQUEST_FIXTURE = ROOT / "tests" / "data" / "torch_parity_requests.npz"
+# the runs: name -> (int8 sync?, elastic?), all in the integrated deployment
+# at a 5 s window period under fixed stage costs, so every stamp is a sum of
+# fixed costs
+REQUEST_RUNS = {"serve_float": (False, False),
+                "serve_int8": (True, False),
+                "elastic_spike": (False, True)}
+# answers to the reference's, absolute; each LoadForecaster forecast,
+# relative; batched answers to unbatched ones (bench_serving's gate)
+REQUEST_ATOL = 1e-5
+FORECAST_RTOL = 1e-5
+UNBATCHED_ATOL = 1e-6
+# the scale-ahead ramp of tests/test_placement.py: per-worker edge loads fed
+# to a proactive controller, tick by tick, until it scales
+RAMP_LOADS = tuple(0.07 * (k + 1) for k in range(10))
+# the LoadForecaster's fit and predict shapes (B, T, F, H): a 16-row bucket
+# of lag-4 one-feature windows, H = 8, and one row
+LOAD_FIT_SHAPE = (16, 4, 1, 8)
+LOAD_PREDICT_SHAPE = (1, 4, 1, 8)
+# the request plane at scale (phase 13 (d)): lstm-paper fleets of S streams
+# at the launcher's fast settings (BENCH_fleet.json's: 250 records a window,
+# 10 epochs at batch 64) over REQUEST_WINDOWS windows of a 5 s period, at
+# (S, offered QPS, slots): BENCH_serving.json's rate at 8 streams, then 64
+REQUEST_SCALE = ((8, 20.0, 4), (64, 200.0, 16))
+REQUEST_WINDOWS = 4
+REQUEST_SCALE_PERIOD = 5.0
+# a warm tick's busy time and idle share: means over this many ticks
+TICK_PROFILE_CALLS = 50
+# the launcher with both planes on (phase 14 (c))
+PLANES_LAUNCHER = ["--real", "--streams", "8", "--windows", "4", "--fast",
+                   "--qps", "20", "--slots", "4", "--elastic",
+                   "--deployment", "integrated"]
 
 
 def _import_port():
@@ -1016,6 +1085,353 @@ def expected_bus_launches(res, quantized: bool, lag: int) -> dict:
     return {"lstm_sequence_fused": 3 + 2 * trained + len(res.records)
             + len(speed) - int8_served,
             "int8_matmul": (lag + 2) * (int8_served + 1) if quantized else 0}
+
+
+# ---------------------------------------------------------------------------
+# The request and placement planes, on any device
+# ---------------------------------------------------------------------------
+
+
+def _scalars(tree: dict) -> dict:
+    """A fixture's group of numpy scalars as Python values."""
+    return {k: v.item() for k, v in tree.items()}
+
+
+def load_forecaster_replay(lf, draws: list, device) -> dict:
+    """Make ``lf`` (a ``LoadForecaster``) fit from draws made elsewhere: its
+    ``k``-th fit from ``draws[k]`` (init params, permutation indices),
+    through the port's ``fit_window``, and log every forecast and every
+    prediction of the fitted LSTM (before the trend floor).  Returns the
+    log: {"calls": [(series, value, fitted?)], "fits": [trained params],
+    "preds": [the LSTM's scaled-down prediction]}."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+
+    fc = lf._forecaster()
+    log: dict = {"calls": [], "fits": [], "preds": []}
+
+    def train(data, params, key):
+        init, idx = draws[len(log["fits"])]
+        t0 = time.perf_counter()
+        trained = fc.engine.fit_window(
+            data, params_from_numpy(init, device),
+            torch.as_tensor(np.asarray(idx, np.int64)))
+        log["fits"].append(trained)
+        return trained, time.perf_counter() - t0
+
+    def predict(params, x):
+        y = fc.predict(params, x)
+        log["preds"].append(float(np.asarray(y).reshape(-1)[0]))
+        return y
+
+    lf._fc = dataclasses.replace(fc, train=train, predict=predict)
+    forecast = lf.forecast
+
+    def logged(series):
+        n0 = len(log["fits"])
+        value = forecast(series)
+        log["calls"].append((np.asarray(series, np.float64), value,
+                             len(log["fits"]) > n0))
+        return value
+
+    lf.forecast = logged
+    return log
+
+
+def check_forecasts(fx: dict, run: str, log: dict, rtol: float) -> float:
+    """Hold a replay's forecasts to the reference's run ``run``: the same
+    calls on the same series, the same ones fitted, each value and each
+    fitted LSTM's own prediction (before the trend floor) to ``rtol``
+    (relative).  Returns the largest relative error."""
+    calls = log["calls"]
+    want = fx[f"lf/{run}/value"]
+    if len(calls) != len(want):
+        raise AssertionError(f"{run}: {len(calls)} forecasts, the "
+                             f"reference made {len(want)}")
+    worst = 0.0
+    ref_preds = fx[f"lf/{run}/pred"]
+    if len(log["preds"]) != len(ref_preds):
+        raise AssertionError(f"{run}: {len(log['preds'])} LSTM predictions, "
+                             f"the reference made {len(ref_preds)}")
+    for k, (got, ref) in enumerate(zip(log["preds"], ref_preds)):
+        err = abs(got - ref) / max(abs(ref), 1e-12)
+        worst = max(worst, err)
+        if err > rtol:
+            raise AssertionError(f"{run} fit {k}: the LSTM predicts {got}, "
+                                 f"the reference's {ref} ({err:.3g} rel)")
+    for i, (series, value, fitted) in enumerate(calls):
+        ref_series = fx[f"lf/{run}/series{i}"]
+        if not np.array_equal(series, ref_series):
+            raise AssertionError(f"{run} forecast {i}: series {series}, the "
+                                 f"reference's {ref_series}")
+        if fitted != bool(fx[f"lf/{run}/fitted"][i]):
+            raise AssertionError(f"{run} forecast {i}: fitted {fitted}")
+        err = abs(value - want[i]) / max(abs(want[i]), 1e-12)
+        worst = max(worst, err)
+        if err > rtol:
+            raise AssertionError(f"{run} forecast {i}: {value}, the "
+                                 f"reference's {want[i]} ({err:.3g} rel)")
+    return worst
+
+
+def _load_forecaster(fx: dict, run: str, device):
+    """A ``LoadForecaster`` of run ``run``'s configuration on ``device``,
+    replaying its fits from the fixture's draws (each fit's init params and
+    permutation indices, in fit order).  Returns (forecaster, log)."""
+    _import_port()
+    from repro_torch.runtime import LoadForecaster
+
+    lf = LoadForecaster(device=device,
+                        **_scalars(unflatten(fx, f"lfcfg/{run}")))
+    draws = [(unflatten(fx, f"lf/{run}/init{k}"), fx[f"lf/{run}/idx{k}"])
+             for k in range(int(fx[f"lf/{run}/n_fits"]))]
+    return lf, load_forecaster_replay(lf, draws, device)
+
+
+def run_ramp_replay(fx: dict, device) -> tuple:
+    """``RAMP_LOADS`` fed tick by tick to a proactive controller of the
+    fixture's ``ramp`` configuration, its forecaster replaying the
+    reference's fits on ``device``, until it scales.  Returns (decisions as
+    (workers, migrations) per tick, the controller, the forecaster's
+    log)."""
+    _import_port()
+    from repro_torch.runtime import PlacementController, SiteSignal
+
+    lf, log = _load_forecaster(fx, "ramp", device)
+    ctl = PlacementController(forecaster=lf,
+                              **_scalars(unflatten(fx, "ctl/ramp")))
+    decisions = []
+    for k, load in enumerate(RAMP_LOADS):
+        d = ctl.step(float(k), [SiteSignal("edge", "edge", 1, 1, load),
+                                SiteSignal("cloud", "cloud", 4, 4, 0.0)], [])
+        decisions.append((d.workers, d.migrations))
+        if d.workers:
+            break
+    return decisions, ctl, log
+
+
+def run_request_replay(fx: dict, device, name: str, fleet_fx=None,
+                       **overrides):
+    """The reference's request- or placement-plane run ``name`` of
+    ``REQUEST_RUNS`` through the port on ``device``: the fleet fixture's
+    fleet in the integrated deployment, every fleet fit from the
+    reference's draws (``fleet_replay``) and, elastic, every
+    ``LoadForecaster`` fit too.  ``overrides`` replace the run's
+    ``FleetBusExecutor`` arguments.  Returns (the ``FleetBusRunResult``, the
+    executor, the fleet forecaster, the forecaster's log or None)."""
+    _import_port()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import FleetStages, lstm_fleet_forecaster
+    from repro_torch.runtime import (
+        CostModel,
+        FleetBusExecutor,
+        PlacementController,
+        edge_cloud_integrated,
+        paper_topology,
+    )
+    from repro_torch.serving.query_plane import open_loop_trace
+
+    fleet_fx = load_fixture(FLEET_FIXTURE) if fleet_fx is None else fleet_fx
+    setup = unflatten(fleet_fx, "fsetup")
+    streams, _ = fleet_data(setup)
+    ff = lstm_fleet_forecaster(get_config("lstm-paper"),
+                               epochs=int(setup["speed_epochs"]),
+                               batch_size=int(setup["speed_batch_size"]),
+                               device=device)
+    fleet_replay(ff, fleet_draws(fleet_fx),
+                 fleet_window_keys(setup, streams), device)
+    rs = _scalars(unflatten(fx, "rsetup"))
+    quantized, elastic = REQUEST_RUNS[name]
+    holder: dict = {}
+    kw: dict = {}
+    if elastic:
+        def factory():
+            lf, holder["log"] = _load_forecaster(fx, name, device)
+            return PlacementController(
+                forecaster=lf, **_scalars(unflatten(fx, f"ctl/{name}")))
+
+        kw = dict(qps=rs["qps"], elastic=True, controller_factory=factory,
+                  stage_costs=_scalars(unflatten(fx, "costs/spike")))
+    else:
+        kw = dict(query_trace=open_loop_trace(
+            list(streams), rs["qps"], rs["n_requests"], start=rs["start"],
+            seed=rs["trace_seed"]),
+                  stage_costs=_scalars(unflatten(fx, "costs/serve")))
+    kw.update(overrides)
+    ex = FleetBusExecutor(
+        FleetStages.build(ff, mode="dynamic"), edge_cloud_integrated(),
+        paper_topology(), CostModel(ingest_s=rs["ingest_s"]),
+        window_period_s=rs["period"], serve_slots=rs["slots"],
+        quantized_sync=quantized, **kw)
+    res = ex.run(streams, params_from_numpy(unflatten(fleet_fx, "batch"),
+                                            device),
+                 int(setup["run_key"]))
+    return res, ex, ff, holder.get("log")
+
+
+def serve_mix(ids) -> list:
+    """bench_serving's mix, handcrafted: point, horizon and what-if queries,
+    several from one stream in a tick, in three waves (submitted every
+    other tick, so slots free and refill between them)."""
+    _import_port()
+    from repro_torch.serving.query_plane import ForecastQuery
+
+    a, b, c = ids[0], ids[1 % len(ids)], ids[2 % len(ids)]
+    return [
+        [ForecastQuery(uid=0, stream=a),
+         ForecastQuery(uid=1, stream=a, kind="horizon", horizon=3),
+         ForecastQuery(uid=2, stream=b, kind="whatif", perturb_scale=1.1,
+                       perturb_offset=0.05)],
+        [ForecastQuery(uid=3, stream=c, kind="horizon", horizon=2),
+         ForecastQuery(uid=4, stream=b),
+         ForecastQuery(uid=5, stream=a, kind="whatif", perturb_scale=0.9,
+                       perturb_offset=-0.02)],
+        [ForecastQuery(uid=6, stream=a),
+         ForecastQuery(uid=7, stream=a, kind="horizon", horizon=3)],
+    ]
+
+
+def batched_vs_unbatched(ff, params: list, windows: dict,
+                         n_slots: int = 3) -> dict:
+    """``serve_mix`` through ``QueryPlane`` and ``ServingStage`` (one
+    stacked predict a tick over ``params``, one tree a stream of
+    ``windows``, {stream: its window's x}), each answer against
+    ``answer_query_unbatched`` over the batch-of-one predict
+    ``ff.single.predict`` from the same context.  Returns the largest
+    |difference|, the ticks and the stacked predicts."""
+    _import_port()
+    from repro_torch.core.stages import ServingStage
+    from repro_torch.serving.query_plane import (
+        QueryPlane,
+        answer_query_unbatched,
+    )
+
+    ids = list(windows)
+    waves = serve_mix(ids)
+    n_queries = sum(len(w) for w in waves)
+    plane = QueryPlane(ids, n_slots)
+    for sid, x in windows.items():
+        plane.observe_window(sid, x, 0)
+    stage = ServingStage(ff)
+    tick, done = 0, []
+    while plane.busy or waves:
+        if waves and tick % 2 == 0:
+            for q in waves.pop(0):
+                plane.submit(q)
+        plane.admit(float(tick))
+        batch = plane.build_batch()
+        if batch is not None:
+            by_stream, xs = batch
+            out = stage(params_seq=params, xs=xs)
+            plane.apply(by_stream, out["preds"], {sid: 0 for sid in ids})
+        done += plane.retire(float(tick))
+        tick += 1
+    if sorted(q.uid for q in done) != list(range(n_queries)):
+        raise AssertionError(f"{len(done)} of {n_queries} queries finished")
+    worst = 0.0
+    for q in done:
+        want = answer_query_unbatched(ff.single.predict,
+                                      params[ids.index(q.stream)], q,
+                                      np.asarray(windows[q.stream])[-1])
+        if len(q.answer) != q.horizon or len(want) != q.horizon:
+            raise AssertionError(f"query {q.uid}: {len(q.answer)} answers, "
+                                 f"horizon {q.horizon}")
+        worst = max(worst, max(abs(a - b) for a, b in zip(q.answer, want)))
+    return {"worst": worst, "ticks": stage.ticks,
+            "dispatches": stage.dispatches, "queries": len(done)}
+
+
+# the per-query columns of the fixture, each held exactly
+QUERY_EXACT = ("uid", "stream", "kind", "horizon", "arrived_at",
+               "admitted_at", "finished_at", "model_window",
+               "context_window", "served_fallback")
+
+
+def query_columns(queries, latency: dict) -> dict:
+    """A run's queries as the fixture's columns: ``QUERY_EXACT``, the
+    answers (n, 3) padded with nan, and each query's latency."""
+    cols = {c: np.array([getattr(q, c) for q in queries]) for c in QUERY_EXACT}
+    ans = np.full((len(queries), 3), np.nan)
+    for i, q in enumerate(queries):
+        ans[i, :len(q.answer)] = q.answer
+    cols["answer"] = ans
+    cols["latency"] = np.array([latency.get(q.uid, np.nan) for q in queries])
+    return cols
+
+
+def _events_equal(got: list, want: list, rtol: float) -> float:
+    """A controller's events against the reference's: the same events in
+    order, every field exact but a forecast's value (to ``rtol``).  Returns
+    the largest relative forecast error."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} controller events, the reference "
+                             f"has {len(want)}: {got} vs {want}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g["event"] == "forecast" and w["event"] == "forecast":
+            err = abs(g["value"] - w["value"]) / abs(w["value"])
+            worst = max(worst, err)
+            if err > rtol or {**g, "value": 0} != {**w, "value": 0}:
+                raise AssertionError(f"event {g}, the reference's {w}")
+        elif g != w:
+            raise AssertionError(f"event {g}, the reference's {w}")
+    return worst
+
+
+def check_request_run(fx: dict, name: str, res, ex, atol: float,
+                      rtol: float = FORECAST_RTOL) -> dict:
+    """Hold the port's run ``name`` to the reference's: every query's
+    stamps, windows and fallback flag and its latency exactly, its answers
+    to ``atol``; the serving statistics exactly; the fleet's dispatch
+    counts; each stream's records (``check_fleet_records``); elastic, the
+    migrations, stream sites, worker counts and controller events exactly
+    but each forecast to ``rtol``.  Returns the largest errors."""
+    want = {c: fx[f"q/{name}/{c}"] for c in (*QUERY_EXACT, "answer",
+                                              "latency")}
+    got = query_columns(res.queries, ex._query_lat)
+    if len(got["uid"]) != len(want["uid"]):
+        raise AssertionError(f"{name}: {len(got['uid'])} queries, the "
+                             f"reference has {len(want['uid'])}")
+    for c in (*QUERY_EXACT, "latency"):
+        if not np.array_equal(got[c], want[c]):
+            bad = np.flatnonzero(got[c] != want[c])[:5]
+            raise AssertionError(f"{name}: query {c} differs at {bad}: "
+                                 f"{got[c][bad]} vs {want[c][bad]}")
+    if not np.array_equal(np.isnan(got["answer"]), np.isnan(want["answer"])):
+        raise AssertionError(f"{name}: answer counts differ")
+    err = float(np.nanmax(np.abs(got["answer"] - want["answer"])))
+    if err > atol:
+        raise AssertionError(f"{name}: answers off by {err}")
+    ref_serving = json.loads(str(fx[f"serving/{name}"]))
+    if res.serving != ref_serving:
+        raise AssertionError(f"{name}: serving {res.serving}, the "
+                             f"reference's {ref_serving}")
+    counts = json.loads(str(fx[f"dispatch/{name}"]))
+    mine = {"train": res.train_dispatches, "infer": res.infer_dispatches}
+    if mine != counts:
+        raise AssertionError(f"{name}: dispatches {mine}, the reference's "
+                             f"{counts}")
+    worst = {"answer": err,
+             "records": check_fleet_records(fx, name, res, rtol=atol,
+                                            atol=atol)}
+    if REQUEST_RUNS[name][1]:
+        pl = json.loads(str(fx[f"placement/{name}"]))
+        mine = res.placement
+        for k in ("mode", "control_interval_s", "migrations", "stream_site",
+                  "base_workers", "final_workers"):
+            if mine[k] != pl[k]:
+                raise AssertionError(f"{name}: placement {k} {mine[k]}, "
+                                     f"the reference's {pl[k]}")
+        ctl, ref_ctl = mine["controller"], pl["controller"]
+        for k in ("ticks", "migrations", "scale_events",
+                  "proactive_scale_events", "forecaster_fits"):
+            if ctl[k] != ref_ctl[k]:
+                raise AssertionError(f"{name}: controller {k} {ctl[k]}, "
+                                     f"the reference's {ref_ctl[k]}")
+        worst["event"] = _events_equal(ctl["events"], ref_ctl["events"], rtol)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -3241,14 +3657,20 @@ def _kernel_device_ms(fn, names, calls=100):
     return out
 
 
-def _busy(fn, label: str) -> dict:
+def _busy(fn, label: str, calls: int = 1) -> dict:
     """Wall of one unprofiled warm call of ``fn`` (which ends synced), and
     the device's busy time, idle share and top kernels by name over a
-    profiled call."""
+    profiled call.  With ``calls`` > 1, each a mean over that many calls
+    after warm-up: a call of a few device events can end before the
+    profiler has collected them."""
+    if calls > 1:
+        for _ in range(10):
+            fn()
     t0 = time.perf_counter()
-    fn()
-    wall_s = time.perf_counter() - t0
-    spans = _profile(fn)
+    for _ in range(calls):
+        fn()
+    wall_s = (time.perf_counter() - t0) / calls
+    spans = _profile(fn) if calls == 1 else _profile_calls(fn, calls)
     if not spans:
         print(f"profile {label}: the profiler saw no device events; device "
               "time not measured")
@@ -3257,13 +3679,15 @@ def _busy(fn, label: str) -> dict:
     for s, e in sorted((s, e) for _, s, e in spans):  # union of intervals
         busy_us += max(0.0, e - max(s, covered))
         covered = max(covered, e)
+    busy_us /= calls
     by_name: dict = {}
     for name, s, e in spans:
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / calls
     idle = 1 - busy_us / 1e6 / wall_s
+    per = f" a call (means over {calls} calls)" if calls > 1 else ""
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms in "
-          f"{len(spans)} device events against {1e3 * wall_s:.3f} ms of "
-          f"unprofiled wall: idle share {idle:.4f}")
+          f"{len(spans) / calls:g} device events against {1e3 * wall_s:.3f} "
+          f"ms of unprofiled wall{per}: idle share {idle:.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile {label}: device time {us / 1e3:.3f} ms  {name[:90]}")
     return {"wall_s": wall_s, "busy_ms": busy_us / 1e3, "idle_share": idle,
@@ -3460,25 +3884,11 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     engine = Engine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
     engine.generate(prompts, new)  # warm: cuBLAS handles, the allocator
 
-    counts = {label: 0 for label in plain}
-    saved = {label: getattr(mod, attr) for label, (mod, attr) in plain.items()}
-
-    def counting(label, fn):
-        def call(*args, **kwargs):
-            counts[label] += 1
-            return fn(*args, **kwargs)
-        return call
-
-    for label, (mod, attr) in plain.items():
-        setattr(mod, attr, counting(label, saved[label]))
-    try:
+    with counting_calls(plain) as counts:
         _reset_launches(*kernels)
         tokens, stats = engine.generate(prompts, new)
         launches = {w.__name__: w.launches for w in kernels}
         by_kernel = _by_kernel(kernels)
-    finally:
-        for label, (mod, attr) in plain.items():
-            setattr(mod, attr, saved[label])
     # the prefill and new - 1 decode steps; in bf16 with D % 8 == 0 every
     # prefill attention (S x G > 64 rows a KV head) takes flash attention's
     # wgmma prefill, every decode step (G <= 64 rows) its split decode; every
@@ -3771,6 +4181,515 @@ def fleet_phase() -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"fleet phase: {out['wall_s']:.3f} s without its kernel checks",
           flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def counting_calls(plain: dict):
+    """Count the calls of each plain version ``plain`` names ({label:
+    (module, attribute)}) while the block runs; yields {label: calls}."""
+    counts = {label: 0 for label in plain}
+    saved = {label: getattr(mod, attr) for label, (mod, attr) in plain.items()}
+
+    def counting(label, fn):
+        def call(*args, **kwargs):
+            counts[label] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for label, (mod, attr) in plain.items():
+        setattr(mod, attr, counting(label, saved[label]))
+    try:
+        yield counts
+    finally:
+        for label, (mod, attr) in plain.items():
+            setattr(mod, attr, saved[label])
+
+
+def _lstm_plain():
+    from repro_torch.kernels.int8_matmul import ref as int8_ref
+    from repro_torch.kernels.lstm_cell import ref as lstm_ref
+
+    return {"lstm_sequence_ref": (lstm_ref, "lstm_sequence_ref"),
+            "lstm_sequence_fwd_train_ref": (lstm_ref,
+                                            "lstm_sequence_fwd_train_ref"),
+            "lstm_sequence_bwd_ref": (lstm_ref, "lstm_sequence_bwd_ref"),
+            "int8_matmul_ref": (int8_ref, "int8_matmul_ref")}
+
+
+def tick_patterns(S: int, slots: int, x_row: np.ndarray) -> dict:
+    """Serving ticks' batches over S streams: every stream at ``slots``
+    rows, one stream with 3 rows and the rest none, and only the last
+    stream with one row."""
+    def rows(counts):
+        return [np.repeat(x_row[None], n, axis=0) for n in counts]
+
+    return {"all": rows([slots] * S),
+            "one_of_S": rows([3] + [0] * (S - 1)),
+            "last_only": rows([0] * (S - 1) + [1])}
+
+
+def check_tick_launches(ff, params_float: list, x_row: np.ndarray,
+                        slots: int, label: str) -> dict:
+    """A serving tick's launches at every ``tick_patterns`` batch: a float
+    tick exactly one of #1, an int8 tick exactly ``lag + 2`` of #4 (the
+    input projection, the recurrent steps, Dense(10)), and no other kernel
+    and no plain version, whatever S and however many streams have no
+    rows."""
+    _import_port()
+    from repro_torch.core.stages import ServingStage
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.serving.quantize import quantize_fleet
+
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    lag = x_row.shape[0]
+    stage = ServingStage(ff)
+    out = {}
+    for sync, params in (("float", params_float),
+                         ("int8", quantize_fleet(params_float,
+                                                 min_size=64))):
+        want = {"lstm_sequence_fused": 1 if sync == "float" else 0,
+                "lstm_sequence_fwd_train": 0, "lstm_sequence_bwd": 0,
+                "int8_matmul": lag + 2 if sync == "int8" else 0}
+        for pattern, xs in tick_patterns(len(params), slots, x_row).items():
+            stage(params_seq=params, xs=xs)  # the restack, if any
+            with counting_calls(_lstm_plain()) as plain:
+                _reset_launches(*wrappers)
+                preds = stage(params_seq=params, xs=xs)["preds"]
+                got = {w.__name__: w.launches for w in wrappers}
+            ok = (got == want and not any(plain.values()) and all(
+                p.shape == (len(x), 1) and np.isfinite(p).all()
+                for p, x in zip(preds, xs)))
+            out[f"{sync}_{pattern}"] = got
+            print(f"{label}: a {sync} tick at S={len(params)}, {pattern}: "
+                  f"launches {got}, plain calls {plain} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: {sync} tick {pattern} "
+                                     f"launched {got} (want {want}), plain "
+                                     f"{plain}")
+    return out
+
+
+def plane_kernel_timings() -> dict:
+    """#1-#4 timed at the planes' shapes, each beside its plain version and
+    its bound: #1 at a float serving tick's stacked batch (S = 8 at 4 rows,
+    S = 64 at 16: every slot busy) and at the LoadForecaster's forecast
+    (1, 4, 1, 8) beside cuDNN; #2 and #3 at its fit step (16, 4, 1, 8)
+    beside cuDNN's forward and backward; #4 at an int8 tick's three
+    products at S = 8 and 64 beside ``bmm(x, q.float()) * scale``.
+    Returns {kernel: {shape: numbers}}."""
+    import torch
+
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ref
+
+    fused = lstm_kernel.lstm_sequence_fused
+    fwd_train = lstm_kernel.lstm_sequence_fwd_train
+    bwd = lstm_kernel.lstm_sequence_bwd
+    int8 = int8_kernel.int8_matmul
+    out: dict = {"lstm_sequence_fused": {}, "lstm_sequence_fwd_train": {},
+                 "lstm_sequence_bwd": {}, "int8_matmul": {}}
+
+    def record(name, shape, kern, plain, names, bound, library=None):
+        dev = _kernel_device_ms(kern, names, calls=50)
+        numbers = {"ms": _median_ms(kern, n=100),
+                   "device_ms": (None if None in dev.values()
+                                 else sum(dev.values())),
+                   "plain_ms": _median_ms(plain, n=20, warmup=2),
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "library_ms": (None if library is None
+                                  else _median_ms(library, n=100))}
+        out[name]["x".join(map(str, shape))] = numbers
+        print(f"timing {name} at {shape} float32 (the planes' shape): "
+              f"kernel {numbers['ms']:.6f} ms (device "
+              f"{numbers['device_ms']} ms), plain {numbers['plain_ms']:.6f} "
+              f"ms, library {numbers['library_ms']} ms, bound "
+              f"{numbers['bound_ms']:.6f} ms ({numbers['bound_by']})",
+              flush=True)
+
+    T, F, H = 5, 5, 40
+    with torch.inference_mode():
+        for S, _, slots in REQUEST_SCALE:
+            x, wx, wh, b, _ = _fleet_lstm_inputs(S, slots, T, F, H,
+                                                 "float32", 1300 + S)
+            one_ms, by = _lstm_bound(slots, T, F, H)
+            record("lstm_sequence_fused", (S, slots, T, F, H),
+                   lambda: fused(x, wx, wh, b),
+                   lambda: ref.lstm_sequence_ref(x, wx, wh, b),
+                   [SERVE_FWD_KERNEL], (S * one_ms, by))
+            for M, K, N in ((slots * T, F, 4 * H), (slots, H, 4 * H),
+                            (slots, H, 10)):
+                xq, q, scale = _fleet_int8_inputs(S, M, K, N, "float32",
+                                                  1400 + S)
+                one_ms, by = _int8_bound(M, K, N)
+                record("int8_matmul", (S, M, K, N),
+                       lambda: int8(xq, q, scale),
+                       lambda: int8_matmul_ref(xq, q, scale),
+                       ["int8_matmul_kernel"], (S * one_ms, by),
+                       lambda: torch.bmm(xq, q.float()) * scale[:, None, :])
+        B, T, F, H = LOAD_PREDICT_SHAPE
+        x, wx, wh, b = _kernel_inputs(B, T, F, H, "float32", seed=1500)
+        lstm = _cudnn_lstm(wx, wh, b)
+        record("lstm_sequence_fused", LOAD_PREDICT_SHAPE,
+               lambda: fused(x, wx, wh, b),
+               lambda: ref.lstm_sequence_ref(x, wx, wh, b),
+               [SERVE_FWD_KERNEL], _lstm_bound(B, T, F, H),
+               lambda: lstm(x))
+    B, T, F, H = LOAD_FIT_SHAPE
+    (x, wx, wh, b), res, dh, _ = _train_case(B, T, F, H, "float32", 1600)
+    dc = torch.zeros_like(dh)
+    lstm = _cudnn_lstm(wx, wh, b)
+    x_lib = x.clone().requires_grad_(True)
+    wrt = [x_lib, lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0]
+    h_lib = lstm(x_lib)[1][0][0]
+    record("lstm_sequence_fwd_train", LOAD_FIT_SHAPE,
+           lambda: fwd_train(x, wx, wh, b),
+           lambda: ref.lstm_sequence_fwd_train_ref(x, wx, wh, b),
+           [TRAIN_FWD_KERNEL], _fwd_train_bound(B, T, F, H),
+           lambda: lstm(x_lib))
+    record("lstm_sequence_bwd", LOAD_FIT_SHAPE,
+           lambda: bwd(x, *res, wx, wh, dh, dc),
+           lambda: ref.lstm_sequence_bwd_ref(x, *res, wx, wh, dh, dc),
+           BWD_KERNELS, _bwd_bound(B, T, F, H),
+           lambda: torch.autograd.grad(h_lib, wrt, grad_outputs=dh,
+                                       retain_graph=True))
+    return out
+
+
+def load_kernel_check() -> float:
+    """#1, #2 and #3 at the LoadForecaster's shapes (``LOAD_FIT_SHAPE``,
+    ``LOAD_PREDICT_SHAPE``) against their plain versions, each run twice,
+    bit for bit.  Returns the largest difference."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ref
+
+    worst = 0.0
+    for i, (B, T, F, H) in enumerate((LOAD_FIT_SHAPE, LOAD_PREDICT_SHAPE)):
+        (x, wx, wh, b), res, dh, dc = _train_case(B, T, F, H, "float32",
+                                                  1700 + i)
+        with torch.inference_mode():
+            fwd = [lstm_kernel.lstm_sequence_fused(x, wx, wh, b)
+                   for _ in range(2)]
+            fwd_ref = ref.lstm_sequence_ref(x, wx, wh, b, return_state=True)
+        trains = [lstm_kernel.lstm_sequence_fwd_train(x, wx, wh, b)
+                  for _ in range(2)]
+        train_ref = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
+        grads = [lstm_kernel.lstm_sequence_bwd(x, *res, wx, wh, dh, dc)
+                 for _ in range(2)]
+        grads_ref = ref.lstm_sequence_bwd_ref(x, *res, wx, wh, dh, dc)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for a, b2 in (fwd, trains, grads)
+                   for u, v in zip(a, b2))
+        errs = {"#1": max(float((u - v).abs().max())
+                          for u, v in zip(fwd[0], fwd_ref)),
+                "#2": max(float((u - v).abs().max())
+                          for u, v in zip(trains[0], train_ref)),
+                "#3": max(float((u - v).abs().max())
+                          for u, v in zip(grads[0], grads_ref))}
+        ok = (same and errs["#1"] <= KERNEL_ATOL and errs["#2"] <= KERNEL_ATOL
+              and all(bool(((u - v).abs() <= BWD_ATOL + BWD_RTOL * v.abs())
+                           .all()) for u, v in zip(grads[0], grads_ref)))
+        print(f"placement (a) kernels at the LoadForecaster's {(B, T, F, H)}: "
+              f"max|d| {errs}; two runs each "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"#1-#3 at {(B, T, F, H)}: {errs}, reruns "
+                                 f"equal {same}")
+        worst = max(worst, *errs.values())
+    return worst
+
+
+def request_phase() -> dict:
+    """The request plane on the card.  (a) The fixture's ``serve_float``
+    and ``serve_int8`` runs replayed from the reference's draws
+    (``run_request_replay``): answers within ``REQUEST_ATOL``, every stamp,
+    latency and statistic exactly.  (b) ``serve_mix`` batched against
+    unbatched over the float replay's installed models, float and int8,
+    within ``UNBATCHED_ATOL``.  (c) A tick's launches
+    (``check_tick_launches``).  (d) At scale, ``REQUEST_SCALE``, with
+    measured walls: every request answered, none starved, one stacked
+    predict a tick, sustained >= offered QPS, a finite p99; the latency
+    percentiles, the median tick wall, a warm tick's busy device time and
+    idle share, staleness, fallback share and restacks printed.  Returns
+    the phase's numbers."""
+    import torch
+
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.launch import edge_cloud
+    from repro_torch.runtime import (
+        FleetBusExecutor,
+        edge_cloud_integrated,
+        paper_topology,
+    )
+    from repro_torch.serving.quantize import quantize_fleet
+
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    out: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    fx, fleet_fx = load_fixture(REQUEST_FIXTURE), load_fixture(FLEET_FIXTURE)
+
+    # (a) the replays
+    replays = {}
+    for name in ("serve_float", "serve_int8"):
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        res, ex, ff, _ = run_request_replay(fx, "cuda", name, fleet_fx)
+        wall = time.perf_counter() - t0
+        out["launches"][name] = {w.__name__: w.launches for w in wrappers}
+        worst = check_request_run(fx, name, res, ex, REQUEST_ATOL)
+        s = res.serving
+        print(f"request (a) {name}: replayed in {wall:.3f} s; "
+              f"{s['n_answered']}/{s['n_requests']} answered over "
+              f"{s['ticks']} ticks at {s['dispatches_per_tick']} stacked "
+              f"predicts a tick; answers within {worst['answer']:.3g} of the "
+              f"reference's (<= {REQUEST_ATOL}), every stamp, latency, "
+              f"window and fallback flag and the statistics equal; records "
+              f"within {worst['records']:.3g}; launches "
+              f"{out['launches'][name]}", flush=True)
+        replays[name] = (res, ex, ff)
+        out[name] = {"worst": worst, "serving": s}
+
+    # (b) batched against unbatched on the installed models
+    res, ex, ff = replays["serve_float"]
+    setup = unflatten(fleet_fx, "fsetup")
+    streams, _ = fleet_data(setup)
+    last = int(setup["n_windows"]) - 1
+    windows = {sid: streams[sid].supervised(last)["x"] for sid in ex.ids}
+    params = [ex._fleet.state(sid).speed_params for sid in ex.ids]
+    out["batched"] = {}
+    for sync, ps in (("float", params),
+                     ("int8", quantize_fleet(params, min_size=64))):
+        got = batched_vs_unbatched(ff, ps, windows)
+        out["batched"][sync] = got
+        print(f"request (b) {sync}: {got['queries']} queries in "
+              f"{got['ticks']} ticks ({got['dispatches']} stacked "
+              f"predicts); batched within {got['worst']:.3g} of unbatched "
+              f"(<= {UNBATCHED_ATOL})", flush=True)
+        if got["worst"] > UNBATCHED_ATOL or got["dispatches"] != got["ticks"]:
+            raise AssertionError(f"request (b) {sync}: {got}")
+
+    # (c) a tick's launches at S = 3
+    x_row = np.asarray(windows[ex.ids[0]])[-1]
+    out["tick_launches"] = {"S3": check_tick_launches(
+        ff, params, x_row, int(unflatten(fx, "rsetup")["slots"]),
+        "request (c)")}
+
+    # (d) at scale, measured walls
+    out["scale"] = {}
+    for S, qps, slots in REQUEST_SCALE:
+        t0 = time.perf_counter()
+        stages, bp, fleet, cost = edge_cloud.build_fleet_pipeline(
+            S, REQUEST_WINDOWS, fast=True, device="cuda")
+        ff = stages.speed_training.forecaster
+        ex = FleetBusExecutor(stages, edge_cloud_integrated(),
+                              paper_topology(), cost,
+                              window_period_s=REQUEST_SCALE_PERIOD, qps=qps,
+                              serve_slots=slots)
+        _reset_launches(*wrappers)
+        with counting_calls(_lstm_plain()) as plain:
+            t1 = time.perf_counter()
+            res = ex.run(fleet, bp, 1)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+        s = res.serving
+        scale = ex._site("serving").compute_scale
+        tick_walls = [w * scale for w in res.ledger.comp["serving"]]
+        ids = ex.ids
+        params = [ex._fleet.state(sid).speed_params for sid in ids]
+        x_row = np.asarray(fleet[ids[0]].supervised(REQUEST_WINDOWS - 1)
+                           ["x"])[-1]
+        xs = [x_row[None] if i < slots else np.zeros((0,) + x_row.shape,
+                                                     np.float32)
+              for i in range(S)]
+        busy = _busy(lambda: ex.stages.serving(params_seq=params, xs=xs),
+                     f"request (d) a warm serving tick, S={S}, {slots} rows",
+                     calls=TICK_PROFILE_CALLS)
+        numbers = {
+            "S": S, "slots": slots, "offered_qps": s["offered_qps"],
+            "sustained_qps": s["sustained_qps"], "p50_s": s["p50_s"],
+            "p99_s": s["p99_s"], "ticks": s["ticks"],
+            "dispatches_per_tick": s["dispatches_per_tick"],
+            "n_requests": s["n_requests"], "n_answered": s["n_answered"],
+            "n_starved": s["n_starved"],
+            "tick_wall_median_ms": 1e3 * statistics.median(tick_walls),
+            "tick_busy_ms": busy["busy_ms"],
+            "tick_idle_share": busy["idle_share"],
+            "max_staleness": s["max_staleness"],
+            "fallback_frac": s["fallback_frac"], "restacks": ff.restacks,
+            "run_s": run_s, "launches": {w.__name__: w.launches
+                                         for w in wrappers},
+            "plain_calls": dict(plain)}
+        out["scale"][f"S{S}"] = numbers
+        print(f"request (d) S={S}, {qps} qps offered, {slots} slots, "
+              f"{REQUEST_WINDOWS} windows x 250 records: run {run_s:.3f} s "
+              f"(build and pretrain {t1 - t0:.3f} s); "
+              f"{s['n_answered']}/{s['n_requests']} answered, "
+              f"{s['n_starved']} starved, {s['ticks']} ticks at "
+              f"{s['dispatches_per_tick']} stacked predicts a tick; offered "
+              f"{s['offered_qps']:.3f} qps, sustained "
+              f"{s['sustained_qps']:.3f} qps; latency p50 "
+              f"{1e3 * s['p50_s']:.3f} ms p99 {1e3 * s['p99_s']:.3f} ms "
+              f"(virtual); tick wall median "
+              f"{numbers['tick_wall_median_ms']:.3f} ms (host clock after a "
+              f"sync); max staleness {s['max_staleness']}, fallback share "
+              f"{s['fallback_frac']:.3f}; {ff.restacks} restacks; launches "
+              f"{numbers['launches']}; plain calls {dict(plain)}",
+              flush=True)
+        if (s["n_answered"] != s["n_requests"] or s["n_starved"]
+                or s["dispatches_per_tick"] != 1.0
+                or s["sustained_qps"] < s["offered_qps"]
+                or not np.isfinite(s["p99_s"]) or any(plain.values())):
+            raise AssertionError(f"request (d) S={S}: {s}, plain {plain}")
+        out["tick_launches"][f"S{S}"] = check_tick_launches(
+            ff, params, x_row, slots, f"request (c) S={S}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"request phase: {out['wall_s']:.3f} s", flush=True)
+    return out
+
+
+def placement_phase() -> dict:
+    """The placement plane on the card.  (a) The fixture's
+    ``LoadForecaster`` fits (the ramp's and the spike's) replayed from the
+    reference's draws: every forecast within ``FORECAST_RTOL``, one launch
+    of #2 and of #3 a fit step, one of #1 a forecast (and two a padded
+    bucket's mask check), no plain version; #1-#3 at its shapes against
+    their plain versions (``load_kernel_check``).  (b) The fixture's
+    ``elastic_spike`` run replayed (``check_request_run``).  (c) The fleet
+    launcher with both planes on (``PLANES_LAUNCHER``), float and
+    ``--quantized``: the request plane's and the placement lines printed,
+    every request answered at one stacked predict a tick, every
+    post-warm-up window of every stream scored.  Returns the phase's
+    numbers."""
+    import io
+
+    import torch
+
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.launch import edge_cloud
+    from repro_torch.training.compiled import bucket_examples
+
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    out: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    fx, fleet_fx = load_fixture(REQUEST_FIXTURE), load_fixture(FLEET_FIXTURE)
+
+    # (a) the forecaster's fits
+    out["kernels_worst"] = load_kernel_check()
+    for run in ("ramp", "elastic_spike"):
+        lf, log = _load_forecaster(fx, run, "cuda")
+        series = [fx[f"lf/{run}/series{i}"]
+                  for i in range(len(fx[f"lf/{run}/value"]))]
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        with counting_calls(_lstm_plain()) as plain:
+            for s in series:
+                lf.forecast(s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {w.__name__: w.launches for w in wrappers}
+        worst = check_forecasts(fx, run, log, FORECAST_RTOL)
+        sizes = [len(s[-lf.history:]) - lf.lag
+                 for s, (_, _, fitted) in zip(series, log["calls"])
+                 if fitted]
+        buckets = [bucket_examples(n, 16) for n in sizes]
+        steps = sum(lf.epochs * nb // 16 for nb in buckets)
+        padded = {nb for n, nb in zip(sizes, buckets) if n < nb}
+        want = {"lstm_sequence_fused": len(sizes) + 2 * len(padded),
+                "lstm_sequence_fwd_train": steps, "lstm_sequence_bwd": steps,
+                "int8_matmul": 0}
+        out["launches"][f"load_{run}"] = got
+        out[f"load_{run}"] = {"fits": len(sizes), "worst_rel": worst,
+                              "wall_s": wall}
+        print(f"placement (a) LoadForecaster {run}: {len(series)} forecasts, "
+              f"{len(sizes)} fits ({lf.epochs} epochs of one step at batch "
+              f"16) in {wall:.3f} s, every forecast within {worst:.3g} "
+              f"(relative) of the reference's; launches {got}, expected "
+              f"{want}; plain calls {dict(plain)}", flush=True)
+        if got != want or any(plain.values()) or not sizes:
+            raise AssertionError(f"LoadForecaster {run}: launches {got}, "
+                                 f"expected {want}, plain {plain}")
+
+    # (b) the spike
+    _reset_launches(*wrappers)
+    t0 = time.perf_counter()
+    res, ex, _, log = run_request_replay(fx, "cuda", "elastic_spike",
+                                         fleet_fx)
+    wall = time.perf_counter() - t0
+    worst = check_request_run(fx, "elastic_spike", res, ex, REQUEST_ATOL)
+    worst["forecast"] = check_forecasts(fx, "elastic_spike", log,
+                                        FORECAST_RTOL)
+    pl, s = res.placement, res.serving
+    out["spike"] = {"worst": worst, "migrations": pl["migrations"],
+                    "final_workers": pl["final_workers"],
+                    "controller": {k: v for k, v in pl["controller"].items()
+                                   if k != "events"},
+                    "serving": s, "wall_s": wall}
+    print(f"placement (b) elastic_spike replayed in {wall:.3f} s: "
+          f"{len(pl['migrations'])} migrations "
+          f"{[(m['t'], m['sid'], m['to']) for m in pl['migrations']]}, "
+          f"{pl['controller']['scale_events']} scale events "
+          f"({pl['controller']['proactive_scale_events']} proactive), "
+          f"workers {pl['base_workers']} -> {pl['final_workers']}, all equal "
+          f"to the reference's; answers within {worst['answer']:.3g}, "
+          f"forecasts within {worst['forecast']:.3g}; "
+          f"{s['n_answered']}/{s['n_requests']} answered", flush=True)
+
+    # (c) the launcher with both planes on
+    out["launcher"] = {}
+    for path, flags in (("float", []), ("int8", ["--quantized"])):
+        args = edge_cloud.parse_args([*PLANES_LAUNCHER, *flags])
+        buf = io.StringIO()
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            runs = edge_cloud.run_real_fleet(args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        print(text, end="")
+        res = runs["edge-cloud-integrated"]
+        s, pl = res.serving, res.placement
+        scored = {sid: len(r.records) for sid, r in res.results.items()}
+        dropped = sum(args.windows - 1 - n for n in scored.values())
+        out["launches"][f"planes_launcher_{path}"] = {
+            w.__name__: w.launches for w in wrappers}
+        out["launcher"][path] = {
+            "wall_s": wall, "serving": s, "dropped_windows": dropped,
+            "migrations": len(pl["migrations"]),
+            "scale_events": pl["controller"]["scale_events"],
+            "forecaster_fits": pl["controller"]["forecaster_fits"],
+            "final_workers": pl["final_workers"],
+            "e2e_s": res.mean_e2e_s()}
+        print(f"placement (c) launcher {' '.join(PLANES_LAUNCHER + flags)}: "
+              f"{wall:.3f} s; {s['n_answered']}/{s['n_requests']} answered "
+              f"at {s['dispatches_per_tick']} stacked predicts a tick; "
+              f"{dropped} dropped windows; {len(pl['migrations'])} "
+              f"migrations, {pl['controller']['scale_events']} scale "
+              f"events, {pl['controller']['forecaster_fits']} forecaster "
+              f"fits; launches {out['launches'][f'planes_launcher_{path}']}",
+              flush=True)
+        if ("request plane:" not in text or "elastic (proactive" not in text
+                or s["n_answered"] != s["n_requests"] or s["n_starved"]
+                or s["dispatches_per_tick"] != 1.0 or dropped):
+            raise AssertionError(f"placement (c) {path}: {s}, scored "
+                                 f"{scored}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"placement phase: {out['wall_s']:.3f} s", flush=True)
     return out
 
 
@@ -4105,6 +5024,18 @@ def main() -> int:
         raise AssertionError("the fleet launched a zoo kernel or the "
                              "one-step lstm_cell")
 
+    # phases 13 and 14: the request plane and the placement plane (each
+    # launch count read over its own run), then #1-#4 timed at their shapes
+    t0 = time.perf_counter()
+    request = request_phase()
+    placement = placement_phase()
+    plane_rows = plane_kernel_timings()
+    print(f"planes: {time.perf_counter() - t0:.3f} s with their kernel "
+          "timings", flush=True)
+    if flash.launches or wkv.launches or ssm.launches or cell.launches:
+        raise AssertionError("the planes launched a zoo kernel or the "
+                             "one-step lstm_cell")
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -4154,9 +5085,13 @@ def main() -> int:
                           for path, counts in bus_launches.items()},
                        "scan": scan["launches"].get(kname, 0),
                        **{path: counts.get(kname, 0)
-                          for path, counts in fleet["launches"].items()}}
+                          for path, counts in fleet["launches"].items()},
+                       **{path: counts.get(kname, 0)
+                          for plane in (request, placement)
+                          for path, counts in plane["launches"].items()}}
             row["fleet"] = fleet_rows[kname] if kname in fleet_rows \
                 else None
+            row["planes"] = plane_rows.get(kname)
         if kname in (flash.__name__, ssm.__name__, wkv.__name__):
             row["launches_by_kernel_by_path"] = {
                 f"{arch}_{what}": run[f"{what}_launches_by_kernel"][kname]
@@ -4179,6 +5114,10 @@ def main() -> int:
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))
+    print(json.dumps({"request": {k: v for k, v in request.items()
+                                  if k != "launches"},
+                      "placement": {k: v for k, v in placement.items()
+                                    if k != "launches"}}, default=str))
     for arch, run in served.items():
         print(json.dumps({arch: {k: v for k, v in run.items()
                                  if k not in ("busy", "near_ties")} | {

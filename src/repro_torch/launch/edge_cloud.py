@@ -8,14 +8,20 @@ stage's wall measured on the card and rescaled to its site's hardware class
         [--scenario none|gradual|abrupt|seasonal] [--static]
     PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
         --streams 8 --windows 4 --fast --gated --deployment integrated
+    PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
+        --streams 8 --windows 4 --fast --qps 20 --slots 4 --elastic \\
+        --deployment integrated [--quantized]
 
 It prints each deployment's Table-3 breakdown, its mean end-to-end window
 latency and model-topic bytes, and the paper's claims as measured, PASS or
 FAIL.  With ``--streams N > 1`` it runs a fleet of N correlated turbines
 through ``FleetBusExecutor`` (``--gated``: drift-gated retraining;
-``--quantized``: per-stream int8 sync).  The reference's other modes
-(``--qps``, ``--elastic``, ``--chaos``, the calibrated simulation) raise,
-naming the slice that brings each.
+``--quantized``: per-stream int8 sync; ``--qps``/``--slots``: the request
+plane, user queries answered by serving ticks on ``--slots`` batch slots;
+``--elastic [reactive|proactive]``: the placement plane) and prints the
+request plane's and the placement plane's lines.  The reference's other
+modes (``--chaos``, the calibrated simulation) raise, naming the slice that
+brings each.
 """
 from __future__ import annotations
 
@@ -143,8 +149,10 @@ def run_real_fleet(args, device=None) -> Dict[str, Any]:
     """N streams on real LSTM compute through the TopicBus on ``device``
     (the current CUDA device by default): per-stream topics under one
     deployment, the whole fleet's speed training one stacked fit a window,
-    optionally drift-gated.  Prints each deployment's breakdown and returns
-    {deployment name: FleetBusRunResult}."""
+    optionally drift-gated, with the request plane (``args.qps``,
+    ``args.slots``) and the placement plane (``args.elastic``) when asked.
+    Prints each deployment's breakdown and returns {deployment name:
+    FleetBusRunResult}."""
     from repro_torch.core.drift import DriftGate
     from repro_torch.runtime import (
         ALL_DEPLOYMENTS,
@@ -170,7 +178,9 @@ def run_real_fleet(args, device=None) -> Dict[str, Any]:
         gate = DriftGate() if args.gated else None
         ex = FleetBusExecutor(stages, dep, paper_topology(), cost,
                               window_period_s=args.period, gate=gate,
-                              quantized_sync=args.quantized)
+                              quantized_sync=args.quantized,
+                              qps=args.qps, serve_slots=args.slots,
+                              elastic=args.elastic or False)
         res = results[name] = ex.run(streams, bp, 1)
         print(f"\n[{dep.name}] {args.streams} streams x {args.windows} "
               f"windows ({args.scenario} scenario"
@@ -196,6 +206,32 @@ def run_real_fleet(args, device=None) -> Dict[str, Any]:
                 f"{sid}:{st['retrained']}R/{st['skipped']}S"
                 for sid, st in sorted(per.items()))
             print(f"  gate: {gated}")
+        if res.serving is not None:
+            s = res.serving
+            print(f"  request plane: {s['n_answered']}/{s['n_requests']} "
+                  f"answered ({s['n_starved']} starved) over "
+                  f"{s['ticks']} ticks, "
+                  f"{s['dispatches_per_tick']:.2f} dispatches/tick, "
+                  f"{s['slots']} slots")
+            print(f"    offered={s['offered_qps']:.1f} qps "
+                  f"sustained={s['sustained_qps']:.1f} qps "
+                  f"p50={s['p50_s']*1e3:.2f}ms p99={s['p99_s']*1e3:.2f}ms")
+        if res.placement is not None:
+            pl = res.placement
+            ctl = pl["controller"]
+            print(f"  elastic ({pl['mode']}, interval "
+                  f"{pl['control_interval_s']:.1f}s): "
+                  f"{ctl['migrations']} migrations, "
+                  f"{ctl['scale_events']} scale events "
+                  f"({ctl['proactive_scale_events']} proactive), "
+                  f"{ctl['ticks']} control ticks")
+            for m in pl["migrations"]:
+                print(f"    t={m['t']:.1f}s {m['sid']}: {m['from']} -> "
+                      f"{m['to']} ({m['state_nbytes']/1e3:.1f} KB state)")
+            placed = " ".join(f"{sid}@{site}" for sid, site
+                              in sorted(pl["stream_site"].items()))
+            print(f"    final placement: {placed}; workers "
+                  f"{pl['base_workers']} -> {pl['final_workers']}")
         if res.failures:
             print(f"  !! {len(res.failures)} capacity failures "
                   f"(first: {res.failures[0]})")
@@ -333,9 +369,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="drift-gated retraining (fleet mode): stationary "
                         "streams skip their window's speed training and "
                         "keep serving the prior model")
-    # the reference's other modes, refused until their slices land
-    p.add_argument("--qps", type=float, default=0.0)
-    p.add_argument("--elastic", nargs="?", const="proactive", default=None)
+    p.add_argument("--qps", type=float, default=0.0,
+                   help="request plane: open-loop user-query arrival rate "
+                        "across the fleet (point, horizon and what-if "
+                        "forecast queries on per-stream request topics, "
+                        "answered by serving ticks, one stacked predict a "
+                        "tick, from the fleet's device-resident models; "
+                        "fleet mode, i.e. --real --streams > 1)")
+    p.add_argument("--slots", type=int, default=4,
+                   help="request plane: fixed batch slots in the "
+                        "slot-recycling batcher")
+    p.add_argument("--elastic", nargs="?", const="proactive", default=None,
+                   choices=["reactive", "proactive"],
+                   help="the elastic placement plane (fleet mode): a "
+                        "PlacementController migrates hot or queued "
+                        "streams to the cloud and cold ones back to the "
+                        "edge, and scales Site.workers from queue-depth "
+                        "EWMAs; 'proactive' (the default when the flag is "
+                        "bare) also scales ahead of load by forecasting "
+                        "each site's backlog with a small LSTM on the card")
+    # the reference's chaos scenarios, refused until their slice lands
     p.add_argument("--chaos", default=None)
     args = p.parse_args(argv)
 
@@ -345,12 +398,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.gated and args.streams <= 1:
         p.error("--gated requires --streams > 1 (drift-gated retraining is "
                 "a fleet-executor policy)")
-    if args.qps > 0:
-        p.error("--qps: the request plane comes with the port's request-plane "
-                "slice")
-    if args.elastic:
-        p.error("--elastic: the placement plane comes with the port's "
-                "elastic slice")
+    if args.qps > 0 and not (args.real and args.streams > 1):
+        p.error("--qps requires fleet mode (--real with --streams > 1): the "
+                "request plane serves from the fleet executor's "
+                "device-resident state")
+    if args.elastic and not (args.real and args.streams > 1):
+        p.error("--elastic requires fleet mode (--real with --streams > 1): "
+                "placement is a per-stream fleet decision")
     if not args.real:
         p.error("the calibrated simulation (the default without --real) "
                 "replays benchmarks/calibrate.py's constants and comes with "

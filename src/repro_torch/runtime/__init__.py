@@ -1,7 +1,8 @@
 """The port's runtime: the topic bus and its sites and links, the paper's
-three deployments, latency accounting, and the executors (the synchronous
-loop and the bus-driven ``BusExecutor``, and their fleet counterparts
-``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
+three deployments, latency accounting, the elastic placement plane
+(``PlacementController`` and its ``LoadForecaster``), and the executors (the
+synchronous loop and the bus-driven ``BusExecutor``, and their fleet
+counterparts ``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
 from repro_torch.runtime.bus import (  # noqa: F401
     CapacityError,
     DeadLetter,
@@ -21,6 +22,13 @@ from repro_torch.runtime.deployment import (  # noqa: F401
     cloud_centric,
     edge_centric,
     edge_cloud_integrated,
+)
+from repro_torch.runtime.placement import (  # noqa: F401
+    LoadForecaster,
+    PlacementController,
+    PlacementDecision,
+    SiteSignal,
+    StreamSignal,
 )
 from repro_torch.runtime.executor import (  # noqa: F401
     BusExecutor,

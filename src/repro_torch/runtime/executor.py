@@ -23,7 +23,8 @@ edge serves it through the int8 kernel.
 The fleet executors lift both to N streams under one deployment:
 ``InProcessFleetExecutor`` is the synchronous loop over a ``FleetStages``
 set, and ``FleetBusExecutor`` multiplexes the bus topics per stream
-(``stream/window/t03``, one wildcard subscription per module).  Each window
+(``stream/window/t03``, one wildcard subscription per module, or one exact
+subscription per stream under the placement plane).  Each window
 costs one stacked fleet fit (each step one launch of each training kernel
 for the whole fleet) and one stacked predict per inference stage; the bus
 executor aggregates every stream's window-``t`` payload at a stage before
@@ -31,12 +32,16 @@ it fires, then fans the per-stream results back onto their own topics.
 Both consult an optional ``DriftGate`` so stationary streams skip their
 retrain and keep serving their prior model.  Stream ``i``'s training keys
 are the chain a single-stream run seeded with its root gets
-(``fleet_key_chains``).
+(``fleet_key_chains``).  ``FleetBusExecutor`` also carries the request plane
+(user queries answered by serving ticks, one stacked predict a tick) and
+the elastic placement plane (``runtime.placement``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import time
 
 import numpy as np
 
@@ -59,22 +64,35 @@ from repro_torch.runtime.bus import (
     TopicBus,
     Topology,
 )
-from repro_torch.runtime.deployment import Deployment
+from repro_torch.runtime.deployment import STREAM_MODULES, Deployment
 from repro_torch.runtime.latency import CostModel, LatencyLedger
 from repro_torch.runtime.modules import (
     T_BATCH,
+    T_CTRL,
     T_HYBRID,
     T_MODEL,
+    T_REQUEST,
+    T_RESPONSE,
     T_RESYNC,
     T_SPEED,
     T_STREAM,
     stream_topic,
+)
+from repro_torch.runtime.placement import (
+    PlacementController,
+    SiteSignal,
+    StreamSignal,
 )
 from repro_torch.serving.quantize import (
     quantize_fleet,
     quantize_tree,
     tree_checksum,
     tree_nbytes,
+)
+from repro_torch.serving.query_plane import (
+    QueryPlane,
+    latency_stats,
+    open_loop_trace,
 )
 from repro_torch.stacked import materialize_params
 from repro_torch.streams.injection import BusInjector
@@ -670,15 +688,24 @@ class FleetBusRunResult(FleetRunResult):
     capacity failures, per-stream end-to-end window latency, the message
     log, every undeliverable publish, the batch and speed inference
     stages' windows served and stacked predicts spent, and each stream's
-    final speed-model params (materialized).  The request plane's, the
-    chaos plane's, the placement plane's and the health plane's results
-    come with those planes."""
+    final speed-model params (materialized).  A run that served queries
+    adds every query (answers and stamps filled in) and the ``serving``
+    statistics; a run with a placement controller adds ``placement``.  The
+    chaos plane's and the health plane's results come with those planes."""
 
     ledger: LatencyLedger = field(default_factory=LatencyLedger)
     failures: List[str] = field(default_factory=list)
     e2e_s: Dict[StreamId, Dict[int, float]] = field(default_factory=dict)
     message_log: List[Message] = field(default_factory=list)
+    # the request plane (when the run served queries): every query object
+    # and the aggregate latency, QPS and dispatch statistics
+    queries: List[Any] = field(default_factory=list)
+    serving: Optional[Dict[str, Any]] = None
     dead_letters: List[Any] = field(default_factory=list)
+    # the elastic placement plane (when the run had a controller): its
+    # decisions and events, realized migrations, the final per-stream site
+    # map and the worker counts before and after
+    placement: Optional[Dict[str, Any]] = None
     infer_dispatches: Optional[Dict[str, Dict[str, int]]] = None
     final_params: Optional[Dict[StreamId, Any]] = None
 
@@ -838,11 +865,7 @@ class InProcessFleetExecutor:
 # the FleetBusExecutor arguments of the planes the port has not yet, and the
 # plane that brings each (ROADMAP.md, Queue A)
 _UNPORTED_PLANES = {
-    "qps": "the request plane", "query_trace": "the request plane",
     "fault_plane": "the chaos plane", "health_plane": "the health plane",
-    "elastic": "the placement plane",
-    "controller_factory": "the placement plane",
-    "control_interval_s": "the placement plane",
 }
 
 
@@ -867,6 +890,16 @@ class FleetBusExecutor(_BusRuntime):
     (``quantize_fleet``), ships the int8 tree with its int8 bytes, and the
     edge serves the fleet through the int8 kernel's stream axis.
 
+    ``qps > 0`` (or an explicit ``query_trace``) turns on the request
+    plane: user queries arrive open-loop on ``serve/request/<sid>``, a
+    slot-recycling :class:`~repro_torch.serving.query_plane.QueryPlane`
+    admits them into ``serve_slots`` fixed batch slots, and every serving
+    tick answers all active slots across all streams in **one** stacked
+    predict (``ServingStage``) over the device-resident serving params,
+    scheduled under the serving site's worker occupancy, its answers
+    published on ``serve/response/<sid>``; per-request latency and
+    sustained QPS land in ``FleetBusRunResult.serving``.
+
     Robustness, as in the reference: ``ModelSync`` verifies each publish's
     checksum and a corrupt one is never installed (the sync site
     re-requests it on ``model/rerequest/<sid>``; the training site re-sends
@@ -874,20 +907,33 @@ class FleetBusExecutor(_BusRuntime):
     aggregation armed with an ``agg_timeout_s`` flush dispatches the
     streams that arrived and quarantines a stream after
     ``quarantine_after`` missed training windows (the flush is armed by
-    the chaos plane's fault plane, which comes with that plane); the
-    staleness watchdog (``_serving_params``, called by the request plane,
-    which comes with that plane) serves the batch model for a stream whose
-    model lags its context by more than ``staleness_bound`` windows.  Until
-    those planes are ported, no run reaches the flush or the watchdog.
-    ``stage_costs`` (module -> seconds) replaces measured walls
-    with fixed virtual costs; ``batch_refresh`` retrains batch models from
-    archived drifted windows on its cadence.
+    the chaos plane's fault plane, which comes with that plane, so no run
+    reaches it yet); the staleness watchdog (``_serving_params``, which
+    every serving tick calls) serves the batch model for a stream whose
+    model lags its context by more than ``staleness_bound`` windows and
+    stamps those answers ``served_fallback``.  ``stage_costs`` (module ->
+    seconds) replaces measured walls with fixed virtual costs;
+    ``batch_refresh`` retrains batch models from archived drifted windows
+    on its cadence.
 
-    The request plane (``qps``, ``query_trace``), the chaos plane
-    (``fault_plane``), the health plane (``health_plane``) and the
-    placement plane (``elastic``, ``controller_factory``,
-    ``control_interval_s``) raise ``NotImplementedError`` naming the plane
-    that brings them."""
+    ``elastic=True`` (or ``"reactive"``/``"proactive"``) turns on the
+    placement plane: per-stream (exact-topic) subscriptions instead of the
+    one wildcard a module, and a
+    :class:`~repro_torch.runtime.placement.PlacementController` (a fresh
+    one a run, from ``controller_factory`` when given) driven by a periodic
+    ``ctrl/tick`` beat every ``control_interval_s`` (half a window period
+    by default) at the training site.  It migrates hot or queued streams
+    to the cloud and cold ones back to the edge (republishing their
+    subscriptions and handing their device state across,
+    ``FleetState.handoff``), and grows or shrinks ``Site.workers``
+    reactively from queue-depth EWMAs and proactively from its LSTM load
+    forecast.  The aggregated one-predict-a-window path is untouched:
+    aggregation happens above placement, so a migration only changes where
+    occupancy is charged and results fan out from.
+
+    The chaos plane (``fault_plane``) and the health plane
+    (``health_plane``) raise ``NotImplementedError`` naming the plane that
+    brings them."""
 
     def __init__(
         self,
@@ -903,7 +949,9 @@ class FleetBusExecutor(_BusRuntime):
         quantized_sync: bool = False,
         quant_min_size: int = 64,
         qps: float = 0.0,
+        serve_slots: int = 4,
         query_trace: Optional[List[Any]] = None,
+        query_seed: int = 0,
         fault_plane: Optional[Any] = None,
         health_plane: Optional[Any] = None,
         stage_costs: Optional[Dict[str, float]] = None,
@@ -912,16 +960,13 @@ class FleetBusExecutor(_BusRuntime):
         quarantine_after: int = 2,
         max_resync: int = 3,
         elastic: Union[bool, str] = False,
-        controller_factory: Optional[Callable[[], Any]] = None,
+        controller_factory: Optional[
+            Callable[[], PlacementController]] = None,
         control_interval_s: Optional[float] = None,
         batch_refresh: Optional[BatchRefresh] = None,
     ):
-        given = {"qps": qps > 0, "query_trace": query_trace is not None,
-                 "fault_plane": fault_plane is not None,
-                 "health_plane": health_plane is not None,
-                 "elastic": bool(elastic),
-                 "controller_factory": controller_factory is not None,
-                 "control_interval_s": control_interval_s is not None}
+        given = {"fault_plane": fault_plane is not None,
+                 "health_plane": health_plane is not None}
         for arg, on in given.items():
             if on:
                 raise NotImplementedError(
@@ -937,6 +982,10 @@ class FleetBusExecutor(_BusRuntime):
         self.gate = gate
         self.quantized_sync = quantized_sync
         self.quant_min_size = quant_min_size
+        self.qps = qps
+        self.serve_slots = serve_slots
+        self.query_trace = query_trace
+        self.query_seed = query_seed
         self.fault_plane = None
         self.stage_costs = stage_costs
         self.staleness_bound = staleness_bound
@@ -944,11 +993,38 @@ class FleetBusExecutor(_BusRuntime):
                               else 0.25 * window_period_s)
         self.quarantine_after = quarantine_after
         self.max_resync = max_resync
+        # the elastic placement plane: False (static), True/"proactive"
+        # (reactive + forecast-ahead scaling), or "reactive".  A fresh
+        # controller is built a run, so repeated runs replay identically.
+        self.elastic = elastic
+        self.controller_factory = controller_factory
+        self.control_interval_s = control_interval_s
+        self.controller: Optional[PlacementController] = None
         self.batch_refresh = batch_refresh
 
     @property
     def _single_stages(self) -> PipelineStages:
         return self.stages.single
+
+    @property
+    def _serving_enabled(self) -> bool:
+        return (self.qps > 0 or self.query_trace is not None) \
+            and self.stages.serving is not None
+
+    def _serving_site_name(self) -> str:
+        """Where serving ticks run: an explicit ``serving`` placement when
+        the deployment names one, else with speed inference (the paper's
+        edge serving role), so serving contends for the same
+        ``Site.workers`` pool as the inference chain."""
+        try:
+            return self.dep.site_of("serving")
+        except KeyError:
+            return self.dep.site_of("speed_inference")
+
+    def _site(self, module: str):
+        if module == "serving":
+            return self.topo.sites[self._serving_site_name()]
+        return super()._site(module)
 
     # -- per-run state -------------------------------------------------------
 
@@ -973,18 +1049,80 @@ class FleetBusExecutor(_BusRuntime):
         self._inject_t: Dict[Tuple[StreamId, int], float] = {}
         self.e2e_s: Dict[StreamId, Dict[int, float]] = {sid: {} for sid in ids}
         self._ys: Dict[Tuple[StreamId, int], np.ndarray] = {}
+        self._qplane: Optional[QueryPlane] = (
+            QueryPlane(ids, self.serve_slots)
+            if self._serving_enabled else None)
+        self.queries: List[Any] = []
+        self._query_lat: Dict[int, float] = {}
+        self._tick_pending = False
         self._squant_bp: Dict[StreamId, Any] = {}
+        # the placement plane's per-run state: each stream's current site
+        # (seeded from the deployment's static pins), its live topic
+        # registrations (so a migration unsubscribes exactly what it
+        # subscribed), realized migrations, and the base worker counts
+        # (restored after the run so one topology object is reusable)
+        self._stream_site: Dict[StreamId, str] = dict(
+            self.dep.stream_placement)
+        self._stream_subs: Dict[StreamId, List[Tuple[str, str, Any]]] = {}
+        self._migrations: List[Dict[str, Any]] = []
+        self._base_workers: Dict[str, int] = {
+            name: s.workers for name, s in self.topo.sites.items()}
+        self._controller: Optional[PlacementController] = None
+        if self.elastic:
+            if self.controller_factory is not None:
+                self._controller = self.controller_factory()
+            else:
+                self._controller = PlacementController(
+                    proactive=(self.elastic != "reactive"),
+                    device=self.stages.speed_training.forecaster.device)
+            self.controller = self._controller
         self._wire()
+
+    def _module_site(self, module: str, sid: Optional[StreamId] = None) -> str:
+        """Where ``module`` runs for stream ``sid``: the stream's current
+        elastic placement when it has one and the module migrates per
+        stream, else the deployment's static site."""
+        if (sid is not None and module in STREAM_MODULES
+                and sid in self._stream_site):
+            return self._stream_site[sid]
+        return self.dep.site_of(module, sid)
+
+    def _subscribe_stream(self, sid: StreamId) -> None:
+        """Register the stream's per-stream topic subscriptions at its
+        *current* site (the placement plane's replacement for the one
+        wildcard a module), remembering each so a migration can republish
+        them elsewhere."""
+        regs: List[Tuple[str, str, Any]] = []
+        for base, module, fn in (
+                (T_STREAM, "batch_inference", self._on_batch),
+                (T_STREAM, "speed_inference", self._on_speed),
+                (T_BATCH, "hybrid_inference", self._on_part),
+                (T_SPEED, "hybrid_inference", self._on_part),
+                (T_MODEL, "model_sync", self._on_model_sync)):
+            topic = stream_topic(base, sid)
+            site = self._module_site(module, sid)
+            self.bus.subscribe(topic, site, fn)
+            regs.append((topic, site, fn))
+        self._stream_subs[sid] = regs
 
     def _wire(self) -> None:
         dep, bus = self.dep, self.bus
         sub = lambda base, module, fn: bus.subscribe(
             base + "/+", dep.site_of(module), fn)
-        sub(T_STREAM, "batch_inference", self._on_batch)
-        sub(T_STREAM, "speed_inference", self._on_speed)
-        sub(T_BATCH, "hybrid_inference", self._on_part)
-        sub(T_SPEED, "hybrid_inference", self._on_part)
-        sub(T_MODEL, "model_sync", self._on_model_sync)
+        if self.elastic:
+            # per-stream (exact-topic) subscriptions for the migratable
+            # inference chain: each stream message is delivered in the
+            # wildcard path's order (batch, speed, then the wildcard subs
+            # below), but each stream's handlers live at *its* site and can
+            # be republished on migration
+            for sid in self.ids:
+                self._subscribe_stream(sid)
+        else:
+            sub(T_STREAM, "batch_inference", self._on_batch)
+            sub(T_STREAM, "speed_inference", self._on_speed)
+            sub(T_BATCH, "hybrid_inference", self._on_part)
+            sub(T_SPEED, "hybrid_inference", self._on_part)
+            sub(T_MODEL, "model_sync", self._on_model_sync)
         sub(T_STREAM, "speed_training", self._on_train)
         sub(T_STREAM, "data_sync", self._on_data_sync)
         sub(T_HYBRID, "archiving", self._on_archive)
@@ -992,6 +1130,17 @@ class FleetBusExecutor(_BusRuntime):
         # checksum-failure recovery: the sync site asks the training site to
         # re-publish a corrupted model
         sub(T_RESYNC, "speed_training", self._on_resync)
+        if self._controller is not None:
+            bus.subscribe(T_CTRL, self._ctrl_site_name(), self._on_ctrl_tick)
+        if self._serving_enabled:
+            # the request plane: stream windows feed the serving contexts,
+            # request topics feed the admission queue, responses land back
+            # at the user-facing injection site
+            serve_site = self._serving_site_name()
+            bus.subscribe(T_STREAM + "/+", serve_site, self._on_serve_ctx)
+            bus.subscribe(T_REQUEST + "/+", serve_site, self._on_request)
+            bus.subscribe(T_RESPONSE + "/+", dep.site_of("data_injection"),
+                          self._on_response)
 
     # -- handlers ------------------------------------------------------------
 
@@ -1092,7 +1241,7 @@ class FleetBusExecutor(_BusRuntime):
         module = "batch_inference" if kind == "batch" else "speed_inference"
         groups: Dict[str, List[StreamId]] = {}
         for sid in sids:
-            groups.setdefault(self.dep.site_of(module, sid), []).append(sid)
+            groups.setdefault(self._module_site(module, sid), []).append(sid)
         for site_name, gsids in groups.items():
             comm = max(pend[s].deliver_time - pend[s].publish_time
                        for s in gsids) + self.cost.ingest_s
@@ -1142,7 +1291,7 @@ class FleetBusExecutor(_BusRuntime):
             t_weight_solve=t_w,
         )
         self._records[(sid, w)] = rec
-        hy_site = self.dep.site_of("hybrid_inference", sid)
+        hy_site = self._module_site("hybrid_inference", sid)
         self._schedule(
             "hybrid_inference", wsol.wall_s + hc.wall_s, comm,
             lambda: self.bus.publish(
@@ -1259,7 +1408,7 @@ class FleetBusExecutor(_BusRuntime):
         state.window = msg.payload["window"]
         self._schedule("model_sync", out.wall_s,
                        msg.deliver_time - msg.publish_time,
-                       site_name=self.dep.site_of("model_sync", sid))
+                       site_name=self._module_site("model_sync", sid))
 
     def _request_resync(self, sid: StreamId, w: int) -> None:
         sent = self._resync_sent.get((sid, w), 0)
@@ -1268,7 +1417,7 @@ class FleetBusExecutor(_BusRuntime):
         self._resync_sent[(sid, w)] = sent + 1
         self.bus.publish(stream_topic(T_RESYNC, sid),
                          {"stream": sid, "window": w}, 64.0,
-                         self.dep.site_of("model_sync", sid))
+                         self._module_site("model_sync", sid))
 
     def _on_resync(self, msg: Message) -> None:
         cached = self._last_model_pub.get(msg.payload["stream"])
@@ -1285,7 +1434,102 @@ class FleetBusExecutor(_BusRuntime):
         if (sid, w) in self._inject_t:
             self.e2e_s[sid][w] = msg.deliver_time - self._inject_t[(sid, w)]
 
-    # -- the serving set and its staleness watchdog --------------------------
+    # -- the elastic placement plane -----------------------------------------
+
+    def _ctrl_site_name(self) -> str:
+        """Where the placement controller runs: the training site, the one
+        place with a fleet-wide view (under the integrated deployment, the
+        cloud)."""
+        return self.dep.site_of("speed_training")
+
+    def _drift_hotness(self, sid: StreamId, recent: int = 4) -> float:
+        """The share of the stream's recent training windows the
+        ``DriftGate`` actually retrained.  Without a gate there is no drift
+        signal (the fleet retrains every window), so hotness is 0, not 1:
+        migration then keys off queue depth alone."""
+        if self.gate is None:
+            return 0.0
+        log = self._retrain_log.get(sid, [])[-recent:]
+        return float(np.mean(log)) if log else 0.0
+
+    def _serving_queue_s(self) -> Dict[StreamId, float]:
+        """Seconds of serving work queued in the request plane, per stream:
+        each submitted but unadmitted query costs one slot's share of the
+        last serving tick's wall.  This is the queue the site's worker pool
+        cannot see (the request plane admits at tick boundaries, one tick
+        in flight), so a saturated serving site piles its backlog up here
+        first."""
+        out: Dict[StreamId, float] = {sid: 0.0 for sid in self.ids}
+        if not self._serving_enabled:
+            return out
+        walls = self.ledger.comp.get("serving", [])
+        per_q = (walls[-1] if walls else 0.0) / max(self.serve_slots, 1)
+        for q in self._qplane.sched.queue:
+            out[q.stream] = out.get(q.stream, 0.0) + per_q
+        return out
+
+    def _on_ctrl_tick(self, msg: Message) -> None:
+        """One control interval: snapshot the site and stream signals, run
+        the controller's policy, apply its worker counts and migrations.
+        The controller's compute goes straight to the ledger
+        (``stage_costs["placement_controller"]`` can fix it) and occupies no
+        pool worker: the control plane must not perturb the data plane it
+        observes."""
+        ctl = self._controller
+        if ctl is None:
+            return
+        t = self.kernel.now
+        qdepth = self._serving_queue_s()
+        serve_site = (self._serving_site_name() if self._serving_enabled
+                      else None)
+        sites = [SiteSignal(name=s.name, kind=s.kind, workers=s.workers,
+                            base_workers=self._base_workers[s.name],
+                            backlog_s=self._backlog_s(s.name)
+                            + (sum(qdepth.values())
+                               if s.name == serve_site else 0.0))
+                 for s in self.topo.sites.values()]
+        for s in sites:
+            self.ledger.sample_depth(s.name, t, s.backlog_s)
+        streams = []
+        for sid in self.ids:
+            site = self._module_site("speed_inference", sid)
+            streams.append(StreamSignal(
+                sid=sid, site=site, drift_hot=self._drift_hotness(sid),
+                queue_s=self._backlog_s(site) + qdepth[sid]))
+        t0 = time.perf_counter()
+        dec = ctl.step(t, sites, streams)
+        wall = time.perf_counter() - t0
+        sc = self.stage_costs or {}
+        self.ledger.add("placement_controller",
+                        comp_s=sc.get("placement_controller", wall))
+        for name, workers in dec.workers.items():
+            self.topo.sites[name].workers = workers
+        for sid, target in dec.migrations.items():
+            self._migrate(sid, target, t)
+
+    def _migrate(self, sid: StreamId, target: str, t: float) -> None:
+        """Move one stream's inference chain to ``target``: republish its
+        per-stream topic subscriptions at the new site and hand its device
+        state across (``FleetState.handoff`` copies a stream's view of a
+        stacked fit output into params the stream owns; the transfer rides
+        the sites' link in the ledger).  Messages matched before the move
+        still run their handler, so nothing is dropped; new publishes route
+        to the new site."""
+        old = self._module_site("speed_inference", sid)
+        if target == old:
+            return
+        nbytes = self._fleet.handoff(sid)
+        for topic, site, fn in self._stream_subs.get(sid, []):
+            self.bus.unsubscribe(topic, site, fn)
+        self._stream_site[sid] = target
+        self._subscribe_stream(sid)
+        self.ledger.add("placement_migration", comp_s=0.0,
+                        comm_s=self.topo.link(old, target)
+                        .transfer_time(nbytes))
+        self._migrations.append({"t": t, "sid": sid, "from": old,
+                                 "to": target, "state_nbytes": nbytes})
+
+    # -- the request plane: the serving set and its staleness watchdog -------
 
     def _serving_fallback(self, sid: StreamId) -> Params:
         """What a stream serves before its first model sync: the batch
@@ -1326,6 +1570,56 @@ class FleetBusExecutor(_BusRuntime):
             fallback[sid] = use_fb
         return params, windows, fallback
 
+    def _on_serve_ctx(self, msg: Message) -> None:
+        self._qplane.observe_window(
+            msg.payload["stream"], msg.payload["x"], msg.payload["window"])
+        self._maybe_tick()
+
+    def _on_request(self, msg: Message) -> None:
+        q = msg.payload["query"]
+        self._qplane.submit(q)
+        self.queries.append(q)
+        self._maybe_tick()
+
+    def _on_response(self, msg: Message) -> None:
+        q = msg.payload["query"]
+        self._query_lat[q.uid] = msg.deliver_time - q.arrived_at
+
+    def _maybe_tick(self) -> None:
+        """Start a serving tick unless one is in flight (slots stay
+        occupied until the running tick's virtual completion: admission and
+        retirement happen at tick boundaries, never mid-predict).  A tick
+        is one ``ServingStage`` call, one stacked predict for every active
+        slot of every stream, charged under the serving site's worker
+        occupancy; at its completion the finished queries publish on
+        ``serve/response/<sid>``."""
+        if not self._serving_enabled or self._tick_pending:
+            return
+        plane = self._qplane
+        plane.admit(self.kernel.now)
+        batch = plane.build_batch()
+        if batch is None:
+            return
+        by_stream, xs = batch
+        self._tick_pending = True
+        params_seq, model_windows, fallback = self._serving_params(
+            {sid: plane.context_window(sid) for sid in self.ids})
+        out = self.stages.serving(params_seq=params_seq, xs=xs)
+        plane.apply(by_stream, out["preds"], model_windows,
+                    fallback=fallback)
+        serve_site = self._serving_site_name()
+
+        def finish():
+            self._tick_pending = False
+            for q in plane.retire(self.kernel.now):
+                self.bus.publish(
+                    stream_topic(T_RESPONSE, q.stream),
+                    {"stream": q.stream, "query": q},
+                    _nbytes(np.asarray(q.answer, np.float32)), serve_site)
+            self._maybe_tick()
+
+        self._schedule("serving", out.wall_s, 0.0, finish)
+
     # -- the run -------------------------------------------------------------
 
     def _warmup(self, streams: Dict[StreamId, WindowedStream]) -> None:
@@ -1352,6 +1646,71 @@ class FleetBusExecutor(_BusRuntime):
                           fallback_params=self._bp[sid])
                 for sid in self.ids})
 
+    def _warmup_serving(self, streams: Dict[StreamId, WindowedStream]) -> None:
+        """Run the serving tick's row buckets (1 to ``serve_slots``, powers
+        of two) once before the measured ticks, so no measured tick pays a
+        first allocation: a tick batches at most ``serve_slots`` rows a
+        stream, and the zero-row streams ride the same stacked predict.
+        The counters are read after this, as after the training warm-up."""
+        ref = None
+        for sid in self.ids:
+            x = np.asarray(streams[sid].supervised(0)["x"])
+            if len(x) > 0:
+                ref = np.asarray(x[-1])
+                break
+        if ref is None:
+            return
+        params_seq = [self._serving_fallback(sid) for sid in self.ids]
+        k = 1
+        while k <= max(self.serve_slots, 1):
+            xs = [np.repeat(ref[None], k, axis=0)] + [
+                np.zeros((0,) + ref.shape, ref.dtype)
+                for _ in range(len(self.ids) - 1)]
+            self.stages.serving(params_seq=params_seq, xs=xs)
+            k *= 2
+
+    def _serving_stats(self, trace: List[Any], ticks: int,
+                       dispatches: int) -> Dict[str, Any]:
+        """The request plane's statistics over ``trace``: answered and
+        starved counts, ticks and stacked predicts, offered and sustained
+        QPS, the watchdog's fallback share and worst served staleness, and
+        the latency percentiles."""
+        lat = self._query_lat
+        answered = [q for q in trace if q.uid in lat]
+        arr = [q.arrived_at for q in trace]
+        offered = ((len(trace) - 1) / (max(arr) - min(arr))
+                   if len(trace) > 1 and max(arr) > min(arr)
+                   else float("inf"))
+        if answered:
+            span = (max(q.arrived_at + lat[q.uid] for q in answered)
+                    - min(arr))
+            sustained = (len(answered) / span if span > 0
+                         else float("inf"))
+        else:
+            sustained = 0.0
+        staleness = [q.context_window - q.model_window for q in answered
+                     if not q.served_fallback and q.model_window >= 0
+                     and q.context_window >= 0]
+        return {
+            "n_requests": len(trace),
+            "n_answered": len(answered),
+            "n_starved": len(trace) - len(answered),
+            "ticks": ticks,
+            "dispatches": dispatches,
+            "dispatches_per_tick": (dispatches / ticks if ticks
+                                    else float("nan")),
+            "offered_qps": offered,
+            "sustained_qps": sustained,
+            "slots": self.serve_slots,
+            # the watchdog's envelope: how often serving fell back to the
+            # batch model, and the worst model lag served from a speed
+            # model (fallback answers excluded: they are the bound working)
+            "fallback_frac": (sum(q.served_fallback for q in answered)
+                              / len(answered) if answered else 0.0),
+            "max_staleness": max(staleness, default=0),
+            **latency_stats([lat[q.uid] for q in answered]),
+        }
+
     def run(self, streams: Dict[StreamId, WindowedStream], batch_params: Any,
             key: Union[int, Mapping[StreamId, int]],
             n_windows: Optional[int] = None) -> FleetBusRunResult:
@@ -1366,11 +1725,45 @@ class FleetBusExecutor(_BusRuntime):
             self.batch_refresh.reset()
             self._rkeys = refresh_key_chains(key, ids, n)
         self._warmup(streams)
+        trace: List[Any] = []
+        if self._serving_enabled:
+            self._warmup_serving(streams)
+            trace = self.query_trace
+            if trace is None:
+                # open-loop load for the whole run past the first window
+                # (serving needs a context, so arrivals start at period)
+                n_req = max(1, int(round(self.qps * self.period
+                                         * max(n - 1, 1))))
+                trace = open_loop_trace(ids, self.qps, n_req,
+                                        start=self.period,
+                                        seed=self.query_seed)
+            inj_site = self.dep.site_of("data_injection")
+            for q in trace:
+                self.kernel.at(q.arrived_at, lambda q=q: self.bus.publish(
+                    stream_topic(T_REQUEST, q.stream),
+                    {"stream": q.stream, "query": q}, 256.0, inj_site))
         fc = self.stages.speed_training.forecaster
         dispatches0 = fc.train_dispatches
+        srv = self.stages.serving
+        ticks0 = srv.ticks if srv is not None else 0
+        sdisp0 = srv.dispatches if srv is not None else 0
         bi, si = self.stages.batch_inference, self.stages.speed_inference
         infer0 = {"batch": (bi.ticks, bi.dispatches),
                   "speed": (si.ticks, si.dispatches)}
+
+        if self._controller is not None:
+            # the control plane's beat: a periodic ctrl/tick publish the
+            # controller subscribes to at its site (loopback delivery), for
+            # the duration of the run
+            interval = self.control_interval_s or 0.5 * self.period
+            ctrl_site = self._ctrl_site_name()
+            k = 1
+            while k * interval <= n * self.period + interval:
+                self.kernel.at(
+                    k * interval,
+                    lambda k=k: self.bus.publish(
+                        T_CTRL, {"tick": k}, 64.0, ctrl_site))
+                k += 1
 
         for sid in ids:
             injector = BusInjector(self.kernel, self.bus, T_STREAM,
@@ -1382,12 +1775,38 @@ class FleetBusExecutor(_BusRuntime):
                 self._inject_t[(sid, w)] = injector.schedule_window(w, data)
         self.kernel.run()
 
+        serving_stats = None
+        if self._serving_enabled and trace:
+            serving_stats = self._serving_stats(
+                trace, srv.ticks - ticks0, srv.dispatches - sdisp0)
+
         results = {}
         for sid in ids:
             recs = [self._records[(s, w)]
                     for (s, w) in sorted(self._records) if s == sid]
             results[sid] = HybridRunResult(records=recs,
                                            mode=str(self.stages.mode))
+        placement = None
+        if self._controller is not None:
+            # report the realized worker counts, then restore the base ones
+            # so one Topology object can host the next run unchanged
+            final_workers = {name: s.workers
+                             for name, s in self.topo.sites.items()}
+            for name, wk in self._base_workers.items():
+                self.topo.sites[name].workers = wk
+            placement = {
+                "mode": ("reactive" if self.elastic == "reactive"
+                         else "proactive"),
+                "control_interval_s": (self.control_interval_s
+                                       or 0.5 * self.period),
+                "controller": self._controller.stats(),
+                "migrations": list(self._migrations),
+                "stream_site": {
+                    sid: self._module_site("speed_inference", sid)
+                    for sid in ids},
+                "base_workers": dict(self._base_workers),
+                "final_workers": final_workers,
+            }
         final_params = {}
         for sid in ids:
             p = self._fleet.state(sid).speed_params
@@ -1415,7 +1834,10 @@ class FleetBusExecutor(_BusRuntime):
             failures=self.failures,
             e2e_s={sid: dict(per) for sid, per in self.e2e_s.items()},
             message_log=self.bus.log,
+            queries=list(self.queries),
+            serving=serving_stats,
             dead_letters=list(self.bus.dead_letters),
+            placement=placement,
             infer_dispatches={
                 kind: {"ticks": st.ticks - infer0[kind][0],
                        "dispatches": st.dispatches - infer0[kind][1]}

@@ -10,7 +10,9 @@ orchestration:
 
 ``BusExecutor`` subscribes the stages to these topics; the fleet executor
 multiplexes them per stream (``stream_topic``) and adds ``T_RESYNC``, the
-sync site's re-request of a model whose checksum failed.  The reference's
+sync site's re-request of a model whose checksum failed, the request plane's
+``T_REQUEST`` and ``T_RESPONSE``, and the placement controller's beat
+``T_CTRL``.  The reference's
 calibrated simulation (``EdgeCloudSimulation``) comes with the slice that
 ports the launcher's calibrated mode.
 """
@@ -21,6 +23,9 @@ T_SPEED = "results/speed"
 T_HYBRID = "results/hybrid"
 T_MODEL = "model/latest"
 T_RESYNC = "model/rerequest"
+T_REQUEST = "serve/request"
+T_RESPONSE = "serve/response"
+T_CTRL = "ctrl/tick"  # the elastic placement controller's control-plane beat
 
 
 def stream_topic(base: str, stream_id: str) -> str:

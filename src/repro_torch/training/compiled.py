@@ -297,8 +297,10 @@ class FleetForecaster:
     to ``bucket_streams``.
 
     Counters: ``train_dispatches`` (fits: one per group a window),
-    ``predict_dispatches`` (stacked predicts), ``staging_allocs`` (host
-    staging buffers allocated; flat after a bucket's first window) and
+    ``predict_dispatches`` (stacked predicts), ``restacks`` (stacked
+    predicts that had to stack their params trees anew: a serving set that
+    changed since the last predict), ``staging_allocs`` (host staging
+    buffers allocated; flat after a bucket's first window) and
     ``last_losses`` (each stream's per-step losses of the last fit)."""
 
     def __init__(
@@ -326,6 +328,7 @@ class FleetForecaster:
         self.staging_allocs = 0
         self.train_dispatches = 0
         self.predict_dispatches = 0
+        self.restacks = 0
         self.last_losses: Optional[List[Optional[np.ndarray]]] = None
 
     # -- Forecaster protocol (the fleet's single-stream view) ----------------
@@ -498,6 +501,7 @@ class FleetForecaster:
         trees = [materialize_params(p) for p in params_seq]
         trees += [trees[0]] * (sb - len(trees))
         stacked = _stack_trees(trees, self.device)
+        self.restacks += 1
         if len(self._stack_tree_cache) >= 16:
             self._stack_tree_cache.clear()
         self._stack_tree_cache[ck] = (list(params_seq), stacked)

@@ -273,9 +273,8 @@ def test_stage_sync_sees_quantized_leaves():
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--real", "--gated"], "requires --streams > 1"),
-    (["--real", "--streams", "3", "--qps", "8"], "request-plane slice"),
-    (["--real", "--qps", "8"], "request-plane slice"),
-    (["--real", "--elastic"], "elastic slice"),
+    (["--real", "--qps", "8"], "--qps requires fleet mode"),
+    (["--real", "--elastic"], "--elastic requires fleet mode"),
     (["--chaos", "site_crash"], "chaos and health slice"),
     ([], "ports the benchmarks"),
 ])

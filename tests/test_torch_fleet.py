@@ -624,13 +624,8 @@ def test_batch_refresh_updates_batch_params(port_fleet):
 
 
 @pytest.mark.parametrize("kwargs,plane", [
-    ({"qps": 8.0}, "the request plane"),
-    ({"query_trace": []}, "the request plane"),
     ({"fault_plane": object()}, "the chaos plane"),
     ({"health_plane": object()}, "the health plane"),
-    ({"elastic": True}, "the placement plane"),
-    ({"controller_factory": object}, "the placement plane"),
-    ({"control_interval_s": 5.0}, "the placement plane"),
 ])
 def test_fleet_bus_refuses_unported_planes(kwargs, plane):
     stages, _ = _stages()

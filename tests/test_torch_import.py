@@ -60,6 +60,9 @@ FLEET_MODULES = {"repro_torch.core.drift", "repro_torch.core.stages",
                  "repro_torch.runtime.executor", "repro_torch.runtime.modules",
                  "repro_torch.streams.sources", "repro_torch.serving.quantize",
                  "repro_torch.launch.edge_cloud"}
+# the modules of the request and placement planes
+PLANE_MODULES = {"repro_torch.serving.query_plane",
+                 "repro_torch.runtime.placement"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -74,6 +77,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert RWKV_MODULES <= names
     assert ZAMBA2_MODULES <= names
     assert FLEET_MODULES <= names
+    assert PLANE_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):
@@ -197,3 +201,21 @@ def test_zamba2_entry_points_raise_without_cuda(monkeypatch):
         kernel.ssm_scan(x, bc, bc, dt, a, a)
     y, state = ops.selective_scan(x, bc, bc, dt, a, a)
     assert y.shape == x.shape and state.shape == (1, 3, 8, 4)
+
+
+def test_placement_entry_points_raise_without_cuda(monkeypatch):
+    """``LoadForecaster`` and a proactive ``PlacementController``'s default
+    forecaster refuse the CPU unless asked for it; a reactive controller
+    builds no forecaster and needs no device."""
+    import torch
+
+    from repro_torch.runtime import LoadForecaster, PlacementController
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LoadForecaster()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PlacementController()
+    assert PlacementController(proactive=False).forecaster is None
+    ctl = PlacementController(device="cpu")
+    assert ctl.forecaster.device == torch.device("cpu")

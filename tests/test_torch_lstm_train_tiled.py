@@ -29,9 +29,10 @@ from repro_torch.kernels.lstm_cell import ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # tests/test_kernels.py's gradient shapes (130 > the reference's 128-row
-# tile, so its grid pads)
+# tile, so its grid pads), then the placement plane's LoadForecaster fit
+# (F = 1, H = 8: 32 gate columns, one warp)
 SHAPES = [(8, 5, 5, 40), (64, 5, 5, 40), (33, 7, 3, 16), (1, 1, 2, 8),
-          (130, 12, 4, 24)]
+          (130, 12, 4, 24), (16, 4, 1, 8)]
 # (rows a tile, lanes a piece of dh is split over, steps a chunk): the
 # kernel's at 4H = 160 and T <= 8 first (32 lanes where they hold wh in
 # registers, 4 otherwise)

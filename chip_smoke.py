@@ -128,7 +128,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launcher with both planes on (``--streams 8 --windows 4 --fast --qps 20
    --slots 4 --elastic``), float and ``--quantized``, every request
    answered and no window dropped; then #1-#4 timed at the planes' shapes
-   (``plane_kernel_timings``).
+   (``plane_kernel_timings``);
+15. the chaos and health planes (``chaos_phase``): the reference's chaos
+   runs of ``tests/data/torch_parity_chaos.npz`` (its eight scenarios,
+   ``fault_free`` under static thresholds and the delayed-sync watchdog
+   run, on the fleet fixture's fleet) replayed from the reference's draws,
+   the fault schedule, bus signature, health verdicts and adaptations and
+   every stamp, latency and statistic exactly, answers and records within
+   ``REQUEST_ATOL`` and each envelope's RMSE within ``CHAOS_RMSE_RTOL``;
+   the port's own ``ChaosHarness`` at BENCH_chaos.json's config (3
+   streams x 6 windows x 120 records, 8 qps), all eight scenarios under
+   ``torch.use_deterministic_algorithms``, with ``tests/test_chaos.py``'s
+   properties (envelopes, every corrupt and forged publish rejected and
+   none installed, detection within two heartbeat intervals, a calm run
+   with no verdict and byte-identical to static thresholds, seed 0 twice
+   byte-identical, seed 1 different); ``partitioned_sync``,
+   ``forged_sync`` and ``sensor_chaos`` at S = 64 (6 windows x 250
+   records, 64 qps on 16 slots) beside ``fault_free``; every run's
+   launches of #1-#4 those of the forwards it ran (one of #1 a float
+   predict, one of #2 and #3 a fit step, seven of #4 an int8 one) and no
+   plain version; a ``forged_sync`` run's wall, busy device time and idle
+   share at each size, and the host cost of signing and verifying a
+   publish.
 
 Every kernel is built in phase 2 and held to its plain version in phase 3.
 The one-step cell (#5) is held there at the reference's sweep, the serving
@@ -159,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -505,6 +527,42 @@ PLANES_LAUNCHER = ["--real", "--streams", "8", "--windows", "4", "--fast",
                    "--qps", "20", "--slots", "4", "--elastic",
                    "--deployment", "integrated"]
 
+# the chaos and health planes (phase 15): the reference's runs on the fleet
+# fixture's fleet (tests/test_torch_chaos.py writes them from the JAX package)
+CHAOS_FIXTURE = ROOT / "tests" / "data" / "torch_parity_chaos.npz"
+CHAOS_SCENARIOS = ("fault_free", "site_crash", "partitioned_sync",
+                   "sensor_chaos", "corrupted_int8_sync", "forged_sync",
+                   "byzantine", "compound_drift")
+# the runs: name -> (scenario, adaptive thresholds?), each in the integrated
+# deployment under the scenario's fault plane and a health plane, at
+# CHAOS_SETUP under the reference's fixed stage costs (CHAOS_STAGE_COSTS)
+CHAOS_RUNS = {**{name: (name, True) for name in CHAOS_SCENARIOS},
+              "fault_free_static": ("fault_free", False)}
+# ChaosHarness's defaults and BENCH_chaos.json's config: a 5 s period, 8 qps
+# on 4 slots, staleness bound 1, fault seed 0
+CHAOS_SETUP = {"period": 5.0, "qps": 8.0, "slots": 4, "staleness_bound": 1,
+               "fault_seed": 0, "ingest_s": BUS_INGEST_S}
+# tests/test_query_plane.py's delayed-sync watchdog run: every model publish
+# from 0.8 periods on delayed 3 periods, 30 requests at 3 qps from 2
+# periods (trace seed 3), 3 windows, no health plane, default costs model
+WATCHDOG_RUN = "watchdog_delayed_sync"
+WATCHDOG = {"n_windows": 3, "qps": 3.0, "n_requests": 30, "start": 10.0,
+            "trace_seed": 3, "delay_s": 15.0, "fault_start": 4.0,
+            "fault_seed": 0}
+# an envelope's RMSE to the reference's, relative
+CHAOS_RMSE_RTOL = 1e-5
+# the envelope's fields read with CHAOS_RMSE_RTOL; every other is exact
+CHAOS_FLOAT_FIELDS = ("rmse_hybrid",)
+# phase 15 (b): the port's own ChaosHarness at BENCH_chaos.json's config
+CHAOS_BENCH = {"n_streams": 3, "n_windows": 6, "records_per_window": 120,
+               "period_s": 5.0, "qps": 8.0, "serve_slots": 4,
+               "staleness_bound": 1}
+# phase 15 (c): the fleet phase's shape at S = 64, 64 qps on 16 slots
+CHAOS_SCALE = {"n_streams": 64, "n_windows": 6, "records_per_window": 250,
+               "period_s": 5.0, "qps": 64.0, "serve_slots": 16,
+               "staleness_bound": 1}
+CHAOS_SCALE_SCENARIOS = ("partitioned_sync", "forged_sync", "sensor_chaos")
+
 
 def _import_port():
     src = ROOT / "src"
@@ -806,9 +864,9 @@ def fleet_data(setup: dict):
 
 def fleet_window_keys(setup: dict, ids) -> dict:
     """{training key: (stream, window)} of a fleet run of the fixture's
-    setup: every stream's chain under ``run_key`` (``fleet_key_chains``).
-    The bus executor's warm-up fits with the window-0 keys, so it replays
-    window 0's draws."""
+    setup: every stream's chain under ``run_key`` (``fleet_key_chains``; a
+    shorter run's chain is a prefix of it).  The bus executor's warm-up fits
+    with the window-0 keys, so it replays window 0's draws."""
     _import_port()
     from repro_torch.runtime.executor import fleet_key_chains
 
@@ -827,11 +885,13 @@ def fleet_draws(fx: dict) -> dict:
             for sid in ids for w in range(int(fx["fsetup/n_windows"]))}
 
 
-def fleet_replay(ff, draws: dict, keys: dict, device):
+def fleet_replay(ff, draws: dict, keys: dict, device, rows: bool = False):
     """Replace ``ff.train_fleet`` with a fit from draws made elsewhere: the
     draws of (stream, window) ``keys`` maps each key to go to
-    ``ff.fit_fleet_window``.  Returns ``fits``, {(stream, window): [(params,
-    per-step losses), ...]} of every fit it makes, in order."""
+    ``ff.fit_fleet_window``; with ``rows``, the draws of (stream, window,
+    the window's row count), for runs whose windows lose records.  Returns
+    ``fits``, {(stream, window[, rows]): [(params, per-step losses), ...]}
+    of every fit it makes, in order."""
     from repro_torch.convert import params_from_numpy
 
     fits: dict = {}
@@ -839,6 +899,8 @@ def fleet_replay(ff, draws: dict, keys: dict, device):
     def train_fleet(datas, ks):
         t0 = time.perf_counter()
         sw = [keys[int(k)] for k in ks]
+        if rows:
+            sw = [(*x, len(d["x"])) for x, d in zip(sw, datas)]
         out = ff.fit_fleet_window(
             datas, [params_from_numpy(draws[x][0], device) for x in sw],
             [draws[x][1] for x in sw])
@@ -1380,14 +1442,12 @@ def _events_equal(got: list, want: list, rtol: float) -> float:
     return worst
 
 
-def check_request_run(fx: dict, name: str, res, ex, atol: float,
-                      rtol: float = FORECAST_RTOL) -> dict:
-    """Hold the port's run ``name`` to the reference's: every query's
-    stamps, windows and fallback flag and its latency exactly, its answers
-    to ``atol``; the serving statistics exactly; the fleet's dispatch
-    counts; each stream's records (``check_fleet_records``); elastic, the
-    migrations, stream sites, worker counts and controller events exactly
-    but each forecast to ``rtol``.  Returns the largest errors."""
+def check_serving_run(fx: dict, name: str, res, ex, atol: float) -> dict:
+    """Hold the port's serving run ``name`` to the reference's: every
+    query's stamps, windows and fallback flag and its latency exactly, its
+    answers to ``atol``; the serving statistics exactly; the fleet's
+    dispatch counts; each stream's records (``check_fleet_records``).
+    Returns the largest errors."""
     want = {c: fx[f"q/{name}/{c}"] for c in (*QUERY_EXACT, "answer",
                                               "latency")}
     got = query_columns(res.queries, ex._query_lat)
@@ -1413,9 +1473,17 @@ def check_request_run(fx: dict, name: str, res, ex, atol: float,
     if mine != counts:
         raise AssertionError(f"{name}: dispatches {mine}, the reference's "
                              f"{counts}")
-    worst = {"answer": err,
-             "records": check_fleet_records(fx, name, res, rtol=atol,
-                                            atol=atol)}
+    return {"answer": err,
+            "records": check_fleet_records(fx, name, res, rtol=atol,
+                                           atol=atol)}
+
+
+def check_request_run(fx: dict, name: str, res, ex, atol: float,
+                      rtol: float = FORECAST_RTOL) -> dict:
+    """``check_serving_run``, and for an elastic run the migrations, stream
+    sites, worker counts and controller events exactly but each forecast
+    to ``rtol``.  Returns the largest errors."""
+    worst = check_serving_run(fx, name, res, ex, atol)
     if REQUEST_RUNS[name][1]:
         pl = json.loads(str(fx[f"placement/{name}"]))
         mine = res.placement
@@ -1431,6 +1499,193 @@ def check_request_run(fx: dict, name: str, res, ex, atol: float,
                 raise AssertionError(f"{name}: controller {k} {ctl[k]}, "
                                      f"the reference's {ref_ctl[k]}")
         worst["event"] = _events_equal(ctl["events"], ref_ctl["events"], rtol)
+    return worst
+
+
+def as_json(x):
+    """``x`` as the fixture holds it: through a JSON round trip (tuples as
+    lists, floats exact)."""
+    return json.loads(json.dumps(x))
+
+
+def bus_columns(message_log) -> dict:
+    """A run's bus signature (``core.scenarios.bus_signature``: topic,
+    source, bytes, publish and delivery time of every message) as the
+    fixture's columns."""
+    return {"topic": np.array([m.topic for m in message_log]),
+            "src": np.array([m.src for m in message_log]),
+            "nbytes": np.array([m.nbytes for m in message_log], np.float64),
+            "publish": np.array([m.publish_time for m in message_log],
+                                np.float64),
+            "deliver": np.array([m.deliver_time for m in message_log],
+                                np.float64)}
+
+
+def chaos_health(ex) -> dict:
+    """A run's health verdicts and threshold adaptations, as lists."""
+    hp = ex.health_plane
+    return {"verdicts": [list(v) for v in hp.verdicts],
+            "adaptations": [list(a) for a in hp.adaptations]}
+
+
+def chaos_draws(fx: dict, fleet_fx: dict) -> dict:
+    """{(stream, window, rows): (init params, permutation indices)} of the
+    reference's chaos fits: the indices from the chaos fixture, each fit's
+    init from the fleet fixture's (it depends on the key alone)."""
+    out = {}
+    for k, idx in fx.items():
+        if not k.startswith("idx/"):
+            continue
+        _, sid, w, n = k.split("/")
+        w, n = int(w[1:]), int(n[1:])
+        out[(sid, w, n)] = (unflatten(fleet_fx, f"init_{sid}_w{w}"), idx)
+    return out
+
+
+def run_chaos_replay(fx: dict, device, name: str, fleet_fx=None):
+    """The reference's chaos run ``name`` (one of ``CHAOS_RUNS`` or
+    ``WATCHDOG_RUN``) through the port on ``device``: the fleet fixture's
+    fleet (``compound_drift``: its per-stream drift cycle on the same
+    sizes) in the integrated deployment under the scenario's fault plane
+    and a fresh health plane (the watchdog run: its delayed-sync plane and
+    trace, no health plane), every fleet fit from the reference's draws of
+    its (stream, window, rows) (``fleet_replay``).  Returns (the
+    ``FleetBusRunResult``, the executor, the fits as ``fleet_replay``
+    collects them)."""
+    _import_port()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import FleetStages, lstm_fleet_forecaster
+    from repro_torch.core.scenarios import (
+        compound_scenarios,
+        scenario_plane,
+        scenario_quantized,
+    )
+    from repro_torch.runtime import (
+        CostModel,
+        FaultPlane,
+        FleetBusExecutor,
+        HealthConfig,
+        HealthPlane,
+        MessageFault,
+        edge_cloud_integrated,
+        paper_topology,
+    )
+    from repro_torch.serving.query_plane import open_loop_trace
+
+    fleet_fx = load_fixture(FLEET_FIXTURE) if fleet_fx is None else fleet_fx
+    setup = unflatten(fleet_fx, "fsetup")
+    cs = _scalars(unflatten(fx, "csetup"))
+    costs = _scalars(unflatten(fx, "costs/chaos"))
+    scenario, adaptive = CHAOS_RUNS.get(name, (None, False))
+    if scenario == "compound_drift":
+        setup = {**setup, "scenarios": np.array(
+            compound_scenarios(int(setup["n_streams"])))}
+    streams, _ = fleet_data(setup)
+    ff = lstm_fleet_forecaster(get_config("lstm-paper"),
+                               epochs=int(setup["speed_epochs"]),
+                               batch_size=int(setup["speed_batch_size"]),
+                               device=device)
+    fits = fleet_replay(ff, chaos_draws(fx, fleet_fx),
+                        fleet_window_keys(setup, streams), device, rows=True)
+    stages = FleetStages.build(ff, mode="dynamic")
+    bp = params_from_numpy(unflatten(fleet_fx, "batch"), device)
+    if scenario is None:
+        wd = _scalars(unflatten(fx, "watchdog"))
+        plane = FaultPlane(wd["fault_seed"], message_faults=[MessageFault(
+            "model/latest/*", "delay", p=1.0, delay_s=wd["delay_s"],
+            start=wd["fault_start"])])
+        trace = open_loop_trace(list(streams), wd["qps"], wd["n_requests"],
+                                start=wd["start"], seed=wd["trace_seed"])
+        ex = FleetBusExecutor(
+            stages, edge_cloud_integrated(), paper_topology(),
+            window_period_s=cs["period"], query_trace=trace,
+            serve_slots=cs["slots"], fault_plane=plane, stage_costs=costs,
+            staleness_bound=cs["staleness_bound"])
+        res = ex.run(streams, bp, int(setup["run_key"]),
+                     n_windows=wd["n_windows"])
+        return res, ex, fits
+    ex = FleetBusExecutor(
+        stages, edge_cloud_integrated(), paper_topology(),
+        CostModel(ingest_s=cs["ingest_s"]), window_period_s=cs["period"],
+        qps=cs["qps"], serve_slots=cs["slots"],
+        quantized_sync=scenario_quantized(scenario),
+        fault_plane=scenario_plane(scenario, cs["fault_seed"], cs["period"]),
+        stage_costs=costs, staleness_bound=cs["staleness_bound"],
+        health_plane=HealthPlane(HealthConfig(adaptive=adaptive)))
+    return ex.run(streams, bp, int(setup["run_key"])), ex, fits
+
+
+def check_envelope(got: dict, want: dict, rtol: float,
+                   where: str = "envelope") -> float:
+    """An envelope (JSON as the fixture holds it) against the reference's:
+    the same fields, every count, stamp and statistic exactly, each field
+    of ``CHAOS_FLOAT_FIELDS`` to ``rtol`` (relative).  Returns the largest
+    relative error."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{where}: fields {sorted(got)}, the "
+                             f"reference's {sorted(want)}")
+    worst = 0.0
+    for k in want:
+        if k in CHAOS_FLOAT_FIELDS:
+            err = abs(got[k] - want[k]) / abs(want[k])
+            worst = max(worst, err)
+            if not err <= rtol:
+                raise AssertionError(f"{where} {k}: {got[k]}, the "
+                                     f"reference's {want[k]}")
+        elif got[k] != want[k]:
+            raise AssertionError(f"{where} {k}: {got[k]}, the reference's "
+                                 f"{want[k]}")
+    return worst
+
+
+def check_chaos_run(fx: dict, name: str, res, ex, fits: dict, atol: float,
+                    rtol: float = CHAOS_RMSE_RTOL) -> dict:
+    """Hold the port's chaos run ``name`` to the reference's: the fault
+    schedule, the bus signature, the health verdicts and adaptations, the
+    fits made (stream, window, rows), every stamp, latency and statistic
+    exactly (``check_serving_run``: answers and records to ``atol``); the
+    envelope's counts exactly and its RMSE to ``rtol``.  Returns the largest
+    errors."""
+    _import_port()
+    from repro_torch.core.scenarios import scenario_envelope
+
+    sched = as_json(ex.fault_plane.schedule_signature())
+    want = json.loads(str(fx[f"schedule/{name}"]))
+    if sched != want:
+        bad = next(i for i, (a, b) in enumerate(zip(sched + [None],
+                                                    want + [None]))
+                   if a != b)
+        raise AssertionError(f"{name}: fault event {bad} "
+                             f"{(sched + [None])[bad]}, the reference's "
+                             f"{(want + [None])[bad]}")
+    got = bus_columns(res.message_log)
+    for c, v in got.items():
+        ref = fx[f"bus/{name}/{c}"]
+        if v.shape != ref.shape or not np.array_equal(v, ref):
+            n = min(len(v), len(ref))
+            bad = np.flatnonzero(v[:n] != ref[:n])[:3]
+            raise AssertionError(f"{name}: bus {c}, {len(v)} messages, the "
+                                 f"reference {len(ref)}; first differences "
+                                 f"at {bad}")
+    if f"health/{name}" in fx:
+        h, ref_h = as_json(chaos_health(ex)), json.loads(
+            str(fx[f"health/{name}"]))
+        for k in ("verdicts", "adaptations"):
+            if h[k] != ref_h[k]:
+                raise AssertionError(f"{name}: health {k} {h[k]}, the "
+                                     f"reference's {ref_h[k]}")
+    made = sorted([sid, w, n] for (sid, w, n), runs in fits.items()
+                  for _ in runs)
+    if made != json.loads(str(fx[f"fits/{name}"])):
+        raise AssertionError(f"{name}: fits {made}, the reference's "
+                             f"{json.loads(str(fx[f'fits/{name}']))}")
+    worst = check_serving_run(fx, name, res, ex, atol)
+    scenario = CHAOS_RUNS.get(name, (name,))[0]
+    env = as_json(scenario_envelope(scenario, CHAOS_SETUP["fault_seed"],
+                                    res, CHAOS_SETUP["period"]))
+    worst["rmse"] = check_envelope(env, json.loads(str(fx[f"env/{name}"])),
+                                   rtol, f"{name} envelope")
     return worst
 
 
@@ -3610,12 +3865,16 @@ def _device_intervals(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _profile(fn):
-    """Device intervals of one profiled call of ``fn``, which ends synced."""
+def _profile(fn, cpu: bool = True):
+    """Device intervals of one profiled call of ``fn``, which ends synced;
+    without ``cpu``, the host's operators are not traced (a call of many
+    thousand operators)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
     return _device_intervals(prof)
 
@@ -3657,12 +3916,13 @@ def _kernel_device_ms(fn, names, calls=100):
     return out
 
 
-def _busy(fn, label: str, calls: int = 1) -> dict:
+def _busy(fn, label: str, calls: int = 1, cpu: bool = True) -> dict:
     """Wall of one unprofiled warm call of ``fn`` (which ends synced), and
     the device's busy time, idle share and top kernels by name over a
-    profiled call.  With ``calls`` > 1, each a mean over that many calls
-    after warm-up: a call of a few device events can end before the
-    profiler has collected them."""
+    profiled call (``cpu``: the host's operators traced too).  With
+    ``calls`` > 1, each a mean over that many calls after warm-up: a call
+    of a few device events can end before the profiler has collected
+    them."""
     if calls > 1:
         for _ in range(10):
             fn()
@@ -3670,7 +3930,7 @@ def _busy(fn, label: str, calls: int = 1) -> dict:
     for _ in range(calls):
         fn()
     wall_s = (time.perf_counter() - t0) / calls
-    spans = _profile(fn) if calls == 1 else _profile_calls(fn, calls)
+    spans = _profile(fn, cpu) if calls == 1 else _profile_calls(fn, calls)
     if not spans:
         print(f"profile {label}: the profiler saw no device events; device "
               "time not measured")
@@ -4693,6 +4953,319 @@ def placement_phase() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counting_forwards():
+    """Count the LSTM forwards the port runs while the block runs, by kind
+    (``models.lstm.forward``, which every predict, fit step and mask check
+    goes through): ``float`` (no gradient), ``int8`` (a ``QTensor`` tree)
+    and ``train`` (a fit step's forward, its backward follows); yields the
+    counts.  ``forward_launches`` turns them into the launches #1-#4 must
+    make."""
+    from repro_torch.models import lstm as lstm_mod
+    from repro_torch.serving.quantize import QTensor
+
+    counts = {"float": 0, "int8": 0, "train": 0}
+    forward = lstm_mod.forward
+
+    def counting(cfg, p, x):
+        import torch
+
+        if any(isinstance(v, QTensor) for sub in p.values()
+               for v in sub.values()):
+            counts["int8"] += 1
+        elif torch.is_grad_enabled() and p["lstm"]["kernel"].requires_grad:
+            counts["train"] += 1
+        else:
+            counts["float"] += 1
+        return forward(cfg, p, x)
+
+    lstm_mod.forward = counting
+    try:
+        yield counts
+    finally:
+        lstm_mod.forward = forward
+
+
+def forward_launches(counts: dict, lag: int) -> dict:
+    """The launches of #1-#4 the forwards ``counts`` must make: one of #1 a
+    float forward (a stacked predict or a mask check's loss), one of #2 and
+    one of #3 a fit step, ``lag + 2`` of #4 an int8 forward (the input
+    projection, one a step of the recurrence, Dense)."""
+    return {"lstm_sequence_fused": counts["float"],
+            "lstm_sequence_fwd_train": counts["train"],
+            "lstm_sequence_bwd": counts["train"],
+            "int8_matmul": (lag + 2) * counts["int8"]}
+
+
+@contextlib.contextmanager
+def auditing_installs(ex):
+    """Record every publish ``ex``'s ``ModelSync`` accepts while the block
+    runs, and recompute each one's checksum and HMAC signature afterwards:
+    yields a dict whose ``accepted`` and ``tampered`` (accepted but not
+    what the training site stamped and signed) are filled in at exit."""
+    from repro_torch.runtime.health import verify_tree
+    from repro_torch.serving.quantize import tree_checksum
+
+    stage = ex.stages.single.model_sync
+    compute = stage.compute
+    seen: list = []
+    audit = {"accepted": 0, "tampered": 0}
+
+    def recording(**kw):
+        out = compute(**kw)
+        if out["ok"]:
+            seen.append(kw)
+        return out
+
+    stage.compute = recording
+    try:
+        yield audit
+    finally:
+        del stage.compute
+        for kw in seen:
+            bad = ((kw.get("checksum") is not None
+                    and tree_checksum(kw["params"]) != kw["checksum"])
+                   or (kw.get("sig_key") is not None
+                       and not verify_tree(kw["params"], kw["sig_key"],
+                                           kw.get("signature"))))
+            audit["tampered"] += bool(bad)
+        audit["accepted"] = len(seen)
+
+
+def _sign_verify_ms(tree, key, n: int = 200) -> float:
+    """Median host ms of ``sign_tree`` and ``verify_tree`` of one publish."""
+    from repro_torch.runtime.health import sign_tree, verify_tree
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        sig = sign_tree(tree, key)
+        if not verify_tree(tree, key, sig):
+            raise AssertionError("a publish fails its own signature")
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def chaos_phase() -> dict:
+    """The chaos and health planes on the card.  (a) The fixture's runs
+    (``CHAOS_RUNS`` and ``WATCHDOG_RUN``) replayed from the reference's
+    draws (``run_chaos_replay``, ``check_chaos_run``): the fault schedule,
+    bus signature, verdicts, adaptations, every stamp, latency and
+    statistic exactly; answers and records to ``REQUEST_ATOL``; the
+    envelope's counts exactly, its RMSE to ``CHAOS_RMSE_RTOL``.  (b) The
+    port's ``ChaosHarness`` at ``CHAOS_BENCH`` (BENCH_chaos.json's config),
+    all eight scenarios, under ``torch.use_deterministic_algorithms``:
+    ``tests/test_chaos.py``'s properties (the RMSE ratio to ``fault_free``
+    within ``RMSE_RATIO_MAX``, every corrupt and forged publish rejected
+    and none installed, the partition suspected within two heartbeat
+    intervals, no verdict in ``fault_free``, the adaptive calm run
+    byte-identical to the static one, seed 0 twice byte-identical and seed
+    1 different, no exception).  (c) ``CHAOS_SCALE_SCENARIOS`` at S = 64
+    (``CHAOS_SCALE``) beside ``fault_free``: rejections, detection, no
+    exception, every request answered or counted starved; each RMSE ratio
+    printed against its envelope.  (d) Every run's launches of #1-#4 equal
+    those of the forwards it ran (``forward_launches``), with no plain
+    version.  (e) A ``forged_sync`` run's wall, busy device time and idle
+    share at each size, and the host cost of signing and verifying one
+    publish.  Returns the phase's numbers."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.scenarios import (
+        RMSE_RATIO_MAX,
+        ChaosHarness,
+        bus_signature,
+        forecast_signature,
+        ledger_signature,
+        scenario_plane,
+        scenario_quantized,
+    )
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.runtime.health import derive_sync_key
+    from repro_torch.serving.quantize import quantize_tree
+    from repro_torch.stacked import FleetParamView, _FleetStack
+
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    lag = 5  # lstm-paper's
+    out: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    fx, fleet_fx = load_fixture(CHAOS_FIXTURE), load_fixture(FLEET_FIXTURE)
+
+    def gate_launches(label: str, counts: dict, plain: dict) -> dict:
+        got = {w.__name__: w.launches for w in wrappers}
+        want = forward_launches(counts, lag)
+        out["launches"][label] = got
+        if got != want or any(plain.values()) or not counts["train"]:
+            raise AssertionError(f"chaos {label}: launches {got}, the "
+                                 f"forwards {counts} need {want}; plain "
+                                 f"calls {dict(plain)}")
+        return got
+
+    # (a) the fixture's runs, replayed
+    out["replays"] = {}
+    for name in (*CHAOS_RUNS, WATCHDOG_RUN):
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        with counting_calls(_lstm_plain()) as plain, \
+                counting_forwards() as counts:
+            res, ex, fits = run_chaos_replay(fx, "cuda", name, fleet_fx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = gate_launches(f"replay_{name}", counts, plain)
+        worst = check_chaos_run(fx, name, res, ex, fits, REQUEST_ATOL)
+        env = json.loads(str(fx[f"env/{name}"]))
+        out["replays"][name] = {"worst": worst, "wall_s": wall,
+                                "fault_events": env.get("n_fault_events"),
+                                "messages": len(res.message_log)}
+        print(f"chaos (a) {name}: replayed in {wall:.3f} s; "
+              f"{env.get('n_fault_events')} fault events, "
+              f"{len(res.message_log)} bus messages, the schedule, bus "
+              f"signature, verdicts, adaptations, fits and every stamp "
+              f"equal to the reference's; answers within "
+              f"{worst['answer']:.3g}, records within "
+              f"{worst['records']:.3g}, RMSE within {worst['rmse']:.3g} "
+              f"(relative); launches {got}", flush=True)
+
+    # (b) and (c): the port's own harness, deterministic algorithms on
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, cfg, names in (
+                ("bench", CHAOS_BENCH, CHAOS_SCENARIOS),
+                ("scale", CHAOS_SCALE,
+                 ("fault_free", *CHAOS_SCALE_SCENARIOS))):
+            t0 = time.perf_counter()
+            h = ChaosHarness(**cfg, device="cuda")
+            build_s = time.perf_counter() - t0
+            envs, runs = {}, {}
+            for name in names:
+                ex = h.executor(scenario_plane(name, 0, h.period),
+                                quantized=scenario_quantized(name),
+                                health_plane=h.health)
+                _reset_launches(*wrappers)
+                with counting_calls(_lstm_plain()) as plain, \
+                        counting_forwards() as counts, \
+                        auditing_installs(ex) as audit:
+                    t1 = time.perf_counter()
+                    res = ex.run(h.streams_for(name), h.bp, h.run_key)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+                env = h.envelope(name, 0, res)
+                got = gate_launches(f"{label}_{name}", counts, plain)
+                envs[name], runs[name] = env, res
+                s = res.serving
+                health = {k: env["health"][k] for k in (
+                    "n_suspected", "n_site_down", "n_recovered",
+                    "byz_flagged", "threshold_adaptations")}
+                print(f"chaos ({'b' if label == 'bench' else 'c'}) "
+                      f"S={cfg['n_streams']} {name}: {wall:.3f} s; hybrid "
+                      f"RMSE {env['rmse_hybrid']:.6f}; "
+                      f"{s['n_answered']}/{s['n_requests']} answered, "
+                      f"{s['n_starved']} starved, fallback "
+                      f"{s['fallback_frac']:.3f}; faults "
+                      f"{env.get('fault_stats')}; health {health}; "
+                      f"{audit['accepted']} publishes installed, "
+                      f"{audit['tampered']} of them tampered; launches "
+                      f"{got}", flush=True)
+                if (env["unhandled_exception"] is not None
+                        or audit["tampered"]
+                        or s["n_answered"] + s["n_starved"]
+                        != s["n_requests"]):
+                    raise AssertionError(f"chaos {label} {name}: {env}, "
+                                         f"audit {audit}")
+                envs[name]["wall_s"] = wall
+            ff = envs["fault_free"]
+            ratios = {n: e["rmse_hybrid"] / ff["rmse_hybrid"]
+                      for n, e in envs.items()}
+            stats = {n: e.get("fault_stats", {}) for n, e in envs.items()}
+            for n in ("corrupted_int8_sync", "forged_sync"):
+                if n not in envs:
+                    continue
+                kind = "msg_corrupt" if n.startswith("corrupt") \
+                    else "msg_forge"
+                rejected = envs[n]["corrupt_rejected" if kind
+                                   == "msg_corrupt" else "forged_rejected"]
+                if not rejected == stats[n][kind] > 0:
+                    raise AssertionError(f"chaos {label} {n}: {rejected} "
+                                         f"rejected of {stats[n][kind]}")
+            if "partitioned_sync" in envs:
+                hl = envs["partitioned_sync"]["health"]
+                if not hl["n_suspected"] or not \
+                        hl["detection_latency_hb_intervals"] <= 2.0:
+                    raise AssertionError(f"chaos {label}: partition "
+                                         f"detection {hl}")
+            hff = runs["fault_free"].health
+            if hff["verdicts"] or hff["threshold_adaptations"]:
+                raise AssertionError(f"chaos {label}: fault_free verdicts "
+                                     f"{hff['verdicts']}")
+            for n, r in ratios.items():
+                ok = r <= RMSE_RATIO_MAX[n]
+                print(f"chaos ({'b' if label == 'bench' else 'c'}) "
+                      f"S={cfg['n_streams']} {n}: RMSE ratio {r:.6f} to "
+                      f"fault_free, envelope {RMSE_RATIO_MAX[n]} "
+                      f"{'within' if ok else 'EXCEEDED'}", flush=True)
+                if label == "bench" and not ok:
+                    raise AssertionError(f"chaos bench {n}: RMSE ratio {r}")
+            numbers = {"build_s": build_s, "ratios": ratios,
+                       "envelopes": envs}
+            if label == "bench":
+                _, static = h.run_scenario("fault_free", 0, adaptive=False)
+                _, again = h.run_scenario("sensor_chaos", 0)
+                _, seed1 = h.run_scenario("sensor_chaos", 1)
+                a, b = runs["fault_free"], runs["sensor_chaos"]
+                calm = (bus_signature(a) == bus_signature(static)
+                        and ledger_signature(a) == ledger_signature(static)
+                        and forecast_signature(a)
+                        == forecast_signature(static))
+                rerun = (bus_signature(b) == bus_signature(again)
+                         and ledger_signature(b) == ledger_signature(again)
+                         and forecast_signature(b)
+                         == forecast_signature(again))
+                differs = bus_signature(b) != bus_signature(seed1)
+                print(f"chaos (b) determinism: adaptive calm run "
+                      f"{'byte-identical to' if calm else 'DIFFERS from'} "
+                      f"the static one; sensor_chaos seed 0 twice "
+                      f"{'byte-identical' if rerun else 'DIFFERS'}; seed 1 "
+                      f"{'differs' if differs else 'EQUAL'}", flush=True)
+                if not (calm and rerun and differs):
+                    raise AssertionError("chaos (b) determinism failed")
+            # (e) one forged_sync run's wall, busy time and idle share
+            name = "forged_sync"
+
+            def timed():
+                env, _ = h.run_scenario(name, 0)
+                torch.cuda.synchronize()
+                if env["unhandled_exception"] is not None:
+                    raise AssertionError(f"chaos (e) {name}: {env}")
+
+            busy = _busy(timed, f"chaos (e) S={cfg['n_streams']} {name} run",
+                         cpu=False)
+            numbers["timed"] = {"scenario": name, **{
+                k: busy[k] for k in ("wall_s", "busy_ms", "idle_share")}}
+            out[label] = numbers
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # (e) the host cost of one signed publish, sign and verify
+    model = params_from_numpy(unflatten(fleet_fx, "batch"), "cuda")
+    stacked = {k: {j: torch.stack([v, v]) for j, v in sub.items()}
+               for k, sub in model.items()}
+    view = FleetParamView(_FleetStack(stacked), 0)
+    key = derive_sync_key(0)
+    out["hmac_ms"] = {"float": _sign_verify_ms(view, key),
+                      "int8": _sign_verify_ms(
+                          quantize_tree(model, min_size=64), key)}
+    print(f"chaos (e) sign_tree + verify_tree a publish (host): float "
+          f"{FLOAT_MODEL_NBYTES} B (a fleet view) "
+          f"{out['hmac_ms']['float']:.4f} ms, int8 {INT8_MODEL_NBYTES} B "
+          f"(on the card) {out['hmac_ms']['int8']:.4f} ms", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"chaos phase: {out['wall_s']:.3f} s", flush=True)
+    return out
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -4714,6 +5287,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
+    # phase 15 runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's deterministic workspace set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     _import_port()
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
@@ -5036,6 +5612,13 @@ def main() -> int:
         raise AssertionError("the planes launched a zoo kernel or the "
                              "one-step lstm_cell")
 
+    # phase 15: the chaos and health planes (each launch count read over
+    # its own run)
+    chaos = chaos_phase()
+    if flash.launches or wkv.launches or ssm.launches or cell.launches:
+        raise AssertionError("the chaos plane launched a zoo kernel or the "
+                             "one-step lstm_cell")
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -5087,7 +5670,7 @@ def main() -> int:
                        **{path: counts.get(kname, 0)
                           for path, counts in fleet["launches"].items()},
                        **{path: counts.get(kname, 0)
-                          for plane in (request, placement)
+                          for plane in (request, placement, chaos)
                           for path, counts in plane["launches"].items()}}
             row["fleet"] = fleet_rows[kname] if kname in fleet_rows \
                 else None
@@ -5118,6 +5701,8 @@ def main() -> int:
                                   if k != "launches"},
                       "placement": {k: v for k, v in placement.items()
                                     if k != "launches"}}, default=str))
+    print(json.dumps({"chaos": {k: v for k, v in chaos.items()
+                                if k != "launches"}}, default=str))
     for arch, run in served.items():
         print(json.dumps({arch: {k: v for k, v in run.items()
                                  if k not in ("busy", "near_ties")} | {

@@ -11,8 +11,8 @@ pipeline stages (paper Sec. 4.4), for one stream:
   data_sync         (records_nbytes,)            -> archive handoff
 
 Each stage's ``compute(**inputs) -> dict`` is wrapped by ``__call__`` with a
-wall-clock measurement.  The signature check of ``model_sync`` comes with the
-health slice.
+wall-clock measurement.  ``model_sync`` verifies a publish's checksum and,
+under the health plane, its HMAC signature.
 
 The stream dimension: every stage's state contract is per stream.  A fleet
 lifts the same stage objects over a ``StreamId``-keyed axis: ``FleetState``
@@ -20,7 +20,7 @@ holds each stream's serving state, ``FleetStage`` maps a single-stream stage
 over ``{stream_id: kwargs}``, ``FleetInference`` and ``FleetSpeedTraining``
 replace the per-stream calls with one stacked ``FleetForecaster`` predict or
 fit for the whole fleet, ``ServingStage`` answers a request tick the same
-way (the request plane that drives it comes with its own slice), and
+way (the request plane drives it), and
 ``BatchRefresh`` retrains batch models from archived drifted windows in one
 fleet fit.  The fleet executors drive ``FleetStages``.
 """
@@ -205,11 +205,18 @@ class ModelSync(Stage):
 
     When the publish carries a ``checksum`` (``serving.quantize.
     tree_checksum``, stamped by the training site), the stage verifies it
-    before installing anything: a mismatch returns ``ok=False`` with no
-    state, and counts in ``corrupt_rejected``; a match counts in
-    ``verified``.  A corrupt model is never served.  The HMAC signature
-    check comes with the health slice: until then, passing ``signature`` or
-    ``sig_key`` raises."""
+    before installing anything: a mismatch (a bit-flipped int8 ``QTensor``
+    in transit) returns ``ok=False`` with no state, and counts in
+    ``corrupt_rejected``; a match counts in ``verified``.  A corrupt model
+    is never served.
+
+    When a ``sig_key`` is given (the health plane's authenticated sync),
+    the publish must also carry a valid HMAC-SHA256 ``signature`` over the
+    tree (``runtime.health.sign_tree``).  CRC32 catches corruption but not
+    tampering (a forger recomputes it over the forged params); the HMAC
+    needs the run key the forger does not hold.  A bad or missing signature
+    counts in ``forged_rejected`` and rejects the same way, marked
+    ``forged``."""
 
     name = "model_sync"
 
@@ -219,20 +226,27 @@ class ModelSync(Stage):
     def __init__(self):
         self.verified = 0
         self.corrupt_rejected = 0
+        self.forged_rejected = 0
 
     def compute(self, *, params: Params, eval_preds, eval_y,
                 checksum: Optional[int] = None,
                 signature: Optional[str] = None,
                 sig_key: Optional[bytes] = None) -> Dict[str, Any]:
-        if signature is not None or sig_key is not None:
-            raise NotImplementedError(
-                "model_sync: signature verification comes with the health "
-                "slice of the port")
+        # checksum first (integrity: bit flips in transit), signature second
+        # (authenticity: a forger recomputes the CRC32, so only the HMAC
+        # catches it), so each rejection counts against the layer that
+        # caught it
         if checksum is not None:
             if tree_checksum(params) != checksum:
                 self.corrupt_rejected += 1
                 return dict(self._REJECT)
             self.verified += 1
+        if sig_key is not None:
+            from repro_torch.runtime.health import verify_tree
+
+            if not verify_tree(params, sig_key, signature):
+                self.forged_rejected += 1
+                return dict(self._REJECT, forged=True)
         return {"ok": True, "speed_params": params, "prev_preds": eval_preds,
                 "prev_y": eval_y}
 

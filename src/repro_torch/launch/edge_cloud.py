@@ -11,6 +11,8 @@ stage's wall measured on the card and rescaled to its site's hardware class
     PYTHONPATH=src python -m repro_torch.launch.edge_cloud --real \\
         --streams 8 --windows 4 --fast --qps 20 --slots 4 --elastic \\
         --deployment integrated [--quantized]
+    PYTHONPATH=src python -m repro_torch.launch.edge_cloud \
+        --chaos forged_sync [--chaos-seed 0]
 
 It prints each deployment's Table-3 breakdown, its mean end-to-end window
 latency and model-topic bytes, and the paper's claims as measured, PASS or
@@ -19,9 +21,12 @@ through ``FleetBusExecutor`` (``--gated``: drift-gated retraining;
 ``--quantized``: per-stream int8 sync; ``--qps``/``--slots``: the request
 plane, user queries answered by serving ticks on ``--slots`` batch slots;
 ``--elastic [reactive|proactive]``: the placement plane) and prints the
-request plane's and the placement plane's lines.  The reference's other
-modes (``--chaos``, the calibrated simulation) raise, naming the slice that
-brings each.
+request plane's and the placement plane's lines.  ``--chaos <scenario>``
+runs one chaos scenario of ``core.scenarios`` (the fleet under a seeded
+fault plane, ``--chaos-seed``, with the health plane attached) and prints
+its degradation envelope and health verdicts.  The reference's calibrated
+simulation (the default without ``--real``) raises, naming the slice that
+brings it.
 """
 from __future__ import annotations
 
@@ -330,8 +335,67 @@ def run_real(args, device=None) -> Dict[str, Any]:
     return results
 
 
+def run_chaos(args, device=None):
+    """One chaos scenario end to end on ``device`` (the current CUDA device
+    by default): the fleet pipeline under the named fault plane, its
+    degradation envelope printed (see ``core.scenarios``).  Returns the
+    scenario's (envelope, FleetBusRunResult)."""
+    from repro_torch.core.scenarios import ChaosHarness
+
+    # chaos-sized defaults where the generic flags were left untouched:
+    # small fleet, short run, fast virtual period, live query load
+    n_streams = args.streams if args.streams > 1 else 3
+    n_windows = args.windows if args.windows != 25 else 6
+    period = args.period if args.period != 30.0 else 5.0
+    qps = args.qps if args.qps > 0 else 8.0
+
+    h = ChaosHarness(n_streams=n_streams, n_windows=n_windows,
+                     records_per_window=120, period_s=period, qps=qps,
+                     serve_slots=args.slots, verbose=True, device=device)
+    seed = args.chaos_seed
+    print(f"\n[chaos:{args.chaos}] {n_streams} streams x {n_windows} "
+          f"windows, period {period}s, {qps} qps, seed {seed}")
+    env, res = h.run_scenario(args.chaos, seed=seed)
+    if env["unhandled_exception"] is not None:
+        raise SystemExit(f"chaos run crashed: {env['unhandled_exception']}")
+    if args.chaos != "fault_free":
+        env_ff, _ = h.run_scenario("fault_free", seed=seed)
+        ratio = env["rmse_hybrid"] / env_ff["rmse_hybrid"]
+        print(f"  hybrid RMSE {env['rmse_hybrid']:.4f} "
+              f"(x{ratio:.3f} vs fault-free)")
+    else:
+        print(f"  hybrid RMSE {env['rmse_hybrid']:.4f}")
+    print(f"  answered {env['n_answered']} queries "
+          f"(starved {env['n_starved']}), p99 {env['p99_latency_s']*1e3:.1f}"
+          f"ms, max served staleness {env['max_staleness']}, "
+          f"fallback {env['fallback_frac']:.2f}")
+    print(f"  dead letters {env['dead_letters']}, quarantined "
+          f"{env.get('quarantined', {})}, corrupt rejected "
+          f"{env.get('corrupt_rejected', 0)}, forged rejected "
+          f"{env.get('forged_rejected', 0)}, resync requests "
+          f"{env.get('resync_requests', 0)}")
+    stats = env.get("fault_stats", {})
+    if stats:
+        print("  fault events: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(stats.items())))
+    hlt = env.get("health")
+    if hlt:
+        print(f"  health: {hlt['n_suspected']} suspected, "
+              f"{hlt['n_site_down']} down, {hlt['n_recovered']} recovered; "
+              f"byzantine {hlt['byz_flagged']}/{hlt['byz_screened']} "
+              f"flagged; {hlt['threshold_adaptations']} threshold "
+              f"adaptation(s)")
+        if hlt.get("detection_latency_s") is not None:
+            print(f"  health: fault detected "
+                  f"{hlt['detection_latency_s']:.2f}s after onset "
+                  f"({hlt['detection_latency_hb_intervals']:.2f} heartbeat "
+                  f"intervals)")
+    return env, res
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    """The launcher's flags; a mode the port has not yet is an error that
+    """The launcher's flags; ``--chaos`` must name a scenario, and the
+    calibrated simulation, which the port has not yet, is an error that
     names the slice bringing it."""
     p = argparse.ArgumentParser()
     p.add_argument("--deployment",
@@ -355,7 +419,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--real", action="store_true",
                    help="run real LSTM compute through the TopicBus "
                         "(BusExecutor, or FleetBusExecutor with --streams "
-                        "> 1); the port has no other mode yet")
+                        "> 1); --chaos runs its scenario without it")
     p.add_argument("--period", type=float, default=30.0,
                    help="virtual seconds between stream windows; shrink it "
                         "below the training time to watch stale-model "
@@ -388,13 +452,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "EWMAs; 'proactive' (the default when the flag is "
                         "bare) also scales ahead of load by forecasting "
                         "each site's backlog with a small LSTM on the card")
-    # the reference's chaos scenarios, refused until their slice lands
-    p.add_argument("--chaos", default=None)
+    p.add_argument("--chaos", default=None,
+                   help="run one chaos scenario from core.scenarios "
+                        "(fault_free, site_crash, partitioned_sync, "
+                        "sensor_chaos, corrupted_int8_sync, forged_sync, "
+                        "byzantine, compound_drift) against the fleet under "
+                        "a seeded fault plane with the health plane "
+                        "attached, and print its degradation envelope and "
+                        "health verdicts; honours --streams, --windows, "
+                        "--period, --qps and --slots, with chaos-sized "
+                        "defaults otherwise")
+    p.add_argument("--chaos-seed", type=int, default=0,
+                   help="fault-plane seed for --chaos: another seed draws "
+                        "another (equally reproducible) fault schedule")
     args = p.parse_args(argv)
 
     if args.chaos is not None:
-        p.error("--chaos: the chaos scenarios come with the port's chaos and "
-                "health slice")
+        from repro_torch.core.scenarios import SCENARIOS
+
+        if args.chaos not in SCENARIOS:
+            p.error(f"--chaos {args.chaos!r}: pick from "
+                    f"{', '.join(SCENARIOS)}")
+        return args
     if args.gated and args.streams <= 1:
         p.error("--gated requires --streams > 1 (drift-gated retraining is "
                 "a fleet-executor policy)")
@@ -414,7 +493,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.streams > 1:
+    if args.chaos is not None:
+        run_chaos(args)
+    elif args.streams > 1:
         run_real_fleet(args)
     else:
         run_real(args)

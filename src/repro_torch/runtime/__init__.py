@@ -1,8 +1,10 @@
 """The port's runtime: the topic bus and its sites and links, the paper's
-three deployments, latency accounting, the elastic placement plane
-(``PlacementController`` and its ``LoadForecaster``), and the executors (the
-synchronous loop and the bus-driven ``BusExecutor``, and their fleet
-counterparts ``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
+three deployments, latency accounting, the chaos plane (``FaultPlane`` and
+its fault specs), the health plane (``HealthPlane``, signed model sync), the
+elastic placement plane (``PlacementController`` and its
+``LoadForecaster``), and the executors (the synchronous loop and the
+bus-driven ``BusExecutor``, and their fleet counterparts
+``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
 from repro_torch.runtime.bus import (  # noqa: F401
     CapacityError,
     DeadLetter,
@@ -14,6 +16,25 @@ from repro_torch.runtime.bus import (  # noqa: F401
     Topology,
     paper_topology,
     topic_matches,
+)
+from repro_torch.runtime.faults import (  # noqa: F401
+    FaultPlane,
+    MessageFault,
+    PartitionFault,
+    SensorFault,
+    SiteFault,
+    corrupt_tree,
+    forge_tree,
+    tree_checksum,
+)
+from repro_torch.runtime.health import (  # noqa: F401
+    ByzantineGuard,
+    FaultRateEstimator,
+    HealthConfig,
+    HealthPlane,
+    derive_sync_key,
+    sign_tree,
+    verify_tree,
 )
 from repro_torch.runtime.deployment import (  # noqa: F401
     ALL_DEPLOYMENTS,

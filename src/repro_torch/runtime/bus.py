@@ -157,11 +157,11 @@ class TopicBus:
     dropped and recorded in ``dead_letters`` (topic/src/dst/reason), so a
     partitioned topology degrades instead of crashing.
 
-    An optional ``fault_plane`` (the chaos plane's ``FaultPlane``, which the
-    port has not yet) interposes on every per-subscriber delivery: it can
-    drop, delay,
-    duplicate, reorder or corrupt the delivery, queue it behind a WAN
-    partition, or lose it to a crashed site.  With no plane attached the
+    An optional ``fault_plane`` (the chaos plane's
+    ``runtime.faults.FaultPlane``) interposes on every per-subscriber
+    delivery: it can drop, delay, duplicate, reorder, corrupt or forge the
+    delivery, queue it behind a WAN partition, or lose it to a crashed
+    site.  With no plane attached the
     publish path is byte-identical to the pre-fault code."""
 
     def __init__(self, kernel: EventKernel, topo: Topology,

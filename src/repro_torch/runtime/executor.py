@@ -33,8 +33,9 @@ Both consult an optional ``DriftGate`` so stationary streams skip their
 retrain and keep serving their prior model.  Stream ``i``'s training keys
 are the chain a single-stream run seeded with its root gets
 (``fleet_key_chains``).  ``FleetBusExecutor`` also carries the request plane
-(user queries answered by serving ticks, one stacked predict a tick) and
-the elastic placement plane (``runtime.placement``).
+(user queries answered by serving ticks, one stacked predict a tick), the
+elastic placement plane (``runtime.placement``), the chaos plane
+(``runtime.faults``) and the health plane (``runtime.health``).
 """
 from __future__ import annotations
 
@@ -65,10 +66,13 @@ from repro_torch.runtime.bus import (
     Topology,
 )
 from repro_torch.runtime.deployment import STREAM_MODULES, Deployment
+from repro_torch.runtime.health import sign_tree
 from repro_torch.runtime.latency import CostModel, LatencyLedger
 from repro_torch.runtime.modules import (
     T_BATCH,
     T_CTRL,
+    T_HEALTH_CHECK,
+    T_HEALTH_HB,
     T_HYBRID,
     T_MODEL,
     T_REQUEST,
@@ -221,8 +225,8 @@ class _BusRuntime:
     earlier work on the site's worker pool, the training capacity model,
     and the stage-agnostic handlers.  Subclasses provide ``dep``, ``topo``,
     ``cost``, ``strict`` and ``_single_stages``.  An optional
-    ``fault_plane`` and ``stage_costs`` are read with ``getattr``: the
-    chaos slice attaches them."""
+    ``fault_plane`` and ``stage_costs`` are read with ``getattr``: only the
+    fleet executor has them."""
 
     dep: Deployment
     topo: Topology
@@ -690,8 +694,9 @@ class FleetBusRunResult(FleetRunResult):
     stages' windows served and stacked predicts spent, and each stream's
     final speed-model params (materialized).  A run that served queries
     adds every query (answers and stamps filled in) and the ``serving``
-    statistics; a run with a placement controller adds ``placement``.  The
-    chaos plane's and the health plane's results come with those planes."""
+    statistics; a run with a placement controller adds ``placement``; a run
+    under a fault plane adds ``chaos`` and one under a health plane
+    ``health``."""
 
     ledger: LatencyLedger = field(default_factory=LatencyLedger)
     failures: List[str] = field(default_factory=list)
@@ -701,13 +706,22 @@ class FleetBusRunResult(FleetRunResult):
     # and the aggregate latency, QPS and dispatch statistics
     queries: List[Any] = field(default_factory=list)
     serving: Optional[Dict[str, Any]] = None
+    # the fault plane's ledger (when a FaultPlane drove the run): realized
+    # fault counts, rejections, quarantines, re-requests, plus every
+    # undeliverable publish
     dead_letters: List[Any] = field(default_factory=list)
+    chaos: Optional[Dict[str, Any]] = None
     # the elastic placement plane (when the run had a controller): its
     # decisions and events, realized migrations, the final per-stream site
     # map and the worker counts before and after
     placement: Optional[Dict[str, Any]] = None
     infer_dispatches: Optional[Dict[str, Dict[str, int]]] = None
     final_params: Optional[Dict[StreamId, Any]] = None
+    # the health plane's verdict (when a HealthPlane drove the run): the
+    # partition, site-down and recovered verdicts with their times, the
+    # signed-sync and Byzantine-guard counters, and every adaptive
+    # tightening of a threshold
+    health: Optional[Dict[str, Any]] = None
 
     def table3(self) -> Dict[str, Dict[str, float]]:
         return self.ledger.table()
@@ -862,13 +876,6 @@ class InProcessFleetExecutor:
         )
 
 
-# the FleetBusExecutor arguments of the planes the port has not yet, and the
-# plane that brings each (ROADMAP.md, Queue A)
-_UNPORTED_PLANES = {
-    "fault_plane": "the chaos plane", "health_plane": "the health plane",
-}
-
-
 class FleetBusExecutor(_BusRuntime):
     """``BusExecutor`` lifted to a fleet: N streams multiplexed over
     per-stream topics (``stream/window/<sid>`` and so on, one wildcard
@@ -901,20 +908,32 @@ class FleetBusExecutor(_BusRuntime):
     sustained QPS land in ``FleetBusRunResult.serving``.
 
     Robustness, as in the reference: ``ModelSync`` verifies each publish's
-    checksum and a corrupt one is never installed (the sync site
-    re-requests it on ``model/rerequest/<sid>``; the training site re-sends
-    its last publish, at most ``max_resync`` times a (stream, window)); an
-    aggregation armed with an ``agg_timeout_s`` flush dispatches the
+    checksum (and, under a health plane, its HMAC signature), and a corrupt
+    or forged one is never installed (the sync site re-requests it on
+    ``model/rerequest/<sid>``; the training site re-sends its last publish,
+    at most ``max_resync`` times a (stream, window)); under a fault plane
+    each aggregation arms an ``agg_timeout_s`` flush that dispatches the
     streams that arrived and quarantines a stream after
-    ``quarantine_after`` missed training windows (the flush is armed by
-    the chaos plane's fault plane, which comes with that plane, so no run
-    reaches it yet); the staleness watchdog (``_serving_params``, which
-    every serving tick calls) serves the batch model for a stream whose
-    model lags its context by more than ``staleness_bound`` windows and
-    stamps those answers ``served_fallback``.  ``stage_costs`` (module ->
-    seconds) replaces measured walls with fixed virtual costs;
-    ``batch_refresh`` retrains batch models from archived drifted windows
-    on its cadence.
+    ``quarantine_after`` missed training windows, until its sensor delivers
+    again; the staleness watchdog (``_serving_params``, which every serving
+    tick calls) serves the batch model for a stream whose model lags its
+    context by more than ``staleness_bound`` windows and stamps those
+    answers ``served_fallback``; in-flight stage work on a site that is
+    down at completion is lost, and a restarted site comes back cold
+    (``_on_site_restart``).  ``stage_costs`` (module -> seconds) replaces
+    measured walls with fixed virtual costs, so chaos runs replay byte for
+    byte under one fault seed; ``batch_refresh`` retrains batch models from
+    archived drifted windows on its cadence.
+
+    ``fault_plane`` (a :class:`~repro_torch.runtime.faults.FaultPlane`)
+    injects message, site, partition and sensor faults, rewound at the
+    start of every run.  ``health_plane`` (a
+    :class:`~repro_torch.runtime.health.HealthPlane`) adds the
+    goldpinger-style heartbeat mesh over the topology's sites, HMAC-signed
+    model sync keyed from the fault plane's seed, the Byzantine guard in
+    the injection path, and fault-rate-adaptive quarantine and staleness
+    thresholds (the constructor's ``quarantine_after`` and
+    ``staleness_bound`` become their base values).
 
     ``elastic=True`` (or ``"reactive"``/``"proactive"``) turns on the
     placement plane: per-stream (exact-topic) subscriptions instead of the
@@ -929,11 +948,7 @@ class FleetBusExecutor(_BusRuntime):
     reactively from queue-depth EWMAs and proactively from its LSTM load
     forecast.  The aggregated one-predict-a-window path is untouched:
     aggregation happens above placement, so a migration only changes where
-    occupancy is charged and results fan out from.
-
-    The chaos plane (``fault_plane``) and the health plane
-    (``health_plane``) raise ``NotImplementedError`` naming the plane that
-    brings them."""
+    occupancy is charged and results fan out from."""
 
     def __init__(
         self,
@@ -965,13 +980,6 @@ class FleetBusExecutor(_BusRuntime):
         control_interval_s: Optional[float] = None,
         batch_refresh: Optional[BatchRefresh] = None,
     ):
-        given = {"fault_plane": fault_plane is not None,
-                 "health_plane": health_plane is not None}
-        for arg, on in given.items():
-            if on:
-                raise NotImplementedError(
-                    f"FleetBusExecutor({arg}=...): {_UNPORTED_PLANES[arg]} "
-                    "comes with its own slice of the port")
         self.stages = stages
         self.dep = deployment
         self.topo = topo
@@ -986,7 +994,8 @@ class FleetBusExecutor(_BusRuntime):
         self.serve_slots = serve_slots
         self.query_trace = query_trace
         self.query_seed = query_seed
-        self.fault_plane = None
+        self.fault_plane = fault_plane
+        self.health_plane = health_plane
         self.stage_costs = stage_costs
         self.staleness_bound = staleness_bound
         self.agg_timeout_s = (agg_timeout_s if agg_timeout_s is not None
@@ -1132,6 +1141,22 @@ class FleetBusExecutor(_BusRuntime):
         sub(T_RESYNC, "speed_training", self._on_resync)
         if self._controller is not None:
             bus.subscribe(T_CTRL, self._ctrl_site_name(), self._on_ctrl_tick)
+        if self.health_plane is not None:
+            # the goldpinger mesh: every site monitors every other.  Each
+            # site subscribes the heartbeat wildcard (deliveries from peers
+            # ride the real links, so partitions and crashes cut them) and
+            # its own exact-topic check beat (a loopback publish: a down
+            # site's monitor goes silent).  The handlers are bookkeeping
+            # only and occupy no pool worker.
+            hp = self.health_plane
+            for name in self.topo.sites:
+                bus.subscribe(
+                    T_HEALTH_HB + "/+", name,
+                    lambda msg, obs=name: hp.observe_heartbeat(
+                        obs, msg.payload["site"], msg.deliver_time))
+                bus.subscribe(
+                    stream_topic(T_HEALTH_CHECK, name), name,
+                    lambda msg, obs=name: hp.check(obs, msg.deliver_time))
         if self._serving_enabled:
             # the request plane: stream windows feed the serving contexts,
             # request topics feed the admission queue, responses land back
@@ -1156,14 +1181,20 @@ class FleetBusExecutor(_BusRuntime):
         (``agg_timeout_s``) that dispatches whoever showed up
         (:meth:`_flush`)."""
         sid, w = msg.payload["stream"], msg.payload["window"]
+        fp = self.fault_plane
         # the delivered window's y is the ground truth of (sid, w) from
-        # here on
+        # here on: under record dropout it is shorter than the nominal y
         self._ys[(sid, w)] = msg.payload["y"]
         if sid in self._quarantined:
             del self._quarantined[sid]
             self._miss[sid] = 0
+            if fp is not None:
+                fp.note("quarantine_revived", self.kernel.now, sid)
         key = (kind, w)
         if key in self._dispatched:
+            if fp is not None:
+                fp.note("late_straggler_dropped", self.kernel.now,
+                        f"{kind}:{sid}/w{w}")
             return None
         pend = self._pending_agg.setdefault(key, {})
         pend[sid] = msg
@@ -1172,7 +1203,7 @@ class FleetBusExecutor(_BusRuntime):
         if all(s in pend for s in expected):
             self._dispatched.add(key)
             return self._pending_agg.pop(key)
-        if self.fault_plane is not None and key not in self._flush_armed:
+        if fp is not None and key not in self._flush_armed:
             self._flush_armed.add(key)
             self.kernel.after(self.agg_timeout_s,
                               lambda: self._flush(kind, w))
@@ -1188,13 +1219,30 @@ class FleetBusExecutor(_BusRuntime):
             return
         self._dispatched.add(key)
         pend = self._pending_agg.pop(key, {})
+        fp = self.fault_plane
+        if fp is not None:
+            fp.note("agg_flush", self.kernel.now,
+                    f"{kind}/w{w}:{len(pend)}/{len(self.ids)}")
+        hp = self.health_plane
         if kind == "train":
             for s in self.ids:
                 if s in pend or s in self._quarantined:
                     continue
                 self._miss[s] += 1
-                if self._miss[s] >= self.quarantine_after:
+                if hp is not None:
+                    # a missed training flush is a detected sensor fault:
+                    # feed the stream's fault rate, then read the (maybe
+                    # tightened) threshold back; calm pressure gives the
+                    # base knob
+                    hp.observe_fault("sensor", s, self.kernel.now)
+                    q_after = hp.quarantine_after(s, self.kernel.now)
+                else:
+                    q_after = self.quarantine_after
+                if self._miss[s] >= q_after:
                     self._quarantined[s] = w
+                    if fp is not None:
+                        fp.note("stream_quarantined", self.kernel.now,
+                                f"{s}@w{w}")
         if not pend:
             return
         if kind == "train":
@@ -1232,10 +1280,20 @@ class FleetBusExecutor(_BusRuntime):
                 for sid in sids})["fleet"]
         else:
             stage, topic = self.stages.speed_inference, T_SPEED
+            # under int8 sync a stream with no speed model yet serves the
+            # batch model; beside streams that serve int8 models in the same
+            # stacked predict it serves its int8 copy (as a serving tick
+            # does), so the stacked tree keeps one structure.  The
+            # reference stacks the float tree beside the int8 ones there
+            # and raises.
+            mixed = self.quantized_sync and len(
+                {self._fleet.state(sid).speed_params is None
+                 for sid in sids}) > 1
             out = stage(fleet={
                 sid: dict(speed_params=self._fleet.state(sid).speed_params,
                           x=pend[sid].payload["x"],
-                          fallback_params=self._bp[sid])
+                          fallback_params=(self._serving_fallback(sid)
+                                           if mixed else self._bp[sid]))
                 for sid in sids})["fleet"]
         wall = out[sids[0]].wall_s
         module = "batch_inference" if kind == "batch" else "speed_inference"
@@ -1349,12 +1407,18 @@ class FleetBusExecutor(_BusRuntime):
                 # one pass, the model topics carry the int8 bytes, and the
                 # edge serves the fleet through the int8 kernel
                 pubs = quantize_fleet(pubs, min_size=self.quant_min_size)
+            hp = self.health_plane
             for s, params_pub in zip(train_ids, pubs):
                 o = out["fleet"][s]
                 payload = {"stream": s, "window": w, "params": params_pub,
                            "eval_preds": o["eval_preds"],
                            "eval_y": o["eval_y"],
                            "checksum": tree_checksum(params_pub)}
+                if hp is not None and hp.sync_key is not None:
+                    # authenticated sync: the CRC32 catches damage in
+                    # transit, the HMAC tampering (a forger can recompute
+                    # the checksum but not the keyed signature)
+                    payload["sig"] = sign_tree(params_pub, hp.sync_key)
                 nbytes = _nbytes(params_pub)
                 # the last publish, so a re-request re-sends it untrained
                 self._last_model_pub[s] = (payload, nbytes)
@@ -1383,18 +1447,27 @@ class FleetBusExecutor(_BusRuntime):
     def _on_model_sync(self, msg: Message) -> None:
         sid = msg.payload["stream"]
         state = self._fleet.state(sid)
+        hp = self.health_plane
         # verify before the ordering guard: every corrupted delivery is
         # detected and counted, whether or not it would have installed
         out = self.stages.single.model_sync(
             params=msg.payload["params"],
             eval_preds=msg.payload["eval_preds"],
             eval_y=msg.payload["eval_y"],
-            checksum=msg.payload.get("checksum"))
+            checksum=msg.payload.get("checksum"),
+            signature=msg.payload.get("sig"),
+            sig_key=hp.sync_key if hp is not None else None)
         if not out["ok"]:
-            # the transfer happened, but a corrupt model is never served;
-            # ask the training site to re-send
+            # the transfer happened, but a corrupt or forged model is never
+            # served; ask the training site to re-send (its cached publish
+            # carries a valid signature)
             self.ledger.add("model_sync", comp_s=0.0,
                             comm_s=msg.deliver_time - msg.publish_time)
+            if hp is not None:
+                hp.observe_fault("sync", sid, self.kernel.now)
+            if out.values.get("forged") and self.fault_plane is not None:
+                self.fault_plane.note("sync_sig_rejected", self.kernel.now,
+                                      f"{sid}/w{msg.payload['window']}")
             self._request_resync(sid, msg.payload["window"])
             return
         if msg.payload["window"] <= state.window:
@@ -1413,6 +1486,9 @@ class FleetBusExecutor(_BusRuntime):
     def _request_resync(self, sid: StreamId, w: int) -> None:
         sent = self._resync_sent.get((sid, w), 0)
         if sent >= self.max_resync:
+            if self.fault_plane is not None:
+                self.fault_plane.note("resync_gave_up", self.kernel.now,
+                                      f"{sid}/w{w}")
             return
         self._resync_sent[(sid, w)] = sent + 1
         self.bus.publish(stream_topic(T_RESYNC, sid),
@@ -1428,6 +1504,21 @@ class FleetBusExecutor(_BusRuntime):
             return
         self.bus.publish(stream_topic(T_MODEL, payload["stream"]), payload,
                          nbytes, self.dep.site_of("speed_training"))
+
+    def _on_site_restart(self, site_name: str) -> None:
+        """Cold restart after a crash: the worker pool forgets its queue (a
+        restarted box has no backlog), and if the model-sync module lived
+        there its installed serving state is gone: every stream falls back
+        to the batch model until the next sync lands."""
+        self._free.pop(site_name, None)
+        for sid in self.ids:
+            if self._module_site("model_sync", sid) != site_name:
+                continue
+            st = self._fleet.state(sid)
+            st.speed_params = None
+            st.prev_preds = None
+            st.prev_y = None
+            st.window = -1
 
     def _on_user(self, msg: Message) -> None:
         sid, w = msg.payload["stream"], msg.payload["window"]
@@ -1555,15 +1646,26 @@ class FleetBusExecutor(_BusRuntime):
         The staleness watchdog: a stream whose installed model lags its
         freshest context window (``context_window``, which the request
         plane tracks) by more than ``staleness_bound`` windows serves the
-        batch model instead of an ever staler speed model."""
+        batch model instead of an ever staler speed model.  Under a health
+        plane the bound adapts: link suspicion or sync rejections tighten
+        it toward the floor, so serving flips to the fallback sooner when
+        fresh models are least likely to arrive; calm pressure gives the
+        base bound."""
         params: List[Params] = []
         windows: Dict[StreamId, int] = {}
         fallback: Dict[StreamId, bool] = {}
+        hp = self.health_plane
         for sid in self.ids:
             st = self._fleet.state(sid)
-            stale = (st.window >= 0 and context_window[sid] - st.window
-                     > self.staleness_bound)
+            ctxw = context_window[sid]
+            bound = (hp.staleness_bound(sid, self.kernel.now)
+                     if hp is not None else self.staleness_bound)
+            stale = st.window >= 0 and ctxw - st.window > bound
             use_fb = st.speed_params is None or stale
+            if stale and self.fault_plane is not None:
+                self.fault_plane.note(
+                    "staleness_fallback", self.kernel.now,
+                    f"{sid}:ctx w{ctxw} vs model w{st.window}")
             params.append(self._serving_fallback(sid) if use_fb
                           else st.speed_params)
             windows[sid] = st.window
@@ -1715,7 +1817,26 @@ class FleetBusExecutor(_BusRuntime):
             key: Union[int, Mapping[StreamId, int]],
             n_windows: Optional[int] = None) -> FleetBusRunResult:
         ids = list(streams)
+        fp = self.fault_plane
+        if fp is not None:
+            # rewind the plane so repeated runs under one seed replay the
+            # identical fault schedule, then wire it into the run
+            fp.reset()
+            fp.on_restart(self._on_site_restart)
         self._reset(ids)
+        if fp is not None:
+            fp.install(self.kernel)
+        hp = self.health_plane
+        if hp is not None:
+            # rewind like the fault plane, then bind this run's topology,
+            # cadence, base thresholds and the seed-derived signing key
+            hp.reset()
+            hp.bind(sites=list(self.topo.sites),
+                    hb_interval_s=hp.cfg.hb_interval_s or 0.5 * self.period,
+                    halflife_s=hp.cfg.rate_halflife_s or 2.0 * self.period,
+                    quarantine_after=self.quarantine_after,
+                    staleness_bound=self.staleness_bound,
+                    sync_seed=fp.seed if fp is not None else 0)
         n = min(len(s) for s in streams.values())
         if n_windows is not None:
             n = min(n, n_windows)
@@ -1724,6 +1845,9 @@ class FleetBusExecutor(_BusRuntime):
         if self.batch_refresh is not None:
             self.batch_refresh.reset()
             self._rkeys = refresh_key_chains(key, ids, n)
+        ms = self.stages.single.model_sync
+        rejected0, verified0 = ms.corrupt_rejected, ms.verified
+        forged0 = ms.forged_rejected
         self._warmup(streams)
         trace: List[Any] = []
         if self._serving_enabled:
@@ -1765,10 +1889,35 @@ class FleetBusExecutor(_BusRuntime):
                         T_CTRL, {"tick": k}, 64.0, ctrl_site))
                 k += 1
 
+        if hp is not None:
+            # the health plane's beats: every site publishes heartbeats on
+            # health/hb/<site> (cross-site deliveries ride the real links,
+            # so a partition or a crash silences them) and its own loopback
+            # check beat half an interval later, when every healthy peer's
+            # heartbeat has arrived.  The fault plane loses a down site's
+            # publishes, so a dead site's monitor goes quiet with it.
+            hb = hp.cfg.hb_interval_s or 0.5 * self.period
+            horizon = n * self.period + hb
+            for name in self.topo.sites:
+                k = 1
+                while k * hb <= horizon:
+                    self.kernel.at(
+                        k * hb,
+                        lambda name=name, k=k: self.bus.publish(
+                            stream_topic(T_HEALTH_HB, name),
+                            {"site": name, "k": k}, 32.0, name))
+                    self.kernel.at(
+                        (k + 0.5) * hb,
+                        lambda name=name: self.bus.publish(
+                            stream_topic(T_HEALTH_CHECK, name), {},
+                            32.0, name))
+                    k += 1
+
         for sid in ids:
             injector = BusInjector(self.kernel, self.bus, T_STREAM,
                                    self.dep.site_of("data_injection"),
-                                   period_s=self.period, stream_id=sid)
+                                   period_s=self.period, stream_id=sid,
+                                   fault_plane=fp, health_plane=hp)
             for w in range(n):
                 data = streams[sid].supervised(w)
                 self._ys[(sid, w)] = data["y"]
@@ -1812,6 +1961,18 @@ class FleetBusExecutor(_BusRuntime):
             p = self._fleet.state(sid).speed_params
             final_params[sid] = (materialize_params(p) if p is not None
                                  else None)
+        chaos = None
+        if fp is not None:
+            chaos = {
+                "fault_stats": dict(fp.stats),
+                "n_fault_events": len(fp.events),
+                "dead_letters": len(self.bus.dead_letters),
+                "quarantined": dict(self._quarantined),
+                "corrupt_rejected": ms.corrupt_rejected - rejected0,
+                "checksum_verified": ms.verified - verified0,
+                "forged_rejected": ms.forged_rejected - forged0,
+                "resync_requests": sum(self._resync_sent.values()),
+            }
         rf = self.batch_refresh
         return FleetBusRunResult(
             results=results,
@@ -1837,10 +1998,12 @@ class FleetBusExecutor(_BusRuntime):
             queries=list(self.queries),
             serving=serving_stats,
             dead_letters=list(self.bus.dead_letters),
+            chaos=chaos,
             placement=placement,
             infer_dispatches={
                 kind: {"ticks": st.ticks - infer0[kind][0],
                        "dispatches": st.dispatches - infer0[kind][1]}
                 for kind, st in (("batch", bi), ("speed", si))},
             final_params=final_params,
+            health=hp.summary() if hp is not None else None,
         )

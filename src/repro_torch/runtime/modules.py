@@ -11,8 +11,9 @@ orchestration:
 ``BusExecutor`` subscribes the stages to these topics; the fleet executor
 multiplexes them per stream (``stream_topic``) and adds ``T_RESYNC``, the
 sync site's re-request of a model whose checksum failed, the request plane's
-``T_REQUEST`` and ``T_RESPONSE``, and the placement controller's beat
-``T_CTRL``.  The reference's
+``T_REQUEST`` and ``T_RESPONSE``, the placement controller's beat
+``T_CTRL``, and the health plane's heartbeats (``T_HEALTH_HB``, one topic a
+site) and monitor check beats (``T_HEALTH_CHECK``).  The reference's
 calibrated simulation (``EdgeCloudSimulation``) comes with the slice that
 ports the launcher's calibrated mode.
 """
@@ -26,6 +27,8 @@ T_RESYNC = "model/rerequest"
 T_REQUEST = "serve/request"
 T_RESPONSE = "serve/response"
 T_CTRL = "ctrl/tick"  # the elastic placement controller's control-plane beat
+T_HEALTH_HB = "health/hb"  # per-site heartbeats: health/hb/<site>
+T_HEALTH_CHECK = "health/check"  # per-site monitor check beat (loopback)
 
 
 def stream_topic(base: str, stream_id: str) -> str:

@@ -29,12 +29,13 @@ class BusInjector:
     the bus.
 
     A ``health_plane`` screens what the (possibly lying) sensor produced:
-    its ``ByzantineGuard`` (the health plane's, which the port has not yet)
-    gates every window's target values through per-stream rolling median/MAD plausibility
-    checks, imputing flagged values before the window reaches the bus —
-    the defense the Byzantine sensor fault exists to exercise.  Clean
-    windows pass through untouched (same array objects), so a fault-free
-    run is byte-identical with or without the guard."""
+    its ``ByzantineGuard`` (``runtime.health``) gates every window's target
+    values through per-stream rolling median/MAD plausibility checks,
+    imputing flagged values before the window reaches the bus, the defense
+    the Byzantine sensor fault exists to exercise, and counts each flagged
+    window as a sensor fault.  Clean windows pass through untouched (same
+    array objects), so a fault-free run is byte-identical with or without
+    the guard."""
 
     def __init__(self, kernel, bus, topic: str, site: str,
                  period_s: float = 30.0, stream_id: Optional[str] = None,

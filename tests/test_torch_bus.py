@@ -275,7 +275,7 @@ def test_stage_sync_sees_quantized_leaves():
     (["--real", "--gated"], "requires --streams > 1"),
     (["--real", "--qps", "8"], "--qps requires fleet mode"),
     (["--real", "--elastic"], "--elastic requires fleet mode"),
-    (["--chaos", "site_crash"], "chaos and health slice"),
+    (["--chaos", "nope"], "pick from"),
     ([], "ports the benchmarks"),
 ])
 def test_launcher_refuses_modes_not_ported(flags, slice_, capsys):

@@ -623,17 +623,6 @@ def test_batch_refresh_updates_batch_params(port_fleet):
     assert changed
 
 
-@pytest.mark.parametrize("kwargs,plane", [
-    ({"fault_plane": object()}, "the chaos plane"),
-    ({"health_plane": object()}, "the health plane"),
-])
-def test_fleet_bus_refuses_unported_planes(kwargs, plane):
-    stages, _ = _stages()
-    with pytest.raises(NotImplementedError, match=plane):
-        FleetBusExecutor(stages, edge_cloud_integrated(), paper_topology(),
-                         **kwargs)
-
-
 def _bus(port_fleet, **kw):
     streams, bp = port_fleet
     stages, _ = _stages()

@@ -63,6 +63,9 @@ FLEET_MODULES = {"repro_torch.core.drift", "repro_torch.core.stages",
 # the modules of the request and placement planes
 PLANE_MODULES = {"repro_torch.serving.query_plane",
                  "repro_torch.runtime.placement"}
+# the modules of the chaos and health planes
+CHAOS_MODULES = {"repro_torch.runtime.faults", "repro_torch.runtime.health",
+                 "repro_torch.core.scenarios"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -78,6 +81,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert ZAMBA2_MODULES <= names
     assert FLEET_MODULES <= names
     assert PLANE_MODULES <= names
+    assert CHAOS_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

@@ -58,8 +58,12 @@ def test_combine_and_speed_fallback():
 
 def test_model_sync_passes_through_and_refuses_integrity_checks():
     """A publish passes through; its checksum is verified as the
-    reference's stage verifies it (a mismatch rejects, counted); the
-    signature check, which the port has not yet, raises."""
+    reference's stage verifies it (a mismatch rejects, counted); with a
+    ``sig_key`` its signature too, as the reference's stage checks it: a
+    good one installs, a bad or missing one rejects marked ``forged`` and
+    counts in ``forged_rejected``."""
+    from repro.runtime.health import sign_tree as jax_sign_tree
+    from repro_torch.runtime.health import derive_sync_key, sign_tree
     from repro.runtime.faults import tree_checksum as jax_tree_checksum
     from repro_torch.serving.quantize import tree_checksum
 
@@ -78,9 +82,22 @@ def test_model_sync_passes_through_and_refuses_integrity_checks():
         assert (got["speed_params"] is None) == (want["speed_params"] is None)
     assert (ms.verified, ms.corrupt_rejected) == (1, 1)
     assert (ms_ref.verified, ms_ref.corrupt_rejected) == (1, 1)
-    for kw in ({"sig_key": b"k"}, {"signature": "s"}):
-        with pytest.raises(NotImplementedError, match="health slice"):
-            ms(params=p, eval_preds=None, eval_y=None, **kw)
+    key = derive_sync_key(0)
+    sig = sign_tree(p, key)
+    assert sig == jax_sign_tree(p_ref, key)
+    for signature in (sig, sig[::-1], None):
+        got = ms(params=p, eval_preds=None, eval_y=None, checksum=good,
+                 signature=signature, sig_key=key)
+        want = ms_ref(params=p_ref, eval_preds=None, eval_y=None,
+                      checksum=good, signature=signature, sig_key=key)
+        assert got["ok"] == want["ok"] == (signature == sig)
+        assert got.values.get("forged") == want.values.get("forged")
+        assert (got["speed_params"] is p) == got["ok"]
+    # a signature without a key is not checked, as in the reference
+    assert ms(params=p, eval_preds=None, eval_y=None, signature="s")["ok"]
+    assert (ms.verified, ms.corrupt_rejected, ms.forged_rejected) == \
+        (ms_ref.verified, ms_ref.corrupt_rejected,
+         ms_ref.forged_rejected) == (4, 1, 2)
     assert stages.DataSync()(nbytes=12.0)["nbytes"] == 12.0
 
 

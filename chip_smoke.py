@@ -118,7 +118,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    200 qps on 16 (4 windows x 250 records, measured walls), every request
    answered at one stacked predict a tick, sustained >= offered QPS, with
    the latency percentiles, tick walls, a warm tick's idle share,
-   staleness and restacks printed;
+   staleness and restacks printed, and every measured stage's wall logged
+   with its kind and window (``logging_stages``): the slowest five
+   printed with the collections of Python's collector that overlapped
+   each and the card's reserved-memory growth at each;
 14. the placement plane (``placement_phase``): the ``LoadForecaster``'s
    fits (H = 8, F = 1) replayed from the reference's draws, every forecast
    within ``FORECAST_RTOL``, one launch of #2 and of #3 a fit step and one
@@ -149,9 +152,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    predict, one of #2 and #3 a fit step, seven of #4 an int8 one) and no
    plain version; a ``forged_sync`` run's wall, busy device time and idle
    share at each size, and the host cost of signing and verifying a
-   publish.
+   publish;
+16. the rest of the zoo's dense transformers (``zoo_rest_phase``):
+   ``h2o-danube-3-4b``, ``codeqwen1.5-7b`` and ``nemotron-4-15b`` through
+   ``zoo_phase`` as in phase 8, each from its parity fixture
+   (``tests/data/torch_parity_<arch>.npz``) at full width in float32, at
+   the depth ``PARITY_CUTS`` names (h2o 24 of 24 layers, codeqwen 16 of
+   32, nemotron 8 of 32), decode equivalence, the float32 serve; for h2o
+   also decode past its 4096-token window (``window_check``: 2 layers, a
+   4,090-token prompt and 16 steps against one forward, the ring buffer
+   wrapping); then in bf16 at full depth ``Engine.generate`` (4 x 512 +
+   32) with exactly L x 32 launches of #6 (L of its wgmma prefill, L x 31
+   of its split decode, none of its SIMT kernel) and no plain attention,
+   and ``Engine.serve``;
+17. the MoE pair the same way, through ``models/moe.py``:
+   ``grok-1-314b`` (parity at 1 of 64 layers, bf16 at 6) and
+   ``kimi-k2-1t-a32b`` (parity at 2 layers, its dense first layer and one
+   MoE layer, with 72 of 384 experts so that the capacity drops slots;
+   bf16 at 2 layers and all 384 experts); the parity run also holds every
+   dispatch's top-k experts and kept slots to the reference's
+   (``check_zoo_routes``; a differing route only at a printed routing
+   near tie, which ends that row's comparison) and fails unless kimi's
+   capacity dropped slots as the reference's did.
 
-Every kernel is built in phase 2 and held to its plain version in phase 3.
+Every kernel is built in phase 2 and held to its plain version in phase 3
+(#6 also at the served shapes of phases 16 and 17: their GQA ratios, MHA,
+D = 120 and 128, and kimi's D = 112 in bf16 and float32).
 The one-step cell (#5) is held there at the reference's sweep, the serving
 rows and H up to 1024 (beyond the sequence kernels' shared memory), every
 case twice, bit for bit.  Flash attention (#6) is three kernels, one
@@ -179,6 +205,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -187,6 +214,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -381,6 +409,55 @@ ZAMBA_ARCH = "zamba2-1.2b"
 ZAMBA_FIXTURE = ROOT / "tests" / "data" / "torch_parity_zamba2_1_2b.npz"
 FLASH_MHA_PREFILL = (4, 512, 512, 32, 32, 64)
 FLASH_MHA_DECODE = (4, 1, 544, 32, 32, 64)
+# the rest of the zoo's transformers, phases 16 (the dense trio) and 17 (the
+# MoE pair), through the port's Engine with every attention in #6: each
+# arch's parity fixture, written by the JAX reference as the other three
+# are, from a parity config cut in depth (and kimi in experts) so that its
+# float32 params fit this repo's fixture host and the card
+# (PARITY_CUTS), and a bf16 served config cut in depth where the card
+# cannot hold the whole model (SERVED_LAYERS).  Widths are never cut.
+DENSE_ARCHS = ("h2o-danube-3-4b", "codeqwen1.5-7b", "nemotron-4-15b")
+MOE_ARCHS = ("grok-1-314b", "kimi-k2-1t-a32b")
+NEW_ZOO_ARCHS = DENSE_ARCHS + MOE_ARCHS
+
+
+def zoo_fixture(arch: str) -> Path:
+    return ROOT / "tests" / "data" / (
+        "torch_parity_" + arch.replace("-", "_").replace(".", "_") + ".npz")
+
+
+# arch -> the parity config's n_layers and n_experts (0: the arch's own)
+PARITY_CUTS = {"h2o-danube-3-4b": (24, 0), "codeqwen1.5-7b": (16, 0),
+               "nemotron-4-15b": (8, 0), "grok-1-314b": (1, 0),
+               "kimi-k2-1t-a32b": (2, 72)}
+# arch -> the bf16 served config's n_layers (the arch's own where absent):
+# grok's 64 layers are 9.8 GB of bf16 experts each, kimi's 60 MoE layers
+# 34 GB each
+SERVED_LAYERS = {"grok-1-314b": 6, "kimi-k2-1t-a32b": 2}
+# the new fixtures' numpy draws: each leaf in pieces of DRAW_CHUNK samples,
+# piece i from its own generator (seed, crc32 of the path, i), drawn by
+# threads (the older fixtures draw each leaf whole, DRAW_CHUNK 0)
+DRAW_CHUNK = 1 << 26
+# a routed token's routing margin: the smallest gap between adjacent
+# router probabilities among its top k + 1, the reference's.  The port may
+# route a token otherwise than the reference only where that margin is
+# below ZOO_ROUTE_ATOL (a near tie of float32 sums); it ends that row's
+# comparison, as a logit near tie does
+ZOO_ROUTE_ATOL = 2e-5
+# h2o-danube-3-4b's window on the card: decode past it at full width, 2
+# layers, float32: a prompt of WINDOW_CHECK[0] tokens, WINDOW_CHECK[1]
+# decode steps against one forward over both (the ring buffer wraps)
+WINDOW_CHECK = (4090, 16)
+# #6 at the new configs' served GQA ratios and head dims in phase 3:
+# (B, Sq, Sk, Hq, Hkv, D) of a served prefill layer and of generate's last
+# decode step, by label; kimi's D = 112 also in float32
+FLASH_ZOO_SHAPES = {
+    "h2o 4:1 d120": ((4, 512, 512, 32, 8, 120), (4, 1, 544, 32, 8, 120)),
+    "codeqwen mha d128": ((4, 512, 512, 32, 32, 128),
+                          (4, 1, 544, 32, 32, 128)),
+    "6:1 d128": ((4, 512, 512, 48, 8, 128), (4, 1, 544, 48, 8, 128)),
+    "kimi 8:1 d112": ((4, 512, 512, 64, 8, 112), (4, 1, 544, 64, 8, 112)),
+}
 # kernel #6's timed shapes: label -> (shape, the positions' kind)
 # kernel A's bf16 output against the plain version: about two bf16 steps
 # (one rounding of the output either way).  It cannot tell P_hi + P_lo
@@ -1694,9 +1771,16 @@ def check_chaos_run(fx: dict, name: str, res, ex, fits: dict, atol: float,
 # ---------------------------------------------------------------------------
 
 
-def zoo_parity_config(cfg):
-    """The parity run's config: the arch at full width and depth, float32."""
-    return cfg.replace(dtype="float32", param_dtype="float32")
+def zoo_parity_config(cfg, n_layers: int = 0, n_experts: int = 0):
+    """The parity run's config: the arch at full width in float32, at full
+    depth or ``n_layers``, with all its experts or ``n_experts``."""
+    cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    if n_experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  n_experts=n_experts))
+    return cfg
 
 
 def _param_shapes(cfg) -> dict:
@@ -1706,7 +1790,12 @@ def _param_shapes(cfg) -> dict:
     (``models/transformer.py: init_params``) or of RWKV6, the ``ssm``
     family (``models/rwkv.py: init_params``); or, for the Zamba2 hybrid
     (``models/hybrid_arch.py: init_params``), the Mamba2 stack ``mamba/*``
-    with a leading L axis and the one shared block ``shared/*``."""
+    with a leading L axis and the one shared block ``shared/*``.  An MoE
+    config's ``first_dense_layers`` dense layers are the stack
+    ``layers/*`` and the rest ``moe_layers/*``, whose MLP is the router
+    (d, E), the experts ``we_in``, ``we_gate`` (E, d, f) and ``we_out``
+    (E, f, d), and the shared experts' ``w_in``, ``w_gate`` and ``w_out``
+    (``models/moe.py: init_moe``), each with a leading L axis."""
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     qd, kvd, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = {"tok_embed": ((V, d), "embed"), "final_norm": ((d,), "norm")}
@@ -1748,16 +1837,36 @@ def _param_shapes(cfg) -> dict:
                  "ck_rec": ((L, d, d), "dense")}
         shapes.update({f"layers/{k}": v for k, v in layer.items()})
         return shapes
-    layer = {"attn_norm": ((L, d), "norm"), "mlp_norm": ((L, d), "norm"),
-             "wq": ((L, d, qd), "dense"), "wk": ((L, d, kvd), "dense"),
-             "wv": ((L, d, kvd), "dense"), "wo": ((L, qd, d), "dense"),
-             "w_in": ((L, d, f), "dense"), "w_out": ((L, f, d), "dense")}
-    if cfg.qkv_bias:
-        layer.update(bq=((L, qd), "bias"), bk=((L, kvd), "bias"),
-                     bv=((L, kvd), "bias"))
-    if cfg.mlp_variant in ("swiglu", "geglu"):
-        layer["w_gate"] = ((L, d, f), "dense")
-    shapes.update({f"layers/{k}": v for k, v in layer.items()})
+    gated = cfg.mlp_variant in ("swiglu", "geglu")
+
+    def attention(n):
+        layer = {"attn_norm": ((n, d), "norm"), "mlp_norm": ((n, d), "norm"),
+                 "wq": ((n, d, qd), "dense"), "wk": ((n, d, kvd), "dense"),
+                 "wv": ((n, d, kvd), "dense"), "wo": ((n, qd, d), "dense")}
+        if cfg.qkv_bias:
+            layer.update(bq=((n, qd), "bias"), bk=((n, kvd), "bias"),
+                         bv=((n, kvd), "bias"))
+        return layer
+
+    def mlp(n, width, lead=()):
+        layer = {"w_in": ((n, *lead, d, width), "dense"),
+                 "w_out": ((n, *lead, width, d), "dense")}
+        if gated:
+            layer["w_gate"] = ((n, *lead, d, width), "dense")
+        return layer
+
+    n_dense = L if cfg.moe is None else min(cfg.moe.first_dense_layers, L)
+    if n_dense:
+        layer = {**attention(n_dense), **mlp(n_dense, f)}
+        shapes.update({f"layers/{k}": v for k, v in layer.items()})
+    if L > n_dense:
+        n, moe = L - n_dense, cfg.moe
+        layer = {**attention(n), "router": ((n, d, moe.n_experts), "dense"),
+                 **{"we" + k[1:]: v for k, v in mlp(
+                     n, moe.d_ff_expert, (moe.n_experts,)).items()}}
+        if moe.n_shared_experts:
+            layer.update(mlp(n, moe.d_ff_expert * moe.n_shared_experts))
+        shapes.update({f"moe_layers/{k}": v for k, v in layer.items()})
     return shapes
 
 
@@ -1768,13 +1877,17 @@ UNIFORM_KINDS = {"mix": (0.2, 0.8), "mix_lora": (-0.005, 0.005),
 DT_RANGE = (1e-3, 1e-1)
 
 
-def numpy_params(cfg, seed: int) -> dict:
-    """Random float32 params of the dense transformer, RWKV6 or the Zamba2
-    hybrid, a nested dict of numpy arrays in the reference's tree layout.
-    Each leaf draws from its own generator, seeded by (seed, crc32 of its
-    path): dense weights normal at fan-in scale, the embedding normal at
-    d**-0.5, norm gains 1 + 0.1 normal, biases 0.02 normal.  RWKV6's other
-    leaves:
+def numpy_params(cfg, seed: int, chunk: int = 0) -> dict:
+    """Random float32 params of the dense or MoE transformer, RWKV6 or the
+    Zamba2 hybrid, a nested dict of numpy arrays in the reference's tree
+    layout.  Each leaf draws from its own generator, seeded by (seed, crc32
+    of its path), or with ``chunk`` each piece of ``chunk`` samples of the
+    flattened leaf from its own, seeded by (seed, crc32 of its path, the
+    piece's index); the draws run on a thread each (numpy's generators
+    fill without the GIL) and give the same arrays however many threads
+    run.  Dense weights (the experts and the router among them) normal at
+    fan-in scale, the embedding normal at d**-0.5, norm gains 1 + 0.1
+    normal, biases 0.02 normal.  RWKV6's other leaves:
 
     - ``mix_base`` and ``ck_mix`` uniform on [0.2, 0.8], ``mix_lora_b``
       uniform on [-0.005, 0.005]: the ddlerp's LoRA (tanh, rank 32) moves a
@@ -1803,32 +1916,48 @@ def numpy_params(cfg, seed: int) -> dict:
 
     The reference and the port load the same tree, so neither needs the
     other's init."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tree: dict = {}
+    pieces = []
     for path, (shape, kind) in sorted(_param_shapes(cfg).items()):
-        rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
-        if kind in UNIFORM_KINDS or kind == "decay_lora":
-            lo, hi = UNIFORM_KINDS.get(kind, (-0.5 / shape[-2],
-                                              0.5 / shape[-2]))
-            w = rng.uniform(lo, hi, shape).astype(np.float32)
-        elif kind == "dt_bias":
-            dt = np.exp(rng.uniform(*np.log(DT_RANGE), shape))
-            w = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+        w = np.empty(shape, np.float32)
+        flat, key = w.reshape(-1), [seed, zlib.crc32(path.encode())]
+        if chunk and flat.size > chunk:
+            pieces += [(key + [i], flat[i * chunk:(i + 1) * chunk], shape,
+                        kind) for i in range(-(-flat.size // chunk))]
         else:
-            w = rng.standard_normal(shape, dtype=np.float32)
-        if kind in ("dense", "embed", "conv"):
-            w *= np.float32(shape[-1 if kind == "embed" else -2] ** -0.5)
-        elif kind == "norm":
-            w *= np.float32(0.1)
-            w += np.float32(1.0)
-        elif kind == "bias":
-            w *= np.float32(0.02)
-        elif kind == "bonus":
-            w *= np.float32(0.5)
+            pieces.append((key, flat, shape, kind))
         *parents, leaf = path.split("/")
         node = tree
         for name in parents:
             node = node.setdefault(name, {})
         node[leaf] = w
+
+    def draw(piece):
+        key, out, shape, kind = piece
+        rng = np.random.default_rng(key)
+        if kind in UNIFORM_KINDS or kind == "decay_lora":
+            lo, hi = UNIFORM_KINDS.get(kind, (-0.5 / shape[-2],
+                                              0.5 / shape[-2]))
+            out[:] = rng.uniform(lo, hi, out.size)
+        elif kind == "dt_bias":
+            dt = np.exp(rng.uniform(*np.log(DT_RANGE), out.size))
+            out[:] = dt + np.log(-np.expm1(-dt))
+        else:
+            rng.standard_normal(out=out, dtype=np.float32)
+        if kind in ("dense", "embed", "conv"):
+            out *= np.float32(shape[-1 if kind == "embed" else -2] ** -0.5)
+        elif kind == "norm":
+            out *= np.float32(0.1)
+            out += np.float32(1.0)
+        elif kind == "bias":
+            out *= np.float32(0.02)
+        elif kind == "bonus":
+            out *= np.float32(0.5)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(draw, pieces))
     return tree
 
 
@@ -1880,16 +2009,159 @@ def logit_summary(steps: list, k: int = ZOO_TOPK) -> dict:
 
 def zoo_fixture_arrays(arch: str, reduced: bool, seed: int,
                        prompts: np.ndarray, tokens: np.ndarray, steps: list,
-                       max_len: int, serve: dict) -> dict:
+                       max_len: int, serve: dict,
+                       extra: Optional[dict] = None) -> dict:
     """The parity fixture's arrays: the run's metadata, its prompts and
     greedy tokens, ``logit_summary`` of its steps, and the ``serve_*``
-    arrays of its serve run (``serve_fixture_run``).  No weights: the
-    params are ``numpy_params(config, seed)``."""
+    arrays of its serve run (``serve_fixture_run``); the newer fixtures
+    add ``extra``: ``fixture_cuts``' config cuts and draw chunk, and for
+    an MoE config the ``route_*`` arrays (``route_arrays``).  No weights:
+    the params are ``numpy_params(config, seed, draw_chunk)``."""
     return {"arch": np.array(arch), "reduced": np.array(reduced),
             "seed": np.array(seed), "max_len": np.array(max_len),
             "prompts": np.asarray(prompts, np.int32),
             "tokens": np.asarray(tokens, np.int32), **logit_summary(steps),
-            **serve}
+            **serve, **(extra or {})}
+
+
+def fixture_cuts(cfg) -> dict:
+    """The newer fixtures' record of the config they ran and of the draws:
+    the parity config's depth and expert count (0 without experts), and
+    ``DRAW_CHUNK``, so that the card rebuilds the same config and
+    params."""
+    return {"parity_n_layers": np.array(cfg.n_layers),
+            "parity_n_experts": np.array(cfg.moe.n_experts if cfg.moe
+                                         else 0),
+            "draw_chunk": np.array(DRAW_CHUNK)}
+
+
+# ---------------------------------------------------------------------------
+# An MoE config's routing, recorded on either side and held to the fixture
+# ---------------------------------------------------------------------------
+
+
+def routing_record(probs, top_idx, keep, k: int) -> dict:
+    """One dispatch call's routing as host numpy: ``idx`` (N, g, k) the
+    top-k expert ids, ``keep`` (N, g, k) the slots the capacity kept, and
+    ``margin`` (N, g) each token's routing margin, the smallest gap
+    between adjacent probabilities among its top k + 1."""
+    p = np.sort(np.asarray(_host(probs), np.float64), axis=-1)[..., ::-1]
+    top = p[..., :k + 1]
+    return {"idx": np.asarray(top_idx.cpu() if hasattr(top_idx, "cpu")
+                              else top_idx).astype(np.int32),
+            "keep": np.asarray(keep.cpu() if hasattr(keep, "cpu")
+                               else keep).astype(bool),
+            "margin": (top[..., :-1] - top[..., 1:]).min(-1).astype(
+                np.float32)}
+
+
+def capacity_keep(idx: np.ndarray, n_experts: int, cap: int) -> np.ndarray:
+    """The slots (N, g, k) the reference's one-hot dispatch keeps, from its
+    top-k ids, in numpy: a slot's place in its expert's queue counts the
+    earlier slots of that expert over the flattened (g * k) axis."""
+    N, g, k = idx.shape
+    flat = idx.reshape(N, g * k)
+    counts = np.cumsum(np.eye(n_experts, dtype=np.int64)[flat], axis=1)
+    place = np.take_along_axis(counts, flat[..., None], 2)[..., 0] - 1
+    return (place < cap).reshape(N, g, k)
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Record every dispatch call of the port's MoE layer, in call order,
+    as ``routing_record``s: wraps ``models/moe.py``'s ``route`` and
+    ``kept_slots``, which ``dispatch`` calls once each a call."""
+    _import_port()
+    from repro_torch.models import moe
+
+    calls: list = []
+    route, kept = moe.route, moe.kept_slots
+    pending: dict = {}
+
+    def _route(cfg, router_w, x):
+        probs, top_p, top_idx = route(cfg, router_w, x)
+        pending.update(probs=probs, k=cfg.moe.top_k)
+        return probs, top_p, top_idx
+
+    def _kept(top_idx, n_experts, capacity):
+        keep = kept(top_idx, n_experts, capacity)
+        calls.append(routing_record(pending["probs"], top_idx, keep,
+                                    pending["k"]))
+        return keep
+
+    moe.route, moe.kept_slots = _route, _kept
+    try:
+        yield calls
+    finally:
+        moe.route, moe.kept_slots = route, kept
+
+
+def route_arrays(calls: list, batch: int, n_moe: int) -> dict:
+    """A generate's routing records (the prefill's ``n_moe`` MoE layers,
+    then each decode step's) as the fixture's arrays: ``route_prefill_*``
+    (L_moe, B, S, ...) and ``route_decode_*`` (steps, L_moe, B, ...), for
+    ``idx``, ``keep`` and ``margin``."""
+    out = {}
+    for part, recs in (("prefill", calls[:n_moe]), ("decode", calls[n_moe:])):
+        for key in ("idx", "keep", "margin"):
+            arr = np.stack([r[key].reshape(batch, -1, *r[key].shape[2:])
+                            for r in recs]) if recs else np.zeros((0,))
+            if part == "decode" and recs:
+                arr = arr.reshape(-1, n_moe, *arr.shape[1:])[:, :, :, 0]
+            out[f"route_{part}_{key}"] = arr
+    return out
+
+
+def check_zoo_routes(fx: dict, tokens: np.ndarray, calls: list,
+                     atol: float = ZOO_ROUTE_ATOL) -> dict:
+    """Hold the port's routing in a parity generate to the fixture's, step
+    by step and row by row: the same top-k ids in order and the same kept
+    slots.  A row whose routing differs where the reference's routing
+    margin is below ``atol`` (a near tie) is compared no further; a row
+    whose token differs from the reference's (a logit near tie) is
+    compared up to that step's routing.  Returns {"stops": {row: the
+    step its comparison ended, for check_zoo_parity}, "route_near_ties":
+    [(row, step, margin)], "dropped": the dropped slots compared,
+    "dropped_ref": every dropped slot of the reference's run}."""
+    B, T = fx["tokens"].shape
+    n_moe = fx["route_prefill_idx"].shape[0]
+    got = route_arrays(calls, B, n_moe)
+    stops, near, dropped, active = {}, [], 0, set(range(B))
+    for t in range(T):
+        if t == 0:
+            parts = [got["route_prefill_" + k] for k in ("idx", "keep")]
+            want = [fx["route_prefill_" + k] for k in ("idx", "keep",
+                                                       "margin")]
+        else:
+            parts = [got["route_decode_" + k][t - 1][:, :, None]
+                     for k in ("idx", "keep")]
+            want = [fx["route_decode_" + k][t - 1][:, :, None]
+                    for k in ("idx", "keep", "margin")]
+        for b in sorted(active):
+            idx, keep = (a[:, b] for a in parts)
+            idx_ref, keep_ref, margin = (a[:, b] for a in want)
+            differs = (idx != idx_ref).any(-1)  # (L_moe, S)
+            if differs.any():
+                worst = float(margin[differs].max())
+                if worst >= atol:
+                    raise AssertionError(
+                        f"row {b}, step {t}: the router chose experts "
+                        f"{idx[differs][0]}, the reference's "
+                        f"{idx_ref[differs][0]} (routing margin {worst:.3g} "
+                        f">= {atol})")
+                near.append((b, t, worst))
+                stops[b] = t
+                active.discard(b)
+                continue
+            if not np.array_equal(keep, keep_ref):
+                raise AssertionError(f"row {b}, step {t}: the capacity kept "
+                                     "other slots than the reference's")
+            dropped += int((~keep).sum())
+        active -= {b for b in active if tokens[b, t] != fx["tokens"][b, t]}
+    dropped_ref = int((~fx["route_prefill_keep"]).sum()
+                      + (~fx["route_decode_keep"]).sum())
+    return {"stops": stops, "route_near_ties": near, "dropped": dropped,
+            "dropped_ref": dropped_ref}
 
 
 def serve_fixture_run(engine_cls, request_cls, cfg, params) -> dict:
@@ -1903,12 +2175,27 @@ def serve_fixture_run(engine_cls, request_cls, cfg, params) -> dict:
 
 def zoo_config(fx: dict):
     """The config of a parity fixture: its arch at full width in float32,
-    or ``.reduced()``."""
+    or ``.reduced()``, with the cuts a newer fixture records
+    (``fixture_cuts``)."""
     _import_port()
     from repro_torch.configs import get_config
 
     cfg = get_config(str(fx["arch"]))
-    return cfg.reduced() if bool(fx["reduced"]) else zoo_parity_config(cfg)
+    n_layers = int(fx.get("parity_n_layers", 0))
+    n_experts = int(fx.get("parity_n_experts", 0))
+    if bool(fx["reduced"]):
+        return zoo_reduced_config(cfg, n_experts)
+    return zoo_parity_config(cfg, n_layers, n_experts)
+
+
+def zoo_reduced_config(cfg, n_experts: int = 0):
+    """``cfg.reduced()``, with ``n_experts`` experts where given (kimi's
+    reduced config has 4 and never reaches the capacity path)."""
+    cfg = cfg.reduced()
+    if n_experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  n_experts=n_experts))
+    return cfg
 
 
 def run_zoo_parity(fx: dict, device):
@@ -1920,7 +2207,8 @@ def run_zoo_parity(fx: dict, device):
     from repro_torch.serving.engine import Engine
 
     cfg = zoo_config(fx)
-    params = params_from_numpy(numpy_params(cfg, int(fx["seed"])), device)
+    params = params_from_numpy(numpy_params(
+        cfg, int(fx["seed"]), int(fx.get("draw_chunk", 0))), device)
     engine = Engine(cfg, params, max_len=int(fx["max_len"]), device=device)
     steps = record_logits(engine)
     tokens, _ = engine.generate(fx["prompts"], fx["tokens"].shape[1])
@@ -1928,20 +2216,25 @@ def run_zoo_parity(fx: dict, device):
 
 
 def check_zoo_parity(fx: dict, tokens: np.ndarray, steps: list,
-                     atol: float) -> dict:
+                     atol: float, route_stops: Optional[dict] = None) -> dict:
     """Hold the port's greedy tokens and logits to the fixture: tokens
     equal; at every step, the logits at the reference's top-k ids and the
     logsumexp within ``atol``.  A token may differ only where the
     reference's top-1/top-2 gap is below ``atol``; that row is then
-    compared up to the step where it differs.  Returns the measured
+    compared up to the step where it differs.  ``route_stops`` ({row:
+    step}, ``check_zoo_routes``') ends a row's comparison before the step
+    where its routing met a near tie.  Returns the measured
     {"logit_err", "lse_err", "near_ties"}."""
     got = np.stack(steps, axis=1)  # (B, T, V)
     lse = logit_summary(steps)["lse"]
     logit_err = lse_err = 0.0
     near_ties = []
     for b in range(fx["tokens"].shape[0]):
-        diff = np.flatnonzero(tokens[b] != fx["tokens"][b])
-        last = int(diff[0]) if diff.size else tokens.shape[1] - 1
+        cut = (route_stops or {}).get(b, tokens.shape[1])
+        diff = np.flatnonzero(tokens[b, :cut] != fx["tokens"][b, :cut])
+        last = int(diff[0]) if diff.size else cut - 1
+        if last < 0:
+            continue  # the prefill's routing met a near tie
         if diff.size:
             gap = float(fx["top_logits"][b, last, 0]
                         - fx["top_logits"][b, last, 1])
@@ -2979,6 +3272,19 @@ def _flash_checks() -> list:
                 "bfloat16", None),
                ("unaligned prefill", (2, 128, 128, 8, 2, 64), True, 0,
                 "holes", "bfloat16", None)]
+    # the new configs' served shapes (their GQA ratios, MHA, D = 120, 128
+    # and kimi's 112) in bf16, and kimi's D = 112 in float32 (the SIMT
+    # prefill and the split decode); every case of these rerun bit for bit
+    for label, (prefill, decode) in FLASH_ZOO_SHAPES.items():
+        checks += [(f"zoo {label} prefill", prefill, True, 0, "holes",
+                    "bfloat16", None),
+                   (f"zoo {label} decode", decode, True, 0, "decode",
+                    "bfloat16", None)]
+    kimi = FLASH_ZOO_SHAPES["kimi 8:1 d112"]
+    checks += [("zoo kimi 8:1 d112 prefill", (2, 130, 130, 64, 8, 112), True,
+                0, "holes", "float32", None),
+               ("zoo kimi 8:1 d112 decode", kimi[1], True, 0, "decode",
+                "float32", None)]
     # attend(p_dtype=bfloat16) on the card, through each kernel
     checks += [("p bf16 prefill", (2, 256, 256, 32, 4, 64), True, 0, "holes",
                 "bfloat16", "bfloat16"),
@@ -3142,7 +3448,7 @@ def flash_kernel_phase() -> dict:
                 ok = ok and margin > 0
                 notes.append(f"equal to simt's in {n_two} of {got.numel()} "
                              f"elements, a single bf16 P in {n_one}")
-        if which != "simt":
+        if which != "simt" or label.startswith("zoo "):
             same = torch.equal(run(), got)
             ok = ok and same
             notes.append(f"rerun {'bit-identical' if same else 'DIFFERS'}")
@@ -4054,12 +4360,45 @@ def profile_phase(fx: dict) -> dict:
     return out
 
 
-def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
-    """A zoo model's serving path on the card, ``arch`` at full width and
-    depth through the port's ``Engine``.  (b) Parity in float32: the
-    reference's ``fixture`` reproduced (greedy tokens equal, logits within
-    ``ZOO_LOGIT_ATOL``), and step-by-step decode against one full forward.
-    (c) The served run in the config's bf16, params from a
+def decode_equivalence_config(cfg):
+    """The config step-by-step decode is held to one full forward at: an
+    MoE config's capacity factor raised to its expert count, so that the
+    forward, which dispatches at capacity, drops no slot, as the
+    reference's tests/test_decode_equivalence.py does (serving drops none
+    at E <= 64, and a decode step none at any E)."""
+    if cfg.moe is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def window_check(cfg, params, device, seed: int = ZOO_SEED,
+                 shape=WINDOW_CHECK) -> dict:
+    """A sliding-window config's decode past its window: the first 2
+    layers of ``params``, a prompt of ``shape[0]`` tokens and ``shape[1]``
+    decode steps, against one full forward over all of them
+    (``decode_equivalence``); the ring buffer of ``cfg.window_size``
+    slots wraps.  Returns {"tokens", "window", "err"}."""
+    n = 2
+    cfg2 = cfg.replace(n_layers=n)
+    p2 = {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
+    prompt, steps = shape
+    toks = zoo_prompts(cfg2, seed + 4, (1, prompt + steps))
+    err = decode_equivalence(cfg2, p2, toks, prompt, device)
+    return {"tokens": prompt + steps, "window": cfg.window_size, "err": err}
+
+
+def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
+              served_layers: int = 0) -> dict:
+    """A zoo model's serving path on the card, ``arch`` at full width
+    through the port's ``Engine``.  (b) Parity in float32 at the config
+    the fixture records (full depth, or the depth and experts it was cut
+    to): the reference's ``fixture`` reproduced (greedy tokens equal,
+    logits within ``ZOO_LOGIT_ATOL``; for an MoE config the routing and
+    the kept slots of every dispatch too, ``check_zoo_routes``), and
+    step-by-step decode against one full forward (for a sliding window,
+    also past the window, ``window_check``).  (c) The served run in the
+    config's bf16, at its full depth or ``served_layers``, params from a
     ``torch.Generator`` on the card: ``Engine.generate`` with every call of
     the path's kernels through their wrappers, ``kernels`` ({wrapper:
     launches per forward}, 0 for a kernel the path must not launch), and
@@ -4074,16 +4413,28 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     from repro_torch.serving.engine import Engine
 
     out = {}
+    t_phase = time.perf_counter()
     fx = load_fixture(fixture)
     if str(fx["arch"]) != arch or bool(fx["reduced"]):
         raise AssertionError(f"{fixture} is not the full-width {arch} "
                              "fixture")
     t0 = time.perf_counter()
-    cfg, params, tokens, steps = run_zoo_parity(fx, "cuda")
+    with recording_routes() as routes:
+        cfg, params, tokens, steps = run_zoo_parity(fx, "cuda")
     torch.cuda.synchronize()
-    parity = check_zoo_parity(fx, tokens, steps, ZOO_LOGIT_ATOL)
-    print(f"zoo parity {arch} float32 full width ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}): params from numpy seed {int(fx['seed'])} "
+    routing = (check_zoo_routes(fx, tokens, routes)
+               if "route_prefill_idx" in fx else None)
+    parity = check_zoo_parity(fx, tokens, steps, ZOO_LOGIT_ATOL,
+                              routing and routing["stops"])
+    cut = (f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+           if cfg.n_layers != get_config(arch).n_layers
+           else f"{cfg.n_layers} layers")
+    if cfg.moe is not None:
+        cut += (f", {cfg.moe.n_experts} of "
+                f"{get_config(arch).moe.n_experts} experts top-"
+                f"{cfg.moe.top_k}")
+    print(f"zoo parity {arch} float32 full width ({cut}, d_model "
+          f"{cfg.d_model}): params from numpy seed {int(fx['seed'])} "
           f"and {fx['tokens'].shape[0]} x {fx['tokens'].shape[1]} greedy "
           f"tokens in {time.perf_counter() - t0:.3f} s; tokens "
           f"{'equal' if not parity['near_ties'] else 'equal up to near ties '}"
@@ -4091,8 +4442,24 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
           f"logits max|d|={parity['logit_err']:.3g}, logsumexp "
           f"max|d|={parity['lse_err']:.3g} (atol {ZOO_LOGIT_ATOL})",
           flush=True)
+    if routing is not None:
+        print(f"zoo routing {arch} float32: every dispatch's top-"
+              f"{cfg.moe.top_k} experts and kept slots equal the "
+              f"reference's{' up to routing near ties ' if routing['route_near_ties'] else ''}"
+              f"{routing['route_near_ties'] or ''} (routing margin atol "
+              f"{ZOO_ROUTE_ATOL}); {routing['dropped']} slots dropped by the "
+              f"capacity among those compared, as the reference's (its run "
+              f"dropped {routing['dropped_ref']})", flush=True)
+        if cfg.moe.n_experts > 64 and not (routing["dropped"]
+                                           and routing["dropped_ref"]):
+            raise AssertionError(f"{arch}: the capacity dropped no slot: "
+                                 f"{routing}")
+        out.update(route_near_ties=routing["route_near_ties"],
+                   dropped_slots=routing["dropped"],
+                   dropped_slots_ref=routing["dropped_ref"])
     toks = np.concatenate([fx["prompts"], fx["tokens"]], axis=1)
-    eq = decode_equivalence(cfg, params, toks, fx["prompts"].shape[1], "cuda")
+    eq = decode_equivalence(decode_equivalence_config(cfg), params, toks,
+                            fx["prompts"].shape[1], "cuda")
     print(f"zoo decode equivalence {arch} float32 full width: prefill "
           f"{fx['prompts'].shape[1]} then {fx['tokens'].shape[1]} decode "
           f"steps against one forward over {toks.shape[1]} tokens, logits "
@@ -4102,6 +4469,20 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     out.update(parity_logit_err=parity["logit_err"],
                parity_lse_err=parity["lse_err"],
                near_ties=parity["near_ties"], decode_equivalence_err=eq)
+    if cfg.attention == "swa":
+        t0 = time.perf_counter()
+        win = window_check(cfg, params, "cuda")
+        torch.cuda.synchronize()
+        print(f"zoo window {arch} float32 full width, 2 layers: prefill "
+              f"{WINDOW_CHECK[0]} then {WINDOW_CHECK[1]} decode steps past "
+              f"the window of {win['window']} (ring buffer) against one "
+              f"forward over {win['tokens']} tokens, logits "
+              f"max|d|={win['err']:.3g} (atol {DECODE_EQ_ATOL}) in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if win["err"] > DECODE_EQ_ATOL:
+            raise AssertionError(f"decode past the window differs from the "
+                                 f"full forward: {win}")
+        out["window_check"] = win
 
     # Engine.serve in float32 on the same params, held to the reference's
     # serve run request by request
@@ -4129,11 +4510,16 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     out.update(serve_parity_tokens=served["tokens"],
                serve_parity_near_ties=served["near_ties"],
                serve_parity_min_margin=served["min_margin"])
+    # the engines' recording wrappers close over them: free the cycles
+    # before the bf16 params need the card
     del params, engine
+    gc.collect()
     torch.cuda.empty_cache()
 
     # (c) the served run, in the config's bf16
     cfg = get_config(arch)
+    if served_layers:
+        cfg = cfg.replace(n_layers=served_layers)
     t0 = time.perf_counter()
     params = get_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(ZOO_SEED), "cuda")
@@ -4161,7 +4547,8 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
                      PREFILL_DECODE[w.__name__][1]: n * (new - 1)}
         for w, n in kernels.items() if hasattr(w, "launches_by_kernel")}
     decode_ms = 1e3 * stats.decode_s / (new - 1)
-    print(f"zoo generate {arch} bf16 full width, batch {B}, prompt {S}, "
+    print(f"zoo generate {arch} bf16 full width ({cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers), batch {B}, prompt {S}, "
           f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
           f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
           f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
@@ -4180,8 +4567,11 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
     out.update(prefill_ms=1e3 * stats.prefill_s, decode_ms_per_step=decode_ms,
                tokens_per_s=stats.tokens_per_s, generate_launches=launches,
                generate_launches_by_kernel=by_kernel)
+    # the device's events only: the host's ~10^5 operators a generate
+    # would cost the profiler more than the generate
     out["busy"] = _busy(lambda: engine.generate(prompts, new),
-                        f"zoo generate {arch} {B} x {S} + {new}, bf16")
+                        f"zoo generate {arch} {B} x {S} + {new}, bf16",
+                        cpu=False)
     by_name = out["busy"].get("device_ms_by_name", {})
     port_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
                for k in PORT_KERNELS}
@@ -4227,9 +4617,13 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict) -> dict:
         raise AssertionError(f"serve finished {finished}, launches "
                              f"{launches}")
     out.update(serve_wall_s=wall, serve_launches=launches,
-               serve_launches_by_kernel=serve_by_kernel)
+               serve_launches_by_kernel=serve_by_kernel,
+               served_layers=cfg.n_layers)
     del engine, params
+    gc.collect()
     torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"zoo phase {arch}: {out['wall_s']:.3f} s", flush=True)
     return out
 
 
@@ -4668,6 +5062,86 @@ def load_kernel_check() -> float:
     return worst
 
 
+@contextlib.contextmanager
+def logging_stages(ex, period: float):
+    """Log every stage ``ex`` (a bus executor) schedules during a run:
+    wraps the instance's ``_schedule`` to record the stage's kind, its
+    window (the virtual clock over ``period``), its measured wall, the
+    host clock at its end and the card's reserved memory after it; and
+    Python's collector through ``gc.callbacks``: each collection's
+    generation and host-clock span; and, at the first stage, how many
+    objects were frozen out of the collector's reach
+    (``runtime/executor.py: frozen_heap``).  Yields (stages,
+    collections)."""
+
+    import torch
+
+    stages: list = []
+    collections: list = []
+    schedule = ex._schedule
+    started: dict = {}
+
+    def _schedule(module, wall_s, *args, **kw):
+        stages.append({"kind": module, "window": int(ex.kernel.now // period),
+                       "wall_s": float(wall_s), "end": time.perf_counter(),
+                       # counted at the first stage only: the count walks
+                       # the frozen heap
+                       "frozen": None if stages else gc.get_freeze_count(),
+                       "reserved": (torch.cuda.memory_reserved()
+                                    if torch.cuda.is_available() else 0)})
+        return schedule(module, wall_s, *args, **kw)
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            collections.append({"generation": info["generation"],
+                                "start": started.pop("t"),
+                                "end": time.perf_counter()})
+
+    ex._schedule = _schedule
+    gc.callbacks.append(on_gc)
+    try:
+        yield stages, collections
+    finally:
+        gc.callbacks.remove(on_gc)
+        del ex._schedule
+
+
+def stage_report(stages: list, collections: list, n: int = 5) -> dict:
+    """The slowest ``n`` stages of ``logging_stages``' log, each with the
+    collections that overlapped it on the host clock and the card's
+    reserved-memory growth at it; the collector's count and total time by
+    generation; each kind's count, median and largest wall."""
+    slow = []
+    order = sorted(range(len(stages)), key=lambda i: -stages[i]["wall_s"])
+    for i in order[:n]:
+        st = stages[i]
+        begin = st["end"] - st["wall_s"]
+        gcs = [(c["generation"], c["end"] - c["start"]) for c in collections
+               if c["end"] > begin and c["start"] < st["end"]]
+        grew = st["reserved"] - (stages[i - 1]["reserved"] if i else 0)
+        slow.append({"kind": st["kind"], "window": st["window"],
+                     "wall_ms": 1e3 * st["wall_s"], "index": i,
+                     "gc_ms": [(g, 1e3 * t) for g, t in gcs],
+                     "reserved_growth_bytes": int(grew)})
+    by_gen: dict = {}
+    for c in collections:
+        count, total = by_gen.get(c["generation"], (0, 0.0))
+        by_gen[c["generation"]] = (count + 1, total + c["end"] - c["start"])
+    kinds: dict = {}
+    for st in stages:
+        kinds.setdefault(st["kind"], []).append(st["wall_s"])
+    return {"slowest": slow,
+            "frozen_objects": stages[0]["frozen"] if stages else None,
+            "gc_by_generation": {g: {"count": c, "total_ms": 1e3 * t}
+                                 for g, (c, t) in sorted(by_gen.items())},
+            "by_kind": {k: {"count": len(w),
+                            "median_ms": 1e3 * statistics.median(w),
+                            "max_ms": 1e3 * max(w)}
+                        for k, w in kinds.items()}}
+
+
 def request_phase() -> dict:
     """The request plane on the card.  (a) The fixture's ``serve_float``
     and ``serve_int8`` runs replayed from the reference's draws
@@ -4758,11 +5232,13 @@ def request_phase() -> dict:
                               window_period_s=REQUEST_SCALE_PERIOD, qps=qps,
                               serve_slots=slots)
         _reset_launches(*wrappers)
-        with counting_calls(_lstm_plain()) as plain:
+        with counting_calls(_lstm_plain()) as plain, logging_stages(
+                ex, REQUEST_SCALE_PERIOD) as (stages, collections):
             t1 = time.perf_counter()
             res = ex.run(fleet, bp, 1)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t1
+        walls = stage_report(stages, collections)
         s = res.serving
         scale = ex._site("serving").compute_scale
         tick_walls = [w * scale for w in res.ledger.comp["serving"]]
@@ -4790,8 +5266,23 @@ def request_phase() -> dict:
             "fallback_frac": s["fallback_frac"], "restacks": ff.restacks,
             "run_s": run_s, "launches": {w.__name__: w.launches
                                          for w in wrappers},
-            "plain_calls": dict(plain)}
+            "plain_calls": dict(plain), "stage_report": walls,
+            "stage_walls": [(st["kind"], st["window"], st["wall_s"])
+                            for st in stages]}
         out["scale"][f"S{S}"] = numbers
+        for st in walls["slowest"]:
+            print(f"request (d) S={S} slow stage: {st['kind']} window "
+                  f"{st['window']} (stage {st['index']} of {len(stages)}) "
+                  f"{st['wall_ms']:.3f} ms; collections over it "
+                  f"(generation, ms) {st['gc_ms']}; card reserved memory "
+                  f"grew {st['reserved_growth_bytes']} B", flush=True)
+        print(f"request (d) S={S} stages by kind (count, median ms, max ms): "
+              + ", ".join(f"{k} {v['count']} {v['median_ms']:.3f} "
+                          f"{v['max_ms']:.3f}"
+                          for k, v in walls["by_kind"].items())
+              + f"; collector by generation {walls['gc_by_generation']}; "
+              f"{walls['frozen_objects']} objects frozen over the run",
+              flush=True)
         print(f"request (d) S={S}, {qps} qps offered, {slots} slots, "
               f"{REQUEST_WINDOWS} windows x 250 records: run {run_s:.3f} s "
               f"(build and pretrain {t1 - t0:.3f} s); "
@@ -5266,6 +5757,28 @@ def chaos_phase() -> dict:
     return out
 
 
+def zoo_rest_phase(flash, others, plain: dict) -> dict:
+    """Phases 16 (``DENSE_ARCHS``) and 17 (``MOE_ARCHS``): ``zoo_phase`` of
+    each arch from its parity fixture, at its served depth
+    (``SERVED_LAYERS``), with #6 launched once a layer and forward and
+    ``others`` (the other zoo kernels) never.  Returns {arch: its
+    numbers}."""
+    from repro_torch.configs import get_config
+
+    runs = {}
+    for phase, archs in ((16, DENSE_ARCHS), (17, MOE_ARCHS)):
+        t0 = time.perf_counter()
+        for arch in archs:
+            layers = SERVED_LAYERS.get(arch, get_config(arch).n_layers)
+            runs[arch] = zoo_phase(
+                arch, zoo_fixture(arch),
+                {flash: layers, **dict.fromkeys(others, 0)}, plain,
+                served_layers=layers)
+        print(f"phase {phase} ({', '.join(archs)}): "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return runs
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -5619,6 +6132,10 @@ def main() -> int:
         raise AssertionError("the chaos plane launched a zoo kernel or the "
                              "one-step lstm_cell")
 
+    # phases 16 and 17: the rest of the zoo's transformers through the
+    # Engine, every attention in #6: the dense trio, then the MoE pair
+    zoo_runs = zoo_rest_phase(flash, (wkv, ssm, cell), attention_plain)
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -5640,7 +6157,7 @@ def main() -> int:
         "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:59"),
     }
-    served = {ZOO_ARCH: zoo, RWKV_ARCH: rwkv, ZAMBA_ARCH: zamba}
+    served = {ZOO_ARCH: zoo, RWKV_ARCH: rwkv, ZAMBA_ARCH: zamba, **zoo_runs}
     # each zoo kernel's main path: the served generate of the arch whose
     # slice brought it
     zoo_main = {flash.__name__: ZOO_ARCH, wkv.__name__: RWKV_ARCH,
@@ -5698,7 +6215,11 @@ def main() -> int:
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))
     print(json.dumps({"request": {k: v for k, v in request.items()
-                                  if k != "launches"},
+                                  if k not in ("launches", "scale")},
+                      "request_scale": {
+                          name: {k: v for k, v in numbers.items()
+                                 if k != "stage_walls"}
+                          for name, numbers in request["scale"].items()},
                       "placement": {k: v for k, v in placement.items()
                                     if k != "launches"}}, default=str))
     print(json.dumps({"chaos": {k: v for k, v in chaos.items()

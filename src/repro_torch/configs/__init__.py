@@ -1,27 +1,36 @@
 """Config registry: ``get_config(name)``.  The port knows the paper's
-forecaster, ``tinyllama-1.1b``, ``rwkv6-3b`` and ``zamba2-1.2b``; each
-other arch of the reference's zoo comes with the slice named in
-``UNPORTED``."""
+forecaster, the dense transformers (``tinyllama-1.1b``,
+``h2o-danube-3-4b``, ``codeqwen1.5-7b``, ``nemotron-4-15b``), the
+mixture-of-experts ones (``grok-1-314b``, ``kimi-k2-1t-a32b``),
+``rwkv6-3b`` and ``zamba2-1.2b``; each other arch of the reference's zoo
+comes with the part of the port named in ``UNPORTED``."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import (HybridConfig, LSTMConfig, ModelConfig,
-                                      RWKVConfig, SSMConfig)
+                                      MoEConfig, RWKVConfig, SSMConfig)
+from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
+from repro_torch.configs.grok_1_314b import CONFIG as _grok
+from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.lstm_paper import CONFIG as _lstm_paper
+from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv6
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_lstm_paper, _tinyllama, _rwkv6, _zamba2)}
+    c.name: c for c in (_lstm_paper, _tinyllama, _danube, _codeqwen,
+                        _nemotron, _grok, _kimi, _rwkv6, _zamba2)}
 
 # the reference's other archs -> the part of the port that brings them
 # (ROADMAP.md, Queue A)
-_REST_OF_ZOO = "the rest of the model zoo"
-UNPORTED: Dict[str, str] = {name: _REST_OF_ZOO for name in (
-    "paligemma-3b", "h2o-danube-3-4b", "codeqwen1.5-7b", "nemotron-4-15b",
-    "grok-1-314b", "kimi-k2-1t-a32b", "seamless-m4t-medium")}
+VLM = ("the rest of the model zoo: the VLM family (the modality frontend "
+       "and prefix of models/transformer.py)")
+ENCDEC = "the rest of the model zoo: the encoder-decoder (models/encdec.py)"
+UNPORTED: Dict[str, str] = {"paligemma-3b": VLM,
+                            "seamless-m4t-medium": ENCDEC}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -36,4 +45,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["REGISTRY", "UNPORTED", "get_config", "HybridConfig", "LSTMConfig",
-           "ModelConfig", "RWKVConfig", "SSMConfig"]
+           "ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig"]

@@ -1,13 +1,13 @@
-"""Config dataclasses of the port: the paper's forecaster, the dense
-transformer, RWKV6 and the Zamba2 hybrid (Mamba2 backbone, shared
-attention block).
+"""Config dataclasses of the port: the paper's forecaster, the dense and
+mixture-of-experts transformers, RWKV6 and the Zamba2 hybrid (Mamba2
+backbone, shared attention block).
 
 ``ModelConfig`` keeps the reference's names for the fields the LSTM family,
-the dense transformer, RWKV6 and the hybrid read, with the reference's
-defaults; the fields of the model zoo's other families (MoE,
-encoder-decoder, frontends), the input shapes and the TPU hardware model
-come with their slices.  The transformer fields default to 0 so the LSTM
-configs construct as before.
+the transformers, RWKV6 and the hybrid read, with the reference's
+defaults; the fields of the model zoo's other families (encoder-decoder,
+frontends), the input shapes and the TPU hardware model come with their
+slices.  The transformer fields default to 0 so the LSTM configs
+construct as before.
 """
 from __future__ import annotations
 
@@ -25,6 +25,25 @@ class LSTMConfig:
     n_features: int = 5
     lag: int = 5  # paper sets time lag n = 5
     out_dim: int = 1
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (Switch/DeepSeek style)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0
+    # how many leading layers use a plain dense MLP instead of MoE
+    first_dense_layers: int = 0
+    router_aux_loss: float = 0.01
+    # the dispatch's sub-group length: capacity is counted per group
+    dispatch_group: int = 512
+    # "auto" | "onehot" | "shard_map": the reference's expert-parallel
+    # strategy; on one device both compute the same function
+    ep_mode: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -78,6 +97,7 @@ class ModelConfig:
     logit_softcap: float = 0.0  # grok-style tanh soft capping (0 = off)
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     hybrid: Optional[HybridConfig] = None
@@ -92,6 +112,12 @@ class ModelConfig:
     # ignores both: it is per-step on every device
     scan_chunked: bool = False
     scan_chunk: int = 64
+    # exact (no-drop) MoE serving: decode == prefill == forward, at the
+    # worst case's dispatch capacity.  Kept off above 64 experts (the
+    # layer falls back to capacity there); single-token decode is exact
+    # either way (a token's top-k experts are distinct, so capacity 1
+    # suffices)
+    moe_exact_serving: bool = True
     citation: str = ""
 
     # -- derived -----------------------------------------------------------
@@ -123,7 +149,7 @@ class ModelConfig:
 
     # -- smoke-test reduction ----------------------------------------------
     def reduced(self) -> "ModelConfig":
-        """Same family, CPU-runnable: 2 layers, d_model<=256."""
+        """Same family, CPU-runnable: 2 layers, d_model<=256, <=4 experts."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -141,6 +167,15 @@ class ModelConfig:
             attn_chunk=64,
             window_size=min(self.window_size, 64),
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 256),
+                n_shared_experts=min(self.moe.n_shared_experts, 1),
+                first_dense_layers=min(self.moe.first_dense_layers, 1),
+            )
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=min(self.ssm.state_dim, 16)

@@ -27,6 +27,10 @@ def _leaf_to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16)
         t = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+    elif device.type != "cpu" and a.flags.writeable:
+        # no host copy: the move onto the device copies (a parity tree is
+        # tens of GB)
+        t = torch.from_numpy(np.ascontiguousarray(a))
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(device)

@@ -1,7 +1,9 @@
 """Model dispatcher: ``get_model(cfg)`` returns a ``Model`` whose functions
 the hybrid learner, the trainers and the serving engine consume.  The port
-knows the LSTM family, the dense transformer, RWKV6 (the ``ssm`` family)
-and the Zamba2 hybrid; the zoo's other families come with their slices.
+knows the LSTM family, the dense and mixture-of-experts transformers (the
+``dense`` and ``moe`` families), RWKV6 (the ``ssm`` family) and the Zamba2
+hybrid; the zoo's other families come with the parts of the port that
+``UNPORTED_FAMILIES`` names.
 
     init(generator, device)           -> params
     loss_fn(params, batch)            -> (loss, metrics)
@@ -18,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs import ENCDEC, VLM
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -25,11 +28,7 @@ Batch = Dict[str, torch.Tensor]
 
 # the reference's other families -> the part of the port that brings them
 # (ROADMAP.md, Queue A)
-UNPORTED_FAMILIES = {
-    "moe": "the rest of the model zoo",
-    "vlm": "the rest of the model zoo",
-    "audio": "the rest of the model zoo",
-}
+UNPORTED_FAMILIES = {"vlm": VLM, "audio": ENCDEC}
 
 
 @dataclass(frozen=True)
@@ -57,9 +56,9 @@ def get_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: m.loss_fn(cfg, p, b),
             predict=lambda p, x: m.predict(cfg, p, x),
         )
-    if cfg.family in ("dense", "ssm", "hybrid"):
+    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
         # ssm is RWKV6, as in the reference; hybrid is Zamba2
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             from repro_torch.models import transformer as t
         elif cfg.family == "ssm":
             from repro_torch.models import rwkv as t
@@ -81,4 +80,4 @@ def get_model(cfg: ModelConfig) -> Model:
         raise ValueError(f"family {cfg.family!r} is not ported yet: it comes "
                          f"with {UNPORTED_FAMILIES[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm', "
-                     "'dense', 'ssm' and 'hybrid'")
+                     "'dense', 'moe', 'ssm' and 'hybrid'")

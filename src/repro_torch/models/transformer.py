@@ -1,44 +1,60 @@
-"""Decoder-only transformer, the dense family (tinyllama and the other dense
-configs of the reference's zoo).
+"""Decoder-only transformer covering the dense and MoE families
+(tinyllama / codeqwen / danube / nemotron / grok / kimi).
 
 Layers are stacked: params carry a leading L dim, as the reference's, and
 the forward pass loops over the layers in Python where the reference scans.
-Every attention goes through ``models.attention.attend``: the flash kernel
-on the card.  MoE layers (a ``moe_layers`` stack) and a modality frontend
-(``proj_in``, ``prefix_embed``) raise, naming the slice that brings them,
-and so does the zoo's training loss.
+MoE configs may reserve the first ``first_dense_layers`` layers as plain
+dense blocks (kimi-k2 style): those get their own stack, ``layers``, and
+the MoE layers theirs, ``moe_layers``, as in the reference; the KV cache
+holds both, the dense layers first.  Every attention goes through
+``models.attention.attend``: the flash kernel on the card.  A modality
+frontend (``proj_in``, ``prefix_embed``) raises, naming the VLM family
+that brings it, and so does the zoo's training loss.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import VLM
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import attend
 
 Params = Dict[str, Any]
 
-_LATER = "the rest of the model zoo"
+# the layer stacks in the order the layers run: name, MoE or not
+STACKS = (("layers", False), ("moe_layers", True))
 
 
 def _check_tree(p: Params) -> None:
-    if "moe_layers" in p:
-        raise NotImplementedError(f"MoE layers are not ported yet: they come "
-                                  f"with {_LATER}")
     if "proj_in" in p:
         raise NotImplementedError(f"modality frontends are not ported yet: "
-                                  f"they come with {_LATER}")
+                                  f"they come with {VLM}")
 
 
 def _layer(stack: Params, i: int) -> Params:
     return {k: v[i] for k, v in stack.items()}
 
 
-def _n_layers(p: Params) -> int:
-    return p["layers"]["attn_norm"].shape[0]
+def _walk(p: Params) -> Iterator[Tuple[Params, bool]]:
+    """(layer params, MoE or not) of every layer, in order: the dense
+    stack, then the MoE stack; the i-th is the KV cache's layer i."""
+    for name, use_moe in STACKS:
+        if name in p:
+            for i in range(p[name]["attn_norm"].shape[0]):
+                yield _layer(p[name], i), use_moe
+
+
+def _n_moe_layers(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_dense_layers, n_moe_layers) of the stack."""
+    if cfg.moe is None:
+        return cfg.n_layers, 0
+    nd = min(cfg.moe.first_dense_layers, cfg.n_layers)
+    return nd, cfg.n_layers - nd
 
 
 # ---------------------------------------------------------------------------
@@ -47,14 +63,17 @@ def _n_layers(p: Params) -> int:
 
 
 def init_layer_stack(generator: torch.Generator, cfg: ModelConfig, n: int,
-                     device: torch.device) -> Params:
+                     device: torch.device, use_moe: bool = False) -> Params:
     dt = getattr(torch, cfg.param_dtype)
     p = {
         "attn_norm": nn.ones((n, cfg.d_model), dt, device),
         "mlp_norm": nn.ones((n, cfg.d_model), dt, device),
         **blocks.init_attn(generator, cfg, n_stack=n, device=device),
     }
-    p.update(blocks.init_mlp(generator, cfg, n_stack=n, device=device))
+    if use_moe:
+        p.update(moe_mod.init_moe(generator, cfg, n_stack=n, device=device))
+    else:
+        p.update(blocks.init_mlp(generator, cfg, n_stack=n, device=device))
     return p
 
 
@@ -62,9 +81,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Optional[torch.device] = None) -> Params:
     dev = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    return {**blocks.init_embed(generator, cfg, dev),
-            "final_norm": nn.ones((cfg.d_model,), dt, dev),
-            "layers": init_layer_stack(generator, cfg, cfg.n_layers, dev)}
+    nd, nm = _n_moe_layers(cfg)
+    p: Params = {**blocks.init_embed(generator, cfg, dev),
+                 "final_norm": nn.ones((cfg.d_model,), dt, dev)}
+    if nd > 0:
+        p["layers"] = init_layer_stack(generator, cfg, nd, dev)
+    if nm > 0:
+        p["moe_layers"] = init_layer_stack(generator, cfg, nm, dev,
+                                           use_moe=True)
+    return p
+
+
+def _mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor, use_moe: bool,
+         **moe_kw) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's MLP: a dense one, or the MoE layer with its aux loss."""
+    if use_moe:
+        return moe_mod.apply_moe(cfg, lp, h, **moe_kw)
+    return blocks.apply_mlp(cfg, lp, h), None
 
 
 # ---------------------------------------------------------------------------
@@ -73,11 +106,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, use_moe: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + blocks.self_attention(cfg, lp, h, positions)
     h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + blocks.apply_mlp(cfg, lp, h)
+    y, aux = _mlp(cfg, lp, h, use_moe)
+    return x + y, aux
 
 
 def embed_inputs(cfg: ModelConfig, p: Params,
@@ -87,7 +122,7 @@ def embed_inputs(cfg: ModelConfig, p: Params,
     _check_tree(p)
     if "prefix_embed" in batch:
         raise NotImplementedError(f"modality prefixes are not ported yet: "
-                                  f"they come with {_LATER}")
+                                  f"they come with {VLM}")
     tokens = batch["tokens"]
     x = blocks.embed_tokens(cfg, p, tokens)
     B, S = tokens.shape
@@ -98,18 +133,24 @@ def embed_inputs(cfg: ModelConfig, p: Params,
 
 def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden (B,S,d), aux_loss)."""
+    """Full-sequence forward.  Returns (hidden (B,S,d), aux_loss), the aux
+    loss summed over the MoE layers.  The MoE layers dispatch at the
+    capacity factor's capacity, as the reference's forward does."""
     x, positions = embed_inputs(cfg, p, batch)
-    for i in range(_n_layers(p)):
-        x = _block(cfg, _layer(p["layers"], i), x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, use_moe in _walk(p):
+        x, a = _block(cfg, lp, x, positions, use_moe)
+        if a is not None:
+            aux = aux + a
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
     raise NotImplementedError(
-        f"training the model zoo is not ported yet: it comes with {_LATER}; "
-        "the flash kernel has no backward yet")
+        "training the model zoo is not ported yet: it comes with the rest "
+        "of the model zoo (each family's loss_fn, models/transformer.py's "
+        "among them); the flash kernel has no backward yet")
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +166,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None):
-    """Run the prompt, return (last-position logits, populated cache)."""
+    """Run the prompt, return (last-position logits, populated cache).
+    The MoE layers dispatch with ``no_drop=cfg.moe_exact_serving``."""
     x, positions = embed_inputs(cfg, p, batch)
     B, S = x.shape[:2]
     max_len = max_len or S
     Smax = min(max_len, cfg.window_size) if cfg.attention == "swa" else max_len
-    L = _n_layers(p)
+    L = sum(p[name]["attn_norm"].shape[0] for name, _ in STACKS if name in p)
     window = cfg.window_size if cfg.attention == "swa" else 0
     dev = x.device
 
@@ -152,15 +194,15 @@ def prefill(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
     shape = (L, B, Smax, cfg.n_kv_heads, cfg.resolved_head_dim)
     kc = torch.zeros(shape, dtype=x.dtype, device=dev)
     vc = torch.zeros(shape, dtype=x.dtype, device=dev)
-    for i in range(L):
-        lp = _layer(p["layers"], i)
+    for i, (lp, use_moe) in enumerate(_walk(p)):
         h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = blocks.attn_qkv(cfg, lp, h, positions)
         o = attend(q, k, v, positions, positions, causal=True, window=window,
                    chunk=cfg.attn_chunk)
         x = x + nn.dense(o.reshape(B, S, cfg.q_dim), lp["wo"])
         h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + blocks.apply_mlp(cfg, lp, h)
+        x = x + _mlp(cfg, lp, h, use_moe,
+                     no_drop=cfg.moe_exact_serving)[0]
         kc[i][:, slots] = k[:, S - take:]
         vc[i][:, slots] = v[:, S - take:]
 
@@ -172,21 +214,23 @@ def prefill(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
 def decode_step(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
                 cache: Params):
     """One token step.  batch: {"token": (B,1), "pos": (B,)}.  Writes the
-    step's K/V rows and positions into ``cache`` in place and returns it."""
+    step's K/V rows and positions into ``cache`` in place and returns it.
+    The MoE layers dispatch one-hot with
+    ``no_drop=cfg.moe_exact_serving``."""
     _check_tree(p)
     token, pos = batch["token"], batch["pos"]
     x = blocks.embed_tokens(cfg, p, token)
     Smax = cache["k"].shape[2]
     slot = blocks.cache_slot(cfg, pos, Smax)
     kv_pos = blocks.update_kv_pos(cache["kv_pos"], pos, slot)
-    for i in range(_n_layers(p)):
-        lp = _layer(p["layers"], i)
+    for i, (lp, use_moe) in enumerate(_walk(p)):
         h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         o, _, _ = blocks.cached_attention_step(
             cfg, lp, h, pos, slot, kv_pos, cache["k"][i], cache["v"][i])
         x = x + o
         h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + blocks.apply_mlp(cfg, lp, h)
+        x = x + _mlp(cfg, lp, h, use_moe, ep_mode="onehot",
+                     no_drop=cfg.moe_exact_serving)[0]
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
     logits = blocks.logits_fn(cfg, p, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "kv_pos": kv_pos}

@@ -66,6 +66,13 @@ PLANE_MODULES = {"repro_torch.serving.query_plane",
 # the modules of the chaos and health planes
 CHAOS_MODULES = {"repro_torch.runtime.faults", "repro_torch.runtime.health",
                  "repro_torch.core.scenarios"}
+# the modules of the dense trio and the MoE pair
+ZOO_REST_MODULES = {"repro_torch.models.moe",
+                    "repro_torch.configs.h2o_danube_3_4b",
+                    "repro_torch.configs.codeqwen1_5_7b",
+                    "repro_torch.configs.nemotron_4_15b",
+                    "repro_torch.configs.grok_1_314b",
+                    "repro_torch.configs.kimi_k2_1t_a32b"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -82,6 +89,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert FLEET_MODULES <= names
     assert PLANE_MODULES <= names
     assert CHAOS_MODULES <= names
+    assert ZOO_REST_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

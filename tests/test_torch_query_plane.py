@@ -542,6 +542,49 @@ def test_unsynced_stream_serves_fallback_stamped(single_thread):
     assert res.serving["fallback_frac"] == len(early) / 8
 
 
+def test_stage_log_records_every_measured_stage(single_thread):
+    """``chip_smoke.logging_stages``, which phase 13 (d) runs on the card:
+    every stage the executor schedules is logged with its kind, window and
+    wall (each serving tick among them), the collector's runs with their
+    generation, and ``stage_report`` orders the slowest first; the
+    executor's own ``_schedule`` is back afterwards.  Every stage ran with
+    the heap frozen (``frozen_heap``), and the heap is thawed after."""
+    import gc
+
+    streams, hist = fleet_windowed_streams(2, 2, 40, "gradual", seed=0,
+                                           hist_len=300,
+                                           alphas=np.full(5, 1.5e-3))
+    ff = lstm_fleet_forecaster(get_config("lstm-paper"), epochs=1,
+                               batch_size=16, device="cpu")
+    bp, _ = ff.train({"x": hist["x"][:64], "y": hist["y"][:64]}, None, 0)
+    ex = FleetBusExecutor(
+        FleetStages.build(ff, mode="dynamic"), edge_cloud_integrated(),
+        paper_topology(), CostModel(ingest_s=0.0), window_period_s=5.0,
+        query_trace=open_loop_trace(list(streams), 4.0, 8, start=0.1,
+                                    seed=1), serve_slots=2)
+    before = gc.get_freeze_count()  # objects the interpreter keeps there
+    with smoke.logging_stages(ex, 5.0) as (stages, collections):
+        res = ex.run(streams, bp, 1)
+        gc.collect()
+    assert "_schedule" not in vars(ex)
+    # the measured loop ran on a frozen heap, thawed after it
+    after = gc.get_freeze_count()
+    assert stages[0]["frozen"] > 10 * max(before, after, 100)
+    assert all(st["frozen"] is None for st in stages[1:])
+    serving = [st for st in stages if st["kind"] == "serving"]
+    assert len(serving) == len(res.ledger.comp["serving"]) > 0
+    assert {st["window"] for st in stages} == {0, 1}
+    assert all(st["wall_s"] >= 0 and st["reserved"] == 0 for st in stages)
+    assert any(c["generation"] == 2 for c in collections)
+    report = smoke.stage_report(stages, collections, n=3)
+    walls = [st["wall_ms"] for st in report["slowest"]]
+    assert walls == sorted(walls, reverse=True) and len(walls) == 3
+    assert walls[0] == 1e3 * max(st["wall_s"] for st in stages)
+    assert report["by_kind"]["serving"]["count"] == len(serving)
+    assert report["gc_by_generation"][2]["count"] >= 1
+    assert report["frozen_objects"] == stages[0]["frozen"]
+
+
 if __name__ == "__main__":
     smoke.REQUEST_FIXTURE.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(smoke.REQUEST_FIXTURE, **build_fixture())

@@ -334,4 +334,4 @@ def test_unported_parts_raise_naming_their_slice():
     with pytest.raises(KeyError, match="the rest of the model zoo"):
         get_config("paligemma-3b")
     with pytest.raises(ValueError, match="the rest of the model zoo"):
-        get_model(cfg.replace(family="moe"))
+        get_model(cfg.replace(family="vlm"))

@@ -7,7 +7,10 @@ the reference's params from ``jax.random.PRNGKey(0)`` carried across by
 steps, each to 1e-5.  Then the port's own serving invariant (step-by-step
 decode equals one full forward), the sliding-window ring buffer at
 ``h2o-danube-3-4b``'s shape, the init's tree layout, bf16 trees through
-``convert`` bit for bit, and what the port refuses.
+``convert`` bit for bit, every ported config equal to the reference's, and
+what the port refuses.  The other dense configs and the MoE pair are held
+to the reference in ``test_torch_zoo_dense.py`` and
+``test_torch_zoo_moe.py``.
 """
 import dataclasses
 import importlib.util
@@ -24,7 +27,7 @@ from repro.models import blocks as blocks_ref
 from repro.models import get_model as get_model_ref
 from repro.models import nn as nn_ref
 from repro.models import transformer as tr_ref
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import ModelConfig, MoEConfig, get_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import blocks, nn, transformer
 from repro_torch.models.model import get_model
@@ -39,9 +42,16 @@ ATOL = 1e-5
 PORT_FIELDS = [f.name for f in dataclasses.fields(ModelConfig)]
 
 
+NEW_ARCHS = ("h2o-danube-3-4b", "codeqwen1.5-7b", "nemotron-4-15b",
+             "grok-1-314b", "kimi-k2-1t-a32b")
+
+
 def port_config(cfg_ref) -> ModelConfig:
     """The port's config with the reference config's values."""
-    return ModelConfig(**{f: getattr(cfg_ref, f) for f in PORT_FIELDS})
+    kw = {f: getattr(cfg_ref, f) for f in PORT_FIELDS}
+    if cfg_ref.moe is not None:
+        kw["moe"] = MoEConfig(**dataclasses.asdict(cfg_ref.moe))
+    return ModelConfig(**kw)
 
 
 def _configs(variant):
@@ -68,7 +78,7 @@ def _tokens(cfg, shape, seed=0):
 
 
 def test_configs_match_reference():
-    for name in ("tinyllama-1.1b",):
+    for name in ("tinyllama-1.1b", *NEW_ARCHS):
         ref = get_config_ref(name)
         for cfg, want in ((get_config(name), ref),
                           (get_config(name).reduced(), ref.reduced())):
@@ -78,8 +88,10 @@ def test_configs_match_reference():
     assert get_config("lstm-paper").lstm.hidden == 40
     assert get_config("rwkv6-3b").family == "ssm"  # ported in slice 5
     assert get_config("zamba2-1.2b").family == "hybrid"  # ported in slice 6
-    with pytest.raises(KeyError, match="the rest of the model zoo"):
+    with pytest.raises(KeyError, match="the VLM family"):
         get_config("paligemma-3b")
+    with pytest.raises(KeyError, match="models/encdec.py"):
+        get_config("seamless-m4t-medium")
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -261,16 +273,25 @@ def test_bf16_tree_round_trips_bit_for_bit():
 
 
 def test_unported_parts_raise_naming_their_slice():
+    """What still raises, each naming its module: the modality frontend
+    and prefix (the VLM family's, in this module), the zoo's training
+    loss, and the VLM and encoder-decoder families in ``get_model``.  The
+    MoE family no longer raises: it serves."""
     _, cfg = _configs("tinyllama")
     p = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
+    with pytest.raises(NotImplementedError,
+                       match="models/transformer.py's among them"):
         transformer.loss_fn(cfg, p, batch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.forward(cfg, {**p, "moe_layers": {}}, batch)
-    with pytest.raises(NotImplementedError, match="frontend"):
+    with pytest.raises(NotImplementedError,
+                       match="frontend.*models/transformer.py"):
         transformer.prefill(cfg, {**p, "proj_in": torch.zeros(2, 2)}, batch)
-    with pytest.raises(NotImplementedError, match="prefix"):
+    with pytest.raises(NotImplementedError,
+                       match="prefix.*models/transformer.py"):
         transformer.forward(cfg, p, {**batch, "prefix_embed": None})
-    with pytest.raises(ValueError, match="the rest of the model zoo"):
-        get_model(cfg.replace(family="moe"))
+    with pytest.raises(ValueError, match="the VLM family"):
+        get_model(cfg.replace(family="vlm"))
+    with pytest.raises(ValueError, match="models/encdec.py"):
+        get_model(cfg.replace(family="audio"))
+    moe_cfg = port_config(get_config_ref("grok-1-314b").reduced())
+    assert get_model(moe_cfg).prefill is not None

@@ -173,11 +173,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    dispatch's top-k experts and kept slots to the reference's
    (``check_zoo_routes``; a differing route only at a printed routing
    near tie, which ends that row's comparison) and fails unless kimi's
-   capacity dropped slots as the reference's did.
+   capacity dropped slots as the reference's did;
+18. the encoder-decoder and the VLM (``zoo_encdec_vlm_phase``):
+   ``seamless-m4t-medium`` (a 12-layer encoder over 1024 stubbed frames,
+   a 12-layer decoder with cross attention) and ``paligemma-3b`` (MQA at
+   head_dim 256 after 256 stubbed patch embeddings) through ``zoo_phase``
+   at full width and depth, the prefix embeddings from numpy
+   (``zoo_prefix``): float32 parity with their fixtures, decode
+   equivalence with the prefix, paligemma's text-only float32 serve held
+   to the reference's; in bf16 ``Engine.generate`` (4 x 512 + 32 with the
+   prefix) with exactly 780 launches of #6 for seamless (36 of its wgmma
+   prefill: 12 encoder, 12 decoder and 12 cross attentions; 31 x 24 of
+   its split decode) and 576 for paligemma (18 + 31 x 18), none of its
+   SIMT kernel and no plain attention; paligemma's ``Engine.serve``
+   finishing every request, seamless's raising before any launch, as the
+   reference's fails.
 
 Every kernel is built in phase 2 and held to its plain version in phase 3
-(#6 also at the served shapes of phases 16 and 17: their GQA ratios, MHA,
-D = 120 and 128, and kimi's D = 112 in bf16 and float32).
+(#6 also at the served shapes of phases 16-18: their GQA ratios, MHA,
+D = 120 and 128, kimi's D = 112 in bf16 and float32, and phase 18's
+seamless calls that are not causal and paligemma's D = 256 MQA, in both
+dtypes, ``FLASH_ENCDEC_VLM``).
 The one-step cell (#5) is held there at the reference's sweep, the serving
 rows and H up to 1024 (beyond the sequence kernels' shared memory), every
 case twice, bit for bit.  Flash attention (#6) is three kernels, one
@@ -186,8 +202,9 @@ wgmma prefill and the SIMT kernel; phase 3 runs each case through the one
 the rule picks and names it, holds the wgmma prefill's bf16 output also
 within ``FLASH_TC_TOL``, reruns the two new kernels bit for bit, and times
 each new kernel against the SIMT kernel in turns beside SDPA (at
-tinyllama's GQA shapes and at zamba2's MHA ones), by CUDA events and by
-the profiler.  The WKV scan (#7) and the selective scan (#8) are two
+tinyllama's GQA shapes, zamba2's MHA ones, seamless's encoder and cross
+attentions and paligemma's D = 256 prefill and decode), by CUDA events
+and by the profiler.  The WKV scan (#7) and the selective scan (#8) are two
 kernels each, one launch a call, picked by ``kernel.kernel_for``: the
 row-split decode for T <= 8, the chunked prefill on the tensor cores
 otherwise; phase 3 runs each case through the one the rule picks and
@@ -207,6 +224,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -426,10 +444,25 @@ def zoo_fixture(arch: str) -> Path:
         "torch_parity_" + arch.replace("-", "_").replace(".", "_") + ".npz")
 
 
+# phase 18: the encoder-decoder and the VLM, through the port's Engine
+# with every attention in #6, parity at full width and depth (no cut),
+# their fixtures written by the JAX reference as the others are.  Their
+# frontends are stubs: the frames or patches are embeddings (batch,
+# n_prefix_tokens, embed_dim), standard normal from numpy seed
+# PREFIX_SEED (the parity run) or PREFIX_SEED + 1 (the served run)
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "paligemma-3b"
+ENCDEC_VLM_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
 # arch -> the parity config's n_layers and n_experts (0: the arch's own)
 PARITY_CUTS = {"h2o-danube-3-4b": (24, 0), "codeqwen1.5-7b": (16, 0),
                "nemotron-4-15b": (8, 0), "grok-1-314b": (1, 0),
-               "kimi-k2-1t-a32b": (2, 72)}
+               "kimi-k2-1t-a32b": (2, 72), ENCDEC_ARCH: (0, 0),
+               VLM_ARCH: (0, 0)}
+PREFIX_SEED = ZOO_SEED + 5
+# the bf16 generate's #6 launches: seamless 12 encoder self, 12 decoder
+# self and 12 cross attentions a prefill and 24 a decode step (36 + 31 x
+# 24); paligemma 18 (18 + 31 x 18)
+ENCDEC_VLM_LAUNCHES = {ENCDEC_ARCH: 780, VLM_ARCH: 576}
 # arch -> the bf16 served config's n_layers (the arch's own where absent):
 # grok's 64 layers are 9.8 GB of bf16 experts each, kimi's 60 MoE layers
 # 34 GB each
@@ -458,7 +491,21 @@ FLASH_ZOO_SHAPES = {
     "6:1 d128": ((4, 512, 512, 48, 8, 128), (4, 1, 544, 48, 8, 128)),
     "kimi 8:1 d112": ((4, 512, 512, 64, 8, 112), (4, 1, 544, 64, 8, 112)),
 }
-# kernel #6's timed shapes: label -> (shape, the positions' kind)
+# #6 at phase 18's served shapes in phase 3, each in bf16 and float32:
+# label -> ((B, Sq, Sk, Hq, Hkv, D), causal, the positions' kind).
+# seamless-m4t-medium (MHA 16:16, D = 64) is not causal in the encoder's
+# self attention and in every cross attention (queries at position 0, the
+# encoder's 1024 frames); paligemma-3b is MQA 8:1 at D = 256, its prefill
+# the 256 patches and 512 tokens, its decode generate's last step
+FLASH_ENCDEC_VLM = {
+    "seamless encoder": ((4, 1024, 1024, 16, 16, 64), False, "full"),
+    "seamless cross prefill": ((4, 512, 1024, 16, 16, 64), False, "cross"),
+    "seamless cross decode": ((4, 1, 1024, 16, 16, 64), False, "cross"),
+    "paligemma prefill": ((4, 768, 768, 8, 1, 256), True, "arange"),
+    "paligemma decode": ((4, 1, 800, 8, 1, 256), True, "last"),
+}
+# kernel #6's timed shapes: label -> (shape, the positions' kind); "full"
+# and "cross" are not causal
 # kernel A's bf16 output against the plain version: about two bf16 steps
 # (one rounding of the output either way).  It cannot tell P_hi + P_lo
 # from a single bf16 pass of P (that moves the output by ~1e-3), so
@@ -502,7 +549,16 @@ PREFILL_DECODE = {"flash_attention": ("prefill_wgmma", "decode_split"),
 FLASH_TIMED = (("prefill", FLASH_PREFILL, "arange"),
                ("decode", FLASH_DECODE, "last"),
                ("mha_prefill", FLASH_MHA_PREFILL, "arange"),
-               ("mha_decode", FLASH_MHA_DECODE, "last"))
+               ("mha_decode", FLASH_MHA_DECODE, "last"),
+               ("encoder", FLASH_ENCDEC_VLM["seamless encoder"][0], "full"),
+               ("cross_prefill",
+                FLASH_ENCDEC_VLM["seamless cross prefill"][0], "cross"),
+               ("cross_decode", FLASH_ENCDEC_VLM["seamless cross decode"][0],
+                "cross"),
+               ("d256_prefill", FLASH_ENCDEC_VLM["paligemma prefill"][0],
+                "arange"),
+               ("d256_decode", FLASH_ENCDEC_VLM["paligemma decode"][0],
+                "last"))
 # kernel #8 against its plain version: the reference's tolerance
 # (tests/test_kernels.py: test_ssm_scan_sweep), atol = rtol
 SSM_TOL = 1e-4
@@ -1795,12 +1851,20 @@ def _param_shapes(cfg) -> dict:
     ``layers/*`` and the rest ``moe_layers/*``, whose MLP is the router
     (d, E), the experts ``we_in``, ``we_gate`` (E, d, f) and ``we_out``
     (E, f, d), and the shared experts' ``w_in``, ``w_gate`` and ``w_out``
-    (``models/moe.py: init_moe``), each with a leading L axis."""
+    (``models/moe.py: init_moe``), each with a leading L axis.  A config
+    with a modality frontend (the VLM, the encoder-decoder) adds its
+    projector ``proj_in`` (embed_dim, d); the encoder-decoder
+    (``models/encdec.py: init_params``) has the encoder's stack
+    ``enc_layers/*`` and final norm ``enc_norm/final_norm``, and the
+    decoder's ``dec_layers/*``: three norms, the self and cross
+    attentions ``self/*`` and ``cross/*``, and the MLP."""
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     qd, kvd, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = {"tok_embed": ((V, d), "embed"), "final_norm": ((d,), "norm")}
     if not cfg.tie_embeddings:
         shapes["out_head"] = ((d, V), "dense")
+    if cfg.frontend is not None:
+        shapes["proj_in"] = ((cfg.frontend.embed_dim, d), "dense")
     if cfg.family == "hybrid":
         s, H = cfg.ssm, cfg.ssm.expand * d // cfg.ssm.head_dim
         d_inner, xbc = s.expand * d, s.expand * d + 2 * s.state_dim
@@ -1855,6 +1919,19 @@ def _param_shapes(cfg) -> dict:
             layer["w_gate"] = ((n, *lead, d, width), "dense")
         return layer
 
+    if cfg.family == "audio":
+        ne = cfg.encdec.n_encoder_layers
+        proj = {k: v for k, v in attention(L).items()
+                if not k.endswith("_norm")}
+        enc = {**attention(ne), **mlp(ne, f)}
+        dec = {"attn_norm": ((L, d), "norm"), "cross_norm": ((L, d), "norm"),
+               "mlp_norm": ((L, d), "norm"), **mlp(L, f),
+               **{f"self/{k}": v for k, v in proj.items()},
+               **{f"cross/{k}": v for k, v in proj.items()}}
+        shapes["enc_norm/final_norm"] = ((d,), "norm")
+        shapes.update({f"enc_layers/{k}": v for k, v in enc.items()})
+        shapes.update({f"dec_layers/{k}": v for k, v in dec.items()})
+        return shapes
     n_dense = L if cfg.moe is None else min(cfg.moe.first_dense_layers, L)
     if n_dense:
         layer = {**attention(n_dense), **mlp(n_dense, f)}
@@ -1964,6 +2041,25 @@ def numpy_params(cfg, seed: int, chunk: int = 0) -> dict:
 def zoo_prompts(cfg, seed: int, shape=ZOO_PROMPTS) -> np.ndarray:
     return np.random.default_rng(seed).integers(1, cfg.vocab_size, shape,
                                                 dtype=np.int32)
+
+
+def zoo_prefix(cfg, seed: int, batch: int) -> Optional[np.ndarray]:
+    """The stubbed frontend's embeddings (batch, n_prefix_tokens,
+    embed_dim), standard normal float32 from numpy ``seed``; None for a
+    config without a frontend."""
+    if cfg.frontend is None:
+        return None
+    fe = cfg.frontend
+    return np.random.default_rng(seed).standard_normal(
+        (batch, fe.n_prefix_tokens, fe.embed_dim), dtype=np.float32)
+
+
+def prefix_len(cfg, prefix) -> int:
+    """Positions a prefix takes before the tokens: the VLM's patches when
+    given; the encoder-decoder's frames are its encoder's, not the
+    decoder's."""
+    return (cfg.frontend.n_prefix_tokens
+            if prefix is not None and cfg.family == "vlm" else 0)
 
 
 def _host(x) -> np.ndarray:
@@ -2211,8 +2307,18 @@ def run_zoo_parity(fx: dict, device):
         cfg, int(fx["seed"]), int(fx.get("draw_chunk", 0))), device)
     engine = Engine(cfg, params, max_len=int(fx["max_len"]), device=device)
     steps = record_logits(engine)
-    tokens, _ = engine.generate(fx["prompts"], fx["tokens"].shape[1])
+    tokens, _ = engine.generate(fx["prompts"], fx["tokens"].shape[1],
+                                prefix_embed=fixture_prefix(cfg, fx))
     return cfg, params, tokens, steps
+
+
+def fixture_prefix(cfg, fx: dict) -> Optional[np.ndarray]:
+    """A parity fixture's prefix embeddings, ``zoo_prefix`` at the seed it
+    records (``prefix_seed``; none in the fixtures of configs without a
+    frontend)."""
+    if "prefix_seed" not in fx:
+        return None
+    return zoo_prefix(cfg, int(fx["prefix_seed"]), fx["prompts"].shape[0])
 
 
 def check_zoo_parity(fx: dict, tokens: np.ndarray, steps: list,
@@ -2258,21 +2364,26 @@ def check_zoo_parity(fx: dict, tokens: np.ndarray, steps: list,
             "near_ties": near_ties}
 
 
-def full_logits(cfg, params, tokens):
-    """Every position's logits of one full forward over ``tokens``."""
+def full_logits(cfg, params, tokens, prefix=None):
+    """Every token position's logits of one full forward over ``tokens``
+    (after the ``prefix_embed`` ``prefix``, where given)."""
     from repro_torch.models import blocks
     from repro_torch.models.model import get_model
 
-    h = get_model(cfg).forward(params, {"tokens": tokens})
-    return blocks.logits_fn(cfg, params, h)
+    batch = {"tokens": tokens}
+    if prefix is not None:
+        batch["prefix_embed"] = prefix
+    h = get_model(cfg).forward(params, batch)
+    return blocks.logits_fn(cfg, params, h[:, h.shape[1] - tokens.shape[1]:])
 
 
 def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
-                       device) -> float:
-    """Step-by-step decode against one full forward over the same tokens:
-    prefill ``n_prefill`` tokens, decode the rest teacher-forced, and
-    return the largest |logit difference| from ``forward``'s logits at
-    every decoded position (the reference's strongest serving invariant,
+                       device, prefix: Optional[np.ndarray] = None) -> float:
+    """Step-by-step decode against one full forward over the same tokens
+    (and the same prefix embeddings, where given): prefill ``n_prefill``
+    tokens, decode the rest teacher-forced, and return the largest |logit
+    difference| from ``forward``'s logits at every decoded position (the
+    reference's strongest serving invariant,
     tests/test_decode_equivalence.py)."""
     import torch
 
@@ -2282,11 +2393,16 @@ def decode_equivalence(cfg, params, tokens: np.ndarray, n_prefill: int,
     with torch.no_grad():
         t = torch.tensor(np.asarray(tokens, np.int32), device=device)
         B, S = t.shape
-        full = full_logits(cfg, params, t)
-        logits, cache = model.prefill(params, {"tokens": t[:, :n_prefill]}, S)
+        extra, offset = {}, prefix_len(cfg, prefix)
+        if prefix is not None:
+            extra["prefix_embed"] = torch.as_tensor(prefix, device=device)
+        full = full_logits(cfg, params, t, extra.get("prefix_embed"))
+        logits, cache = model.prefill(
+            params, {"tokens": t[:, :n_prefill], **extra}, S + offset)
         err = float((logits - full[:, n_prefill - 1]).abs().max())
         for i in range(n_prefill, S):
-            pos = torch.full((B,), i, dtype=torch.int32, device=device)
+            pos = torch.full((B,), i + offset, dtype=torch.int32,
+                             device=device)
             logits, cache = model.decode_step(
                 params, {"token": t[:, i:i + 1], "pos": pos}, cache)
             err = max(err, float((logits - full[:, i]).abs().max()))
@@ -3146,7 +3262,9 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
     decode step whose batch row 0 has no written slot), "ring" (a ring
     buffer of Sk slots holding positions Sk/3 .. Sk/3 + Sk - 1 at slot
     position % Sk, so kv_pos is not sorted, every 5th slot unwritten; the
-    queries at the last Sq positions)."""
+    queries at the last Sq positions), "full" ("arange", for a call that
+    is not causal), "cross" (cross attention: every query at position 0,
+    every slot written)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -3170,6 +3288,8 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
         q_pos = (Sk - 1 - 13 * np.arange(B, dtype=np.int32))[:, None]
         kv_pos[kv_pos > q_pos] = -1
         kv_pos[0] = -1
+    elif kind == "cross":
+        q_pos = np.zeros((B, Sq), np.int32)
     elif kind == "ring":
         pos = np.arange(Sk // 3, Sk // 3 + Sk, dtype=np.int32)
         kv_pos[:, pos % Sk] = pos
@@ -3200,17 +3320,22 @@ def _flash_bound(q, k, q_pos, kv_pos, causal=True, window=0):
     return _bound(nbytes, 4 * D * Hq * pairs, peak)
 
 
-def _sdpa_call(q, k, v, q_pos, kv_pos, causal_arange: bool):
+def _sdpa_call(q, k, v, q_pos, kv_pos, causal_arange: bool,
+               causal: bool = True):
     """``scaled_dot_product_attention(..., enable_gqa=True)`` on (B,H,S,D)
     copies of the inputs, causal for the prefill and a boolean mask from
-    the positions for a decode step: the library yardstick timed beside
-    the kernel, never used by the port."""
+    the positions for a decode step, neither for a call that is not causal
+    over written slots: the library yardstick timed beside the kernel,
+    never used by the port."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ref import position_mask
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if not causal:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True).transpose(1, 2)
     if causal_arange:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
@@ -3285,6 +3410,11 @@ def _flash_checks() -> list:
                 0, "holes", "float32", None),
                ("zoo kimi 8:1 d112 decode", kimi[1], True, 0, "decode",
                 "float32", None)]
+    # phase 18's served shapes: seamless's calls that are not causal and
+    # paligemma's D = 256 MQA, in both dtypes; every case rerun bit for bit
+    for label, (shape, causal, kind) in FLASH_ENCDEC_VLM.items():
+        checks += [(f"zoo {label}", shape, causal, 0, kind, dtype, None)
+                   for dtype in FLASH_TOL]
     # attend(p_dtype=bfloat16) on the card, through each kernel
     checks += [("p bf16 prefill", (2, 256, 256, 32, 4, 64), True, 0, "holes",
                 "bfloat16", "bfloat16"),
@@ -3471,15 +3601,16 @@ def flash_kernel_phase() -> dict:
         q, k, v, q_pos, kv_pos = _flash_case(*shape, "bfloat16", 700, kind)
         new = flash_kernel.kernel_for(shape[1], shape[3], shape[4], shape[5],
                                       q.dtype)
-        sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, kind == "arange")
+        causal = kind not in ("full", "cross")
+        sdpa = _sdpa_call(q, k, v, q_pos, kv_pos, kind == "arange", causal)
 
         def launch(name):
             return lambda: flash_kernel._launch(q, k, v, q_pos, kv_pos,
-                                                kernel=name)
+                                                kernel=name, causal=causal)
         kern, simt = launch(new)(), launch("simt")()
         lib_err = float((sdpa().float() - kern.float()).abs().max())
         simt_diff = float((simt.float() - kern.float()).abs().max())
-        bound_ms, bound_by = _flash_bound(q, k, q_pos, kv_pos)
+        bound_ms, bound_by = _flash_bound(q, k, q_pos, kv_pos, causal)
         turns = [_median_ms(launch(name)) for name in
                  ("simt", new, new, "simt")]
         dev = {name: _kernel_device_ms(launch(name), [FLASH_KERNELS[name]])[
@@ -3490,14 +3621,15 @@ def flash_kernel_phase() -> dict:
             "device_ms": dev[new], "simt_ms": (turns[0] + turns[3]) / 2,
             "simt_device_ms": dev["simt"], "ms_in_turns": turns,
             "plain_ms": _median_ms(lambda: flash_ref.attend_full_ref(
-                q, k, v, q_pos, kv_pos), n=50),
+                q, k, v, q_pos, kv_pos, causal=causal), n=50),
             "library_ms": _median_ms(sdpa), "library_device_ms": sdpa_dev,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "sdpa_max_abs_diff": lib_err, "simt_max_abs_diff": simt_diff}
         by_shape[label] = numbers
         print(f"timing flash_attention {label} at (B, Sq, Sk, Hq, Hkv, D) = "
-              f"{shape} bfloat16 (median, CUDA events; in turns simt, {new}, "
-              f"{new}, simt: {', '.join(f'{t:.6f}' for t in turns)} ms): "
+              f"{shape} bfloat16{'' if causal else ' not causal'} (median, "
+              f"CUDA events; in turns simt, {new}, {new}, simt: "
+              f"{', '.join(f'{t:.6f}' for t in turns)} ms): "
               f"{new} {numbers['ms']:.6f} ms, device {dev[new]} ms; simt "
               f"{numbers['simt_ms']:.6f} ms, device {dev['simt']} ms; plain "
               f"{numbers['plain_ms']:.6f} ms, SDPA (enable_gqa) "
@@ -4401,10 +4533,14 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
     config's bf16, at its full depth or ``served_layers``, params from a
     ``torch.Generator`` on the card: ``Engine.generate`` with every call of
     the path's kernels through their wrappers, ``kernels`` ({wrapper:
-    launches per forward}, 0 for a kernel the path must not launch), and
-    none of the plain versions ``plain`` names ({label: (module,
-    attribute)}), the device's idle share over a warm generate, and
-    ``Engine.serve`` finishing every request.  Returns the measured
+    launches per forward, or (launches a prefill, launches a decode
+    step)}, 0 for a kernel the path must not launch), and none of the
+    plain versions ``plain`` names ({label: (module, attribute)}), the
+    device's idle share over a warm generate, and ``Engine.serve``
+    finishing every request.  A config with a frontend is given its
+    prefix embeddings (``zoo_prefix``) in every generate and in decode
+    equivalence; the encoder-decoder's ``Engine.serve``, which carries
+    none, must raise, as the reference's does.  Returns the measured
     numbers."""
     import torch
 
@@ -4459,7 +4595,8 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
                    dropped_slots_ref=routing["dropped_ref"])
     toks = np.concatenate([fx["prompts"], fx["tokens"]], axis=1)
     eq = decode_equivalence(decode_equivalence_config(cfg), params, toks,
-                            fx["prompts"].shape[1], "cuda")
+                            fx["prompts"].shape[1], "cuda",
+                            fixture_prefix(cfg, fx))
     print(f"zoo decode equivalence {arch} float32 full width: prefill "
           f"{fx['prompts'].shape[1]} then {fx['tokens'].shape[1]} decode "
           f"steps against one forward over {toks.shape[1]} tokens, logits "
@@ -4485,10 +4622,17 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
         out["window_check"] = win
 
     # Engine.serve in float32 on the same params, held to the reference's
-    # serve run request by request
+    # serve run request by request; the encoder-decoder's raises
     _reset_launches(*kernels)
     t0 = time.perf_counter()
     engine = Engine(cfg, params, max_len=SERVE_CHECK_MAX_LEN, device="cuda")
+    if cfg.family == "audio":
+        out["serve_refused"] = serve_refusal(
+            lambda: serve_check(engine, cfg), cfg.name, "float32", kernels)
+        del params, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return served_run(arch, kernels, plain, served_layers, out, t_phase)
     done = serve_check(engine, cfg)
     torch.cuda.synchronize()
     served = check_zoo_serve(fx, done, ZOO_LOGIT_ATOL)
@@ -4515,8 +4659,43 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
     del params, engine
     gc.collect()
     torch.cuda.empty_cache()
+    return served_run(arch, kernels, plain, served_layers, out, t_phase)
 
-    # (c) the served run, in the config's bf16
+
+def serve_refusal(serve, arch: str, dtype: str, kernels: dict) -> str:
+    """The encoder-decoder's ``Engine.serve`` (``serve()`` runs it): its
+    text-only prefill has no frames to encode, so it must raise before any
+    launch of ``kernels``, as the reference's does.  Returns the error's
+    message."""
+    _reset_launches(*kernels)
+    try:
+        serve()
+    except ValueError as e:
+        launched = {w.__name__: w.launches for w in kernels if w.launches}
+        print(f"zoo serve {arch} {dtype}: Engine.serve raised before any "
+              f"launch, as the reference's does: {e}", flush=True)
+        if launched:
+            raise AssertionError(f"serve launched {launched} before it "
+                                 "raised") from e
+        return str(e)
+    raise AssertionError(f"Engine.serve of {arch} did not raise")
+
+
+def _per_call(n) -> tuple:
+    """(launches a prefill, launches a decode step) of a wrapper, from
+    ``zoo_phase``'s ``kernels`` value."""
+    return n if isinstance(n, tuple) else (n, n)
+
+
+def served_run(arch: str, kernels: dict, plain: dict, served_layers: int,
+               out: dict, t_phase: float) -> dict:
+    """``zoo_phase`` (c): the served run in the config's bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.engine import Engine
+
     cfg = get_config(arch)
     if served_layers:
         cfg = cfg.replace(n_layers=served_layers)
@@ -4527,12 +4706,15 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
     init_s = time.perf_counter() - t0
     B, S, new = SERVE_GENERATE
     prompts = zoo_prompts(cfg, ZOO_SEED + 1, (B, S))
-    engine = Engine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
-    engine.generate(prompts, new)  # warm: cuBLAS handles, the allocator
+    prefix = zoo_prefix(cfg, PREFIX_SEED + 1, B)
+    engine = Engine(cfg, params, device="cuda",
+                    max_len=SERVE_MAX_LEN + prefix_len(cfg, prefix))
+    # warm: cuBLAS handles, the allocator
+    engine.generate(prompts, new, prefix_embed=prefix)
 
     with counting_calls(plain) as counts:
         _reset_launches(*kernels)
-        tokens, stats = engine.generate(prompts, new)
+        tokens, stats = engine.generate(prompts, new, prefix_embed=prefix)
         launches = {w.__name__: w.launches for w in kernels}
         by_kernel = _by_kernel(kernels)
     # the prefill and new - 1 decode steps; in bf16 with D % 8 == 0 every
@@ -4540,19 +4722,24 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
     # wgmma prefill, every decode step (G <= 64 rows) its split decode; every
     # prefill scan (T = 512) the chunked selective scan, every decode step
     # (T = 1) its row-split decode
-    expected = {w.__name__: n * new for w, n in kernels.items()}
+    per_call = {w: _per_call(n) for w, n in kernels.items()}
+    expected = {w.__name__: pf + dc * (new - 1)
+                for w, (pf, dc) in per_call.items()}
     expected_by_kernel = {
         w.__name__: {**dict.fromkeys(w.launches_by_kernel, 0),
-                     PREFILL_DECODE[w.__name__][0]: n,
-                     PREFILL_DECODE[w.__name__][1]: n * (new - 1)}
-        for w, n in kernels.items() if hasattr(w, "launches_by_kernel")}
+                     PREFILL_DECODE[w.__name__][0]: pf,
+                     PREFILL_DECODE[w.__name__][1]: dc * (new - 1)}
+        for w, (pf, dc) in per_call.items()
+        if hasattr(w, "launches_by_kernel")}
     decode_ms = 1e3 * stats.decode_s / (new - 1)
+    after = ("" if prefix is None
+             else f" after a prefix of {tuple(prefix.shape[1:])}")
     print(f"zoo generate {arch} bf16 full width ({cfg.n_layers} of "
-          f"{get_config(arch).n_layers} layers), batch {B}, prompt {S}, "
-          f"{new} new tokens (max_len {SERVE_MAX_LEN}; params initialised on "
-          f"the card in {init_s:.3f} s): prefill {1e3 * stats.prefill_s:.3f} "
-          f"ms, decode {decode_ms:.3f} ms per step, {stats.tokens_per_s:.1f} "
-          f"tokens/s; launches {launches}, expected {expected}; by kernel "
+          f"{get_config(arch).n_layers} layers), batch {B}, prompt {S}"
+          f"{after}, {new} new tokens (max_len {engine.max_len}; params "
+          f"initialised on the card in {init_s:.3f} s): prefill "
+          f"{1e3 * stats.prefill_s:.3f} ms, decode {decode_ms:.3f} ms per "
+          f"step, {stats.tokens_per_s:.1f} tokens/s; launches {launches}, expected {expected}; by kernel "
           f"{by_kernel}, expected {expected_by_kernel}; plain calls "
           f"{counts}", flush=True)
     if (launches != expected or by_kernel != expected_by_kernel
@@ -4569,7 +4756,8 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
                generate_launches_by_kernel=by_kernel)
     # the device's events only: the host's ~10^5 operators a generate
     # would cost the profiler more than the generate
-    out["busy"] = _busy(lambda: engine.generate(prompts, new),
+    out["busy"] = _busy(lambda: engine.generate(prompts, new,
+                                                prefix_embed=prefix),
                         f"zoo generate {arch} {B} x {S} + {new}, bf16",
                         cpu=False)
     by_name = out["busy"].get("device_ms_by_name", {})
@@ -4586,6 +4774,15 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
               f" ms busy")
 
     reqs = zoo_requests(cfg, ZOO_SEED + 2)
+    if cfg.family == "audio":
+        out["serve_refused_bf16"] = serve_refusal(
+            lambda: engine.serve(reqs, n_slots=SERVE_SLOTS), arch, "bf16",
+            kernels)
+        out.update(serve_launches={w.__name__: 0 for w in kernels},
+                   serve_launches_by_kernel=_by_kernel(kernels),
+                   served_layers=cfg.n_layers)
+        del engine, params
+        return _close_zoo_phase(arch, out, t_phase)
     _reset_launches(*kernels)
     t0 = time.perf_counter()
     done = engine.serve(reqs, n_slots=SERVE_SLOTS)
@@ -4599,8 +4796,8 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
         and all(0 <= t < cfg.vocab_size for t in r.generated) for r in done)
     # each forward of serve launches each kernel as a forward of generate
     # does, so its count is a multiple of the count per forward
-    whole = all(launches[w.__name__] % n == 0 if n else
-                not launches[w.__name__] for w, n in kernels.items())
+    whole = all(launches[w.__name__] % math.gcd(*n) == 0 if any(n) else
+                not launches[w.__name__] for w, n in per_call.items())
     # bf16 at D % 8 == 0: never the SIMT kernel
     whole = whole and not any(c.get("simt") for c in serve_by_kernel.values())
     print(f"zoo serve {arch}: {len(reqs)} requests (prompts "
@@ -4620,6 +4817,14 @@ def zoo_phase(arch: str, fixture: Path, kernels: dict, plain: dict,
                serve_launches_by_kernel=serve_by_kernel,
                served_layers=cfg.n_layers)
     del engine, params
+    return _close_zoo_phase(arch, out, t_phase)
+
+
+def _close_zoo_phase(arch: str, out: dict, t_phase: float) -> dict:
+    """Free what the served run left on the card (its caller has dropped
+    the engine and params), and print the phase's wall."""
+    import torch
+
     gc.collect()
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
@@ -5779,6 +5984,36 @@ def zoo_rest_phase(flash, others, plain: dict) -> dict:
     return runs
 
 
+def zoo_encdec_vlm_phase(flash, others, plain: dict) -> dict:
+    """Phase 18: ``zoo_phase`` of the encoder-decoder
+    (``seamless-m4t-medium``) and the VLM (``paligemma-3b``), each from its
+    parity fixture at full width and depth, with their prefix embeddings;
+    #6 launched once an attention (seamless: its encoder's, its decoder's
+    self and cross attentions a prefill, the decoder's two a decode step;
+    paligemma: once a layer and forward), exactly ``ENCDEC_VLM_LAUNCHES``
+    in a bf16 generate, and ``others`` (the other zoo kernels) never.
+    Returns {arch: its numbers}."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    seamless, pali = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    L, none = seamless.n_layers, dict.fromkeys(others, 0)
+    per_call = {ENCDEC_ARCH: (seamless.encdec.n_encoder_layers + 2 * L,
+                              2 * L),
+                VLM_ARCH: (pali.n_layers, pali.n_layers)}
+    runs = {}
+    for arch in ENCDEC_VLM_ARCHS:
+        runs[arch] = zoo_phase(arch, zoo_fixture(arch),
+                               {flash: per_call[arch], **none}, plain)
+        got = runs[arch]["generate_launches"][flash.__name__]
+        if got != ENCDEC_VLM_LAUNCHES[arch]:
+            raise AssertionError(f"{arch}: generate launched #6 {got} "
+                                 f"times, not {ENCDEC_VLM_LAUNCHES[arch]}")
+    print(f"phase 18 ({', '.join(ENCDEC_VLM_ARCHS)}): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return runs
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -6135,6 +6370,9 @@ def main() -> int:
     # phases 16 and 17: the rest of the zoo's transformers through the
     # Engine, every attention in #6: the dense trio, then the MoE pair
     zoo_runs = zoo_rest_phase(flash, (wkv, ssm, cell), attention_plain)
+    # phase 18: the encoder-decoder and the VLM, every attention in #6
+    zoo_runs.update(zoo_encdec_vlm_phase(flash, (wkv, ssm, cell),
+                                         attention_plain))
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"

@@ -1,14 +1,16 @@
-"""Config registry: ``get_config(name)``.  The port knows the paper's
-forecaster, the dense transformers (``tinyllama-1.1b``,
-``h2o-danube-3-4b``, ``codeqwen1.5-7b``, ``nemotron-4-15b``), the
-mixture-of-experts ones (``grok-1-314b``, ``kimi-k2-1t-a32b``),
-``rwkv6-3b`` and ``zamba2-1.2b``; each other arch of the reference's zoo
-comes with the part of the port named in ``UNPORTED``."""
+"""Config registry: ``get_config(name)``.  The port serves all ten
+assigned archs of the reference's zoo: the dense transformers
+(``tinyllama-1.1b``, ``h2o-danube-3-4b``, ``codeqwen1.5-7b``,
+``nemotron-4-15b``), the mixture-of-experts ones (``grok-1-314b``,
+``kimi-k2-1t-a32b``), ``rwkv6-3b``, ``zamba2-1.2b``, the VLM
+``paligemma-3b`` and the encoder-decoder ``seamless-m4t-medium``, beside
+the paper's forecaster."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import (HybridConfig, LSTMConfig, ModelConfig,
+from repro_torch.configs.base import (EncDecConfig, FrontendStub,
+                                      HybridConfig, LSTMConfig, ModelConfig,
                                       MoEConfig, RWKVConfig, SSMConfig)
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.grok_1_314b import CONFIG as _grok
@@ -16,27 +18,19 @@ from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.lstm_paper import CONFIG as _lstm_paper
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
 from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv6
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_lstm_paper, _tinyllama, _danube, _codeqwen,
-                        _nemotron, _grok, _kimi, _rwkv6, _zamba2)}
-
-# the reference's other archs -> the part of the port that brings them
-# (ROADMAP.md, Queue A)
-VLM = ("the rest of the model zoo: the VLM family (the modality frontend "
-       "and prefix of models/transformer.py)")
-ENCDEC = "the rest of the model zoo: the encoder-decoder (models/encdec.py)"
-UNPORTED: Dict[str, str] = {"paligemma-3b": VLM,
-                            "seamless-m4t-medium": ENCDEC}
+    c.name: c for c in (_lstm_paper, _paligemma, _danube, _codeqwen,
+                        _nemotron, _grok, _kimi, _tinyllama, _rwkv6, _zamba2,
+                        _seamless)}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in UNPORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: it comes with "
-                       f"{UNPORTED[name]}; available: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(REGISTRY)}"
@@ -44,5 +38,6 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["REGISTRY", "UNPORTED", "get_config", "HybridConfig", "LSTMConfig",
-           "ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig"]
+__all__ = ["REGISTRY", "get_config", "EncDecConfig", "FrontendStub",
+           "HybridConfig", "LSTMConfig", "ModelConfig", "MoEConfig",
+           "RWKVConfig", "SSMConfig"]

@@ -1,12 +1,12 @@
 """Config dataclasses of the port: the paper's forecaster, the dense and
-mixture-of-experts transformers, RWKV6 and the Zamba2 hybrid (Mamba2
-backbone, shared attention block).
+mixture-of-experts transformers, RWKV6, the Zamba2 hybrid (Mamba2
+backbone, shared attention block), the encoder-decoder and the VLM's
+modality frontend.
 
-``ModelConfig`` keeps the reference's names for the fields the LSTM family,
-the transformers, RWKV6 and the hybrid read, with the reference's
-defaults; the fields of the model zoo's other families (encoder-decoder,
-frontends), the input shapes and the TPU hardware model come with their
-slices.  The transformer fields default to 0 so the LSTM configs
+``ModelConfig`` keeps the reference's names for the fields every family
+reads, with the reference's defaults; the input shapes and the TPU
+hardware model, which only the reference's dry run reads, are not
+carried.  The transformer fields default to 0 so the LSTM configs
 construct as before.
 """
 from __future__ import annotations
@@ -77,6 +77,26 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (seamless-m4t style text decoder + speech encoder)."""
+
+    n_encoder_layers: int = 12
+    # the encoder memory's length in the KV cache (the stubbed frontend
+    # produces this many frames)
+    encoder_len: int = 1024
+
+
+@dataclass(frozen=True)
+class FrontendStub:
+    """Modality frontend carve-out: precomputed patch/frame embeddings
+    (batch, n_prefix_tokens, embed_dim); the model owns only the
+    projector."""
+
+    n_prefix_tokens: int
+    embed_dim: int
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -101,6 +121,8 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    frontend: Optional[FrontendStub] = None
     lstm: Optional[LSTMConfig] = None
     # KV chunk of the CPU path's online-softmax scan; the CUDA kernel tiles
     # on its own and does not read it
@@ -186,4 +208,12 @@ class ModelConfig:
             )
         if self.hybrid is not None:
             kw["hybrid"] = dataclasses.replace(self.hybrid, attn_every=1)
+        if self.encdec is not None:
+            kw["encdec"] = dataclasses.replace(
+                self.encdec, n_encoder_layers=2, encoder_len=16
+            )
+        if self.frontend is not None:
+            kw["frontend"] = dataclasses.replace(
+                self.frontend, n_prefix_tokens=8, embed_dim=64
+            )
         return self.replace(**kw)

@@ -51,8 +51,10 @@
 //   * a tile whose every slot is masked for every row of the block is
 //     skipped (positions are read first); skipping is exact, since a fully
 //     masked tile leaves m, l and acc as they were;
-//   * every ragged edge is guarded: any Sq and Sk, any D <= 128 (D = 120
-//     included), no padding copies.
+//   * every ragged edge is guarded: any Sq and Sk, any D <= 256 (D = 120
+//     included), no padding copies.  The instances for D <= 64, 128 and
+//     256 keep D / 4 columns a thread in registers; at D = 256 the staged
+//     q, K and V rows take 210 KB of the 227 KB of shared memory.
 #include "hopper.cuh"
 
 #include <limits.h>
@@ -313,11 +315,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      int Sq, int Sk, int Hq, int Hkv, int D, int causal,
                      int window, float scale, int p_bf16,
                      cudaStream_t stream) {
-  return D <= 64 ? launch<T, 64>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                                 Hkv, D, causal, window, scale, p_bf16, stream)
-                 : launch<T, 128>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                                  Hkv, D, causal, window, scale, p_bf16,
-                                  stream);
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                         causal, window, scale, p_bf16, stream);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                          causal, window, scale, p_bf16, stream);
+  return launch<T, 256>(q, k, v, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                        causal, window, scale, p_bf16, stream);
 }
 
 }  // namespace
@@ -341,7 +346,7 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
                             int p_bf16, int kernel, void* scratch,
                             void* counters, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  if (Sk < 0 || Hkv < 1 || Hq % Hkv != 0 || D < 1 || D > 128 || B > 65535 ||
+  if (Sk < 0 || Hkv < 1 || Hq % Hkv != 0 || D < 1 || D > 256 || B > 65535 ||
       Hkv > 65535 ||
       (static_cast<long long>(Sq) * (Hq / Hkv) + kRows - 1) / kRows >
           INT_MAX)

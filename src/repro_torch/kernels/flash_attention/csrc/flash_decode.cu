@@ -4,7 +4,7 @@
 //
 // It replaces, for calls with at most 64 (query, head) rows a KV head
 // (every decode step, float32 or bf16, rows of 16-byte multiples, D <=
-// 128), the Pallas TPU kernel
+// 256), the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py: flash_attention (:83,
 //   its pallas_call at :121),
 // and computes the function of the SIMT kernel (flash_attention.cu): GQA
@@ -25,9 +25,11 @@
 //     max and sum, and accumulates p v, all on the CUDA cores in f32: the
 //     step is bound by its bytes, and the tensor cores would buy nothing.
 //     The warp splits into groups of lanes, a group on one key's row and
-//     a lane on 16 bytes of it, q's 16 bytes held in registers: each load
-//     is one 16-byte vector, the scores reduce over the group by shuffles,
-//     and p v sums over the groups by a butterfly in a fixed order.  So
+//     a lane on 16 bytes of it (on 32 bytes, two pieces 512 bytes apart,
+//     where a row is longer than 512 bytes: float32 at D > 128), q's
+//     bytes held in registers: each load is one 16-byte vector, the
+//     scores reduce over the group by shuffles, and p v sums over the
+//     groups by a butterfly in a fixed order.  So
 //     rows must be 16-byte multiples (D % 8 == 0 in bf16, D % 4 == 0 in
 //     float32) from 16-byte aligned starts: kernel_for sends other D to
 //     the SIMT kernel, and the wrapper copies an unaligned view once;
@@ -54,7 +56,7 @@ using flash::kNegInf;
 constexpr int kSplit = 64;     // keys a split
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -66,8 +68,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 // kL: lanes a key row (the 16-byte chunks of a row, rounded up to a power
-// of two)
-template <typename T, int kL>
+// of two, at most 32); kP: chunks a lane (2 where a row has more than 32)
+template <typename T, int kL, int kP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -100,12 +102,14 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         tid < nk ? kv_pos[static_cast<long long>(b) * Sk + k0 + tid] : -1;
   __syncthreads();
 
-  // groups of kL lanes, a group on one key's row, a lane on 16 bytes
-  // (chunk `sub` of the row's C); 32 / kL keys a step
+  // groups of kL lanes, a group on one key's row, a lane on 16 bytes a
+  // piece (chunks sub + kL c, c < kP, of the row's C); 32 / kL keys a step
   constexpr int kN = 16 / sizeof(T), kGroups = 32 / kL;
   const int C = D / kN;
   const int sub = lane % kL, kg = lane / kL;
-  const bool has = sub < C;
+  bool has[kP];
+#pragma unroll
+  for (int c = 0; c < kP; ++c) has[c] = sub + kL * c < C;
 
   // a row loads a key's K only where it attends the slot, and V only for
   // the keys with p > 0: a row with no slot in this split reads no K or V
@@ -125,13 +129,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vbase = v + off0;
     float* acc_out = part_acc + slot * D;
 
-    float qv[kN];
-    {
+    float qv[kP][kN];
+#pragma unroll
+    for (int c = 0; c < kP; ++c) {
       uint4 raw = make_uint4(0, 0, 0, 0);
-      if (has) raw = *reinterpret_cast<const uint4*>(qrow + sub * kN);
+      if (has[c])
+        raw = *reinterpret_cast<const uint4*>(qrow + (sub + kL * c) * kN);
       const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int e = 0; e < kN; ++e) qv[e] = to_f32(x[e]);
+      for (int e = 0; e < kN; ++e) qv[c][e] = to_f32(x[e]);
     }
 #pragma unroll
     for (int j0 = 0; j0 < kSplit; j0 += kGroups) {
@@ -139,12 +145,16 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok =
           j < nk && flash::attends(kpos_s[j], qp, causal, window);
       float dot = 0.0f;
-      if (ok && has) {
-        const uint4 raw = __ldg(
-            reinterpret_cast<const uint4*>(kbase + j * stride + sub * kN));
-        const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int e = 0; e < kN; ++e) dot = fmaf(qv[e], to_f32(x[e]), dot);
+      for (int c = 0; c < kP; ++c) {
+        if (ok && has[c]) {
+          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+              kbase + j * stride + (sub + kL * c) * kN));
+          const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int e = 0; e < kN; ++e)
+            dot = fmaf(qv[c][e], to_f32(x[e]), dot);
+        }
       }
 #pragma unroll
       for (int o = 1; o < kL; o <<= 1)
@@ -179,32 +189,45 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // a lane sums p v over its group's keys for its 16 bytes of D, then
     // the groups' sums meet by a butterfly, in a fixed order
-    float acc[kN];
+    float acc[kP][kN];
 #pragma unroll
-    for (int e = 0; e < kN; ++e) acc[e] = 0.0f;
+    for (int c = 0; c < kP; ++c)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) acc[c][e] = 0.0f;
 #pragma unroll
     for (int j0 = 0; j0 < kSplit; j0 += kGroups) {
       const int j = j0 + kg;
       const float p = p_s[warp][j];
-      if (p != 0.0f && has) {  // masked and j >= nk have p = 0
-        const uint4 raw = __ldg(
-            reinterpret_cast<const uint4*>(vbase + j * stride + sub * kN));
-        const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int e = 0; e < kN; ++e) {
-          const float vx = to_f32(x[e]);
-          acc[e] = fmaf(p, p_bf16 ? flash::round_bf16(vx) : vx, acc[e]);
+      for (int c = 0; c < kP; ++c) {
+        if (p != 0.0f && has[c]) {  // masked and j >= nk have p = 0
+          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+              vbase + j * stride + (sub + kL * c) * kN));
+          const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int e = 0; e < kN; ++e) {
+            const float vx = to_f32(x[e]);
+            acc[c][e] =
+                fmaf(p, p_bf16 ? flash::round_bf16(vx) : vx, acc[c][e]);
+          }
         }
       }
     }
 #pragma unroll
     for (int o = kL; o < 32; o <<= 1)
 #pragma unroll
-      for (int e = 0; e < kN; ++e)
-        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
-    if (kg == 0 && has) {
+      for (int c = 0; c < kP; ++c)
 #pragma unroll
-      for (int e = 0; e < kN; ++e) acc_out[sub * kN + e] = acc[e];
+        for (int e = 0; e < kN; ++e)
+          acc[c][e] += __shfl_xor_sync(0xffffffffu, acc[c][e], o);
+    if (kg == 0) {
+#pragma unroll
+      for (int c = 0; c < kP; ++c)
+        if (has[c]) {
+#pragma unroll
+          for (int e = 0; e < kN; ++e)
+            acc_out[(sub + kL * c) * kN + e] = acc[c][e];
+        }
     }
     if (lane == 0) {
       part_m[slot] = mx;
@@ -314,12 +337,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int chunks = static_cast<int>(D * sizeof(T) / 16);
   void (*kernel)(const T*, const T*, const T*, const int*, const int*, T*,
                  float*, int*, int, int, int, int, int, int, int, float, int,
-                 int) = chunks <= 1   ? flash_decode_split_kernel<T, 1>
-                        : chunks <= 2 ? flash_decode_split_kernel<T, 2>
-                        : chunks <= 4 ? flash_decode_split_kernel<T, 4>
-                        : chunks <= 8 ? flash_decode_split_kernel<T, 8>
-                        : chunks <= 16 ? flash_decode_split_kernel<T, 16>
-                                       : flash_decode_split_kernel<T, 32>;
+                 int) = chunks <= 1    ? flash_decode_split_kernel<T, 1, 1>
+                        : chunks <= 2  ? flash_decode_split_kernel<T, 2, 1>
+                        : chunks <= 4  ? flash_decode_split_kernel<T, 4, 1>
+                        : chunks <= 8  ? flash_decode_split_kernel<T, 8, 1>
+                        : chunks <= 16 ? flash_decode_split_kernel<T, 16, 1>
+                                       : flash_decode_split_kernel<T, 32, 1>;
+  // two chunks a lane: float32 rows of 129 to 256 (a bf16 row of D <=
+  // 256 has at most 32 chunks, so that instance is not built for bf16)
+  if constexpr (sizeof(T) == 4)
+    if (chunks > 32) kernel = flash_decode_split_kernel<T, 32, 2>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(o), scratch,

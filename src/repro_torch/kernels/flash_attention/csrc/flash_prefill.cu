@@ -25,9 +25,19 @@
 //   * K and V tiles of 64 keys come through TMA into a ring of two stages
 //     tracked by mbarriers.  The tensor maps address the (B, Sk, Hkv, D)
 //     layout as it is, box (64 of D, 1 head, 64 keys, 1 batch), in the
-//     128-byte swizzle; D is padded to 64 or 128 by the box, whose columns
-//     beyond D TMA fills with zeros, so D = 120 needs nothing more.  TMA
-//     needs 16-byte strides, so D % 8 != 0 goes to the SIMT kernel;
+//     128-byte swizzle; D is padded to 64, 128 or 256 by the box, whose
+//     columns beyond D TMA fills with zeros, so D = 120 needs nothing
+//     more.  TMA needs 16-byte strides, so D % 8 != 0 goes to the SIMT
+//     kernel;
+//   * D up to 256 (PaliGemma's heads), four 64-column panels: the output
+//     columns split across two blocks.  Each block of a pair computes the
+//     whole S = q K^T over all four panels (q's 16 A fragments, 64
+//     registers) by the same instruction sequence, so both hold the same
+//     m, l and P, and accumulates P V into its own two panels (64
+//     registers, as at D = 128): four panels' accumulators and q's
+//     fragments would pass 255 registers a thread.  A pair's blocks read
+//     all of K and their half of V: 96 KB of shared memory for two stages.
+//     The pair costs S twice, which a later redesign may spend once;
 //   * S = q K^T is wgmma m64n64k16, A from registers, B the K tile
 //     K-major; scale applies to S in f32; the element mask is the SIMT
 //     kernel's;
@@ -68,43 +78,49 @@ constexpr int kRows = 2 * kWgRows;    // rows a block
 constexpr int kThreads = 2 * 128;     // two warpgroups
 constexpr int kPanelBytes = kKeys * 128;  // 64 keys x 64 bf16 of D
 
-template <int kPanels>
-__host__ __device__ constexpr int tile_bytes() {
-  return kPanels * kPanelBytes;
+// A stage of the ring: the K tile's kPanels panels of D, then the V
+// tile's kOut panels (the output columns of this block).
+template <int kPanels, int kOut>
+__host__ __device__ constexpr int stage_bytes() {
+  return (kPanels + kOut) * kPanelBytes;
 }
 
-template <int kPanels>
+template <int kPanels, int kOut>
 size_t smem_bytes(int ntiles) {
   return 1024                                   // alignment slack
-         + 2 * 2 * tile_bytes<kPanels>()        // two stages of K and V
+         + 2 * stage_bytes<kPanels, kOut>()     // two stages of K and V
          + 2 * sizeof(uint64_t)                 // their mbarriers
          + sizeof(int) * static_cast<size_t>(ntiles);  // live tiles
 }
 
 // Tile `tile` of K and V (keys 64 tile ..) into stage `st` of the ring:
 // one arrival on the stage's mbarrier announcing its bytes, then one TMA
-// box of each panel of D for K and for V.
-template <int kPanels>
+// box of each panel of D for K, and of each of this block's kOut panels,
+// from panel v0, for V.
+template <int kPanels, int kOut>
 __device__ __forceinline__ void issue(const CUtensorMap* mk,
                                       const CUtensorMap* mv,
                                       unsigned char* smem, uint64_t* full,
-                                      int tile, int st, int hkv, int b) {
-  constexpr int kTile = tile_bytes<kPanels>();
-  unsigned char* kt = smem + 2 * st * kTile;
-  flash::mbar_arrive_expect_tx(&full[st], 2 * kTile);
+                                      int tile, int st, int hkv, int b,
+                                      int v0) {
+  unsigned char* kt = smem + st * stage_bytes<kPanels, kOut>();
+  flash::mbar_arrive_expect_tx(&full[st], stage_bytes<kPanels, kOut>());
 #pragma unroll
-  for (int pnl = 0; pnl < kPanels; ++pnl) {
+  for (int pnl = 0; pnl < kPanels; ++pnl)
     flash::tma_load_4d(kt + pnl * kPanelBytes, mk, &full[st], 64 * pnl, hkv,
                        tile * kKeys, b);
-    flash::tma_load_4d(kt + kTile + pnl * kPanelBytes, mv, &full[st],
-                       64 * pnl, hkv, tile * kKeys, b);
-  }
+#pragma unroll
+  for (int pnl = 0; pnl < kOut; ++pnl)
+    flash::tma_load_4d(kt + (kPanels + pnl) * kPanelBytes, mv, &full[st],
+                       64 * (v0 + pnl), hkv, tile * kKeys, b);
 }
 
-// two blocks an SM at D <= 64 (at most 128 registers a thread), one at 128;
-// kPbf16 (one bf16 pass of P) is a template argument, so that no branch
-// sits between two wgmmas
-template <int kPanels, bool kPbf16>
+// kPanels: the 64-column panels of D in S = q K^T; kOut: the panels of the
+// output (and of V) a block accumulates, kPanels or, at four panels, two,
+// with kPanels / kOut blocks a row block.  Two blocks an SM at D <= 64 (at
+// most 128 registers a thread), one above; kPbf16 (one bf16 pass of P) is
+// a template argument, so that no branch sits between two wgmmas
+template <int kPanels, int kOut, bool kPbf16>
 __global__ void __launch_bounds__(kThreads, kPanels == 1 ? 2 : 1)
 flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                            const __grid_constant__ CUtensorMap tmap_v,
@@ -114,12 +130,13 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                            __nv_bfloat16* __restrict__ o, int Sq, int Sk,
                            int Hq, int Hkv, int D, int causal, int window,
                            float scale) {
-  constexpr int kTile = tile_bytes<kPanels>();
+  constexpr int kStage = stage_bytes<kPanels, kOut>();
+  constexpr int kSplitD = kPanels / kOut;  // blocks a row block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // stage s: K at smem + 2 s kTile, V right after it
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 4 * kTile);
+  // stage s: K at smem + s kStage, V right after its kPanels panels
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * kStage);
   int* tiles = reinterpret_cast<int*>(full + 2);
   __shared__ int q_lo, q_hi, n_live;
 
@@ -128,7 +145,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int hkv = blockIdx.y;
   const int G = Hq / Hkv;
   const int R = Sq * G;  // rows of this (batch, KV head)
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = (blockIdx.x / kSplitD) * kRows;
+  const int v0 = (blockIdx.x % kSplitD) * kOut;  // this block's panels
   const int rows = min(kRows, R - row0);
   const int ntiles = (Sk + kKeys - 1) / kKeys;
   const int warp = tid / 32, lane = tid % 32;
@@ -201,8 +219,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
   if (tid == 0) {
     for (int it = 0; it < min(2, nl); ++it)
-      issue<kPanels>(&tmap_k, &tmap_v, smem, full, tiles[it] >> 1, it & 1,
-                     hkv, b);
+      issue<kPanels, kOut>(&tmap_k, &tmap_v, smem, full, tiles[it] >> 1,
+                           it & 1, hkv, b, v0);
   }
 
   // this thread's two rows, ra and ra + 8, of its warpgroup's 64
@@ -231,17 +249,17 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[kPanels][32];
+  float acc[kOut][32];
 #pragma unroll
-  for (int pnl = 0; pnl < kPanels; ++pnl)
+  for (int pnl = 0; pnl < kOut; ++pnl)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[pnl][e] = 0.0f;
   const int* kvp = kv_pos + static_cast<long long>(b) * Sk;
 
   for (int it = 0; it < nl; ++it) {
     const int st = it & 1;
-    const unsigned char* kt = smem + 2 * st * kTile;
-    const unsigned char* vt = kt + kTile;
+    const unsigned char* kt = smem + st * kStage;
+    const unsigned char* vt = kt + kPanels * kPanelBytes;
     const int code = tiles[it];
     const int k0 = (code >> 1) * kKeys;
     flash::mbar_wait(&full[st], (it >> 1) & 1);
@@ -320,7 +338,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       l[h] = l[h] * corr[h] + sum[h];
     }
 #pragma unroll
-    for (int pnl = 0; pnl < kPanels; ++pnl)
+    for (int pnl = 0; pnl < kOut; ++pnl)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -350,12 +368,12 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
     // acc += P V: V MN-major, 16 keys (two 1024-byte atoms) a step
 #pragma unroll
-    for (int pnl = 0; pnl < kPanels; ++pnl) flash::fence_regs(acc[pnl]);
+    for (int pnl = 0; pnl < kOut; ++pnl) flash::fence_regs(acc[pnl]);
     flash::wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
 #pragma unroll
-      for (int pnl = 0; pnl < kPanels; ++pnl) {
+      for (int pnl = 0; pnl < kOut; ++pnl) {
         const uint64_t dv = flash::smem_desc(
             vt + pnl * kPanelBytes + kc * 2048, kPanelBytes, 1024);
         flash::wgmma_m64n64k16<1>(acc[pnl], p_hi[kc], dv, 1);
@@ -365,12 +383,12 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     flash::wgmma_commit();
     flash::wgmma_wait_all();
 #pragma unroll
-    for (int pnl = 0; pnl < kPanels; ++pnl) flash::fence_regs(acc[pnl]);
+    for (int pnl = 0; pnl < kOut; ++pnl) flash::fence_regs(acc[pnl]);
 
     __syncthreads();  // both warpgroups are done with this stage
     if (tid == 0 && it + 2 < nl)
-      issue<kPanels>(&tmap_k, &tmap_v, smem, full, tiles[it + 2] >> 1, st,
-                     hkv, b);
+      issue<kPanels, kOut>(&tmap_k, &tmap_v, smem, full, tiles[it + 2] >> 1,
+                           st, hkv, b, v0);
   }
 
   // o = acc / max(l, 1e-30), two bf16 a store
@@ -383,10 +401,10 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         o + ((static_cast<long long>(b) * Sq + i) * Hq + hkv * G + gq) * D;
     const float inv = 1.0f / fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int pnl = 0; pnl < kPanels; ++pnl)
+    for (int pnl = 0; pnl < kOut; ++pnl)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int c = 64 * pnl + 8 * j + 2 * t4;
+        const int c = 64 * (v0 + pnl) + 8 * j + 2 * t4;
         if (c < D)
           *reinterpret_cast<uint32_t*>(orow + c) =
               flash::pack_bf16(acc[pnl][4 * j + 2 * h] * inv,
@@ -443,21 +461,23 @@ bool encode_kv_map(CUtensorMap* map, const void* base, int B, int Sk, int Hkv,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kPanels, bool kPbf16>
+template <int kPanels, int kOut, bool kPbf16>
 cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
                    const void* q, const int* q_pos, const int* kv_pos, void* o,
                    int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
                    int window, float scale, cudaStream_t stream) {
   const int ntiles = (Sk + kKeys - 1) / kKeys;
-  const size_t smem = smem_bytes<kPanels>(ntiles);
+  const size_t smem = smem_bytes<kPanels, kOut>(ntiles);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_wgmma_kernel<kPanels, kPbf16>,
+      flash_prefill_wgmma_kernel<kPanels, kOut, kPbf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long R = static_cast<long long>(Sq) * (Hq / Hkv);
-  const dim3 grid(static_cast<unsigned>((R + kRows - 1) / kRows), Hkv, B);
-  flash_prefill_wgmma_kernel<kPanels, kPbf16>
+  const long long blocks = (R + kRows - 1) / kRows * (kPanels / kOut);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), Hkv, B);
+  flash_prefill_wgmma_kernel<kPanels, kOut, kPbf16>
       <<<grid, kThreads, smem, stream>>>(
           mk, mv, static_cast<const __nv_bfloat16*>(q), q_pos, kv_pos,
           static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, D, causal, window,
@@ -465,18 +485,18 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
   return cudaGetLastError();
 }
 
-template <int kPanels>
+template <int kPanels, int kOut>
 cudaError_t launch_p(const CUtensorMap& mk, const CUtensorMap& mv,
                      const void* q, const int* q_pos, const int* kv_pos,
                      void* o, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                      int causal, int window, float scale, int p_bf16,
                      cudaStream_t stream) {
-  return p_bf16 ? launch<kPanels, true>(mk, mv, q, q_pos, kv_pos, o, B, Sq,
-                                        Sk, Hq, Hkv, D, causal, window, scale,
-                                        stream)
-                : launch<kPanels, false>(mk, mv, q, q_pos, kv_pos, o, B, Sq,
-                                         Sk, Hq, Hkv, D, causal, window,
-                                         scale, stream);
+  return p_bf16 ? launch<kPanels, kOut, true>(mk, mv, q, q_pos, kv_pos, o, B,
+                                              Sq, Sk, Hq, Hkv, D, causal,
+                                              window, scale, stream)
+                : launch<kPanels, kOut, false>(mk, mv, q, q_pos, kv_pos, o,
+                                               B, Sq, Sk, Hq, Hkv, D, causal,
+                                               window, scale, stream);
 }
 
 }  // namespace
@@ -485,7 +505,7 @@ cudaError_t flash_prefill_wgmma_launch(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     int causal, int window, float scale, int p_bf16, cudaStream_t stream) {
-  if (D % 8 != 0 || D > 128 || (reinterpret_cast<uintptr_t>(k) % 16) ||
+  if (D % 8 != 0 || D > 256 || (reinterpret_cast<uintptr_t>(k) % 16) ||
       (reinterpret_cast<uintptr_t>(v) % 16) ||
       (reinterpret_cast<uintptr_t>(q) % 4) ||
       (reinterpret_cast<uintptr_t>(o) % 4))
@@ -494,8 +514,12 @@ cudaError_t flash_prefill_wgmma_launch(
   if (!encode_kv_map(&mk, k, B, Sk, Hkv, D) ||
       !encode_kv_map(&mv, v, B, Sk, Hkv, D))
     return cudaErrorInvalidValue;
-  return D <= 64 ? launch_p<1>(mk, mv, q, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                               Hkv, D, causal, window, scale, p_bf16, stream)
-                 : launch_p<2>(mk, mv, q, q_pos, kv_pos, o, B, Sq, Sk, Hq,
-                               Hkv, D, causal, window, scale, p_bf16, stream);
+  if (D <= 64)
+    return launch_p<1, 1>(mk, mv, q, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                          causal, window, scale, p_bf16, stream);
+  if (D <= 128)
+    return launch_p<2, 2>(mk, mv, q, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                          causal, window, scale, p_bf16, stream);
+  return launch_p<4, 2>(mk, mv, q, q_pos, kv_pos, o, B, Sq, Sk, Hq, Hkv, D,
+                        causal, window, scale, p_bf16, stream);
 }

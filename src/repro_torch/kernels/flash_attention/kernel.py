@@ -17,7 +17,9 @@ them, by ``kernel_for``:
   A split over Sk of 64 keys a block, combined in split order by the last
   block to finish;
 - ``prefill_wgmma`` (``csrc/flash_prefill.cu``): otherwise bf16 with
-  D % 8 == 0 -- the bf16 prefill on the tensor cores, K and V through TMA;
+  D % 8 == 0 -- the bf16 prefill on the tensor cores, K and V through TMA
+  (above D = 128 two blocks a row block, each with half the output
+  columns);
 - ``simt`` (``csrc/flash_attention.cu``): everything else (a float32
   prefill, rows that are not 16-byte multiples), on the CUDA cores in
   float32.
@@ -50,8 +52,9 @@ PREFILL_SOURCE = CSRC / "flash_prefill.cu"
 DECODE_SOURCE = CSRC / "flash_decode.cu"
 # every library of this package: name -> its sources
 LIBRARIES = {"flash_attention": [SOURCE, PREFILL_SOURCE, DECODE_SOURCE]}
-# the kernels' largest head dim, and the SIMT kernel's rows per block
-MAX_HEAD_DIM = 128
+# the kernels' largest head dim (PaliGemma's 256), and the SIMT kernel's
+# rows per block
+MAX_HEAD_DIM = 256
 BLOCK_ROWS = 64
 # the split decode takes calls of at most this many (query, head) rows a
 # KV head, and splits the keys in runs of DECODE_SPLIT
@@ -211,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), one dtype (float32 or bfloat16);
     q_pos (B,Sq) and kv_pos (B,Sk) int32; all contiguous on one CUDA
-    device; Hq a multiple of Hkv and D <= 128.  ``scale`` defaults to
+    device; Hq a multiple of Hkv and D <= 256.  ``scale`` defaults to
     D**-0.5; ``p_bf16`` rounds p and v to bf16 before the P V product (the
     reference's ``attend(p_dtype=bfloat16)``).  Returns (B,Sq,Hq,D) in q's
     dtype.  Raises on anything else, and when the launch fails."""

@@ -30,7 +30,7 @@ def position_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
     not after the query when ``causal``, and less than ``window`` behind
     it when ``window > 0``."""
     kp, qp = kv_pos[:, None, :], q_pos[:, :, None]
-    mask = kp >= 0
+    mask = (kp >= 0).expand(-1, qp.shape[1], -1)
     if causal:
         mask = mask & (kp <= qp)
     if window > 0:

@@ -5,14 +5,20 @@ prefill + decode) on the card, printing latency stats.
         --batch 4 --prompt-len 64 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium
 
 The reference's CLI on the port: the arch is ``.reduced()`` as the
 reference's launcher runs it, the params are initialised from a
 ``torch.Generator`` seeded 0, and every attention runs through the flash
 kernel (``tinyllama-1.1b``, ``zamba2-1.2b``'s shared block), every WKV
 recurrence through the WKV kernel (``rwkv6-3b``), every Mamba2 scan
-through the selective-scan kernel (``zamba2-1.2b``).
-``run(args, device="cpu")`` runs the plain versions on the CPU.
+through the selective-scan kernel (``zamba2-1.2b``).  An arch with a
+modality frontend (``paligemma-3b``, ``seamless-m4t-medium``) gets random
+prefix embeddings from the same numpy generator, as the reference's
+launcher gives them.  ``run(args, device="cpu")`` runs the plain versions
+on the CPU.
 """
 from __future__ import annotations
 
@@ -52,7 +58,13 @@ def run(args: argparse.Namespace,
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
-    out, stats = engine.generate(prompts, args.new_tokens)
+    prefix = None
+    if cfg.frontend is not None:
+        fe = cfg.frontend
+        prefix = rng.normal(0, 0.02, (args.batch, fe.n_prefix_tokens,
+                                      fe.embed_dim)).astype(np.float32)
+    out, stats = engine.generate(prompts, args.new_tokens,
+                                 prefix_embed=prefix)
     print(f"generated {out.shape} tokens")
     print(f"prefill: {stats.prefill_s*1e3:.1f} ms  "
           f"decode: {stats.decode_s*1e3:.1f} ms  "

@@ -1,5 +1,6 @@
 """Shared transformer building blocks: GQA attention (with KV caches and
-sliding windows), MLP variants and embeddings.
+sliding windows), cross attention over an encoder's memory, MLP variants
+and embeddings.
 
 Block params are created per-layer-stacked (leading L dim) or flat, as the
 reference's.  The reference's ``shard(...)`` annotations are no-ops on one
@@ -138,6 +139,35 @@ def cached_attention_step(
                window=_window(cfg), chunk=cfg.attn_chunk)
     o = o.reshape(B, 1, cfg.q_dim)
     return nn.dense(o, p["wo"]), k_cache, v_cache
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    mem_k: torch.Tensor,  # (B, M, Hkv, D) precomputed
+    mem_v: torch.Tensor,
+    mem_pos: torch.Tensor,  # (B, M)
+) -> torch.Tensor:
+    """Attention of ``x`` over the encoder memory's K/V: no rope, not
+    causal, every query at position 0 (the positions are unused)."""
+    B, S, _ = x.shape
+    D = cfg.resolved_head_dim
+    q = nn.dense(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, D)
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    o = attend(q, mem_k, mem_v, q_pos, mem_pos, causal=False, window=0,
+               chunk=cfg.attn_chunk)
+    return nn.dense(o.reshape(B, S, cfg.q_dim), p["wo"])
+
+
+def project_memory(cfg: ModelConfig, p: Params, mem: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V projection of encoder memory for cross attention."""
+    B, M, _ = mem.shape
+    D = cfg.resolved_head_dim
+    k = nn.dense(mem, p["wk"], p.get("bk")).reshape(B, M, cfg.n_kv_heads, D)
+    v = nn.dense(mem, p["wv"], p.get("bv")).reshape(B, M, cfg.n_kv_heads, D)
+    return k, v
 
 
 def init_attn_cache(cfg: ModelConfig, n_layers: int, batch: int,

@@ -1,9 +1,9 @@
 """Model dispatcher: ``get_model(cfg)`` returns a ``Model`` whose functions
 the hybrid learner, the trainers and the serving engine consume.  The port
-knows the LSTM family, the dense and mixture-of-experts transformers (the
-``dense`` and ``moe`` families), RWKV6 (the ``ssm`` family) and the Zamba2
-hybrid; the zoo's other families come with the parts of the port that
-``UNPORTED_FAMILIES`` names.
+knows every family of the reference: the LSTM, the dense,
+mixture-of-experts and VLM transformers (``dense``, ``moe``, ``vlm``),
+RWKV6 (the ``ssm`` family), the Zamba2 hybrid and the encoder-decoder
+(``audio``).
 
     init(generator, device)           -> params
     loss_fn(params, batch)            -> (loss, metrics)
@@ -20,15 +20,10 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs import ENCDEC, VLM
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
-
-# the reference's other families -> the part of the port that brings them
-# (ROADMAP.md, Queue A)
-UNPORTED_FAMILIES = {"vlm": VLM, "audio": ENCDEC}
 
 
 @dataclass(frozen=True)
@@ -56,14 +51,17 @@ def get_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b: m.loss_fn(cfg, p, b),
             predict=lambda p, x: m.predict(cfg, p, x),
         )
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        # ssm is RWKV6, as in the reference; hybrid is Zamba2
-        if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        # ssm is RWKV6, as in the reference; hybrid is Zamba2; audio the
+        # encoder-decoder
+        if cfg.family in ("dense", "moe", "vlm"):
             from repro_torch.models import transformer as t
         elif cfg.family == "ssm":
             from repro_torch.models import rwkv as t
-        else:
+        elif cfg.family == "hybrid":
             from repro_torch.models import hybrid_arch as t
+        else:
+            from repro_torch.models import encdec as t
 
         return Model(
             cfg=cfg,
@@ -76,8 +74,5 @@ def get_model(cfg: ModelConfig) -> Model:
             init_cache=lambda bsz, ml, device=None: t.init_cache(
                 cfg, bsz, ml, device),
         )
-    if cfg.family in UNPORTED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet: it comes "
-                         f"with {UNPORTED_FAMILIES[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm', "
-                     "'dense', 'moe', 'ssm' and 'hybrid'")
+                     "'dense', 'moe', 'vlm', 'ssm', 'hybrid' and 'audio'")

@@ -1,5 +1,5 @@
-"""Decoder-only transformer covering the dense and MoE families
-(tinyllama / codeqwen / danube / nemotron / grok / kimi).
+"""Decoder-only transformer covering the dense, MoE and VLM families
+(tinyllama / codeqwen / danube / nemotron / grok / kimi / paligemma).
 
 Layers are stacked: params carry a leading L dim, as the reference's, and
 the forward pass loops over the layers in Python where the reference scans.
@@ -7,9 +7,11 @@ MoE configs may reserve the first ``first_dense_layers`` layers as plain
 dense blocks (kimi-k2 style): those get their own stack, ``layers``, and
 the MoE layers theirs, ``moe_layers``, as in the reference; the KV cache
 holds both, the dense layers first.  Every attention goes through
-``models.attention.attend``: the flash kernel on the card.  A modality
-frontend (``proj_in``, ``prefix_embed``) raises, naming the VLM family
-that brings it, and so does the zoo's training loss.
+``models.attention.attend``: the flash kernel on the card.  A config with
+a modality frontend (the VLM) owns its projector, ``proj_in``; a batch's
+``prefix_embed`` goes through it and before the tokens, and the whole
+sequence attends causally, the prefix too, as in the reference.  The
+zoo's training loss raises, naming the step that brings it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import VLM
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, nn
 from repro_torch.models import moe as moe_mod
@@ -28,12 +29,6 @@ Params = Dict[str, Any]
 
 # the layer stacks in the order the layers run: name, MoE or not
 STACKS = (("layers", False), ("moe_layers", True))
-
-
-def _check_tree(p: Params) -> None:
-    if "proj_in" in p:
-        raise NotImplementedError(f"modality frontends are not ported yet: "
-                                  f"they come with {VLM}")
 
 
 def _layer(stack: Params, i: int) -> Params:
@@ -89,6 +84,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if nm > 0:
         p["moe_layers"] = init_layer_stack(generator, cfg, nm, dev,
                                            use_moe=True)
+    if cfg.frontend is not None:
+        p["proj_in"] = nn.dense_init(generator, cfg.frontend.embed_dim,
+                                     cfg.d_model, dt, device=dev)
     return p
 
 
@@ -118,14 +116,16 @@ def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 def embed_inputs(cfg: ModelConfig, p: Params,
                  batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embeddings and their positions (B, S) int32."""
-    _check_tree(p)
-    if "prefix_embed" in batch:
-        raise NotImplementedError(f"modality prefixes are not ported yet: "
-                                  f"they come with {VLM}")
+    """Token embeddings and their positions (B, S) int32, with the
+    projected modality prefix before the tokens when the config has a
+    frontend and the batch a ``prefix_embed`` (the VLM carve-out)."""
     tokens = batch["tokens"]
     x = blocks.embed_tokens(cfg, p, tokens)
     B, S = tokens.shape
+    if cfg.frontend is not None and "prefix_embed" in batch:
+        pe = nn.dense(batch["prefix_embed"].to(x.dtype), p["proj_in"])
+        x = torch.cat([pe, x], dim=1)
+        S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     return x, positions
@@ -149,8 +149,9 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
     raise NotImplementedError(
         "training the model zoo is not ported yet: it comes with the rest "
-        "of the model zoo (each family's loss_fn, models/transformer.py's "
-        "among them); the flash kernel has no backward yet")
+        "of the model zoo, zoo step 6 (each family's loss_fn, "
+        "models/transformer.py's among them); the flash kernel has no "
+        "backward yet")
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +218,6 @@ def decode_step(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
     step's K/V rows and positions into ``cache`` in place and returns it.
     The MoE layers dispatch one-hot with
     ``no_drop=cfg.moe_exact_serving``."""
-    _check_tree(p)
     token, pos = batch["token"], batch["pos"]
     x = blocks.embed_tokens(cfg, p, token)
     Smax = cache["k"].shape[2]

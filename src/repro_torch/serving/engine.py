@@ -97,9 +97,12 @@ class Engine:
         stats = ServeStats()
         B, S = prompts.shape
         batch = {"tokens": self._tensor(prompts)}
-        if prefix_embed is not None:  # the model raises: no frontend yet
+        n_prefix = 0
+        if prefix_embed is not None:
             batch["prefix_embed"] = torch.as_tensor(prefix_embed,
                                                     device=self.device)
+            if self.cfg.family == "vlm":  # the prefix holds positions
+                n_prefix = self.cfg.frontend.n_prefix_tokens
         t0 = time.perf_counter()
         logits, cache = self._prefill(self.params, batch)
         self._sync()
@@ -110,7 +113,8 @@ class Engine:
         tok = (greedy_sample(logits) if greedy
                else temperature_sample(logits, generator))
         out = [tok.cpu().numpy()]
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        pos = torch.full((B,), S + n_prefix, dtype=torch.int32,
+                         device=self.device)
         t0 = time.perf_counter()
         for i in range(max_new_tokens - 1):
             logits, cache = self._decode(

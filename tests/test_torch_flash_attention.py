@@ -105,6 +105,20 @@ def test_positions_form_matches_attend_full_ref(B, Sq, Sk, Hq, Hkv, D, causal,
                                rtol=ATOL)
 
 
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 3),
+                                           (False, 0), (False, 3)])
+def test_position_mask_is_a_query_by_slot_mask(causal, window):
+    """(B, Sq, Sk) whatever the flags, not causal included: the pairs it
+    lets through are what chip_smoke's bounds count."""
+    q_pos = torch.zeros((2, 5), dtype=torch.int32)
+    kv_pos = torch.tensor([[0, 1, -1, 3], [-1, -1, 2, 0]], dtype=torch.int32)
+    mask = ref.position_mask(q_pos, kv_pos, causal, window)
+    assert mask.shape == (2, 5, 4)
+    # every query at 0: slot 0 alone when causal, every written slot not
+    want = (kv_pos == 0) if causal else (kv_pos >= 0)
+    assert torch.equal(mask, want[:, None, :].expand(2, 5, 4))
+
+
 def test_fully_masked_rows_are_zero():
     """A row with no slot to attend returns 0, as ``acc / max(l, 1e-30)``
     does: all slots unwritten in batch row 0, queries before every slot in
@@ -160,9 +174,9 @@ def test_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="multiple of Hkv"):
         kernel.flash_attention(q, torch.zeros(1, 4, 3, 16),
                                torch.zeros(1, 4, 3, 16), pos, pos)
-    with pytest.raises(ValueError, match="D <= 128"):
-        big = torch.zeros(1, 4, 2, 136)
-        kernel.flash_attention(torch.zeros(1, 4, 4, 136), big, big, pos, pos)
+    with pytest.raises(ValueError, match="D <= 256"):
+        big = torch.zeros(1, 4, 2, 264)
+        kernel.flash_attention(torch.zeros(1, 4, 4, 264), big, big, pos, pos)
     with pytest.raises(TypeError, match="int32"):
         kernel.flash_attention(q, kv, kv, pos.long(), pos)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -331,6 +345,43 @@ def test_attend_tc_ref_matches_pallas_kernel(causal, window):
                                atol=TC_ATOL, rtol=TC_ATOL)
 
 
+# the two uses of #6 the encoder-decoder and the VLM bring, small: (B, Sq,
+# Sk, Hq, Hkv, D, causal).  PaliGemma's MQA at D = 256 (G = 8, causal), and
+# cross attention (not causal, every query at position 0, Sq != Sk)
+NEW_USES = {"mqa_d256": (2, 40, 40, 8, 1, 256, True),
+            "cross": (2, 24, 70, 4, 4, 32, False)}
+
+
+@pytest.mark.parametrize("use", NEW_USES)
+def test_new_uses_match_pallas_kernel(use):
+    """The reference's Pallas kernel in interpret mode (MHA layout, KV
+    heads repeated for GQA) against the plain version, the chunked
+    ``attend``, the split decode's algorithm and, on values bf16 holds,
+    the wgmma prefill's, each over explicit positions: arange (causal) or
+    queries at 0 against arange keys (not causal)."""
+    B, Sq, Sk, Hq, Hkv, D, causal = NEW_USES[use]
+    G = Hq // Hkv
+    q, k, v = map(_bf16_values, _normal(
+        21, (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    want = np.asarray(pallas_fa(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, G, axis=1)),
+        jnp.asarray(np.repeat(v, G, axis=1)), causal=causal, block_q=64,
+        block_k=64, interpret=True)).transpose(0, 2, 1, 3)
+    qt, kt, vt = (torch.tensor(a).transpose(1, 2).contiguous()
+                  for a in (q, k, v))
+    q_pos = (ref.arange_positions(B, Sq, "cpu") if causal
+             else torch.zeros((B, Sq), dtype=torch.int32))
+    kv_pos = ref.arange_positions(B, Sk, "cpu")
+    args = (qt, kt, vt, q_pos, kv_pos)
+    for got, tol in (
+            (ref.attend_full_ref(*args, causal=causal), ATOL),
+            (ops.flash_attend(*args, causal=causal), ATOL),
+            (attend(*args, causal=causal, chunk=16), ATOL),
+            (ref.flash_decode_split_ref(*args, causal=causal, split=7), ATOL),
+            (ref.attend_tc_ref(*args, causal=causal), TC_ATOL)):
+        np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("kind", ["prefill", "ring", "dead"])
 def test_attend_tc_ref_bf16_matches_reference(kind):
     """bf16 inputs and output against the reference's attend in bf16."""
@@ -393,6 +444,14 @@ def test_p_dtype_bf16_matches_reference(which):
     (1, 32, 32, 4, torch.float32, "decode_split"),  # 16-byte rows
     (1, 32, 4, 8, torch.bfloat16, "decode_split"),
     (1, 32, 32, 128, torch.float32, "decode_split"),
+    # the encoder-decoder's and the VLM's: seamless's encoder and cross
+    # attentions (MHA, D = 64), paligemma's MQA at D = 256
+    (1024, 16, 16, 64, torch.bfloat16, "prefill_wgmma"),
+    (1, 16, 16, 64, torch.float32, "decode_split"),
+    (768, 8, 1, 256, torch.bfloat16, "prefill_wgmma"),
+    (768, 8, 1, 256, torch.float32, "simt"),
+    (1, 8, 1, 256, torch.bfloat16, "decode_split"),
+    (1, 8, 1, 256, torch.float32, "decode_split"),
 ])
 def test_kernel_for_follows_the_dispatch_table(Sq, Hq, Hkv, D, dtype, want):
     assert kernel.kernel_for(Sq, Hq, Hkv, D, dtype) == want
@@ -404,6 +463,9 @@ def test_decode_scratch_covers_every_row_and_split():
     assert kernel.decode_scratch_numel(4, 1, 544, 32, 4, 64) == (
         4 * 32 * 9 * 66)
     assert kernel.decode_scratch_numel(2, 1, 0, 8, 2, 16) == 2 * 8 * 18
+    # paligemma's last decode step: 13 splits of 800 slots, D = 256
+    assert kernel.decode_scratch_numel(4, 1, 800, 8, 1, 256) == (
+        4 * 8 * 13 * 258)
 
 
 @pytest.mark.parametrize("which", ["simt", "prefill_wgmma", "decode_split"])

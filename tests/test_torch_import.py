@@ -73,6 +73,10 @@ ZOO_REST_MODULES = {"repro_torch.models.moe",
                     "repro_torch.configs.nemotron_4_15b",
                     "repro_torch.configs.grok_1_314b",
                     "repro_torch.configs.kimi_k2_1t_a32b"}
+# the modules of the encoder-decoder and the VLM
+ENCDEC_VLM_MODULES = {"repro_torch.models.encdec",
+                      "repro_torch.configs.seamless_m4t_medium",
+                      "repro_torch.configs.paligemma_3b"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -90,6 +94,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert PLANE_MODULES <= names
     assert CHAOS_MODULES <= names
     assert ZOO_REST_MODULES <= names
+    assert ENCDEC_VLM_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

@@ -326,12 +326,13 @@ def test_rwkv_tree_crosses_convert_bit_for_bit():
 
 
 def test_unported_parts_raise_naming_their_slice():
+    """RWKV6's training loss still raises, naming the rest of the model
+    zoo; the VLM and the encoder-decoder, which used to, serve now."""
     _, cfg = _configs()
     p = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
         get_model(cfg).loss_fn(p, batch)
-    with pytest.raises(KeyError, match="the rest of the model zoo"):
-        get_config("paligemma-3b")
-    with pytest.raises(ValueError, match="the rest of the model zoo"):
-        get_model(cfg.replace(family="vlm"))
+    assert get_config("paligemma-3b").family == "vlm"
+    assert get_model(cfg.replace(family="vlm")).prefill is not None
+    assert get_model(get_config("seamless-m4t-medium").reduced()).forward

@@ -22,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import REGISTRY as REGISTRY_REF
 from repro.configs import get_config as get_config_ref
 from repro.models import blocks as blocks_ref
 from repro.models import get_model as get_model_ref
 from repro.models import nn as nn_ref
 from repro.models import transformer as tr_ref
-from repro_torch.configs import ModelConfig, MoEConfig, get_config
+from repro_torch.configs import REGISTRY, ModelConfig, MoEConfig, get_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import blocks, nn, transformer
 from repro_torch.models.model import get_model
@@ -88,10 +89,11 @@ def test_configs_match_reference():
     assert get_config("lstm-paper").lstm.hidden == 40
     assert get_config("rwkv6-3b").family == "ssm"  # ported in slice 5
     assert get_config("zamba2-1.2b").family == "hybrid"  # ported in slice 6
-    with pytest.raises(KeyError, match="the VLM family"):
-        get_config("paligemma-3b")
-    with pytest.raises(KeyError, match="models/encdec.py"):
-        get_config("seamless-m4t-medium")
+    # ported in slice 17 (their sub-configs compared in test_torch_vlm.py
+    # and test_torch_encdec.py)
+    assert get_config("paligemma-3b").family == "vlm"
+    assert get_config("seamless-m4t-medium").family == "audio"
+    assert sorted(REGISTRY) == sorted(REGISTRY_REF)
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -273,25 +275,22 @@ def test_bf16_tree_round_trips_bit_for_bit():
 
 
 def test_unported_parts_raise_naming_their_slice():
-    """What still raises, each naming its module: the modality frontend
-    and prefix (the VLM family's, in this module), the zoo's training
-    loss, and the VLM and encoder-decoder families in ``get_model``.  The
-    MoE family no longer raises: it serves."""
+    """What still raises, naming the step that brings it: the zoo's
+    training loss (zoo step 6).  The MoE, VLM and encoder-decoder families
+    no longer raise: they serve, and a config without a frontend ignores a
+    batch's ``prefix_embed``, as the reference's does."""
     _, cfg = _configs("tinyllama")
     p = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError,
-                       match="models/transformer.py's among them"):
+                       match="zoo step 6.*models/transformer.py's among"):
         transformer.loss_fn(cfg, p, batch)
-    with pytest.raises(NotImplementedError,
-                       match="frontend.*models/transformer.py"):
-        transformer.prefill(cfg, {**p, "proj_in": torch.zeros(2, 2)}, batch)
-    with pytest.raises(NotImplementedError,
-                       match="prefix.*models/transformer.py"):
-        transformer.forward(cfg, p, {**batch, "prefix_embed": None})
-    with pytest.raises(ValueError, match="the VLM family"):
-        get_model(cfg.replace(family="vlm"))
-    with pytest.raises(ValueError, match="models/encdec.py"):
-        get_model(cfg.replace(family="audio"))
-    moe_cfg = port_config(get_config_ref("grok-1-314b").reduced())
-    assert get_model(moe_cfg).prefill is not None
+    h, _ = transformer.forward(cfg, p, {**batch, "prefix_embed": None})
+    assert h.shape == (1, 4, cfg.d_model)
+    for arch in ("grok-1-314b", "paligemma-3b", "seamless-m4t-medium"):
+        model = get_model(get_config(arch).reduced())
+        assert model.prefill is not None and model.decode_step is not None
+        with pytest.raises(NotImplementedError, match="zoo step 6"):
+            model.loss_fn({}, batch)
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg.replace(family="diffusion"))

@@ -521,6 +521,63 @@ FLASH_STEP_RTOL, FLASH_STEP_ATOL = 2.0**-8, 1e-3
 # from ref.attend_tc_ref's bf16 output on the same inputs (the f32 sums'
 # order flips a rounding now and then; a P without P_lo flips far more)
 FLASH_TC_SHARE = 0.01
+# phase 19 (a): #6's backward at the zoo's training shapes: label ->
+# ((B, Sq, Sk, Hq, Hkv, D), causal, window, the positions' kind), each in
+# float32 and bf16: tinyllama-1.1b's training shape, a window shorter than
+# S, seamless-m4t-medium's encoder and cross attention, paligemma-3b's MQA
+# at D = 256, and a batch with unwritten slots and a fully masked row
+FLASH_BWD_SHAPES = {
+    "tinyllama train": ((4, 512, 512, 32, 4, 64), True, 0, "arange"),
+    "window 256": ((4, 512, 512, 32, 8, 120), True, 256, "arange"),
+    "seamless encoder": ((2, 1024, 1024, 16, 16, 64), False, 0, "full"),
+    "seamless cross": ((2, 128, 1024, 16, 16, 64), False, 0, "cross"),
+    "paligemma": ((2, 768, 768, 8, 1, 256), True, 0, "arange"),
+    "holes, a dead row": ((2, 200, 200, 16, 2, 64), True, 0, "holes_dead"),
+}
+# the backward's gradients against ref.flash_attend_bwd_ref in float32 on
+# the same inputs (and the forward kernel's own o): float32 within
+# |d| <= FLASH_BWD_TOL (1 + |want|), the f32 sums' order over up to
+# Sq G = 4096 rows; bf16 within a bf16 step (FLASH_STEP_RTOL, ATOL) of the
+# float32 result, one rounding on store
+FLASH_BWD_TOL = 1e-4
+# the backward's two kernels by a substring of the profiler's name
+FLASH_BWD_KERNELS = {"bwd_dq": "flash_bwd_dq_kernel",
+                     "bwd_dkdv": "flash_bwd_dkdv_kernel"}
+# phase 19 (b): tinyllama-1.1b's training at full width and depth in
+# float32 against tests/data/torch_parity_train_tinyllama_1_1b.npz (written
+# by the JAX reference: tests/test_torch_zoo_train.py as a script): params
+# from numpy_params(cfg, TRAIN_SEED, DRAW_CHUNK), one batch of TRAIN_BATCH
+# (B, S) tokens from numpy seed TRAIN_SEED, step 1's loss, xent, global
+# gradient norm, every leaf's gradient norm (a norm per layer of a stacked
+# leaf) and TRAIN_SAMPLES entries of each leaf's gradient at indices drawn
+# from (TRAIN_SEED, crc32 of its path), then the losses of TRAIN_STEPS
+# steps of adamw(warmup_cosine(*TRAIN_SCHEDULE))
+TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_parity_train_tinyllama_1_1b.npz"
+TRAIN_SEED = ZOO_SEED + 7
+TRAIN_BATCH = (2, 128)
+TRAIN_SAMPLES = 16
+TRAIN_STEPS = 3
+TRAIN_SCHEDULE = (1e-4, 1, 3)  # lr, warmup, total
+# the stacked leaves' subtrees: a norm per layer
+STACK_NAMES = ("layers", "moe_layers", "enc_layers", "dec_layers")
+# the card's float32 training against the reference's on the CPU (both in
+# full float32, TF32 off; the sums' order differs through 22 layers and
+# their backward): losses within TRAIN_LOSS_ATOL, the global and every
+# leaf's norm within TRAIN_NORM_RTOL of it, each sampled entry within
+# TRAIN_SAMPLE_RTOL of its leaf's rms (norm over sqrt(numel))
+TRAIN_LOSS_ATOL = 1e-3
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_SAMPLE_RTOL = 2e-2
+# phase 19 (c): tinyllama-1.1b in its own dtypes (bf16 params, float32
+# moments), BF16_TRAIN_STEPS steps of adamw(warmup_cosine(*BF16_SCHEDULE))
+# on one batch of BF16_TRAIN_BATCH tokens
+BF16_TRAIN_BATCH = (4, 512)
+BF16_TRAIN_STEPS = 5
+BF16_SCHEDULE = (1e-3, 1, 5)
+# phase 19 (d): train_local of each transformer-family arch, reduced:
+# (steps, batch, seq, lr)
+ZOO_TRAIN_ARCHS = ("tinyllama-1.1b", *NEW_ZOO_ARCHS, VLM_ARCH, ENCDEC_ARCH)
+LOCAL_TRAIN = (3, 2, 32, 3e-4)
 # kernel #6's three kernels, by a substring of the profiler's name
 # the LSTM sequence kernels, by a substring of the profiler's name: #1, #2,
 # and #3's two launches a call
@@ -3264,7 +3321,8 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
     position % Sk, so kv_pos is not sorted, every 5th slot unwritten; the
     queries at the last Sq positions), "full" ("arange", for a call that
     is not causal), "cross" (cross attention: every query at position 0,
-    every slot written)."""
+    every slot written), "holes_dead" ("holes", and batch row 0's first
+    query at position -1, before every slot)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -3290,6 +3348,10 @@ def _flash_case(B, Sq, Sk, Hq, Hkv, D, dtype, seed, kind="arange"):
         kv_pos[0] = -1
     elif kind == "cross":
         q_pos = np.zeros((B, Sq), np.int32)
+    elif kind == "holes_dead":
+        kv_pos[:, ::7] = -1
+        kv_pos[min(1, B - 1), :50] = -1
+        q_pos[0, 0] = -1
     elif kind == "ring":
         pos = np.arange(Sk // 3, Sk // 3 + Sk, dtype=np.int32)
         kv_pos[:, pos % Sk] = pos
@@ -6014,6 +6076,497 @@ def zoo_encdec_vlm_phase(flash, others, plain: dict) -> dict:
     return runs
 
 
+# the work of the backward and of each of its kernels: (query-shaped
+# tensors moved, key-shaped tensors moved, float32 row statistics moved,
+# products), a tensor moved once, a product 2 D operations a (query,
+# slot) pair and query head.  The whole backward reads q, o, dO, k, v and
+# writes dq, dk, dv: the five products of a flash backward (q k^T, dO
+# v^T, P^T dO, dS K, dS^T q).  bwd_dq's function (dq and each row's lse
+# and delta) reads q, o, dO, k, v and writes dq and the statistics: q k^T,
+# dO v^T, dS K.  bwd_dkdv's (dk, dv) reads q, dO, k, v and the statistics
+# and writes dk, dv: q k^T, dO v^T, P^T dO, dS^T q
+FLASH_BWD_WORK = {None: (4, 4, 0, 5), "bwd_dq": (4, 2, 2, 3),
+                  "bwd_dkdv": (2, 4, 2, 4)}
+
+
+def _flash_bwd_bound(q, k, q_pos, kv_pos, causal=True, window=0, part=None):
+    """Bound of one backward call (``part`` None) or of one of its kernels
+    (``part`` "bwd_dq" or "bwd_dkdv"), by ``FLASH_BWD_WORK``: the query-
+    and key-shaped tensors moved once (K and V of the written slots
+    only), the positions once, the products over the (query, slot) pairs
+    the positions let through, at the bf16 tensor-core rate for bf16
+    inputs, the float32 rate otherwise."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import position_mask
+
+    B, Sq, Hq, D = q.shape
+    esize = q.element_size()
+    n_q, n_k, n_stats, products = FLASH_BWD_WORK[part]
+    pairs = int(position_mask(q_pos, kv_pos, causal, window).sum())
+    live = int((kv_pos >= 0).sum())
+    nbytes = (n_q * B * Sq * Hq * D + n_k * live * k.shape[2] * D) * esize \
+        + 4 * (n_stats * B * Sq * Hq + q_pos.numel() + kv_pos.numel())
+    peak = (PEAK_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+            else PEAK_F32_FLOP_PER_S)
+    return _bound(nbytes, 2 * products * D * Hq * pairs, peak)
+
+
+def _sdpa_backward(q, k, v, do, causal: bool):
+    """A call that takes the gradient of ``scaled_dot_product_attention(...,
+    enable_gqa=True)`` (causal or not, arange positions) on (B,H,S,D)
+    copies of the inputs, its forward run once: the library yardstick of
+    the backward, never used by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def flash_backward_phase() -> dict:
+    """Phase 19 (a): #6's backward (``kernel.flash_attention_backward``,
+    ``bwd_dq`` then ``bwd_dkdv``) against its plain version
+    (``ref.flash_attend_bwd_ref`` in float32 on the same inputs and the
+    forward kernel's own o) at ``FLASH_BWD_SHAPES`` in float32 and bf16;
+    every rerun bit for bit; a fully masked row's dq exactly 0.  Each case
+    timed: CUDA events over the call, each kernel's device time by the
+    profiler, the plain version, the bound (``_flash_bwd_bound``) and,
+    where SDPA computes the same function (arange positions, no window),
+    the device time of SDPA's backward.  Returns the numbers of its rows
+    (at tinyllama's training shape in bf16) and every case's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    bwd = flash_kernel.flash_attention_backward
+    cases, max_err = {}, {"float32": 0.0, "bfloat16": 0.0}
+    for i, (label, (shape, causal, window, kind)) in enumerate(
+            FLASH_BWD_SHAPES.items()):
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, q_pos, kv_pos = _flash_case(*shape, dtype, 800 + i, kind)
+            do = torch.tensor(np.random.default_rng(900 + i).standard_normal(
+                q.shape), dtype=q.dtype, device="cuda")
+            o = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos,
+                                             causal=causal, window=window)
+
+            def run():
+                return bwd(q, k, v, o, do, q_pos, kv_pos, causal=causal,
+                           window=window)
+            got = run()
+            want = flash_ref.flash_attend_bwd_ref(
+                q.float(), k.float(), v.float(), o.float(), do.float(), q_pos,
+                kv_pos, causal=causal, window=window)
+            torch.cuda.synchronize()
+            errs, gates = [], []
+            for g, w in zip(got, want):
+                d = (g.float() - w).abs()
+                errs.append(float(d.max()))
+                gates.append(float((d / (
+                    FLASH_BWD_TOL * (1 + w.abs()) if dtype == "float32"
+                    else FLASH_STEP_RTOL * w.abs() + FLASH_STEP_ATOL)).max()))
+            same = all(torch.equal(a, b) for a, b in zip(run(), got))
+            dead = ~flash_ref.position_mask(q_pos, kv_pos, causal,
+                                            window).any(-1)
+            dead_zero = bool((got[0][dead] == 0).all())
+            ok = max(gates) <= 1.0 and same and dead_zero and (
+                kind != "holes_dead" or bool(dead.any()))
+            max_err[dtype] = max(max_err[dtype], *errs)
+            bound_ms, bound_by = _flash_bwd_bound(q, k, q_pos, kv_pos, causal,
+                                                  window)
+            bounds = {part: _flash_bwd_bound(q, k, q_pos, kv_pos, causal,
+                                             window, part)
+                      for part in FLASH_BWD_KERNELS}
+            numbers = {
+                "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
+                "gate": max(gates), "rerun_identical": same,
+                "ms": _median_ms(run, n=50, warmup=5),
+                "device_ms": _kernel_device_ms(
+                    run, list(FLASH_BWD_KERNELS.values()), calls=20),
+                "plain_ms": _median_ms(lambda: flash_ref.flash_attend_bwd_ref(
+                    q, k, v, o, do, q_pos, kv_pos, causal=causal,
+                    window=window), n=10, warmup=2),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_by_kernel": bounds,
+                "library_device_ms": None, "library_ms": None}
+            if kind in ("arange", "full", "cross") and not window:
+                # cross: every query at 0, every slot written, not causal:
+                # SDPA's function too
+                sdpa = _sdpa_backward(q, k, v, do, causal)
+                numbers["library_ms"] = _median_ms(sdpa, n=50, warmup=5)
+                numbers["library_device_ms"] = _device_ms_per_call(sdpa, 20)
+            cases[f"{label} {dtype}"] = numbers
+            dev = numbers["device_ms"]
+            print(f"kernel flash_attention_backward {label} (B, Sq, Sk, Hq, "
+                  f"Hkv, D) = {shape} causal={causal} window={window} {kind} "
+                  f"{dtype}: max|d| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
+                  f"{errs[2]:.3g} ({max(gates):.3g} of the gate); rerun "
+                  f"{'bit-identical' if same else 'DIFFERS'}; "
+                  f"{int(dead.sum())} dead rows, dq "
+                  f"{'exactly 0' if dead_zero else 'NOT 0'}; "
+                  f"{numbers['ms']:.6f} ms (events), device bwd_dq "
+                  f"{dev[FLASH_BWD_KERNELS['bwd_dq']]} ms + bwd_dkdv "
+                  f"{dev[FLASH_BWD_KERNELS['bwd_dkdv']]} ms; plain "
+                  f"{numbers['plain_ms']:.6f} ms; bound {bound_ms:.6f} ms "
+                  f"({bound_by}); SDPA backward "
+                  f"{numbers['library_ms']} ms, device "
+                  f"{numbers['library_device_ms']} ms "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention_backward disagrees "
+                                     f"with its plain version: {label} "
+                                     f"{shape} {dtype}")
+            del q, k, v, o, do, got, want
+    main = cases["tinyllama train bfloat16"]
+    return {"max_abs_err": max_err["float32"],
+            "max_abs_err_bf16": max_err["bfloat16"], "cases": cases,
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_device_ms": main["library_device_ms"]}
+
+
+def train_batch(cfg, seed: int, shape=TRAIN_BATCH) -> dict:
+    """One training batch from numpy ``seed``: tokens uniform on the vocab
+    (B, S + 1), split into ``tokens`` and next-token ``targets``, int32."""
+    B, S = shape
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (B, S + 1), dtype=np.int32)
+    return {"tokens": toks[:, :-1].copy(), "targets": toks[:, 1:].copy()}
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """{"a/b": leaf} of a nested dict, in sorted key order."""
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(flat_tree(tree[k], f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = tree[k]
+    return out
+
+
+def grad_summary(grads: dict, seed: int) -> dict:
+    """A gradient tree's summary ({path: tensor}, on any device): each
+    leaf's norm in float64 (a norm per layer of a stacked leaf, one under
+    ``STACK_NAMES``), its element count, ``TRAIN_SAMPLES`` entries at
+    indices drawn from (seed, crc32 of its path), and the global norm."""
+    import torch
+
+    out, total = {}, 0.0
+    for path in sorted(grads):
+        g = grads[path].detach()
+        sq = g.double() ** 2
+        norm = (torch.sqrt(sq.reshape(g.shape[0], -1).sum(1))
+                if path.split("/")[0] in STACK_NAMES else torch.sqrt(sq.sum()))
+        del sq
+        total += float((norm ** 2).sum())
+        idx = np.random.default_rng([seed, zlib.crc32(path.encode())]).integers(
+            0, g.numel(), TRAIN_SAMPLES)
+        out[f"norm/{path}"] = norm.cpu().numpy()
+        out[f"numel/{path}"] = np.int64(g.numel())
+        out[f"sample/{path}"] = g.reshape(-1)[torch.as_tensor(
+            idx, device=g.device)].float().cpu().numpy()
+        out[f"sample_idx/{path}"] = idx
+    out["grad_norm"] = np.float64(np.sqrt(total))
+    return out
+
+
+def train_fixture_arrays(arch: str, reduced: bool, run: dict) -> dict:
+    """The phase-19 (b) fixture: the run's config, seed, batch and
+    schedule, and its losses and ``grad_summary`` (no weights)."""
+    return {"arch": np.array(arch), "reduced": np.array(reduced),
+            "seed": np.int64(TRAIN_SEED), "draw_chunk": np.int64(DRAW_CHUNK),
+            "batch_shape": np.array(TRAIN_BATCH, np.int64),
+            "schedule": np.array(TRAIN_SCHEDULE, np.float64),
+            "steps": np.int64(TRAIN_STEPS),
+            **{k: np.asarray(v) for k, v in run.items()}}
+
+
+def run_train_parity(fx: dict, device) -> dict:
+    """The fixture's training on the port: params from ``numpy_params``
+    and the batch from ``train_batch`` on ``device``, step 1's loss, xent
+    and ``grad_summary`` through ``model.loss_fn`` and autograd, then
+    the fixture's steps of adamw(warmup_cosine(*schedule)) (step 1 from
+    those gradients, the rest through ``make_train_step``).  Returns the
+    numbers the fixture holds."""
+    _import_port()
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import get_model
+    from repro_torch.training.optimizer import (adamw, tree_leaves, tree_map,
+                                                tree_unflatten, warmup_cosine)
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = zoo_config(fx)
+    seed = int(fx["seed"])
+    params = params_from_numpy(numpy_params(cfg, seed, int(fx["draw_chunk"])),
+                               device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in train_batch(
+        cfg, seed, tuple(int(n) for n in fx["batch_shape"])).items()}
+    model = get_model(cfg)
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, metrics = model.loss_fn(live, batch)
+    grads = tree_unflatten(live, list(torch.autograd.grad(
+        loss, tree_leaves(live))))
+    del live
+    loss = loss.detach()
+    out = {"loss": np.float64(float(loss)),
+           "xent": np.float64(float(metrics["xent"].detach())),
+           **grad_summary(flat_tree(grads), seed)}
+    lr, warmup, total = (float(x) for x in fx["schedule"])
+    opt = adamw(warmup_cosine(lr, int(warmup), int(total)))
+    state = opt.init(params)
+    params, state, _ = opt.update(grads, state, params)
+    del grads
+    losses = [float(loss)]
+    step = make_train_step(model, opt)
+    for _ in range(int(fx["steps"]) - 1):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    out["losses"] = np.array(losses, np.float64)
+    return out
+
+
+def check_train_parity(fx: dict, got: dict) -> dict:
+    """``got`` (``run_train_parity``'s) against the fixture: the losses
+    within TRAIN_LOSS_ATOL, the global and each leaf's norms within
+    TRAIN_NORM_RTOL, every sampled entry within TRAIN_SAMPLE_RTOL of its
+    leaf's rms.  Returns the worst readings; raises on a miss."""
+    paths = sorted(k[len("norm/"):] for k in fx if k.startswith("norm/"))
+    if paths != sorted(k[len("norm/"):] for k in got
+                       if k.startswith("norm/")):
+        raise AssertionError("the port's gradient tree differs from the "
+                             "fixture's")
+    loss_err = max(abs(float(got[k]) - float(fx[k])) for k in ("loss",
+                                                             "xent"))
+    loss_err = max(loss_err, float(np.abs(got["losses"]
+                                          - fx["losses"]).max()))
+    norm_rel = abs(float(got["grad_norm"]) / float(fx["grad_norm"]) - 1)
+    sample_gate = 0.0
+    for path in paths:
+        want, have = fx[f"norm/{path}"], got[f"norm/{path}"]
+        norm_rel = max(norm_rel, float((np.abs(have - want) / np.maximum(
+            want, 1e-30)).max()))
+        if not np.array_equal(fx[f"sample_idx/{path}"],
+                              got[f"sample_idx/{path}"]):
+            raise AssertionError(f"{path}: sampled at other indices")
+        rms = float(np.sqrt((want ** 2).sum() / float(fx[f"numel/{path}"])))
+        d = np.abs(got[f"sample/{path}"] - fx[f"sample/{path}"]).max()
+        sample_gate = max(sample_gate, float(d) / max(
+            TRAIN_SAMPLE_RTOL * rms, 1e-30))
+    readings = {"loss_max_abs_err": loss_err, "norm_max_rel_err": norm_rel,
+                "sample_gate": sample_gate,
+                "losses": [float(x) for x in got["losses"]],
+                "fixture_losses": [float(x) for x in fx["losses"]]}
+    if (loss_err > TRAIN_LOSS_ATOL or norm_rel > TRAIN_NORM_RTOL
+            or sample_gate > 1.0):
+        raise AssertionError(f"training parity missed: {readings}")
+    return readings
+
+
+def bf16_train_run(flash, bwd, plain: dict) -> dict:
+    """Phase 19 (c): ``ZOO_ARCH`` at full width and depth in its own dtypes
+    (bf16 params from ``numpy_params``, float32 moments),
+    ``BF16_TRAIN_STEPS`` steps of adamw(warmup_cosine(*BF16_SCHEDULE)) on
+    one batch of ``BF16_TRAIN_BATCH`` through ``make_train_step``: every
+    loss finite, the last below the first; #6 launched exactly once a
+    layer as ``prefill_wgmma`` and its backward once a layer each as
+    ``bwd_dq`` and ``bwd_dkdv`` a step, no other kernel of #6 and no plain
+    version ``plain`` names.  Then a step's wall (median over steps 2..),
+    the device's busy time and idle share over a profiled step, #6's
+    backward device time summed over it, and the peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import nn
+    from repro_torch.models.model import get_model
+    from repro_torch.training.optimizer import adamw, warmup_cosine
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(ZOO_ARCH)
+    L = cfg.n_layers
+    params = nn.tree_cast(params_from_numpy(numpy_params(
+        zoo_parity_config(cfg), ZOO_SEED, DRAW_CHUNK), "cuda"),
+        getattr(torch, cfg.param_dtype))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in train_batch(
+        cfg, TRAIN_SEED, BF16_TRAIN_BATCH).items()}
+    model = get_model(cfg)
+    opt = adamw(warmup_cosine(*BF16_SCHEDULE),
+                moment_dtype=cfg.opt_moment_dtype)
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    with counting_calls(plain) as plain_calls:
+        for _ in range(BF16_TRAIN_STEPS):
+            _reset_launches(flash, bwd)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_step.append({**dict(flash.launches_by_kernel),
+                             **dict(bwd.launches_by_kernel)})
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want = {"simt": 0, "prefill_wgmma": L, "decode_split": 0, "bwd_dq": L,
+            "bwd_dkdv": L}
+    print(f"phase 19 (c) {ZOO_ARCH} bf16 train (B, S) = {BF16_TRAIN_BATCH}: "
+          f"losses {losses}; step walls {[round(w, 6) for w in walls]} s; "
+          f"#6 launches a step {per_step[0]} (want {want}); plain calls "
+          f"{plain_calls}; peak memory {peak_gb:.3f} GiB", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 training: losses {losses} are not "
+                             "finite and falling")
+    if any(c != want for c in per_step) or any(plain_calls.values()):
+        raise AssertionError(f"bf16 training launched {per_step}, plain "
+                             f"{plain_calls}; want {want} a step")
+
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+
+    busy = _busy(one_step, f"{ZOO_ARCH} bf16 train step")
+    bwd_ms = sum(ms for name, ms in busy.get("device_ms_by_name", {}).items()
+                 if any(k in name for k in FLASH_BWD_KERNELS.values()))
+    fwd_ms = sum(ms for name, ms in busy.get("device_ms_by_name", {}).items()
+                 if FLASH_KERNELS["prefill_wgmma"] in name)
+    out = {"losses": losses, "step_walls_s": walls,
+           "step_wall_s": statistics.median(walls[1:]),
+           "launches_per_step": per_step[0], "peak_memory_gib": peak_gb,
+           "busy_ms": busy["busy_ms"], "idle_share": busy["idle_share"],
+           "profiled_wall_s": busy["wall_s"],
+           "flash_bwd_device_ms_per_step": bwd_ms,
+           "flash_fwd_device_ms_per_step": fwd_ms}
+    print(f"phase 19 (c): step wall {out['step_wall_s']:.6f} s (median of "
+          f"steps 2-{BF16_TRAIN_STEPS}); profiled step busy "
+          f"{busy['busy_ms']} ms, idle share {busy['idle_share']}; #6's "
+          f"backward {bwd_ms:.6f} ms and forward {fwd_ms:.6f} ms of device "
+          f"a step", flush=True)
+    return out
+
+
+def local_train_runs(flash, bwd) -> dict:
+    """Phase 19 (d): ``launch/train.py``'s ``train_local`` on the card for
+    each of ``ZOO_TRAIN_ARCHS`` reduced (``LOCAL_TRAIN``): every loss
+    finite, #6 and its backward launched.  Then reduced tinyllama's
+    trained params through ``checkpoint.save`` and ``load``: the restored
+    params' ``Engine.generate`` gives the same tokens and logits as the
+    in-memory params'."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_local
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import checkpoint
+
+    steps, batch, seq, lr = LOCAL_TRAIN
+    runs = {}
+    for arch in ZOO_TRAIN_ARCHS:
+        _reset_launches(flash, bwd)
+        t0 = time.perf_counter()
+        res = train_local(arch, steps, batch, seq, lr, log_every=0,
+                          device="cuda")
+        torch.cuda.synchronize()
+        runs[arch] = {"losses": res["losses"],
+                      "wall_s": time.perf_counter() - t0,
+                      "flash_launches": flash.launches,
+                      "bwd_launches": dict(bwd.launches_by_kernel)}
+        print(f"phase 19 (d) train_local {arch} reduced: {runs[arch]}",
+              flush=True)
+        if not all(np.isfinite(res["losses"])) or not flash.launches or (
+                0 in bwd.launches_by_kernel.values()):
+            raise AssertionError(f"train_local {arch}: {runs[arch]}")
+        if arch == ZOO_ARCH:
+            trained = res["params"]
+        del res
+    cfg = get_config(ZOO_ARCH).reduced()
+    prompts = zoo_prompts(cfg, ZOO_SEED, (2, 16))
+    with tempfile.TemporaryDirectory() as d:
+        h = checkpoint.save(f"{d}/final", trained, step=steps)
+        restored = checkpoint.load(h.path, device="cuda")
+    outs = []
+    for params in (trained, restored):
+        engine = Engine(cfg, params, max_len=24, device="cuda")
+        logits = record_logits(engine)
+        tokens, _ = engine.generate(prompts, 8)
+        outs.append((tokens, np.stack(logits)))
+    same = (np.array_equal(outs[0][0], outs[1][0])
+            and np.array_equal(outs[0][1], outs[1][1]))
+    print(f"phase 19 (d) checkpoint of reduced {ZOO_ARCH}: {h.nbytes} "
+          f"bytes; the restored params generate "
+          f"{'the same tokens and logits' if same else 'OTHER OUTPUTS'}",
+          flush=True)
+    if not same:
+        raise AssertionError("a checkpoint's restored params serve "
+                             "otherwise than the trained ones")
+    return {"runs": runs, "checkpoint_nbytes": h.nbytes}
+
+
+def zoo_train_phase(flash, bwd, plain: dict) -> dict:
+    """Phase 19: the transformer zoo's training on the card.  (a) #6's
+    backward against its plain version (``flash_backward_phase``, run in
+    phase 3); (b) ``ZOO_ARCH`` at full width and depth in float32 against
+    ``TRAIN_FIXTURE`` (``run_train_parity``, ``check_train_parity``),
+    #6's SIMT forward and its backward's two kernels once a layer and
+    step; (c) ``bf16_train_run``; (d) ``local_train_runs``.  Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    L = get_config(ZOO_ARCH).n_layers
+    fx = load_fixture(TRAIN_FIXTURE)
+    if str(fx["arch"]) != ZOO_ARCH or bool(fx["reduced"]):
+        raise AssertionError(f"{TRAIN_FIXTURE} is not the full-width "
+                             f"{ZOO_ARCH} training fixture")
+    _reset_launches(flash, bwd)
+    t0 = time.perf_counter()
+    with counting_calls(plain) as plain_calls:
+        got = run_train_parity(fx, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = int(fx["steps"])
+    launches = {**dict(flash.launches_by_kernel),
+                **dict(bwd.launches_by_kernel)}
+    want = {"simt": steps * L, "prefill_wgmma": 0, "decode_split": 0,
+            "bwd_dq": steps * L, "bwd_dkdv": steps * L}
+    readings = check_train_parity(fx, got)
+    print(f"phase 19 (b) {ZOO_ARCH} float32 train parity, (B, S) = "
+          f"{tuple(int(n) for n in fx['batch_shape'])}, {steps} steps in "
+          f"{wall:.3f} s: {readings} (gates: losses {TRAIN_LOSS_ATOL}, "
+          f"norms {TRAIN_NORM_RTOL} relative, samples {TRAIN_SAMPLE_RTOL} "
+          f"of the leaf's rms); launches {launches} (want {want}); plain "
+          f"calls {plain_calls}", flush=True)
+    if launches != want or any(plain_calls.values()):
+        raise AssertionError(f"float32 training launched {launches}, plain "
+                             f"{plain_calls}; want {want}")
+    del got
+    torch.cuda.empty_cache()
+    out = {"parity": readings, "parity_launches": launches,
+           "parity_wall_s": wall,
+           "bf16": bf16_train_run(flash, bwd, plain)}
+    torch.cuda.empty_cache()
+    out["local"] = local_train_runs(flash, bwd)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19 (zoo training): {out['wall_s']:.3f} s", flush=True)
+    return out
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -6082,6 +6635,7 @@ def main() -> int:
     lstm_kernel.cell_library()
     int8_kernel.library()
     flash_kernel.library()
+    flash_kernel.bwd_library()
     wkv_kernel.library()
     ssm_kernel.library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
@@ -6090,6 +6644,7 @@ def main() -> int:
           flush=True)
     ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("flash_attention", "")).items() if "flash_" in n}
+    bwd_ptxas = _ptxas_lines(_build.LOGS.get("flash_backward", ""))
     train_ptxas = {n: info for lib in ("lstm_sequence", "lstm_sequence_bwd")
                    for n, info in _ptxas_lines(_build.LOGS.get(lib, "")).items()
                    if any(k in n for k in (SERVE_FWD_KERNEL, TRAIN_FWD_KERNEL,
@@ -6105,8 +6660,8 @@ def main() -> int:
         if "int8_matmul_kernel" in n}
     cell_ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("lstm_cell", "")).items() if CELL_KERNEL in n}
-    for n, info in {**ptxas, **train_ptxas, **ssm_ptxas, **wkv_ptxas,
-                    **int8_ptxas, **cell_ptxas}.items():
+    for n, info in {**ptxas, **bwd_ptxas, **train_ptxas, **ssm_ptxas,
+                    **wkv_ptxas, **int8_ptxas, **cell_ptxas}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -6118,11 +6673,14 @@ def main() -> int:
     wkv = wkv_kernel.rwkv6_scan
     ssm = ssm_kernel.ssm_scan
     cell = lstm_kernel.lstm_cell
+    flash_bwd = flash_kernel.flash_attention_backward
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
             "lstm_cell": cell_kernel_phase(),
             "int8_matmul": int8_kernel_phase(),
             "flash_attention": flash_kernel_phase(),
+            # phase 19 (a): #6's backward, beside its forward
+            "flash_attention_backward": flash_backward_phase(),
             "rwkv6_scan": wkv_kernel_phase(),
             "ssm_scan": ssm_kernel_phase()}
     for kname, names in (("lstm_sequence_fused", [SERVE_FWD_KERNEL]),
@@ -6137,7 +6695,8 @@ def main() -> int:
 
     # phase 4: the serving path
     fx = load_fixture()
-    _reset_launches(*wrappers, flash, wkv, ssm, cell)
+    # phase 3 launched #6's backward: from here it counts the paths only
+    _reset_launches(*wrappers, flash, flash_bwd, wkv, ssm, cell)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -6373,6 +6932,14 @@ def main() -> int:
     # phase 18: the encoder-decoder and the VLM, every attention in #6
     zoo_runs.update(zoo_encdec_vlm_phase(flash, (wkv, ssm, cell),
                                          attention_plain))
+    if flash_bwd.launches:
+        raise AssertionError("a serving path launched #6's backward")
+
+    # phase 19: the transformer zoo's training, every attention's forward
+    # in #6 and its gradient in #6's backward
+    train_plain = {**attention_plain,
+                   "bwd_oracle": (flash_ref, "flash_attend_bwd_ref")}
+    zoo_train = zoo_train_phase(flash, flash_bwd, train_plain)
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -6449,6 +7016,38 @@ def main() -> int:
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
+    # #6's backward: its two kernels, launched on the zoo's training path
+    # (phase 19 (c), a bf16 step of tinyllama-1.1b)
+    bwd_row = rows["flash_attention_backward"]
+    bwd_source = ("src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_backward.cu")
+    main_case = bwd_row["cases"]["tinyllama train bfloat16"]
+    for kname, prof_name in FLASH_BWD_KERNELS.items():
+        bound_ms, bound_by = main_case["bound_by_kernel"][kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": bwd_source,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+            "launches": zoo_train["bf16"]["launches_per_step"][kname],
+            "launches_by_path": {
+                "float32_parity": zoo_train["parity_launches"][kname],
+                "bf16_step": zoo_train["bf16"]["launches_per_step"][kname]},
+            "max_abs_err": bwd_row["max_abs_err"],
+            "max_abs_err_bf16": bwd_row["max_abs_err_bf16"],
+            # one call launches both kernels: a kernel's time is its
+            # device time by the profiler, and its bound its own
+            # function's; the call's event time, the plain version and
+            # SDPA's backward compute all three gradients
+            "ms": main_case["device_ms"][prof_name],
+            "device_ms": main_case["device_ms"][prof_name],
+            "call_ms": bwd_row["ms"], "call_bound_ms": bwd_row["bound_ms"],
+            "plain_ms": bwd_row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": bwd_row["library_ms"],
+            "library_device_ms": bwd_row["library_device_ms"],
+            "ptxas": {n: info for n, info in bwd_ptxas.items()
+                      if prof_name in n},
+            "cases": bwd_row["cases"]})
+    print(json.dumps({"zoo_train": zoo_train}, default=str))
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))

@@ -124,6 +124,10 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     frontend: Optional[FrontendStub] = None
     lstm: Optional[LSTMConfig] = None
+    # training's checkpoint policy of the transformer's blocks: "none",
+    # "block" (each block recomputed in the backward) or "dots" (the matmul
+    # outputs saved, the rest recomputed)
+    remat: str = "none"
     # KV chunk of the CPU path's online-softmax scan; the CUDA kernel tiles
     # on its own and does not read it
     attn_chunk: int = 1024
@@ -134,6 +138,8 @@ class ModelConfig:
     # ignores both: it is per-step on every device
     scan_chunked: bool = False
     scan_chunk: int = 64
+    # AdamW's moment dtype: bfloat16 halves the optimizer's state
+    opt_moment_dtype: str = "float32"
     # exact (no-drop) MoE serving: decode == prefill == forward, at the
     # worst case's dispatch capacity.  Kept off above 64 experts (the
     # layer falls back to capacity there); single-token decode is exact

@@ -12,9 +12,12 @@
 * ``dwa_closed_form`` — the exact K=2 solution (clipped least squares on the
   simplex).
 
-All of it runs on the host in numpy float64, as in the reference: the inputs
-are one window's predictions.  The K>2 projected-gradient solver waits for a
-slice whose path needs it.
+* ``dwa_projected`` — the K-model counterpart of the reference's
+  ``dwa_jax``: projected gradient descent of the combination's MSE on the
+  probability simplex, in float32 as the reference's.
+
+All of it runs on the host in numpy, as in the reference: the inputs are one
+window's predictions.
 """
 from __future__ import annotations
 
@@ -84,3 +87,37 @@ def dwa_closed_form(pred_speed: np.ndarray, pred_batch: np.ndarray,
     w = float((y - pb) @ d / denom)
     w = min(max(w, 0.0), 1.0)
     return w, 1.0 - w
+
+
+def _project_simplex(v: np.ndarray) -> np.ndarray:
+    """Euclidean projection onto the probability simplex (sorted
+    algorithm), in v's dtype."""
+    K = v.shape[0]
+    u = np.sort(v)[::-1]
+    css = np.cumsum(u)
+    idx = np.arange(1, K + 1, dtype=v.dtype)
+    rho = int(np.sum(u + (1.0 - css) / idx > 0))
+    lam = (v.dtype.type(1.0) - css[rho - 1]) / v.dtype.type(rho)
+    return np.maximum(v + lam, v.dtype.type(0.0))
+
+
+def dwa_projected(preds: np.ndarray, y: np.ndarray, n_steps: int = 200,
+                  lr: float = 0.5) -> np.ndarray:
+    """K-model DWA: projected gradient descent on the simplex, float32.
+
+    preds: (K, n); y: (n,).  Minimizes the MSE (the RMSE's argmin) of the
+    convex combination from equal weights, ``n_steps`` steps of ``lr``
+    over the predictions' mean square, each projected exactly onto the
+    simplex.  Returns the (K,) weights."""
+    f32 = np.float32
+    preds = np.asarray(preds, f32)
+    y = np.asarray(y, f32).ravel()
+    K, n = preds.shape
+    scale = max(f32(np.mean(preds * preds)), f32(1e-12))
+    step = f32(lr) / scale
+    w = np.full((K,), 1.0 / K, f32)
+    for _ in range(n_steps):
+        r = y - w @ preds
+        grad = (f32(-2.0) / f32(n)) * (preds @ r)  # d mean(r^2) / dw
+        w = _project_simplex((w - step * grad).astype(f32))
+    return w

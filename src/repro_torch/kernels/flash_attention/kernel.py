@@ -24,6 +24,12 @@ them, by ``kernel_for``:
   prefill, rows that are not 16-byte multiples), on the CUDA cores in
   float32.
 
+The gradient is a second library (``csrc/flash_backward.cu``), two
+kernels launched in turn by ``flash_attention_backward``: ``bwd_dq`` (dQ,
+and each row's lse and delta into scratch) and ``bwd_dkdv`` (dK and dV,
+the group's query heads summed in-kernel).  Neither changes the forward:
+they recompute the softmax statistics from q and k.
+
 The wrapper checks its inputs, allocates the output and the split
 decode's scratch with ``torch.empty``, copies a view that does not start
 on 16 bytes where the kernel loads 16-byte vectors, launches on the
@@ -32,8 +38,8 @@ successful launches in ``.launches`` and by kernel in
 ``.launches_by_kernel``; with no query rows it returns without launching
 or counting.  The split decode's arrival counters live in one buffer a
 (device, stream), zeroed once and left zero by every call.  The library builds with ``nvcc`` at the first launch
-(``kernels/_build``); ``LIBRARIES`` names it for a caller that builds
-every library up front.
+(``kernels/_build``); ``LIBRARIES`` names both libraries for a caller
+that builds every library up front.
 """
 from __future__ import annotations
 
@@ -50,8 +56,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 PREFILL_SOURCE = CSRC / "flash_prefill.cu"
 DECODE_SOURCE = CSRC / "flash_decode.cu"
+BWD_SOURCE = CSRC / "flash_backward.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"flash_attention": [SOURCE, PREFILL_SOURCE, DECODE_SOURCE]}
+LIBRARIES = {"flash_attention": [SOURCE, PREFILL_SOURCE, DECODE_SOURCE],
+             "flash_backward": [BWD_SOURCE]}
 # the kernels' largest head dim (PaliGemma's 256), and the SIMT kernel's
 # rows per block
 MAX_HEAD_DIM = 256
@@ -62,6 +70,8 @@ DECODE_MAX_ROWS = 64
 DECODE_SPLIT = 64
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"simt": 0, "prefill_wgmma": 1, "decode_split": 2}
+# the backward's two kernels, launched in this order
+BWD_KERNELS = ("bwd_dq", "bwd_dkdv")
 
 
 def kernel_for(Sq: int, Hq: int, Hkv: int, D: int,
@@ -97,6 +107,17 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     lib.flash_attention_forward.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_library() -> ctypes.CDLL:
+    """The backward's library, built (or loaded) at the first call."""
+    lib = _build.load_library("flash_backward", LIBRARIES["flash_backward"])
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv):
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -232,3 +253,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launch counts
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, q_pos: torch.Tensor,
+                             kv_pos: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v, q_pos, kv_pos, causal=,
+    window=, scale=)`` whose output was ``o``, for the output's gradient
+    ``do``: ``bwd_dq`` then ``bwd_dkdv`` on the current CUDA stream.
+
+    q, o, do (B,Sq,Hq,D) and k, v (B,Sk,Hkv,D) in one dtype (float32 or
+    bfloat16), positions int32, all contiguous on one CUDA device, as the
+    forward takes them; p in float32 (there is no backward of
+    ``p_bf16``).  The gradients come back in the inputs' dtype, computed
+    in float32; a row that attends no slot gets zero.  Raises on anything
+    else, and when a launch fails.  With no query rows nothing launches
+    (dk and dv are zero); with no keys only ``bwd_dq`` does."""
+    name = "flash_attention_backward"
+    _check(name, q, k, v, q_pos, kv_pos)
+    for what, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{tuple(q.shape)} {q.dtype} tensor on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    scale = D**-0.5 if scale is None else float(scale)
+    shape = (B, Sq, Sk, Hq, Hkv, D, int(causal), int(window))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    lib = bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # each (query, head) row's lse and delta, written by bwd_dq
+        lse, delta = torch.empty((2, B * Sq * Hq), dtype=torch.float32,
+                                 device=q.device)
+        launches = (
+            ("bwd_dq", lib.flash_attention_bwd_dq,
+             (q, k, v, o, do, q_pos, kv_pos, dq, lse, delta)),
+            ("bwd_dkdv", lib.flash_attention_bwd_dkdv,
+             (q, k, v, do, q_pos, kv_pos, lse, delta, dk, dv)))
+        for kname, fn, tensors in launches[:2 if Sk else 1]:
+            err = fn(*(t.data_ptr() for t in tensors), *shape, scale,
+                     is_bf16, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"{name}: launch of {kname} failed with CUDA error {err} "
+                    f"(B={B}, Sq={Sq}, Sk={Sk}, Hq={Hq}, Hkv={Hkv}, D={D}, "
+                    f"{q.dtype})")
+            flash_attention_backward.launches += 1
+            flash_attention_backward.launches_by_kernel[kname] += 1
+    return dq, dk, dv
+
+
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
+flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)

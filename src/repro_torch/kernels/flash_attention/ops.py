@@ -7,6 +7,15 @@ card: every prefill and decode attention of the dense transformer.
 same function at arange positions.  A tensor on a CUDA device launches the
 kernel (``kernel.flash_attention``) or raises; a tensor on the CPU takes
 its plain version (``ref``).  Nothing falls back.
+
+Under grad (grad mode on and q, k or v requiring it) the call goes through
+``FlashAttend``, a ``torch.autograd.Function``: its forward is the same
+single launch, and it saves q, k, v, the output and the positions; its
+backward launches the two backward kernels on the card
+(``kernel.flash_attention_backward``) and takes the plain backward
+(``ref.flash_attend_bwd_ref``) on the CPU.  Without grad nothing is
+saved.  p stays in float32 under grad: ``p_dtype`` bfloat16 has no
+backward and raises there.
 """
 from __future__ import annotations
 
@@ -17,19 +26,9 @@ import torch
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
-def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                 causal: bool = True, window: int = 0,
-                 scale: Optional[float] = None,
-                 p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), q_pos (B,Sq), kv_pos (B,Sk)
-    with -1 on an unwritten slot -> (B,Sq,Hq,D) in ``q.dtype``.
-    ``p_dtype`` bfloat16 rounds p and v to bf16 before the P V product (f32
-    accumulation); None or float32 keeps p in f32."""
-    if p_dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attend: p_dtype {p_dtype} is not float32 "
-                         "or bfloat16")
-    p_bf16 = p_dtype == torch.bfloat16
+def _forward(q, k, v, q_pos, kv_pos, causal, window, scale, p_bf16):
+    """The forward on q's device: the kernel on CUDA, the oracle on the
+    CPU."""
     if q.device.type == "cuda":
         return kernel.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
@@ -41,6 +40,62 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    window=window, scale=scale,
                                    p_dtype=torch.bfloat16 if p_bf16 else None)
     raise ValueError(f"flash_attend: unsupported device {q.device}")
+
+
+class FlashAttend(torch.autograd.Function):
+    """Flash attention with its gradient: q, k, v (contiguous on CUDA) and
+    int32 positions in, (B,Sq,Hq,D) out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, scale):
+        o = _forward(q, k, v, q_pos, kv_pos, causal, window, scale, False)
+        ctx.save_for_backward(q, k, v, o, q_pos, kv_pos)
+        ctx.attrs = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, q_pos, kv_pos = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        if q.device.type == "cuda":
+            grads = kernel.flash_attention_backward(
+                q, k, v, o, do.contiguous(), q_pos, kv_pos, causal=causal,
+                window=window, scale=scale)
+        else:
+            grads = ref.flash_attend_bwd_ref(q, k, v, o, do, q_pos, kv_pos,
+                                             causal=causal, window=window,
+                                             scale=scale)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 scale: Optional[float] = None,
+                 p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), q_pos (B,Sq), kv_pos (B,Sk)
+    with -1 on an unwritten slot -> (B,Sq,Hq,D) in ``q.dtype``.
+    ``p_dtype`` bfloat16 rounds p and v to bf16 before the P V product (f32
+    accumulation); None or float32 keeps p in f32.  Under grad the call
+    goes through ``FlashAttend`` (module docstring)."""
+    if p_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attend: p_dtype {p_dtype} is not float32 "
+                         "or bfloat16")
+    p_bf16 = p_dtype == torch.bfloat16
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _forward(q, k, v, q_pos, kv_pos, causal, window, scale,
+                        p_bf16)
+    if p_bf16:
+        raise ValueError("flash_attend: p_dtype bfloat16 has no backward; "
+                         "under grad p stays float32 (p_dtype None)")
+    if q.device.type == "cuda":
+        # views after rope and reshape are copied once, here; the copies'
+        # gradients flow back to the views
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q_pos = q_pos.to(torch.int32).contiguous()
+        kv_pos = kv_pos.to(torch.int32).contiguous()
+    return FlashAttend.apply(q, k, v, q_pos, kv_pos, causal, window, scale)
 
 
 def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

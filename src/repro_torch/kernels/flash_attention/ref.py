@@ -14,6 +14,11 @@ kernels, so that the CPU tests can hold each algorithm to the reference:
 ``flash_decode_split_ref`` is the split decode's (per-split statistics,
 then the combine in split order), ``attend_tc_ref`` the tensor-core
 prefill's (bf16 operands, P applied as P_hi + P_lo in bf16).
+
+``flash_attend_bwd_ref`` is the gradient's plain version: the closed-form
+(dq, dk, dv) of ``attend_full_ref`` from the same O(Sq*Sk) oracle, the CPU
+path of ``ops.flash_attend``'s backward and what the card's backward
+kernels are held to.
 """
 from __future__ import annotations
 
@@ -60,6 +65,39 @@ def attend_full_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p, vf = p.to(p_dtype).float(), v.to(p_dtype).float()
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, vf)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def flash_attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor,
+                         q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                         causal: bool = True, window: int = 0,
+                         scale: Optional[float] = None):
+    """(dq, dk, dv) of ``attend_full_ref`` (p in float32) whose output was
+    ``o``, for the output's gradient ``do``, in float32 and returned in the
+    inputs' dtypes: P recomputed, dP = dO V^T, delta = rowsum(dO * O) of
+    the given ``o`` (as the kernel reads the forward's own), dS = P (dP -
+    delta), dq = scale dS K, dk = scale dS^T q and dv = P^T dO, each KV
+    head's summed over its group's G query heads.  A row with no slot to
+    attend has P = 0, so zero gradient."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = D**-0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    dog = do.reshape(B, Sq, Hkv, G, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kf) * scale
+    mask = position_mask(q_pos, kv_pos, causal, window)[:, :, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vf)
+    delta = (dog * o.reshape(B, Sq, Hkv, G, D).float()).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def arange_positions(B: int, S: int, device) -> torch.Tensor:

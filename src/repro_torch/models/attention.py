@@ -54,8 +54,13 @@ def attend(
     On a CUDA device: the flash kernels, which tile on their own
     (``chunk`` is the CPU scan's KV chunk and is not read); p stays in
     float32, or with ``p_dtype`` bfloat16 p and v are rounded to bf16 before
-    the P V product, accumulated in f32, as the reference's.  On the CPU:
-    the chunked scan, ``chunk`` keys a step."""
+    the P V product, accumulated in f32, as the reference's.  Under grad
+    (q, k or v requiring it) the call goes through
+    ``flash_ops.FlashAttend``, whose backward is #6's two backward
+    kernels; p_dtype bfloat16 has no backward and raises there.  Without
+    grad it is the single forward launch and saves nothing.  On the CPU:
+    the chunked scan, ``chunk`` keys a step, differentiated by autograd as
+    the reference's scan is by XLA."""
     if q.device.type == "cuda":
         return flash_ops.flash_attend(q, k, v, q_pos, kv_pos, causal=causal,
                                       window=window, scale=scale,

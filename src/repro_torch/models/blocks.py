@@ -1,6 +1,6 @@
 """Shared transformer building blocks: GQA attention (with KV caches and
-sliding windows), cross attention over an encoder's memory, MLP variants
-and embeddings.
+sliding windows), cross attention over an encoder's memory, MLP variants,
+embeddings and the token cross entropy.
 
 Block params are created per-layer-stacked (leading L dim) or flat, as the
 reference's.  The reference's ``shard(...)`` annotations are no-ops on one
@@ -237,6 +237,16 @@ def embed_tokens(cfg: ModelConfig, p: Params,
     if cfg.tie_embeddings:
         x = x * (cfg.d_model**0.5)  # gemma-style scaling with tied embeddings
     return x
+
+
+def token_xent(logits: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean masked cross entropy; logits f32 (B,S,V), targets (B,S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def logits_fn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:

@@ -130,11 +130,13 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
-    raise NotImplementedError(
-        "training the model zoo is not ported yet: it comes with the rest "
-        "of the model zoo, zoo step 6 (each family's loss_fn, "
-        "models/encdec.py's among them); the flash kernel has no "
-        "backward yet")
+    """Encode the frames, run the decoder over the tokens: (xent,
+    {"xent"}) over the batch's ``targets`` (and ``mask``)."""
+    memory = encode(cfg, p, _memory_of(batch))
+    h, _ = _decoder_seq(cfg, p, batch["tokens"], memory)
+    logits = blocks.logits_fn(cfg, p, h)
+    loss = blocks.token_xent(logits, batch["targets"], batch.get("mask"))
+    return loss, {"xent": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

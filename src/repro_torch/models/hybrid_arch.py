@@ -31,7 +31,8 @@ from repro_torch.models.attention import attend
 
 Params = Dict[str, Any]
 
-_LATER = "the rest of the model zoo"
+# the slice that brings this family's training
+_LATER = "zoo step 6b, the recurrent families' training"
 
 
 def _split(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -163,8 +164,8 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
     raise NotImplementedError(
-        f"training the model zoo is not ported yet: it comes with {_LATER}; "
-        "the selective-scan and flash kernels have no backward yet")
+        f"the Zamba2 hybrid's training loss is not ported yet: it comes "
+        f"with {_LATER}, the selective scan's backward kernel with it")
 
 
 def prefill(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],

@@ -76,6 +76,16 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * gamma.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), cast back to input dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     y = torch.matmul(x, w.to(x.dtype))
@@ -136,3 +146,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Param trees
+# ---------------------------------------------------------------------------
+
+
+def count_params(params) -> int:
+    """Elements over every leaf of a nested dict of tensors."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return int(params.numel())
+
+
+def tree_cast(params, dtype: torch.dtype):
+    """The tree with every floating leaf cast to ``dtype`` (others as
+    they are)."""
+    if isinstance(params, dict):
+        return {k: tree_cast(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params

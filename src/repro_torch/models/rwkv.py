@@ -39,7 +39,8 @@ Params = Dict[str, Any]
 N_MIX = 5  # r, k, v, g, w
 MIX_LORA = 32  # rank of the ddlerp LoRA
 
-_LATER = "the rest of the model zoo"
+# the slice that brings this family's training
+_LATER = "zoo step 6b, the recurrent families' training"
 
 
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:
@@ -260,8 +261,8 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
     raise NotImplementedError(
-        f"training the model zoo is not ported yet: it comes with {_LATER}; "
-        "the WKV kernel has no backward yet")
+        f"RWKV6's training loss is not ported yet: it comes with {_LATER}, "
+        "the WKV scan's backward kernel with it")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,

@@ -10,14 +10,24 @@ holds both, the dense layers first.  Every attention goes through
 ``models.attention.attend``: the flash kernel on the card.  A config with
 a modality frontend (the VLM) owns its projector, ``proj_in``; a batch's
 ``prefix_embed`` goes through it and before the tokens, and the whole
-sequence attends causally, the prefix too, as in the reference.  The
-zoo's training loss raises, naming the step that brings it.
+sequence attends causally, the prefix too, as in the reference.
+
+``loss_fn`` is the reference's: the forward, the text positions only
+after a VLM prefix, the token cross entropy plus the MoE layers' aux loss.
+On the card its gradient runs through #6's backward kernels
+(``kernels.flash_attention.ops.FlashAttend``).  ``cfg.remat`` checkpoints
+each block as the reference's scan body is: "block" recomputes the whole
+block in the backward (``torch.utils.checkpoint``), "dots" saves the
+matmul outputs and recomputes the rest (PyTorch's selective checkpoint, the
+counterpart of ``dots_with_no_batch_dims_saveable``); neither changes the
+loss or the gradients.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -113,6 +123,34 @@ def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     return x + y, aux
 
 
+# the products "dots" saves: every matmul's output
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 positions: torch.Tensor, use_moe: bool
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``_block`` under ``cfg.remat``'s checkpoint policy; without grad
+    there is nothing to save and the block runs as it is."""
+    if cfg.remat not in ("none", "block", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; one of 'none', "
+                         "'block', 'dots'")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return _block(cfg, lp, x, positions, use_moe)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: (
+            torch_checkpoint.create_selective_checkpoint_contexts(_save_dots))
+    return torch_checkpoint.checkpoint(_block, cfg, lp, x, positions,
+                                       use_moe, use_reentrant=False, **kw)
+
+
 def embed_inputs(cfg: ModelConfig, p: Params,
                  batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -139,7 +177,7 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     x, positions = embed_inputs(cfg, p, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, use_moe in _walk(p):
-        x, a = _block(cfg, lp, x, positions, use_moe)
+        x, a = _remat_block(cfg, lp, x, positions, use_moe)
         if a is not None:
             aux = aux + a
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
@@ -147,11 +185,15 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
-    raise NotImplementedError(
-        "training the model zoo is not ported yet: it comes with the rest "
-        "of the model zoo, zoo step 6 (each family's loss_fn, "
-        "models/transformer.py's among them); the flash kernel has no "
-        "backward yet")
+    """(xent + aux, {"xent", "aux"}) over the batch's ``targets`` (and
+    ``mask``), the text positions only when a prefix came first."""
+    h, aux = forward(cfg, p, batch)
+    n_prefix = h.shape[1] - batch["tokens"].shape[1]
+    if n_prefix > 0:
+        h = h[:, n_prefix:]  # loss only over text positions
+    logits = blocks.logits_fn(cfg, p, h)
+    loss = blocks.token_xent(logits, batch["targets"], batch.get("mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Dict, Iterator
 
 import numpy as np
 import torch
@@ -205,3 +205,24 @@ def tree_checksum(tree: Any) -> int:
         c = zlib.crc32(repr((a.shape, a.dtype.str)).encode(), c)
         c = zlib.crc32(a.tobytes(), c)
     return c
+
+
+def quantization_error(params: Params) -> Dict[str, float]:
+    """Max relative error per quantized leaf (diagnostics): for each leaf
+    ``quantize_tree`` would quantize, by its path joined with "/", the
+    largest |dequantize(quantize(w)) - w| over the largest |w|."""
+    out: Dict[str, float] = {}
+
+    def visit(path, x):
+        x = materialize_params(x)
+        if isinstance(x, dict):
+            for k in sorted(x):
+                visit(path + (str(k),), x[k])
+        elif _is_quantizable(x):
+            xf = x.float()
+            back = dequantize(quantize(x)).float()
+            denom = torch.clamp(xf.abs().max(), min=1e-12)
+            out["/".join(path)] = float((back - xf).abs().max() / denom)
+
+    visit((), params)
+    return out

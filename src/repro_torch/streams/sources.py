@@ -22,7 +22,8 @@ the same series from the same seeds.
   turbines, each on its own drift schedule, split into history and windowed
   live streams: the multi-stream entry points' data.
 
-``token_stream`` comes with the model zoo.
+* ``token_stream`` — a Markov token stream whose transition matrix switches
+  at ``drift_at``: the token source of the zoo's training examples.
 """
 from __future__ import annotations
 
@@ -245,3 +246,25 @@ def fleet_windowed_streams(
             scaler.transform(tail),
             WindowPlan(n_windows, records_per_window, lag=lag))
     return streams, hist0
+
+
+def token_stream(
+    n: int, vocab: int, seed: int = 0, drift_at: Optional[int] = None
+) -> np.ndarray:
+    """Markov token stream; transition matrix switches at ``drift_at``."""
+    rng = np.random.default_rng(seed)
+
+    def trans(seed2):
+        r = np.random.default_rng(seed2)
+        m = r.dirichlet(np.full(vocab, 0.3), size=vocab)
+        return m
+
+    m1 = trans(seed)
+    m2 = trans(seed + 1)
+    out = np.zeros(n, np.int32)
+    s = 0
+    for i in range(1, n):
+        m = m1 if (drift_at is None or i < drift_at) else m2
+        s = rng.choice(vocab, p=m[s])
+        out[i] = s
+    return out

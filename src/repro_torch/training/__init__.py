@@ -1,8 +1,17 @@
-"""Training of the port: AdamW, the train step, and the speed layer's
-trainers, the single-stream ``CompiledForecaster`` and the fleet's
-``FleetForecaster``."""
-from repro_torch.training.optimizer import Optimizer, OptState, adamw  # noqa: F401
-from repro_torch.training.train_loop import make_train_step  # noqa: F401
+"""Training of the port: the optimizers, the train and eval steps, the
+checkpoints, and the speed layer's trainers, the single-stream
+``CompiledForecaster`` and the fleet's ``FleetForecaster``."""
+from repro_torch.training.optimizer import (  # noqa: F401
+    Optimizer,
+    OptState,
+    adamw,
+    sgd,
+    warmup_cosine,
+)
+from repro_torch.training.train_loop import (  # noqa: F401
+    make_eval_step,
+    make_train_step,
+)
 from repro_torch.training.compiled import (  # noqa: F401
     CompiledForecaster,
     FleetForecaster,
@@ -12,3 +21,4 @@ from repro_torch.training.compiled import (  # noqa: F401
     materialize_params,
     pad_to_bucket,
 )
+from repro_torch.training import checkpoint  # noqa: F401

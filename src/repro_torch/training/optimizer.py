@@ -1,9 +1,11 @@
-"""AdamW for the port, term for term as the reference's
-(``src/repro/training/optimizer.py: adamw``): clipping by global norm,
-float32 moments whatever the param dtype, bias correction with ``b1 ** step``
-taken in float32 tensors, eps after the square root, and decoupled weight
-decay added to the step.  It is not ``torch.optim.AdamW``, which puts eps
-and the weight decay elsewhere.
+"""The port's optimizers, term for term as the reference's
+(``src/repro/training/optimizer.py``): ``adamw`` with clipping by global
+norm, moments in float32 (or ``moment_dtype`` bfloat16, the update math
+still in float32) whatever the param dtype, bias correction with
+``b1 ** step`` taken in float32 tensors, eps after the square root, and
+decoupled weight decay added to the step; ``sgd`` with momentum; and the
+schedules ``constant`` and ``warmup_cosine``.  ``adamw`` is not
+``torch.optim.AdamW``, which puts eps and the weight decay elsewhere.
 
 Params, gradients and moments are nested dicts of tensors.  Leaves are
 visited in sorted key order, the order of ``jax.tree_util``, so sums over
@@ -21,6 +23,7 @@ per-stream tree it stands for.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -74,6 +77,22 @@ def constant(lr: float) -> Schedule:
                                    device=step.device)
 
 
+def warmup_cosine(lr: float, warmup: int, total: int,
+                  final_frac: float = 0.1) -> Schedule:
+    """Linear warmup to ``lr`` over ``warmup`` steps, then a cosine decay to
+    ``final_frac * lr`` at step ``total``, in float32."""
+
+    def sched(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = lr * torch.clamp(step / max(warmup, 1), max=1.0)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = final_frac * lr + (1 - final_frac) * lr * 0.5 * (
+            1 + torch.cos(math.pi * t))
+        return torch.where(step < warmup, warm, cos)
+
+    return sched
+
+
 def global_norm(tree: Params, stacked: bool = False) -> torch.Tensor:
     """The norm over every leaf, a scalar; with ``stacked``, each stream's
     over its slices of every leaf, shape (S,)."""
@@ -92,11 +111,16 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     clip_norm: Optional[float] = 1.0,
+    moment_dtype: Union[str, torch.dtype] = torch.float32,
 ) -> Optimizer:
+    """``moment_dtype`` bfloat16 halves the optimizer's state; the moments
+    are read into float32, updated there and stored back rounded."""
     sched: Schedule = lr if callable(lr) else constant(lr)
+    mdt = (getattr(torch, moment_dtype) if isinstance(moment_dtype, str)
+           else moment_dtype)
 
     def init(params: Params) -> OptState:
-        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=mdt,
                                                device=p.device), params)
         step = torch.zeros((), dtype=torch.int32,
                            device=tree_leaves(params)[0].device)
@@ -122,13 +146,42 @@ def adamw(
                 # a stream's clip scale over its slice of the leaf
                 g = g.float() * (scale.view(-1, *(1,) * (g.dim() - 1))
                                  if stacked else scale)
-                m.copy_(b1 * m + (1 - b1) * g)
-                v.copy_(b2 * v + (1 - b2) * g * g)
-                delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                m2 = b1 * m.float() + (1 - b1) * g
+                v2 = b2 * v.float() + (1 - b2) * g * g
+                m.copy_(m2)
+                v.copy_(v2)
+                delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
                 if weight_decay > 0:
                     delta = delta + weight_decay * p.float()
                 p.copy_(p.float() - lr_t * delta)
         metrics = {"grad_norm": gnorm, "lr": lr_t}
+        return params, OptState(step, state.mu, state.nu), metrics
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> Optimizer:
+    """SGD with momentum, float32 momentum whatever the param dtype; no
+    clipping.  Its state's ``nu`` is its ``mu``, as the reference's."""
+    sched: Schedule = lr if callable(lr) else constant(lr)
+
+    def init(params: Params) -> OptState:
+        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=tree_leaves(params)[0].device)
+        return OptState(step=step, mu=zeros, nu=zeros)
+
+    def update(grads: Params, state: OptState, params: Params,
+               stacked: bool = False):
+        step = state.step + 1
+        lr_t = sched(step)
+        with torch.no_grad():
+            for g, m, p in zip(*map(tree_leaves,
+                                    (grads, state.mu, params))):
+                m.copy_(momentum * m + g.float())
+                p.copy_(p.float() - lr_t * m)
+        metrics = {"grad_norm": global_norm(grads, stacked)}
         return params, OptState(step, state.mu, state.nu), metrics
 
     return Optimizer(init=init, update=update)

@@ -1,4 +1,5 @@
-"""The train-step factory the speed layer's ``CompiledForecaster`` runs.
+"""The train-step factory the speed layer's ``CompiledForecaster`` and the
+zoo's ``launch/train.py`` run, and the eval step.
 
 ``make_train_step(model, opt)`` takes the gradient of ``model.loss_fn`` with
 ``torch.autograd.grad`` and hands it to the optimizer, which updates the
@@ -46,3 +47,15 @@ def make_train_step(model: Model, opt: Optimizer, stacked: bool = False):
                                    "loss": loss.detach()}
 
     return train_step
+
+
+def make_eval_step(model: Model):
+    """(params, batch) -> metrics: the loss and the loss_fn's metrics, with
+    no graph."""
+
+    def eval_step(params: Params, batch: Batch):
+        with torch.no_grad():
+            loss, metrics = model.loss_fn(params, batch)
+        return {**metrics, "loss": loss}
+
+    return eval_step

@@ -328,11 +328,23 @@ def test_serve_is_refused_as_the_reference_fails():
 
 
 def test_loss_fn_raises_naming_zoo_step_6():
-    _, _, cfg, p = reduced_pair(ARCH)
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
-             "prefix_embed": torch.zeros((1, 8, 64))}
-    with pytest.raises(NotImplementedError, match="zoo step 6"):
-        get_model(cfg).loss_fn(p, batch)
+    """Zoo step 6 brought the loss that raised here: encode the frames,
+    the decoder over the tokens, the token cross entropy, equal to the
+    reference's (its gradients: ``tests/test_torch_zoo_train.py``).
+    Without the frames it raises, as the reference's does."""
+    cfg_ref, p_ref, cfg, p = reduced_pair(ARCH)
+    tokens = zd.tokens_for(cfg, (2, 5), seed=3)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+             "prefix_embed": prefix_for(cfg, 2)}
+    loss, metrics = get_model(cfg).loss_fn(
+        p, {k: torch.as_tensor(v) for k, v in batch.items()})
+    loss_ref, metrics_ref = ed_ref.loss_fn(
+        cfg_ref, p_ref, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert sorted(metrics) == sorted(metrics_ref) == ["xent"]
+    assert abs(float(loss) - float(loss_ref)) <= ATOL
+    with pytest.raises(ValueError, match="prefix_embed"):
+        get_model(cfg).loss_fn(p, {k: torch.as_tensor(v) for k, v in
+                                   batch.items() if k != "prefix_embed"})
 
 
 def test_committed_fixture_is_what_chip_smoke_reads():

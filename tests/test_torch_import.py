@@ -77,6 +77,11 @@ ZOO_REST_MODULES = {"repro_torch.models.moe",
 ENCDEC_VLM_MODULES = {"repro_torch.models.encdec",
                       "repro_torch.configs.seamless_m4t_medium",
                       "repro_torch.configs.paligemma_3b"}
+# the modules of the zoo's training
+ZOO_TRAIN_MODULES = {"repro_torch.training.checkpoint",
+                     "repro_torch.training.metrics",
+                     "repro_torch.launch.train",
+                     "repro_torch.core.weighting"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -95,6 +100,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert CHAOS_MODULES <= names
     assert ZOO_REST_MODULES <= names
     assert ENCDEC_VLM_MODULES <= names
+    assert ZOO_TRAIN_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

@@ -275,22 +275,36 @@ def test_bf16_tree_round_trips_bit_for_bit():
 
 
 def test_unported_parts_raise_naming_their_slice():
-    """What still raises, naming the step that brings it: the zoo's
-    training loss (zoo step 6).  The MoE, VLM and encoder-decoder families
-    no longer raise: they serve, and a config without a frontend ignores a
-    batch's ``prefix_embed``, as the reference's does."""
+    """The zoo's training loss, which raised until zoo step 6, is the
+    reference's now: the token cross entropy plus the MoE layers' aux loss
+    (``tests/test_torch_zoo_train.py`` holds it and its gradients to the
+    reference's).  The MoE, VLM and encoder-decoder families serve and
+    train, and a config without a frontend ignores a batch's
+    ``prefix_embed``, as the reference's does.  What still raises: an
+    unknown family, and the encoder-decoder's serve without frames."""
     _, cfg = _configs("tinyllama")
     p = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match="zoo step 6.*models/transformer.py's among"):
-        transformer.loss_fn(cfg, p, batch)
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
+             "targets": torch.arange(4, dtype=torch.int32)[None]}
+    loss, metrics = transformer.loss_fn(cfg, p, batch)
+    assert sorted(metrics) == ["aux", "xent"]
+    assert float(metrics["aux"]) == 0.0 and float(loss) == float(
+        metrics["xent"]) > 0
     h, _ = transformer.forward(cfg, p, {**batch, "prefix_embed": None})
     assert h.shape == (1, 4, cfg.d_model)
     for arch in ("grok-1-314b", "paligemma-3b", "seamless-m4t-medium"):
-        model = get_model(get_config(arch).reduced())
+        rcfg = get_config(arch).reduced()
+        model = get_model(rcfg)
         assert model.prefill is not None and model.decode_step is not None
-        with pytest.raises(NotImplementedError, match="zoo step 6"):
-            model.loss_fn({}, batch)
+        b = dict(batch)
+        if rcfg.frontend is not None:
+            fe = rcfg.frontend
+            b["prefix_embed"] = torch.zeros((1, fe.n_prefix_tokens,
+                                             fe.embed_dim))
+        loss, metrics = model.loss_fn(
+            model.init(torch.Generator().manual_seed(0), "cpu"), b)
+        assert bool(torch.isfinite(loss)) and float(metrics["xent"]) > 0
+        assert (float(metrics["aux"]) > 0) == (rcfg.moe is not None) \
+            if "aux" in metrics else rcfg.family == "audio"
     with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg.replace(family="diffusion"))

@@ -192,10 +192,20 @@ def test_tied_logits_match_reference():
 
 
 def test_loss_fn_raises_naming_zoo_step_6():
-    _, _, cfg, p = pair()
-    with pytest.raises(NotImplementedError, match="zoo step 6"):
-        get_model(cfg).loss_fn(p, {"tokens": torch.ones((1, 4),
-                                                        dtype=torch.int32)})
+    """Zoo step 6 brought the loss that raised here: over the text
+    positions only, after the prefix, equal to the reference's with and
+    without the patches (its gradients: ``tests/test_torch_zoo_train.py``).
+    """
+    cfg_ref, p_ref, cfg, p = pair()
+    tokens = zd.tokens_for(cfg, (2, 7), seed=4)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    for b in (batch, {**batch, "prefix_embed": te.prefix_for(cfg, 2)}):
+        loss, metrics = get_model(cfg).loss_fn(
+            p, {k: torch.as_tensor(v) for k, v in b.items()})
+        loss_ref, metrics_ref = tr_ref.loss_fn(
+            cfg_ref, p_ref, {k: jnp.asarray(v) for k, v in b.items()})
+        assert sorted(metrics) == sorted(metrics_ref) == ["aux", "xent"]
+        assert abs(float(loss) - float(loss_ref)) <= 1e-5
 
 
 def test_committed_fixture_is_what_chip_smoke_reads():

@@ -10,8 +10,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. the build: compiles every CUDA library of the port with ``nvcc`` from the
    sources in this checkout, one ``nvcc`` per library, all at once, and
    prints ``-Xptxas -v``'s registers and spills of every kernel: #6's
-   three, the LSTM sequence kernels' (#1, #2, #3), the one-step cell's
-   (#5), #4's, and #7's and #8's two;
+   three and its backward's four, the LSTM sequence kernels' (#1, #2,
+   #3), the one-step cell's (#5), #4's, and #7's and #8's two;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
@@ -187,7 +187,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    its split decode) and 576 for paligemma (18 + 31 x 18), none of its
    SIMT kernel and no plain attention; paligemma's ``Engine.serve``
    finishing every request, seamless's raising before any launch, as the
-   reference's fails.
+   reference's fails;
+19. the zoo's training (``zoo_train_phase``): (a), in phase 3, #6's
+   backward at ``FLASH_BWD_SHAPES`` in both dtypes through the route
+   ``kernel.bwd_kernel_for`` picks (the tensor-core pair ``bwd_dq_wgmma``
+   + ``bwd_dkdv_wgmma`` in bf16, the SIMT pair ``bwd_dq`` + ``bwd_dkdv``
+   in float32), the bf16 cases also through the SIMT pair forced and
+   timed in turns with it; (b) float32 tinyllama-1.1b training against its
+   fixture, each kernel of the SIMT pair launched 22 times a step; (c) five
+   bf16 steps, each kernel of the tensor-core pair launched 22 times a step
+   and none of the SIMT pair; (d) ``train_local`` of every
+   transformer-family arch reduced, both kernels of its route launched.
 
 Every kernel is built in phase 2 and held to its plain version in phase 3
 (#6 also at the served shapes of phases 16-18: their GQA ratios, MHA,
@@ -525,7 +535,11 @@ FLASH_TC_SHARE = 0.01
 # ((B, Sq, Sk, Hq, Hkv, D), causal, window, the positions' kind), each in
 # float32 and bf16: tinyllama-1.1b's training shape, a window shorter than
 # S, seamless-m4t-medium's encoder and cross attention, paligemma-3b's MQA
-# at D = 256, and a batch with unwritten slots and a fully masked row
+# at D = 256, a batch with unwritten slots and a fully masked row,
+# nemotron-4-15b's (and grok-1's) 48:8 heads at D = 128 (G = 6: the
+# tensor-core pair's row tiles hold 60 rows of 64, and Sq = 256 is no
+# multiple of their 10 queries), and 80 query heads a KV head (a second
+# row tile of 16 heads past G)
 FLASH_BWD_SHAPES = {
     "tinyllama train": ((4, 512, 512, 32, 4, 64), True, 0, "arange"),
     "window 256": ((4, 512, 512, 32, 8, 120), True, 256, "arange"),
@@ -533,6 +547,8 @@ FLASH_BWD_SHAPES = {
     "seamless cross": ((2, 128, 1024, 16, 16, 64), False, 0, "cross"),
     "paligemma": ((2, 768, 768, 8, 1, 256), True, 0, "arange"),
     "holes, a dead row": ((2, 200, 200, 16, 2, 64), True, 0, "holes_dead"),
+    "nemotron G 6": ((2, 256, 256, 48, 8, 128), True, 0, "arange"),
+    "G 80": ((1, 64, 256, 80, 1, 64), True, 0, "arange"),
 }
 # the backward's gradients against ref.flash_attend_bwd_ref in float32 on
 # the same inputs (and the forward kernel's own o): float32 within
@@ -540,9 +556,12 @@ FLASH_BWD_SHAPES = {
 # Sq G = 4096 rows; bf16 within a bf16 step (FLASH_STEP_RTOL, ATOL) of the
 # float32 result, one rounding on store
 FLASH_BWD_TOL = 1e-4
-# the backward's two kernels by a substring of the profiler's name
+# the backward's four kernels (two routes of two) by a substring of the
+# profiler's name
 FLASH_BWD_KERNELS = {"bwd_dq": "flash_bwd_dq_kernel",
-                     "bwd_dkdv": "flash_bwd_dkdv_kernel"}
+                     "bwd_dkdv": "flash_bwd_dkdv_kernel",
+                     "bwd_dq_wgmma": "flash_bwd_dq_wgmma_kernel",
+                     "bwd_dkdv_wgmma": "flash_bwd_dkdv_wgmma_kernel"}
 # phase 19 (b): tinyllama-1.1b's training at full width and depth in
 # float32 against tests/data/torch_parity_train_tinyllama_1_1b.npz (written
 # by the JAX reference: tests/test_torch_zoo_train.py as a script): params
@@ -6084,14 +6103,16 @@ def zoo_encdec_vlm_phase(flash, others, plain: dict) -> dict:
 # v^T, P^T dO, dS K, dS^T q).  bwd_dq's function (dq and each row's lse
 # and delta) reads q, o, dO, k, v and writes dq and the statistics: q k^T,
 # dO v^T, dS K.  bwd_dkdv's (dk, dv) reads q, dO, k, v and the statistics
-# and writes dk, dv: q k^T, dO v^T, P^T dO, dS^T q
+# and writes dk, dv: q k^T, dO v^T, P^T dO, dS^T q; each route's pair
+# computes these two functions
 FLASH_BWD_WORK = {None: (4, 4, 0, 5), "bwd_dq": (4, 2, 2, 3),
-                  "bwd_dkdv": (2, 4, 2, 4)}
+                  "bwd_dkdv": (2, 4, 2, 4), "bwd_dq_wgmma": (4, 2, 2, 3),
+                  "bwd_dkdv_wgmma": (2, 4, 2, 4)}
 
 
 def _flash_bwd_bound(q, k, q_pos, kv_pos, causal=True, window=0, part=None):
     """Bound of one backward call (``part`` None) or of one of its kernels
-    (``part`` "bwd_dq" or "bwd_dkdv"), by ``FLASH_BWD_WORK``: the query-
+    (``part`` a key of ``FLASH_BWD_WORK``), by ``FLASH_BWD_WORK``: the query-
     and key-shaped tensors moved once (K and V of the written slots
     only), the positions once, the products over the (query, slot) pairs
     the positions let through, at the bf16 tensor-core rate for bf16
@@ -6112,18 +6133,20 @@ def _flash_bwd_bound(q, k, q_pos, kv_pos, causal=True, window=0, part=None):
     return _bound(nbytes, 2 * products * D * Hq * pairs, peak)
 
 
-def _sdpa_backward(q, k, v, do, causal: bool):
+def _sdpa_backward(q, k, v, do, causal: bool, mask=None):
     """A call that takes the gradient of ``scaled_dot_product_attention(...,
-    enable_gqa=True)`` (causal or not, arange positions) on (B,H,S,D)
-    copies of the inputs, its forward run once: the library yardstick of
-    the backward, never used by the port."""
+    enable_gqa=True)`` (causal or not, arange positions; or with the
+    boolean ``mask`` (B, Sq, Sk) of the positions as ``attn_mask``) on
+    (B,H,S,D) copies of the inputs, its forward run once: the library
+    yardstick of the backward, never used by the port."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                         enable_gqa=True)
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=None if mask is None else mask[:, None],
+        is_causal=causal and mask is None, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
@@ -6131,15 +6154,23 @@ def _sdpa_backward(q, k, v, do, causal: bool):
 
 def flash_backward_phase() -> dict:
     """Phase 19 (a): #6's backward (``kernel.flash_attention_backward``,
-    ``bwd_dq`` then ``bwd_dkdv``) against its plain version
+    the route ``bwd_kernel_for`` picks: the SIMT pair ``bwd_dq`` +
+    ``bwd_dkdv`` in float32, the tensor-core pair ``bwd_dq_wgmma`` +
+    ``bwd_dkdv_wgmma`` in bf16) against its plain version
     (``ref.flash_attend_bwd_ref`` in float32 on the same inputs and the
     forward kernel's own o) at ``FLASH_BWD_SHAPES`` in float32 and bf16;
-    every rerun bit for bit; a fully masked row's dq exactly 0.  Each case
-    timed: CUDA events over the call, each kernel's device time by the
-    profiler, the plain version, the bound (``_flash_bwd_bound``) and,
-    where SDPA computes the same function (arange positions, no window),
-    the device time of SDPA's backward.  Returns the numbers of its rows
-    (at tinyllama's training shape in bf16) and every case's."""
+    every rerun bit for bit, and again with the statistics scratch filled
+    with NaN first; a fully masked row's dq exactly 0.  A bf16
+    case is also held, for the record, to its own arithmetic
+    (``ref.flash_attend_bwd_tc_ref`` on the card), and the SIMT pair,
+    forced, is held to the same gate.  Each case timed: CUDA events over
+    the call, each kernel's device time by the profiler, the plain
+    version, the bound (``_flash_bwd_bound``) and the device time of
+    SDPA's backward where it computes the same function (arange
+    positions, with the positions' mask as ``attn_mask`` under a window;
+    not where a row attends nothing, where SDPA gives NaN); in bf16 the
+    two routes in turns (wgmma, simt, simt, wgmma).  Returns every
+    case's numbers, and the tinyllama case's in each dtype at the top."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -6147,6 +6178,17 @@ def flash_backward_phase() -> dict:
 
     bwd = flash_kernel.flash_attention_backward
     cases, max_err = {}, {"float32": 0.0, "bfloat16": 0.0}
+
+    def gate_of(got, want, dtype):
+        errs, gates = [], []
+        for g, w in zip(got, want):
+            d = (g.float() - w).abs()
+            errs.append(float(d.max()))
+            gates.append(float((d / (
+                FLASH_BWD_TOL * (1 + w.abs()) if dtype == "float32"
+                else FLASH_STEP_RTOL * w.abs() + FLASH_STEP_ATOL)).max()))
+        return errs, max(gates)
+
     for i, (label, (shape, causal, window, kind)) in enumerate(
             FLASH_BWD_SHAPES.items()):
         for dtype in ("float32", "bfloat16"):
@@ -6155,68 +6197,105 @@ def flash_backward_phase() -> dict:
                 q.shape), dtype=q.dtype, device="cuda")
             o = flash_kernel.flash_attention(q, k, v, q_pos, kv_pos,
                                              causal=causal, window=window)
+            route = flash_kernel.bwd_kernel_for(shape[5], q.dtype)
 
-            def run():
+            def run(kernel=None, stats_fill=None):
                 return bwd(q, k, v, o, do, q_pos, kv_pos, causal=causal,
-                           window=window)
+                           window=window, kernel=kernel,
+                           stats_fill=stats_fill)
             got = run()
             want = flash_ref.flash_attend_bwd_ref(
                 q.float(), k.float(), v.float(), o.float(), do.float(), q_pos,
                 kv_pos, causal=causal, window=window)
             torch.cuda.synchronize()
-            errs, gates = [], []
-            for g, w in zip(got, want):
-                d = (g.float() - w).abs()
-                errs.append(float(d.max()))
-                gates.append(float((d / (
-                    FLASH_BWD_TOL * (1 + w.abs()) if dtype == "float32"
-                    else FLASH_STEP_RTOL * w.abs() + FLASH_STEP_ATOL)).max()))
+            errs, gate = gate_of(got, want, dtype)
             same = all(torch.equal(a, b) for a, b in zip(run(), got))
+            # the statistics scratch filled with NaN first: a slot no kernel
+            # writes must not reach the gradients
+            nan_same = all(torch.equal(a, b) for a, b in zip(
+                run(stats_fill=float("nan")), got))
             dead = ~flash_ref.position_mask(q_pos, kv_pos, causal,
                                             window).any(-1)
             dead_zero = bool((got[0][dead] == 0).all())
-            ok = max(gates) <= 1.0 and same and dead_zero and (
+            ok = gate <= 1.0 and same and nan_same and dead_zero and (
                 kind != "holes_dead" or bool(dead.any()))
             max_err[dtype] = max(max_err[dtype], *errs)
             bound_ms, bound_by = _flash_bwd_bound(q, k, q_pos, kv_pos, causal,
                                                   window)
+            names = flash_kernel.BWD_ROUTES[route]
             bounds = {part: _flash_bwd_bound(q, k, q_pos, kv_pos, causal,
                                              window, part)
                       for part in FLASH_BWD_KERNELS}
+            profiled = [FLASH_BWD_KERNELS[n] for n in names]
             numbers = {
-                "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
-                "gate": max(gates), "rerun_identical": same,
+                "route": route, "max_abs_err": dict(zip(("dq", "dk", "dv"),
+                                                        errs)),
+                "gate": gate, "rerun_identical": same,
+                "nan_stats_identical": nan_same,
                 "ms": _median_ms(run, n=50, warmup=5),
-                "device_ms": _kernel_device_ms(
-                    run, list(FLASH_BWD_KERNELS.values()), calls=20),
+                "device_ms": _kernel_device_ms(run, profiled, calls=20),
                 "plain_ms": _median_ms(lambda: flash_ref.flash_attend_bwd_ref(
                     q, k, v, o, do, q_pos, kv_pos, causal=causal,
                     window=window), n=10, warmup=2),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_by_kernel": bounds,
                 "library_device_ms": None, "library_ms": None}
-            if kind in ("arange", "full", "cross") and not window:
+            extra = ""
+            if route == "wgmma":
+                # the tensor-core arithmetic's own plain version (within a
+                # bf16 step of it, for the record), and the SIMT pair forced:
+                # its gate, and both pairs timed in turns
+                tc = flash_ref.flash_attend_bwd_tc_ref(
+                    q, k, v, o, do, q_pos, kv_pos, causal=causal,
+                    window=window)
+                numbers["tc_gate"] = gate_of(got, tc, "bfloat16")[1]
+                simt = run("simt")
+                numbers["simt_gate"] = gate_of(simt, want, dtype)[1]
+                ok = ok and numbers["simt_gate"] <= 1.0
+                turns = [("wgmma", None), ("simt", "simt"), ("simt", "simt"),
+                         ("wgmma", None)]
+                numbers["ms_turns"] = [
+                    (r, _median_ms(lambda: run(kn), n=50, warmup=5))
+                    for r, kn in turns]
+                simt_names = [FLASH_BWD_KERNELS[n]
+                              for n in flash_kernel.BWD_ROUTES["simt"]]
+                numbers["simt_device_ms"] = _kernel_device_ms(
+                    lambda: run("simt"), simt_names, calls=20)
+                numbers["device_ms_again"] = _kernel_device_ms(
+                    run, profiled, calls=20)
+                extra = (f"; tc_ref gate {numbers['tc_gate']:.3g}; SIMT pair "
+                         f"forced: gate {numbers['simt_gate']:.3g}, device "
+                         f"{numbers['simt_device_ms']} ms; events in turns "
+                         f"{numbers['ms_turns']}; {route} again "
+                         f"{numbers['device_ms_again']}")
+                del tc, simt
+            if kind in ("arange", "full", "cross"):
                 # cross: every query at 0, every slot written, not causal:
-                # SDPA's function too
-                sdpa = _sdpa_backward(q, k, v, do, causal)
+                # SDPA's function too; a window through the positions' mask
+                mask = flash_ref.position_mask(q_pos, kv_pos, causal,
+                                               window) if window else None
+                sdpa = _sdpa_backward(q, k, v, do, causal, mask)
                 numbers["library_ms"] = _median_ms(sdpa, n=50, warmup=5)
                 numbers["library_device_ms"] = _device_ms_per_call(sdpa, 20)
             cases[f"{label} {dtype}"] = numbers
             dev = numbers["device_ms"]
             print(f"kernel flash_attention_backward {label} (B, Sq, Sk, Hq, "
                   f"Hkv, D) = {shape} causal={causal} window={window} {kind} "
-                  f"{dtype}: max|d| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
-                  f"{errs[2]:.3g} ({max(gates):.3g} of the gate); rerun "
-                  f"{'bit-identical' if same else 'DIFFERS'}; "
+                  f"{dtype} [{route}]: max|d| dq {errs[0]:.3g} dk "
+                  f"{errs[1]:.3g} dv {errs[2]:.3g} ({gate:.3g} of the gate); "
+                  f"rerun {'bit-identical' if same else 'DIFFERS'}, on NaN "
+                  f"statistics {'bit-identical' if nan_same else 'DIFFERS'}; "
                   f"{int(dead.sum())} dead rows, dq "
                   f"{'exactly 0' if dead_zero else 'NOT 0'}; "
-                  f"{numbers['ms']:.6f} ms (events), device bwd_dq "
-                  f"{dev[FLASH_BWD_KERNELS['bwd_dq']]} ms + bwd_dkdv "
-                  f"{dev[FLASH_BWD_KERNELS['bwd_dkdv']]} ms; plain "
-                  f"{numbers['plain_ms']:.6f} ms; bound {bound_ms:.6f} ms "
-                  f"({bound_by}); SDPA backward "
-                  f"{numbers['library_ms']} ms, device "
-                  f"{numbers['library_device_ms']} ms "
+                  f"{numbers['ms']:.6f} ms (events), device "
+                  + " + ".join(f"{n} {dev[FLASH_BWD_KERNELS[n]]}"
+                               for n in names)
+                  + f" ms; plain {numbers['plain_ms']:.6f} ms; bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); by kernel "
+                  + ", ".join(f"{n} {bounds[n][0]:.6f} ({bounds[n][1]})"
+                              for n in names)
+                  + f"; SDPA backward {numbers['library_ms']} ms, device "
+                  f"{numbers['library_device_ms']} ms{extra} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"flash_attention_backward disagrees "
@@ -6380,8 +6459,9 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
     one batch of ``BF16_TRAIN_BATCH`` through ``make_train_step``: every
     loss finite, the last below the first; #6 launched exactly once a
     layer as ``prefill_wgmma`` and its backward once a layer each as
-    ``bwd_dq`` and ``bwd_dkdv`` a step, no other kernel of #6 and no plain
-    version ``plain`` names.  Then a step's wall (median over steps 2..),
+    ``bwd_dq_wgmma`` and ``bwd_dkdv_wgmma`` a step, no other kernel of #6
+    (the SIMT backward pair none) and no plain version ``plain`` names.
+    Then a step's wall (median over steps 2..),
     the device's busy time and idle share over a profiled step, #6's
     backward device time summed over it, and the peak memory."""
     import torch
@@ -6419,8 +6499,9 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
             per_step.append({**dict(flash.launches_by_kernel),
                              **dict(bwd.launches_by_kernel)})
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    want = {"simt": 0, "prefill_wgmma": L, "decode_split": 0, "bwd_dq": L,
-            "bwd_dkdv": L}
+    # a bf16 step's backward takes the tensor-core pair, and no SIMT kernel
+    want = {"simt": 0, "prefill_wgmma": L, "decode_split": 0, "bwd_dq": 0,
+            "bwd_dkdv": 0, "bwd_dq_wgmma": L, "bwd_dkdv_wgmma": L}
     print(f"phase 19 (c) {ZOO_ARCH} bf16 train (B, S) = {BF16_TRAIN_BATCH}: "
           f"losses {losses}; step walls {[round(w, 6) for w in walls]} s; "
           f"#6 launches a step {per_step[0]} (want {want}); plain calls "
@@ -6460,7 +6541,8 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
 def local_train_runs(flash, bwd) -> dict:
     """Phase 19 (d): ``launch/train.py``'s ``train_local`` on the card for
     each of ``ZOO_TRAIN_ARCHS`` reduced (``LOCAL_TRAIN``): every loss
-    finite, #6 and its backward launched.  Then reduced tinyllama's
+    finite, #6 launched and both kernels of the backward's route for the
+    reduced config's dtype and head dim (``bwd_kernel_for``).  Then reduced tinyllama's
     trained params through ``checkpoint.save`` and ``load``: the restored
     params' ``Engine.generate`` gives the same tokens and logits as the
     in-memory params'."""
@@ -6469,6 +6551,7 @@ def local_train_runs(flash, bwd) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.launch.train import train_local
     from repro_torch.serving.engine import Engine
     from repro_torch.training import checkpoint
@@ -6485,10 +6568,14 @@ def local_train_runs(flash, bwd) -> dict:
                       "wall_s": time.perf_counter() - t0,
                       "flash_launches": flash.launches,
                       "bwd_launches": dict(bwd.launches_by_kernel)}
+        rcfg = get_config(arch).reduced()
+        route = flash_kernel.BWD_ROUTES[flash_kernel.bwd_kernel_for(
+            rcfg.resolved_head_dim, getattr(torch, rcfg.dtype))]
+        runs[arch]["bwd_route"] = route
         print(f"phase 19 (d) train_local {arch} reduced: {runs[arch]}",
               flush=True)
         if not all(np.isfinite(res["losses"])) or not flash.launches or (
-                0 in bwd.launches_by_kernel.values()):
+                not all(bwd.launches_by_kernel[n] for n in route)):
             raise AssertionError(f"train_local {arch}: {runs[arch]}")
         if arch == ZOO_ARCH:
             trained = res["params"]
@@ -6543,8 +6630,10 @@ def zoo_train_phase(flash, bwd, plain: dict) -> dict:
     steps = int(fx["steps"])
     launches = {**dict(flash.launches_by_kernel),
                 **dict(bwd.launches_by_kernel)}
+    # float32 takes the SIMT backward pair, and none of the tensor-core one
     want = {"simt": steps * L, "prefill_wgmma": 0, "decode_split": 0,
-            "bwd_dq": steps * L, "bwd_dkdv": steps * L}
+            "bwd_dq": steps * L, "bwd_dkdv": steps * L, "bwd_dq_wgmma": 0,
+            "bwd_dkdv_wgmma": 0}
     readings = check_train_parity(fx, got)
     print(f"phase 19 (b) {ZOO_ARCH} float32 train parity, (B, S) = "
           f"{tuple(int(n) for n in fx['batch_shape'])}, {steps} steps in "
@@ -7016,37 +7105,51 @@ def main() -> int:
             "replaces": repl, "launches": by_path[main_path],
             "launches_by_path": by_path,
             **row, "kernel_ms": row["ms"], "device_ms": device["device_ms"]})
-    # #6's backward: its two kernels, launched on the zoo's training path
-    # (phase 19 (c), a bf16 step of tinyllama-1.1b)
+    # #6's backward: its four kernels, two routes.  The tensor-core pair
+    # runs on the zoo's bf16 training path (phase 19 (c), a bf16 step of
+    # tinyllama-1.1b), the SIMT pair on its float32 one (phase 19 (b), the
+    # parity run); each kernel's numbers at tinyllama's training shape in
+    # its route's dtype
     bwd_row = rows["flash_attention_backward"]
-    bwd_source = ("src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_backward.cu")
-    main_case = bwd_row["cases"]["tinyllama train bfloat16"]
-    for kname, prof_name in FLASH_BWD_KERNELS.items():
-        bound_ms, bound_by = main_case["bound_by_kernel"][kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": bwd_source,
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-            "launches": zoo_train["bf16"]["launches_per_step"][kname],
-            "launches_by_path": {
+    bwd_sources = {
+        "simt": "src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_backward.cu",
+        "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_backward_wgmma.cu"}
+    for route, names in flash_kernel.BWD_ROUTES.items():
+        dtype = "bfloat16" if route == "wgmma" else "float32"
+        case = bwd_row["cases"][f"tinyllama train {dtype}"]
+        path = "bf16_step" if route == "wgmma" else "float32_parity"
+        for kname in names:
+            prof_name = FLASH_BWD_KERNELS[kname]
+            bound_ms, bound_by = case["bound_by_kernel"][kname]
+            by_path = {
                 "float32_parity": zoo_train["parity_launches"][kname],
-                "bf16_step": zoo_train["bf16"]["launches_per_step"][kname]},
-            "max_abs_err": bwd_row["max_abs_err"],
-            "max_abs_err_bf16": bwd_row["max_abs_err_bf16"],
-            # one call launches both kernels: a kernel's time is its
-            # device time by the profiler, and its bound its own
-            # function's; the call's event time, the plain version and
-            # SDPA's backward compute all three gradients
-            "ms": main_case["device_ms"][prof_name],
-            "device_ms": main_case["device_ms"][prof_name],
-            "call_ms": bwd_row["ms"], "call_bound_ms": bwd_row["bound_ms"],
-            "plain_ms": bwd_row["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": bwd_row["library_ms"],
-            "library_device_ms": bwd_row["library_device_ms"],
-            "ptxas": {n: info for n, info in bwd_ptxas.items()
-                      if prof_name in n},
-            "cases": bwd_row["cases"]})
+                "bf16_step": zoo_train["bf16"]["launches_per_step"][kname]}
+            kernels.append({
+                "name": kname, "route": "cuda", "source": bwd_sources[route],
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+                "launches": by_path[path], "launches_by_path": by_path,
+                "dtype": dtype,
+                "max_abs_err": bwd_row["max_abs_err"] if route == "simt"
+                else bwd_row["max_abs_err_bf16"],
+                # one call launches both kernels of a route: a kernel's time
+                # is its device time by the profiler, and its bound its own
+                # function's; the call's event time, the plain version and
+                # SDPA's backward compute all three gradients
+                "ms": case["device_ms"][prof_name],
+                "device_ms": case["device_ms"][prof_name],
+                "call_ms": case["ms"], "call_bound_ms": case["bound_ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": case["library_ms"],
+                "library_device_ms": case["library_device_ms"],
+                "ptxas": {n: info for n, info in bwd_ptxas.items()
+                          if prof_name in n},
+                "cases": {label: {k: v for k, v in c.items()
+                                  if k != "bound_by_kernel"}
+                          for label, c in bwd_row["cases"].items()
+                          if c["route"] == route}})
     print(json.dumps({"zoo_train": zoo_train}, default=str))
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()

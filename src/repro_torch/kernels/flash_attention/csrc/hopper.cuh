@@ -1,7 +1,9 @@
 // Hopper (sm_90a) primitives for the flash-attention kernels, as inline
-// PTX: mbarriers, TMA tile loads, the wgmma shared-memory descriptor and
-// the one wgmma shape the prefill uses, and the position mask every kernel
-// of flash_attention.cu, flash_prefill.cu and flash_decode.cu shares.
+// PTX: mbarriers, TMA tile loads (4-d and 5-d boxes, and a plain bulk
+// copy), the wgmma shared-memory descriptor and the one wgmma shape the
+// kernels use (A from registers or from shared memory), and the position
+// mask every kernel of flash_attention.cu, flash_prefill.cu,
+// flash_decode.cu, flash_backward.cu and flash_backward_wgmma.cu shares.
 #pragma once
 
 #include <cuda.h>
@@ -93,6 +95,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One 5-d box of `map` at coordinates (c0, .., c4), innermost first, into
+// shared memory at `dst`; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global `src` into shared
+// `dst`, both 16-byte aligned, by the bulk-copy engine; completion is
+// counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA), before a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a tile in the 128-byte swizzle that
@@ -159,6 +192,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate), "n"(kTransB));
+}
+
+// The same product with a (64 x 16, bf16) also read from shared memory, at
+// desc_a, K-major (each of a's 64 rows is 16 contiguous values of K, a
+// tile in the 128-byte swizzle as smem_desc describes it); b K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace flash

@@ -24,11 +24,24 @@ them, by ``kernel_for``:
   prefill, rows that are not 16-byte multiples), on the CUDA cores in
   float32.
 
-The gradient is a second library (``csrc/flash_backward.cu``), two
-kernels launched in turn by ``flash_attention_backward``: ``bwd_dq`` (dQ,
-and each row's lse and delta into scratch) and ``bwd_dkdv`` (dK and dV,
-the group's query heads summed in-kernel).  Neither changes the forward:
-they recompute the softmax statistics from q and k.
+The gradient is a second library, two routes of two kernels each,
+launched in turn by ``flash_attention_backward``; ``bwd_kernel_for``
+picks the route, as ``kernel_for`` the forward's kernel:
+
+- ``wgmma`` (``csrc/flash_backward_wgmma.cu``): bf16 with D % 8 == 0 --
+  every bf16 training step -- on the tensor cores, fed by TMA:
+  ``bwd_dq_wgmma`` (dQ, and each row's lse and delta into scratch laid out
+  by ``bwd_tiling``'s row tiles) and ``bwd_dkdv_wgmma`` (dK and dV, a
+  block a tile of 64 keys and a run of its live row tiles; with more than
+  one run the last block of a key tile to arrive sums the runs' partials
+  in run order, elected by an arrival counter in the split decode's
+  buffer);
+- ``simt`` (``csrc/flash_backward.cu``): everything else (float32, rows
+  that are not 16-byte multiples), on the CUDA cores in float32: ``bwd_dq``
+  and ``bwd_dkdv`` (the group's query heads summed in-kernel).
+
+Neither route changes the forward: both recompute the softmax statistics
+from q and k.
 
 The wrapper checks its inputs, allocates the output and the split
 decode's scratch with ``torch.empty``, copies a view that does not start
@@ -36,17 +49,18 @@ on 16 bytes where the kernel loads 16-byte vectors, launches on the
 current CUDA stream, raises when the launch fails, and counts its
 successful launches in ``.launches`` and by kernel in
 ``.launches_by_kernel``; with no query rows it returns without launching
-or counting.  The split decode's arrival counters live in one buffer a
-(device, stream), zeroed once and left zero by every call.  The library builds with ``nvcc`` at the first launch
-(``kernels/_build``); ``LIBRARIES`` names both libraries for a caller
-that builds every library up front.
+or counting.  The arrival counters of the split decode and of
+``bwd_dkdv_wgmma`` live in one buffer a (device, stream), zeroed once and
+left zero by every call.  The library builds with ``nvcc`` at the first
+launch (``kernels/_build``); ``LIBRARIES`` names both libraries for a
+caller that builds every library up front.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,9 +71,10 @@ SOURCE = CSRC / "flash_attention.cu"
 PREFILL_SOURCE = CSRC / "flash_prefill.cu"
 DECODE_SOURCE = CSRC / "flash_decode.cu"
 BWD_SOURCE = CSRC / "flash_backward.cu"
+BWD_WGMMA_SOURCE = CSRC / "flash_backward_wgmma.cu"
 # every library of this package: name -> its sources
 LIBRARIES = {"flash_attention": [SOURCE, PREFILL_SOURCE, DECODE_SOURCE],
-             "flash_backward": [BWD_SOURCE]}
+             "flash_backward": [BWD_SOURCE, BWD_WGMMA_SOURCE]}
 # the kernels' largest head dim (PaliGemma's 256), and the SIMT kernel's
 # rows per block
 MAX_HEAD_DIM = 256
@@ -70,8 +85,78 @@ DECODE_MAX_ROWS = 64
 DECODE_SPLIT = 64
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"simt": 0, "prefill_wgmma": 1, "decode_split": 2}
-# the backward's two kernels, launched in this order
-BWD_KERNELS = ("bwd_dq", "bwd_dkdv")
+# the backward's routes, each two kernels launched in this order, and
+# every backward kernel by name
+BWD_ROUTES = {"wgmma": ("bwd_dq_wgmma", "bwd_dkdv_wgmma"),
+              "simt": ("bwd_dq", "bwd_dkdv")}
+BWD_KERNELS = ("bwd_dq", "bwd_dkdv", "bwd_dq_wgmma", "bwd_dkdv_wgmma")
+# the tensor-core backward's tiles: keys a K/V tile (a bwd_dkdv block), rows
+# of a bwd_dkdv row tile at most, and the blocks bwd_dkdv aims at: two
+# waves of an H100's 132 SMs
+BWD_KEYS = 64
+BWD_TILE_ROWS = 64
+BWD_MIN_BLOCKS = 2 * 132
+
+
+def bwd_kernel_for(D: int, dtype: torch.dtype) -> str:
+    """The backward's route for rows of D elements of ``dtype``:
+    ``wgmma`` for bf16 with D % 8 == 0 (TMA needs 16-byte rows), ``simt``
+    for everything else, as ``kernel_for`` splits the forward."""
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "simt"
+
+
+class BwdTiling(NamedTuple):
+    """The tensor-core backward's geometry for one call (``bwd_tiling``)."""
+    gb: int            # heads of a row tile
+    qt: int            # queries of a row tile
+    head_tiles: int    # row tiles across one query run's G heads
+    row_tiles: int     # row tiles of a (batch, KV head)
+    key_tiles: int     # tiles of BWD_KEYS keys
+    panels: int        # 64-column panels of D (1, 2 or 4)
+    split: int         # blocks sharing a tile's output columns (2 at 4)
+    runs: int          # blocks of bwd_dkdv a key tile (and panel half)
+    dq_blocks: int
+    dkdv_blocks: int
+    stats_numel: int   # floats of the (lse, delta) scratch
+    partial_numel: int  # floats of bwd_dkdv's partials (0 with one run)
+    counters: int      # arrival counters (0 with one run)
+
+
+def bwd_tiling(B: int, Sq: int, Sk: int, Hq: int, Hkv: int,
+               D: int) -> BwdTiling:
+    """How ``bwd_dq_wgmma`` and ``bwd_dkdv_wgmma`` cut a call
+    (``csrc/flash_backward_wgmma.cu``).  Row tiles of a KV head's Sq G
+    (query, head) rows: gb heads x qt queries, all G heads of 64 // G
+    queries when G <= 64, else 64 heads of one query; their (lse, delta)
+    pairs are laid out 64 a tile.  bwd_dkdv's grid is (key tiles x split x
+    runs, Hkv, B): ``runs``, the least that gives BWD_MIN_BLOCKS blocks,
+    at most the row tiles, splits each key tile's n live row tiles into
+    runs of equal count (run r takes [n r / runs, n (r + 1) / runs)), each
+    run's f32 partial dK and dV (2 x 64 keys x 64 columns a panel of its
+    block) summed by the last to arrive, counted on one counter a (batch,
+    KV head, key tile, half).
+    bwd_dq's blocks hold 128 rows (64 at D > 128) of one (batch, KV head),
+    ``split`` a row block."""
+    G = Hq // Hkv
+    gb = min(G, BWD_TILE_ROWS)
+    qt = BWD_TILE_ROWS // G if G <= BWD_TILE_ROWS else 1
+    head_tiles = -(-G // gb)
+    row_tiles = -(-Sq // qt) * head_tiles
+    key_tiles = -(-Sk // BWD_KEYS)
+    panels = 1 if D <= 64 else 2 if D <= 128 else 4
+    split = 2 if panels == 4 else 1
+    units = B * Hkv * key_tiles * split
+    runs = max(1, min(row_tiles, -(-BWD_MIN_BLOCKS // max(units, 1))))
+    dq_rows = 128 if panels <= 2 else 64
+    dq_blocks = -(-Sq * G // dq_rows) * split * Hkv * B
+    per_run = 2 * BWD_KEYS * 64 * (panels // split)
+    return BwdTiling(
+        gb=gb, qt=qt, head_tiles=head_tiles, row_tiles=row_tiles,
+        key_tiles=key_tiles, panels=panels, split=split, runs=runs,
+        dq_blocks=dq_blocks, dkdv_blocks=units * runs,
+        stats_numel=2 * BWD_TILE_ROWS * row_tiles * B * Hkv,
+        partial_numel=units * runs * per_run if runs > 1 else 0,
+        counters=units if runs > 1 else 0)
 
 
 def kernel_for(Sq: int, Hq: int, Hkv: int, D: int,
@@ -114,16 +199,26 @@ def library() -> ctypes.CDLL:
 def bwd_library() -> ctypes.CDLL:
     """The backward's library, built (or loaded) at the first call."""
     lib = _build.load_library("flash_backward", LIBRARIES["flash_backward"])
+    shape = [ctypes.c_int] * 8 + [ctypes.c_float]
     for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv):
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + shape
+                       + [ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attention_bwd_dq_wgmma.argtypes = (
+        [ctypes.c_void_p] * 9 + shape + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+    lib.flash_attention_bwd_dkdv_wgmma.argtypes = (
+        [ctypes.c_void_p] * 11 + shape + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv,
+               lib.flash_attention_bwd_dq_wgmma,
+               lib.flash_attention_bwd_dkdv_wgmma):
         fn.restype = ctypes.c_int
     return lib
 
 
-# (device, stream) -> the split decode's arrival counters (int32, all zero
-# between calls): calls on one stream run in order, and two in flight on
-# two streams must not share a buffer
+# (device, stream) -> the arrival counters of the split decode and of
+# bwd_dkdv_wgmma (int32, all zero between calls): calls on one stream run
+# in order, and two in flight on two streams must not share a buffer
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -259,21 +354,38 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, q_pos: torch.Tensor,
                              kv_pos: torch.Tensor, *, causal: bool = True,
-                             window: int = 0, scale: Optional[float] = None
+                             window: int = 0, scale: Optional[float] = None,
+                             kernel: Optional[str] = None,
+                             stats_fill: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention(q, k, v, q_pos, kv_pos, causal=,
     window=, scale=)`` whose output was ``o``, for the output's gradient
-    ``do``: ``bwd_dq`` then ``bwd_dkdv`` on the current CUDA stream.
+    ``do``: the two kernels of the route ``bwd_kernel_for`` picks, dQ's
+    then dK's and dV's, on the current CUDA stream.
 
     q, o, do (B,Sq,Hq,D) and k, v (B,Sk,Hkv,D) in one dtype (float32 or
     bfloat16), positions int32, all contiguous on one CUDA device, as the
     forward takes them; p in float32 (there is no backward of
     ``p_bf16``).  The gradients come back in the inputs' dtype, computed
-    in float32; a row that attends no slot gets zero.  Raises on anything
-    else, and when a launch fails.  With no query rows nothing launches
-    (dk and dv are zero); with no keys only ``bwd_dq`` does."""
+    in float32 (the ``wgmma`` route's products from bf16 operands, P and
+    dS as hi + lo parts); a row that attends no slot gets zero.
+    ``kernel`` ("wgmma" or "simt") forces a route, for ``chip_smoke.py``,
+    which times one route against the other; the port's path never passes
+    it.  ``stats_fill`` fills the statistics scratch with a value before
+    the launches (``torch.empty`` leaves whatever the allocator hands
+    back), for ``chip_smoke.py``'s check that a slot no kernel writes never
+    reaches the gradients; the port's path never passes it either.  Raises
+    on anything else, when the forced route cannot take the call, and when
+    a launch fails.  With no query rows nothing launches
+    (dk and dv are zero); with no keys only the dQ kernel does."""
     name = "flash_attention_backward"
+    D = q.shape[-1]
+    route = bwd_kernel_for(D, q.dtype) if kernel is None else kernel
+    if route not in BWD_ROUTES or (
+            route == "wgmma" and bwd_kernel_for(D, q.dtype) != "wgmma"):
+        raise ValueError(f"{name}: route {kernel!r} cannot take D={D} "
+                         f"{q.dtype} (routes: {sorted(BWD_ROUTES)})")
     _check(name, q, k, v, q_pos, kv_pos)
     for what, t in (("o", o), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -288,22 +400,43 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     scale = D**-0.5 if scale is None else float(scale)
-    shape = (B, Sq, Sk, Hq, Hkv, D, int(causal), int(window))
-    is_bf16 = int(q.dtype == torch.bfloat16)
+    shape = (B, Sq, Sk, Hq, Hkv, D, int(causal), int(window), scale)
     lib = bwd_library()
+
+    def scratch(*size):
+        t = torch.empty(size, dtype=torch.float32, device=q.device)
+        return t if stats_fill is None else t.fill_(stats_fill)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # each (query, head) row's lse and delta, written by bwd_dq
-        lse, delta = torch.empty((2, B * Sq * Hq), dtype=torch.float32,
-                                 device=q.device)
-        launches = (
-            ("bwd_dq", lib.flash_attention_bwd_dq,
-             (q, k, v, o, do, q_pos, kv_pos, dq, lse, delta)),
-            ("bwd_dkdv", lib.flash_attention_bwd_dkdv,
-             (q, k, v, do, q_pos, kv_pos, lse, delta, dk, dv)))
-        for kname, fn, tensors in launches[:2 if Sk else 1]:
-            err = fn(*(t.data_ptr() for t in tensors), *shape, scale,
-                     is_bf16, stream)
+        if route == "wgmma":
+            q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+            tl = bwd_tiling(B, Sq, Sk, Hq, Hkv, D)
+            stats = scratch(tl.stats_numel)
+            partial = counters = None
+            if tl.runs > 1:
+                partial = torch.empty(tl.partial_numel, dtype=torch.float32,
+                                      device=q.device)
+                counters = _counters(q.device, stream, tl.counters)
+            tiles = (tl.gb, tl.qt, tl.row_tiles)
+            launches = (
+                (lib.flash_attention_bwd_dq_wgmma,
+                 (q, k, v, o, do, q_pos, kv_pos, dq, stats), tiles),
+                (lib.flash_attention_bwd_dkdv_wgmma,
+                 (q, k, v, do, q_pos, kv_pos, stats, dk, dv, partial,
+                  counters), (*tiles, tl.runs)))
+        else:
+            # each (query, head) row's lse and delta, written by bwd_dq
+            lse, delta = scratch(2, B * Sq * Hq)
+            is_bf16 = (int(q.dtype == torch.bfloat16),)
+            launches = (
+                (lib.flash_attention_bwd_dq,
+                 (q, k, v, o, do, q_pos, kv_pos, dq, lse, delta), is_bf16),
+                (lib.flash_attention_bwd_dkdv,
+                 (q, k, v, do, q_pos, kv_pos, lse, delta, dk, dv), is_bf16))
+        for kname, (fn, tensors, extra) in zip(BWD_ROUTES[route],
+                                               launches[:2 if Sk else 1]):
+            err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                     *shape, *extra, stream)
             if err != 0:
                 raise RuntimeError(
                     f"{name}: launch of {kname} failed with CUDA error {err} "

@@ -18,7 +18,10 @@ prefill's (bf16 operands, P applied as P_hi + P_lo in bf16).
 ``flash_attend_bwd_ref`` is the gradient's plain version: the closed-form
 (dq, dk, dv) of ``attend_full_ref`` from the same O(Sq*Sk) oracle, the CPU
 path of ``ops.flash_attend``'s backward and what the card's backward
-kernels are held to.
+kernels are held to.  ``flash_attend_bwd_tc_ref`` computes the same
+gradient in the tensor-core backward's rounding (bf16 operands, P and dS
+applied as hi + lo bf16 parts), for the CPU tests and the card's
+diagnostics.
 """
 from __future__ import annotations
 
@@ -98,6 +101,62 @@ def flash_attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
     return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def bf16_hi_lo(x: torch.Tensor):
+    """float32 ``x`` as the tensor-core kernels feed it to a bf16 product:
+    hi = x cut to its top 16 bits (a bf16 value, by a byte permute), lo =
+    bf16(x - hi) rounded to nearest; hi + lo carries x to ~2^-16 of
+    itself."""
+    hi = (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def flash_attend_bwd_tc_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, q_pos: torch.Tensor,
+                            kv_pos: torch.Tensor, *, causal: bool = True,
+                            window: int = 0,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) of ``attend_full_ref`` by the arithmetic of the
+    tensor-core backward (``csrc/flash_backward_wgmma.cu``): q, k, v and
+    dO, the products' operands, rounded to bf16 (o as given: the kernels
+    read the forward's own bf16 output for delta); S = q K^T and dP = dO
+    V^T the bf16 products summed in float32; lse = log sum exp of the masked, scaled S (the
+    kernels' m + log l); P = exp(S scale - lse), delta = rowsum(dO * O), dS = P (dP - delta), all
+    float32; then dq = scale dS K, dk = scale dS^T q and dv = P^T dO with P
+    and dS applied as their ``bf16_hi_lo`` parts against bf16 operands,
+    summed in float32.  A row with no slot to attend has zero gradient.
+    Returned in float32 (the kernels round once more, to bf16, on
+    store)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = D**-0.5 if scale is None else scale
+
+    def bf(t, *shape):
+        return t.to(torch.bfloat16).float().reshape(*shape)
+
+    qg, dog = (bf(t, B, Sq, Hkv, G, D) for t in (q, do))
+    og = o.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = bf(k, k.shape), bf(v, v.shape)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kf) * scale
+    mask = position_mask(q_pos, kv_pos, causal, window)[:, :, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vf)
+    delta = (dog * og).sum(-1)
+    ds = p * (dp - delta[..., None])
+
+    def tc(eq, x, y):  # x as hi + lo against the bf16 operand y
+        hi, lo = bf16_hi_lo(x)
+        return torch.einsum(eq, hi, y) + torch.einsum(eq, lo, y)
+
+    dq = tc("bqhgk,bkhd->bqhgd", ds, kf) * scale
+    dk = tc("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    dv = tc("bqhgk,bqhgd->bkhd", p, dog)
+    return dq.reshape(B, Sq, Hq, D), dk, dv
 
 
 def arange_positions(B: int, S: int, device) -> torch.Tensor:

@@ -178,7 +178,9 @@ def test_backward_wrapper_refuses_cpu_and_bad_inputs():
         kernel.flash_attention_backward(q, k, v, q, do, q_pos, kv_pos)
     with pytest.raises(ValueError, match="shapes"):
         kernel.flash_attention_backward(q, k[:, :3], v, q, do, q_pos, kv_pos)
-    assert kernel.BWD_KERNELS == ("bwd_dq", "bwd_dkdv")
+    assert kernel.BWD_KERNELS == ("bwd_dq", "bwd_dkdv", "bwd_dq_wgmma",
+                                  "bwd_dkdv_wgmma")
     assert set(kernel.flash_attention_backward.launches_by_kernel) == set(
         kernel.BWD_KERNELS)
     assert kernel.BWD_SOURCE in kernel.LIBRARIES["flash_backward"]
+    assert kernel.BWD_WGMMA_SOURCE in kernel.LIBRARIES["flash_backward"]

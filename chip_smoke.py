@@ -11,7 +11,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    sources in this checkout, one ``nvcc`` per library, all at once, and
    prints ``-Xptxas -v``'s registers and spills of every kernel: #6's
    three and its backward's four, the LSTM sequence kernels' (#1, #2,
-   #3), the one-step cell's (#5), #4's, and #7's and #8's two;
+   #3), the one-step cell's (#5), #4's, and #7's and #8's two and their
+   backwards' one each;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
@@ -197,7 +198,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fixture, each kernel of the SIMT pair launched 22 times a step; (c) five
    bf16 steps, each kernel of the tensor-core pair launched 22 times a step
    and none of the SIMT pair; (d) ``train_local`` of every
-   transformer-family arch reduced, both kernels of its route launched.
+   transformer-family arch reduced, both kernels of its route launched;
+20. the recurrent families' training (``recurrent_train_phase``): (a), in
+   phase 3, the backward of #7 and of #8 (one kernel each, the JAX
+   package has none) at ``WKV_BWD_CASES`` and ``SSM_BWD_CASES``: the
+   training shapes, a ragged T, with and without state0 and a final
+   state's gradient, decays that round to 0, against
+   ``ref.wkv_bwd_ref`` / ``ref.selective_scan_bwd_ref``, three runs bit
+   for bit, each timed at its training shape (its ``-Xptxas -v`` lines in
+   phase 2); (b) ``rwkv6-3b`` at 4 layers and ``zamba2-1.2b`` at 8, full
+   width, float32, against their fixtures (``RECURRENT_TRAIN``), each
+   scan's chunked forward and backward once a layer and step, Zamba2's
+   shared block on #6's SIMT pair; (c) each at full depth in bf16, five
+   AdamW steps at 4 x 512: step wall, busy device time, idle share, the
+   scans' backward share of it, peak memory; (d) ``train_local`` of each
+   reduced.  Phases 4-18 launch no backward kernel (checked after phases
+   10 and 18).
 
 Every kernel is built in phase 2 and held to its plain version in phase 3
 (#6 also at the served shapes of phases 16-18: their GQA ratios, MHA,
@@ -578,7 +594,7 @@ TRAIN_SAMPLES = 16
 TRAIN_STEPS = 3
 TRAIN_SCHEDULE = (1e-4, 1, 3)  # lr, warmup, total
 # the stacked leaves' subtrees: a norm per layer
-STACK_NAMES = ("layers", "moe_layers", "enc_layers", "dec_layers")
+STACK_NAMES = ("layers", "moe_layers", "enc_layers", "dec_layers", "mamba")
 # the card's float32 training against the reference's on the CPU (both in
 # full float32, TF32 off; the sums' order differs through 22 layers and
 # their backward): losses within TRAIN_LOSS_ATOL, the global and every
@@ -597,6 +613,53 @@ BF16_SCHEDULE = (1e-3, 1, 5)
 # (steps, batch, seq, lr)
 ZOO_TRAIN_ARCHS = ("tinyllama-1.1b", *NEW_ZOO_ARCHS, VLM_ARCH, ENCDEC_ARCH)
 LOCAL_TRAIN = (3, 2, 32, 3e-4)
+# phase 20: RWKV6's and Zamba2's training.  (a), in phase 3: the backward
+# of the WKV scan (#7) and of the selective scan (#8), which the JAX
+# package does not have (XLA differentiates its scans), against their
+# plain versions (ref.wkv_bwd_ref, ref.selective_scan_bwd_ref): label ->
+# (shape, from a state0, with a final state's gradient).  Each gradient
+# within RECURRENT_BWD_TOL of its largest |value|: both sides float32, the
+# kernel's sums in another order through up to 512 steps
+RECURRENT_BWD_TOL = 1e-4
+# the training shapes at BF16_TRAIN_BATCH: rwkv6-3b's (B, T, H, N) and
+# zamba2-1.2b's (B, T, H, P, N)
+WKV_TRAIN_SHAPE = (4, 512, 40, 64)
+SSM_TRAIN_SHAPE = (4, 512, 64, 64, 64)
+WKV_BWD_CASES = {"train": (WKV_TRAIN_SHAPE, False, False),
+                 "train, state0 and dS_T": (WKV_TRAIN_SHAPE, True, True),
+                 "ragged T=77": ((2, 77, 5, 64), True, True),
+                 "ragged T=77, no state": ((2, 77, 5, 64), False, False),
+                 "dw to 5 (w = 0)": ((2, 100, 4, 64), True, True),
+                 "T=1": ((3, 1, 4, 64), True, True),
+                 "T=16": ((2, 16, 3, 64), False, True),
+                 "T=17 N=24": ((2, 17, 3, 24), True, False),
+                 "reduced N=32": ((2, 40, 8, 32), False, False)}
+SSM_BWD_CASES = {"train": (SSM_TRAIN_SHAPE, False, False),
+                 "train, state0 and dh_T": (SSM_TRAIN_SHAPE, True, True),
+                 "ragged T=77": ((2, 77, 4, 64, 64), True, True),
+                 "ragged T=77, no state": ((2, 77, 4, 64, 64), False, False),
+                 "dt x 40 (e = 0)": ((2, 50, 4, 64, 64), True, True),
+                 "T=1": ((3, 1, 4, 64, 64), True, True),
+                 "T=16 P=24": ((2, 16, 3, 24, 64), False, True),
+                 "reduced T=33 N=16": ((2, 33, 8, 64, 16), True, False)}
+# the two backward kernels by a substring of the profiler's name
+WKV_BWD_KERNEL = "rwkv6_bwd_kernel"
+SSM_BWD_KERNEL = "ssm_bwd_kernel"
+# (b) float32 training at full width against the reference's, as phase 19
+# (b), from fixtures written by tests/test_torch_rwkv_train.py and
+# tests/test_torch_zamba2_train.py as scripts: arch -> (fixture, its
+# depth), cut so that the reference's value_and_grad fits a 62 GB CPU host
+# (Zamba2's 8 layers run one super-layer of 6 and the 2-layer tail)
+RECURRENT_TRAIN = {
+    RWKV_ARCH: (ROOT / "tests" / "data" / "torch_parity_train_rwkv6_3b.npz",
+                4),
+    ZAMBA_ARCH: (ROOT / "tests" / "data"
+                 / "torch_parity_train_zamba2_1_2b.npz", 8)}
+# (c) each arch at full width and depth in its own dtypes, params from the
+# model's init on the card, BF16_TRAIN_STEPS steps of
+# adamw(warmup_cosine(*BF16_SCHEDULE)) on one batch of BF16_TRAIN_BATCH;
+# (d) train_local of each, reduced, LOCAL_TRAIN
+RECURRENT_ARCHS = (RWKV_ARCH, ZAMBA_ARCH)
 # kernel #6's three kernels, by a substring of the profiler's name
 # the LSTM sequence kernels, by a substring of the profiler's name: #1, #2,
 # and #3's two launches a call
@@ -6358,10 +6421,13 @@ def grad_summary(grads: dict, seed: int) -> dict:
     return out
 
 
-def train_fixture_arrays(arch: str, reduced: bool, run: dict) -> dict:
-    """The phase-19 (b) fixture: the run's config, seed, batch and
-    schedule, and its losses and ``grad_summary`` (no weights)."""
-    return {"arch": np.array(arch), "reduced": np.array(reduced),
+def train_fixture_arrays(arch: str, reduced: bool, run: dict,
+                         extra: Optional[dict] = None) -> dict:
+    """The phase-19 (b) and 20 (b) fixtures: the run's config, seed, batch
+    and schedule, and its losses and ``grad_summary`` (no weights); phase
+    20's add ``extra``, ``fixture_cuts``' record of the depth."""
+    return {**(extra or {}), "arch": np.array(arch),
+            "reduced": np.array(reduced),
             "seed": np.int64(TRAIN_SEED), "draw_chunk": np.int64(DRAW_CHUNK),
             "batch_shape": np.array(TRAIN_BATCH, np.int64),
             "schedule": np.array(TRAIN_SCHEDULE, np.float64),
@@ -6656,6 +6722,408 @@ def zoo_train_phase(flash, bwd, plain: dict) -> dict:
     return out
 
 
+def _wkv_bwd_bound(B, T, H, N, state_in, dstate_in):
+    """Bound of one WKV backward at (B,T,H,N), float32: r, k, v, w, dy read
+    and dr, dk, dv, dw written once, u read and du written once, state0
+    read and dstate0 written when a state is given, dstate read when
+    given.  Operations: 14 a state element and step at the float32 rate
+    (the recurrence run again, a multiply and an FMA; the row sums S dy,
+    G v and G . S and the column sum G^T k, an FMA each; G's update, a
+    multiply and an FMA)."""
+    nbytes = 4 * (9 * B * T * H * N + 2 * H * N
+                  + (2 if state_in else 0) * B * H * N * N
+                  + (1 if dstate_in else 0) * B * H * N * N)
+    return _bound(nbytes, 14 * B * T * H * N * N)
+
+
+def _ssm_bwd_bound(B, T, H, P, N, state_in, dstate_in):
+    """Bound of one selective-scan backward at (B,T,H,P,N), float32: x, dy
+    read and dx written, b, c read and db, dc written, dt read and ddt
+    written once, a, d read and da, dd written once, state0 read and
+    dstate0 written when a state is given, dstate read when given.
+    Operations: 17 a state element and step at the float32 rate (the
+    recurrence run again and h_t again, a multiply and an FMA each; G's
+    update by dy c^T, an FMA; the row sums G b and G . h and the column
+    sums G^T x and h^T dy, two each; G's decay, a multiply)."""
+    nbytes = 4 * (3 * B * T * H * P + 4 * B * T * N + 2 * B * T * H + 4 * H
+                  + (2 if state_in else 0) * B * H * P * N
+                  + (1 if dstate_in else 0) * B * H * P * N)
+    return _bound(nbytes, 17 * B * T * H * P * N)
+
+
+def _wkv_bwd_case(shape, seed, state, dstate, dw=None):
+    """#7's forward inputs (``_wkv_case``), then dy normal and the final
+    state's gradient normal when ``dstate``, else None."""
+    import torch
+
+    r, k, v, w, u, s0 = _wkv_case(*shape, seed=seed, state=state, dw=dw)
+    rng = np.random.default_rng(seed + 1)
+    B, T, H, N = shape
+    dy = torch.tensor(rng.standard_normal((B, T, H, N)), dtype=torch.float32,
+                      device="cuda")
+    ds = (torch.tensor(rng.standard_normal((B, H, N, N)), dtype=torch.float32,
+                       device="cuda") if dstate else None)
+    return r, k, v, w, u, s0, dy, ds
+
+
+def _ssm_bwd_case(shape, seed, state, dstate, dt_scale=1.0):
+    """#8's forward inputs (``_ssm_case``), then dy normal and the final
+    state's gradient normal when ``dstate``, else None."""
+    import torch
+
+    x, b, c, dt, a, d, s0 = _ssm_case(*shape, seed=seed, state=state,
+                                      dt_scale=dt_scale)
+    rng = np.random.default_rng(seed + 1)
+    B, T, H, P, N = shape
+    dy = torch.tensor(rng.standard_normal((B, T, H, P)), dtype=torch.float32,
+                      device="cuda")
+    ds = (torch.tensor(rng.standard_normal((B, H, P, N)), dtype=torch.float32,
+                       device="cuda") if dstate else None)
+    return x, b, c, dt, a, d, s0, dy, ds
+
+
+def recurrent_backward_phase() -> dict:
+    """Phase 20 (a), run in phase 3: the backward of #7
+    (``kernel.rwkv6_scan_backward``) at ``WKV_BWD_CASES`` and of #8
+    (``kernel.ssm_scan_backward``) at ``SSM_BWD_CASES`` against their plain
+    versions (``ref.wkv_bwd_ref``, ``ref.selective_scan_bwd_ref``) on the
+    same inputs: the training shapes, a ragged T (no multiple of the
+    kernels' 16-step chunk), with and without state0 and a final state's
+    gradient, decays that round to 0, T = 1, a head size past no multiple
+    of 4 and the reduced configs' sizes; every gradient within
+    ``RECURRENT_BWD_TOL`` of its largest |value|, dstate0 None exactly
+    when state0 is; each case run three times, bit for bit.  Then each
+    timed at its training shape from a zero state (the model's): CUDA
+    events, the profiler's device time by kernel name, the plain version,
+    the bound; no single PyTorch call computes either.  Returns each
+    kernel's row."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    specs = (
+        ("rwkv6_scan_backward", WKV_BWD_CASES, WKV_TRAIN_SHAPE,
+         ("dr", "dk", "dv", "dw", "du", "dstate0"),
+         wkv_kernel.rwkv6_scan_backward, wkv_ref.wkv_bwd_ref,
+         _wkv_bwd_bound, WKV_BWD_KERNEL,
+         lambda shape, seed, st, ds, label: _wkv_bwd_case(
+             shape, seed, st, ds, dw=(-6.0, 5.0) if "w = 0" in label
+             else None)),
+        ("ssm_scan_backward", SSM_BWD_CASES, SSM_TRAIN_SHAPE,
+         ("dx", "db", "dc", "ddt", "da", "dd", "dstate0"),
+         ssm_kernel.ssm_scan_backward, ssm_ref.selective_scan_bwd_ref,
+         _ssm_bwd_bound, SSM_BWD_KERNEL,
+         lambda shape, seed, st, ds, label: _ssm_bwd_case(
+             shape, seed, st, ds, dt_scale=40.0 if "e = 0" in label
+             else 1.0)))
+    rows = {}
+    for name, cases, train_shape, grads, kern, plain, bound, prof, make in (
+            specs):
+        max_err, worst_gate, readings = 0.0, 0.0, {}
+        for i, (label, (shape, state, dstate)) in enumerate(cases.items()):
+            args = make(shape, 1000 + 10 * i, state, dstate, label)
+            runs = [kern(*args) for _ in range(3)]
+            want = plain(*args)
+            torch.cuda.synchronize()
+            same = all((a is None and b is None) or torch.equal(a, b)
+                       for run in runs[1:] for a, b in zip(runs[0], run))
+            errs, ok = {}, same
+            for g, got, ref_g in zip(grads, runs[0], want):
+                if g == "dstate0" and not state:
+                    ok = ok and got is None
+                    continue
+                scale = float(ref_g.abs().max())
+                d = float((got - ref_g).abs().max())
+                gate = d / max(RECURRENT_BWD_TOL * scale, 1e-30)
+                errs[g] = d
+                max_err = max(max_err, d)
+                worst_gate = max(worst_gate, gate)
+                ok = ok and gate <= 1.0
+            readings[label] = {"shape": shape, "state0": state,
+                               "dstate": dstate, "max_abs_err": errs}
+            print(f"kernel {name} {label} {shape}"
+                  f"{' from a state' if state else ''}"
+                  f"{' with the final state gradient' if dstate else ''}: "
+                  f"max|d| by gradient {errs} (each within "
+                  f"{RECURRENT_BWD_TOL} of its largest |value|); 3 runs "
+                  f"{'bit-identical' if same else 'DIFFER'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version or with itself: {label} "
+                                     f"{shape}")
+            del runs, want, args
+        args = make(train_shape, 1999, False, False, "train")
+        bound_ms, bound_by = bound(*train_shape, False, False)
+        numbers = {
+            "max_abs_err": max_err, "worst_gate": worst_gate,
+            "cases": readings, "shape": train_shape,
+            "ms": _median_ms(lambda: kern(*args), n=30, warmup=3),
+            "device_ms": _kernel_device_ms(lambda: kern(*args), [prof],
+                                           calls=10)[prof],
+            "plain_ms": _median_ms(lambda: plain(*args), n=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        print(f"timing {name} [{prof}] at {train_shape} float32 from a zero "
+              f"state (median, CUDA events): kernel {numbers['ms']:.6f} ms "
+              f"(device {numbers['device_ms']} ms, profiler median of 10), "
+              f"plain {numbers['plain_ms']:.6f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call "
+              f"computes it", flush=True)
+        rows[name] = numbers
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
+                       want: dict) -> dict:
+    """Phase 20 (c): ``arch`` at full width and depth in its own dtypes
+    (params from the model's init on the card, seeded ``TRAIN_SEED``;
+    float32 moments), ``BF16_TRAIN_STEPS`` steps of
+    adamw(warmup_cosine(*BF16_SCHEDULE)) on one batch of
+    ``BF16_TRAIN_BATCH`` through ``make_train_step``: every loss finite,
+    the last below the first, each step's launches by kernel of
+    ``wrappers`` exactly ``want`` and no plain version ``plain`` names.
+    Then a step's wall (median over steps 2..), the device's busy time and
+    idle share over a profiled step, the new backward kernels' and the
+    scans' forward device time in it, and the peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.training.optimizer import adamw, warmup_cosine
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(
+        TRAIN_SEED), "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in train_batch(
+        cfg, TRAIN_SEED, BF16_TRAIN_BATCH).items()}
+    opt = adamw(warmup_cosine(*BF16_SCHEDULE),
+                moment_dtype=cfg.opt_moment_dtype)
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    with counting_calls(plain) as plain_calls:
+        for _ in range(BF16_TRAIN_STEPS):
+            _reset_launches(*wrappers)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_step.append(_by_kernel(wrappers))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 20 (c) {arch} bf16 train (B, S) = {BF16_TRAIN_BATCH}, "
+          f"{cfg.n_layers} layers: losses {losses}; step walls "
+          f"{[round(w, 6) for w in walls]} s; launches a step "
+          f"{per_step[0]} (want {want}); plain calls {plain_calls}; peak "
+          f"memory {peak_gb:.3f} GiB", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} bf16 training: losses {losses} are "
+                             "not finite and falling")
+    if any(c != want for c in per_step) or any(plain_calls.values()):
+        raise AssertionError(f"{arch} bf16 training launched {per_step}, "
+                             f"plain {plain_calls}; want {want} a step")
+
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+
+    busy = _busy(one_step, f"{arch} bf16 train step")
+    by_name = busy.get("device_ms_by_name", {})
+
+    def device_ms(*names):
+        return sum(ms for n, ms in by_name.items()
+                   if any(k in n for k in names))
+
+    bwd_ms = device_ms(WKV_BWD_KERNEL, SSM_BWD_KERNEL)
+    out = {"layers": cfg.n_layers, "losses": losses, "step_walls_s": walls,
+           "step_wall_s": statistics.median(walls[1:]),
+           "launches_per_step": per_step[0], "peak_memory_gib": peak_gb,
+           "busy_ms": busy["busy_ms"], "idle_share": busy["idle_share"],
+           "profiled_wall_s": busy["wall_s"],
+           "scan_bwd_device_ms_per_step": bwd_ms,
+           "scan_fwd_device_ms_per_step": device_ms(
+               *WKV_KERNELS.values(), *SSM_KERNELS.values()),
+           "flash_device_ms_per_step": device_ms(
+               *FLASH_KERNELS.values(), *FLASH_BWD_KERNELS.values()),
+           "scan_bwd_share_of_busy": (bwd_ms / busy["busy_ms"]
+                                      if busy["busy_ms"] else None)}
+    print(f"phase 20 (c) {arch}: step wall {out['step_wall_s']:.6f} s "
+          f"(median of steps 2-{BF16_TRAIN_STEPS}); profiled step busy "
+          f"{busy['busy_ms']} ms, idle share {busy['idle_share']}; the scan "
+          f"backward {bwd_ms:.6f} ms of device a step (share of busy "
+          f"{out['scan_bwd_share_of_busy']}), the scan forward "
+          f"{out['scan_fwd_device_ms_per_step']:.6f} ms, #6 and its "
+          f"backward {out['flash_device_ms_per_step']:.6f} ms", flush=True)
+    return out
+
+
+def recurrent_train_phase(wrappers: tuple, plain: dict) -> dict:
+    """Phase 20: RWKV6's and Zamba2's training on the card, ``wrappers``
+    the forward and backward of #7, #8 and #6 (rwkv6_scan,
+    rwkv6_scan_backward, ssm_scan, ssm_scan_backward, flash_attention,
+    flash_attention_backward).  (a) in phase 3
+    (``recurrent_backward_phase``); (b) each of ``RECURRENT_TRAIN`` at full
+    width and its fixture's depth in float32 against the fixture
+    (``run_train_parity``, ``check_train_parity``): every WKV or Mamba
+    layer's scan in #7's or #8's chunked forward and its backward kernel
+    once a step, every application of Zamba2's shared block in #6's SIMT
+    forward and backward pair, nothing else of them and no plain version;
+    (c) ``recurrent_bf16_run`` of each; (d) ``train_local`` of each
+    reduced, every kernel of its path launched.  Returns the numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_local
+    from repro_torch.models import hybrid_arch
+
+    wkv, wkv_bwd, ssm, ssm_bwd, flash, flash_bwd = wrappers
+    t_phase = time.perf_counter()
+
+    def launches(arch, L, steps, flash_route):
+        """The launches by kernel of ``steps`` steps of ``arch`` at ``L``
+        layers: each scan's chunked forward and backward once a layer,
+        #6 and its backward's ``flash_route`` once a shared block."""
+        cfg = get_config(arch).replace(n_layers=L)
+        want = _by_kernel(wrappers)
+        for counts in want.values():
+            counts.update(dict.fromkeys(counts, 0))
+        if arch == RWKV_ARCH:
+            want[wkv.__name__]["chunked"] = want[wkv_bwd.__name__]["bwd"] = (
+                steps * L)
+            return want
+        n_super = hybrid_arch._split(cfg)[1]
+        want[ssm.__name__]["chunked"] = want[ssm_bwd.__name__]["bwd"] = (
+            steps * L)
+        fwd, (dq, dkdv) = flash_route
+        want[flash.__name__][fwd] = steps * n_super
+        want[flash_bwd.__name__][dq] = want[flash_bwd.__name__][dkdv] = (
+            steps * n_super)
+        return want
+
+    out = {"parity": {}, "bf16": {}, "local": {}}
+    for arch, (path, depth) in RECURRENT_TRAIN.items():
+        fx = load_fixture(path)
+        if (str(fx["arch"]) != arch or bool(fx["reduced"])
+                or int(fx["parity_n_layers"]) != depth):
+            raise AssertionError(f"{path} is not the full-width {arch} "
+                                 f"training fixture at {depth} layers")
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        with counting_calls(plain) as plain_calls:
+            got = run_train_parity(fx, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _by_kernel(wrappers)
+        want = launches(arch, depth, int(fx["steps"]),
+                        ("simt", ("bwd_dq", "bwd_dkdv")))
+        readings = check_train_parity(fx, got)
+        print(f"phase 20 (b) {arch} float32 train parity at {depth} layers, "
+              f"(B, S) = {tuple(int(n) for n in fx['batch_shape'])}, "
+              f"{int(fx['steps'])} steps in {wall:.3f} s: {readings} (gates: "
+              f"losses {TRAIN_LOSS_ATOL}, norms {TRAIN_NORM_RTOL} relative, "
+              f"samples {TRAIN_SAMPLE_RTOL} of the leaf's rms); launches "
+              f"{counts} (want {want}); plain calls {plain_calls}",
+              flush=True)
+        if counts != want or any(plain_calls.values()):
+            raise AssertionError(f"{arch} float32 training launched "
+                                 f"{counts}, plain {plain_calls}; want "
+                                 f"{want}")
+        out["parity"][arch] = {"readings": readings, "launches": counts,
+                               "wall_s": wall, "layers": depth}
+        del got
+        torch.cuda.empty_cache()
+    for arch in RECURRENT_ARCHS:
+        L = get_config(arch).n_layers
+        want = launches(arch, L, 1, ("prefill_wgmma", ("bwd_dq_wgmma",
+                                                       "bwd_dkdv_wgmma")))
+        out["bf16"][arch] = recurrent_bf16_run(arch, wrappers, plain, want)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps, batch, seq, lr = LOCAL_TRAIN
+    for arch in RECURRENT_ARCHS:
+        _reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        res = train_local(arch, steps, batch, seq, lr, log_every=0,
+                          device="cuda")
+        torch.cuda.synchronize()
+        run = {"losses": res["losses"], "wall_s": time.perf_counter() - t0,
+               "launches": _by_kernel(wrappers)}
+        print(f"phase 20 (d) train_local {arch} reduced: {run}", flush=True)
+        used = (wkv, wkv_bwd) if arch == RWKV_ARCH else (
+            ssm, ssm_bwd, flash, flash_bwd)
+        if not all(np.isfinite(res["losses"])) or not all(
+                w.launches for w in used):
+            raise AssertionError(f"train_local {arch}: {run}")
+        out["local"][arch] = run
+        del res
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 20 (recurrent training): {out['wall_s']:.3f} s",
+          flush=True)
+    return out
+
+
+def recurrent_plain() -> dict:
+    """Every plain version on phase 20's paths, for ``counting_calls``:
+    the attention's (as phase 8's) and #6's backward's, and each scan's
+    forward and backward, in the kernels' ``ref`` and in the models."""
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    return {"scan": (attention_mod, "_attend_chunked"),
+            "oracle": (flash_ref, "attend_full_ref"),
+            "bwd_oracle": (flash_ref, "flash_attend_bwd_ref"),
+            "wkv_oracle": (wkv_ref, "wkv_ref"),
+            "wkv_oracle_flat": (wkv_ref, "rwkv6_scan_ref"),
+            "wkv_stepwise": (rwkv_mod, "wkv_stepwise"),
+            "wkv_chunked": (rwkv_mod, "wkv_chunked"),
+            "wkv_bwd_oracle": (wkv_ref, "wkv_bwd_ref"),
+            "ssd_stepwise": (ssm_mod, "ssd_stepwise"),
+            "ssm_oracle": (ssm_ref, "selective_scan_ref"),
+            "ssm_oracle_flat": (ssm_ref, "ssm_scan_ref"),
+            "ssm_bwd_oracle": (ssm_ref, "selective_scan_bwd_ref")}
+
+
+def recurrent_alone() -> dict:
+    """Phase 20 on its own, for a run on the card that needs nothing else:
+    builds the libraries of #6, #7 and #8 and their backwards, then
+    ``recurrent_backward_phase`` and ``recurrent_train_phase``.  Returns
+    both's numbers."""
+    import torch
+
+    _import_port()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(_build.build_all({**flash_kernel.LIBRARIES,
+                            **wkv_kernel.LIBRARIES,
+                            **ssm_kernel.LIBRARIES}), flush=True)
+    rows = recurrent_backward_phase()
+    wrappers = (wkv_kernel.rwkv6_scan, wkv_kernel.rwkv6_scan_backward,
+                ssm_kernel.ssm_scan, ssm_kernel.ssm_scan_backward,
+                flash_kernel.flash_attention,
+                flash_kernel.flash_attention_backward)
+    return {"rows": rows,
+            "train": recurrent_train_phase(wrappers, recurrent_plain())}
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -6726,7 +7194,9 @@ def main() -> int:
     flash_kernel.library()
     flash_kernel.bwd_library()
     wkv_kernel.library()
+    wkv_kernel.bwd_library()
     ssm_kernel.library()
+    ssm_kernel.bwd_library()
     print("build: " + ", ".join(f"{lib} {sec:.2f} s"
                                 for lib, sec in seconds.items())
           + f" (in parallel, {time.perf_counter() - t0:.2f} s wall)",
@@ -6749,8 +7219,14 @@ def main() -> int:
         if "int8_matmul_kernel" in n}
     cell_ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("lstm_cell", "")).items() if CELL_KERNEL in n}
+    scan_bwd_ptxas = {lib: {n: info for n, info in _ptxas_lines(
+        _build.LOGS.get(lib, "")).items() if kname in n}
+        for lib, kname in (("rwkv6_backward", WKV_BWD_KERNEL),
+                           ("ssm_backward", SSM_BWD_KERNEL))}
     for n, info in {**ptxas, **bwd_ptxas, **train_ptxas, **ssm_ptxas,
-                    **wkv_ptxas, **int8_ptxas, **cell_ptxas}.items():
+                    **wkv_ptxas, **int8_ptxas, **cell_ptxas,
+                    **scan_bwd_ptxas["rwkv6_backward"],
+                    **scan_bwd_ptxas["ssm_backward"]}.items():
         print(f"build: ptxas {n}: {info}", flush=True)
 
     # phase 3: the kernels against their plain versions, and timed
@@ -6763,6 +7239,8 @@ def main() -> int:
     ssm = ssm_kernel.ssm_scan
     cell = lstm_kernel.lstm_cell
     flash_bwd = flash_kernel.flash_attention_backward
+    wkv_bwd = wkv_kernel.rwkv6_scan_backward
+    ssm_bwd = ssm_kernel.ssm_scan_backward
     wrappers = (fused, fwd_train, bwd, int8)
     rows = {"lstm_sequence_fused": kernel_phase(), **train_kernel_phase(),
             "lstm_cell": cell_kernel_phase(),
@@ -6771,7 +7249,9 @@ def main() -> int:
             # phase 19 (a): #6's backward, beside its forward
             "flash_attention_backward": flash_backward_phase(),
             "rwkv6_scan": wkv_kernel_phase(),
-            "ssm_scan": ssm_kernel_phase()}
+            "ssm_scan": ssm_kernel_phase(),
+            # phase 20 (a): #7's and #8's backward
+            **recurrent_backward_phase()}
     for kname, names in (("lstm_sequence_fused", [SERVE_FWD_KERNEL]),
                          ("lstm_sequence_fwd_train", [TRAIN_FWD_KERNEL]),
                          ("lstm_sequence_bwd", BWD_KERNELS)):
@@ -6779,13 +7259,17 @@ def main() -> int:
                                 if any(k in n for k in names)}
     rows["ssm_scan"]["ptxas"] = ssm_ptxas
     rows["rwkv6_scan"]["ptxas"] = wkv_ptxas
+    rows["rwkv6_scan_backward"]["ptxas"] = scan_bwd_ptxas["rwkv6_backward"]
+    rows["ssm_scan_backward"]["ptxas"] = scan_bwd_ptxas["ssm_backward"]
     rows["int8_matmul"]["ptxas"] = int8_ptxas
     rows["lstm_cell"]["ptxas"] = cell_ptxas
 
     # phase 4: the serving path
     fx = load_fixture()
-    # phase 3 launched #6's backward: from here it counts the paths only
-    _reset_launches(*wrappers, flash, flash_bwd, wkv, ssm, cell)
+    # phase 3 launched the backward kernels: from here they count the paths
+    # only, and no serving path may launch one (read after phases 10 and 18)
+    _reset_launches(*wrappers, flash, flash_bwd, wkv, ssm, cell, wkv_bwd,
+                    ssm_bwd)
     t0 = time.perf_counter()
     results = run_main_path(fx, "cuda")
     wall = time.perf_counter() - t0
@@ -6980,6 +7464,9 @@ def main() -> int:
         "ssd_stepwise": (ssm_mod, "ssd_stepwise"),
         "ssm_oracle": (ssm_ref, "selective_scan_ref"),
         "ssm_oracle_flat": (ssm_ref, "ssm_scan_ref")})
+    if wkv_bwd.launches or ssm_bwd.launches or flash_bwd.launches:
+        raise AssertionError("a serving path launched a backward kernel: "
+                             f"{_by_kernel((wkv_bwd, ssm_bwd, flash_bwd))}")
 
     # phase 11: the scan path, kernel #5 under ops.lstm_sequence_scan
     scan = scan_phase(fx)
@@ -7021,14 +7508,21 @@ def main() -> int:
     # phase 18: the encoder-decoder and the VLM, every attention in #6
     zoo_runs.update(zoo_encdec_vlm_phase(flash, (wkv, ssm, cell),
                                          attention_plain))
-    if flash_bwd.launches:
-        raise AssertionError("a serving path launched #6's backward")
+    if flash_bwd.launches or wkv_bwd.launches or ssm_bwd.launches:
+        raise AssertionError("a serving path launched a backward kernel: "
+                             f"{_by_kernel((wkv_bwd, ssm_bwd, flash_bwd))}")
 
     # phase 19: the transformer zoo's training, every attention's forward
     # in #6 and its gradient in #6's backward
     train_plain = {**attention_plain,
                    "bwd_oracle": (flash_ref, "flash_attend_bwd_ref")}
     zoo_train = zoo_train_phase(flash, flash_bwd, train_plain)
+
+    # phase 20: RWKV6's and Zamba2's training, every scan's forward in #7
+    # or #8 and its gradient in their backward kernels, the shared block's
+    # attention in #6 and its backward
+    recurrent = recurrent_train_phase(
+        (wkv, wkv_bwd, ssm, ssm_bwd, flash, flash_bwd), recurrent_plain())
 
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
@@ -7150,7 +7644,32 @@ def main() -> int:
                                   if k != "bound_by_kernel"}
                           for label, c in bwd_row["cases"].items()
                           if c["route"] == route}})
+    # #7's and #8's backward: one kernel each, on each arch's training path;
+    # the main path is phase 20 (c)'s bf16 step at full depth
+    scan_bwd_meta = {
+        wkv_bwd.__name__: (RWKV_ARCH,
+                           "src/repro_torch/kernels/rwkv6_scan/csrc/"
+                           "rwkv6_backward.cu",
+                           "src/repro/kernels/rwkv6_scan/kernel.py:60"),
+        ssm_bwd.__name__: (ZAMBA_ARCH,
+                           "src/repro_torch/kernels/ssm_scan/csrc/"
+                           "ssm_backward.cu",
+                           "src/repro/kernels/ssm_scan/kernel.py:59")}
+    for kname, (arch, source, repl) in scan_bwd_meta.items():
+        row = rows[kname]
+        by_path = {
+            "float32_parity": recurrent["parity"][arch]["launches"][kname][
+                "bwd"],
+            "bf16_step": recurrent["bf16"][arch]["launches_per_step"][kname][
+                "bwd"],
+            "train_local": recurrent["local"][arch]["launches"][kname]["bwd"]}
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": repl, "launches": by_path["bf16_step"],
+            "launches_by_path": by_path, **row,
+            "kernel_ms": row["ms"]})
     print(json.dumps({"zoo_train": zoo_train}, default=str))
+    print(json.dumps({"recurrent_train": recurrent}, default=str))
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))

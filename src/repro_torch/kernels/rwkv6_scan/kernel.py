@@ -31,6 +31,14 @@ at the first launch (``kernels/_build``, which also hashes the
 ``*.cuh`` headers beside the sources and the common ``kernels/csrc/
 tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
 library up front.
+
+``rwkv6_scan_backward`` is the recurrence's gradient, a library of its own
+(``csrc/rwkv6_backward.cu``, one kernel, ``bwd``): the JAX package has no
+kernel for it (XLA differentiates its scan).  It keeps no state from the
+forward: one launch runs the recurrence forward again, keeping the state
+every ``BWD_CHUNK`` steps in a scratch it allocates, then walks the chunks
+backward (``ref.wkv_bwd_ref`` is its function).  It counts its launches
+as the forward does, in ``.launches`` and ``.launches_by_kernel``.
 """
 from __future__ import annotations
 
@@ -47,8 +55,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "rwkv6_scan.cu"
 CHUNKED_SOURCE = CSRC / "rwkv6_chunked.cu"
 DECODE_SOURCE = CSRC / "rwkv6_decode.cu"
+BWD_SOURCE = CSRC / "rwkv6_backward.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"rwkv6_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE]}
+LIBRARIES = {"rwkv6_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE],
+             "rwkv6_backward": [BWD_SOURCE]}
 # the largest head size the kernels take
 MAX_HEAD_SIZE = 64
 # the largest H and B (the grid's y and z dims)
@@ -60,6 +70,9 @@ COLS = 32
 DECODE_MAX_T = 8
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"chunked": 0, "decode_rows": 1}
+# the backward's one kernel; the steps between two of its boundary states
+BWD_KERNELS = ("bwd",)
+BWD_CHUNK = 16
 
 
 def kernel_for(T: int) -> str:
@@ -79,6 +92,55 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_library() -> ctypes.CDLL:
+    """The backward's library, built (or loaded) at the first call."""
+    lib = _build.load_library("rwkv6_backward", LIBRARIES["rwkv6_backward"])
+    lib.rwkv6_scan_backward.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.rwkv6_scan_backward.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, r, k, v, w, u, states, extra=()):
+    """The forward's and the backward's checks: r, k, v, w (and ``extra``,
+    each (label, tensor) of r's shape) (B,T,H,N), u (H,N), ``states`` each
+    (label, tensor or None) (B,H,N,N); float32, contiguous, one CUDA
+    device.  Returns (B, T, H, N)."""
+    if r.dim() != 4:
+        raise ValueError(f"{name}: expected r, k, v, w (B,T,H,N), got r "
+                         f"{tuple(r.shape)}")
+    B, T, H, N = r.shape
+    same = [k, v, w, *(t for _, t in extra)]
+    if any(t.shape != r.shape for t in same):
+        raise ValueError(f"{name}: r, k, v, w"
+                         f"{''.join(', ' + label for label, _ in extra)} "
+                         f"must share one shape, got "
+                         f"{[tuple(t.shape) for t in (r, *same)]}")
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"{name}: u must be (H,N) = {(H, N)}, got "
+                         f"{tuple(u.shape)}")
+    for label, s in states:
+        if s is not None and tuple(s.shape) != (B, H, N, N):
+            raise ValueError(f"{name}: {label} must be (B,H,N,N) = "
+                             f"{(B, H, N, N)}, got {tuple(s.shape)}")
+    if (not 1 <= N <= MAX_HEAD_SIZE or not 1 <= B <= MAX_GRID
+            or not 1 <= H <= MAX_GRID):
+        raise ValueError(f"{name}: need 1 <= N <= {MAX_HEAD_SIZE} and 1 <= "
+                         f"B, H <= {MAX_GRID}, got B={B}, H={H}, N={N}")
+    tensors = [t for t in (r, *same, u, *(s for _, s in states))
+               if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: inputs must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device.type != "cuda" or t.device != r.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return B, T, H, N
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                state0: Optional[torch.Tensor] = None, *,
@@ -92,33 +154,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``state0`` itself.  Returns (y (B,T,H,N), final state).  Raises on
     anything else, and when the launch fails."""
     name = "rwkv6_scan"
-    if r.dim() != 4:
-        raise ValueError(f"{name}: expected r, k, v, w (B,T,H,N), got r "
-                         f"{tuple(r.shape)}")
-    B, T, H, N = r.shape
-    if any(t.shape != r.shape for t in (k, v, w)):
-        raise ValueError(f"{name}: r, k, v, w must share one shape, got "
-                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
-    if tuple(u.shape) != (H, N):
-        raise ValueError(f"{name}: u must be (H,N) = {(H, N)}, got "
-                         f"{tuple(u.shape)}")
-    for label, s in (("state0", state0), ("out", out)):
-        if s is not None and tuple(s.shape) != (B, H, N, N):
-            raise ValueError(f"{name}: {label} must be (B,H,N,N) = "
-                             f"{(B, H, N, N)}, got {tuple(s.shape)}")
-    if (not 1 <= N <= MAX_HEAD_SIZE or not 1 <= B <= MAX_GRID
-            or not 1 <= H <= MAX_GRID):
-        raise ValueError(f"{name}: need 1 <= N <= {MAX_HEAD_SIZE} and 1 <= "
-                         f"B, H <= {MAX_GRID}, got B={B}, H={H}, N={N}")
-    tensors = [t for t in (r, k, v, w, u, state0, out) if t is not None]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name}: inputs must be float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    if any(t.device.type != "cuda" or t.device != r.device for t in tensors):
-        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
-                         f"got {[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
+    B, T, H, N = _check(name, r, k, v, w, u,
+                        (("state0", state0), ("out", out)))
     y = torch.empty_like(r)
     state = torch.empty((B, H, N, N), dtype=torch.float32,
                         device=r.device) if out is None else out
@@ -148,3 +185,57 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launch counts
 rwkv6_scan.launches = 0
 rwkv6_scan.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``rwkv6_scan(r, k, v, w, u, state0)`` for the
+    output's gradient ``dy`` and the final state's ``dstate`` (None: zero):
+    one launch of ``csrc/rwkv6_backward.cu`` on the current CUDA stream.
+
+    Takes the forward's inputs as ``rwkv6_scan`` does, dy (B,T,H,N) and
+    dstate (B,H,N,N), float32 and contiguous on r's device.  Returns (dr,
+    dk, dv, dw (B,T,H,N), du (H,N), dstate0 (B,H,N,N), None when state0
+    is None), float32; ``ref.wkv_bwd_ref`` is its function.  The kernel
+    writes each block's du, summed here over B in a fixed order, and its
+    boundary states every ``BWD_CHUNK`` steps into a scratch of
+    B H ceil(T / BWD_CHUNK) 4096 floats.  Raises on anything else, and when
+    the launch fails.  At T = 0 nothing launches: dstate0 is dstate."""
+    name = "rwkv6_scan_backward"
+    B, T, H, N = _check(name, r, k, v, w, u,
+                        (("state0", state0), ("dstate", dstate)),
+                        (("dy", dy),))
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    dstate0 = None if state0 is None else torch.empty_like(state0)
+    if T == 0:  # nothing to launch, nothing counted
+        du = torch.zeros_like(u)
+        if dstate0 is not None and dstate is None:
+            dstate0.zero_()
+        elif dstate0 is not None:
+            dstate0.copy_(dstate)
+        return dr, dk, dv, dw, du, dstate0
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    chunks = -(-T // BWD_CHUNK)
+    bounds = torch.empty(B * H * chunks * 4096, dtype=torch.float32,
+                         device=r.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, du_part, dstate0,
+        bounds)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = bwd_library().rwkv6_scan_backward(*ptrs, B, T, H, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
+                           f"(B={B}, T={T}, H={H}, N={N})")
+    rwkv6_scan_backward.launches += 1
+    rwkv6_scan_backward.launches_by_kernel["bwd"] += 1
+    return dr, dk, dv, dw, du_part.sum(0), dstate0
+
+
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
+rwkv6_scan_backward.launches = 0
+rwkv6_scan_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)

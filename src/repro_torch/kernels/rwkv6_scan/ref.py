@@ -12,6 +12,10 @@ Per (batch, head), head size N, from the state S_0 (zero unless given):
 with u (BH,N): the model layout's BH heads of one batch row.  Both step through time one token at a time
 in float32 and return y in r's dtype and the final state in float32.
 
+``wkv_bwd_ref`` is the gradient of ``wkv_ref``, the reverse recurrence in
+float32: the CPU path of ``ops.WKV``'s backward and the function the
+backward kernel (``csrc/rwkv6_backward.cu``) is held to on the card.
+
 ``wkv_chunked_ref`` and ``wkv_decode_rows_ref`` are the two Hopper
 kernels' algorithms (``csrc/rwkv6_chunked.cu``, ``csrc/rwkv6_decode.cu``)
 in the model layout, step for step: the chunked form with its decays as
@@ -48,6 +52,48 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
     return y.to(r.dtype), S
+
+
+def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor,
+                state0: Optional[torch.Tensor], dy: torch.Tensor,
+                dstate: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``wkv_ref``: r, k, v, w, dy (B,T,H,N); u (H,N);
+    state0 and the final state's gradient ``dstate`` (B,H,N,N) or None
+    (zero) -> (dr, dk, dv, dw (B,T,H,N), du (H,N), dstate0 (B,H,N,N)),
+    all float32.
+
+    The reverse recurrence, per (batch, head), with G_t = dL/dS_t from
+    G_T = dstate: dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t,
+    dk_t = u r_t (v_t . dy_t) + G_t v_t, dv_t = (r_t . u k_t) dy_t +
+    G_t^T k_t, dw_t = rowsum(G_t S_{t-1}), du = sum_{b,t} r_t k_t
+    (v_t . dy_t), G_{t-1} = diag(w_t) G_t + r_t dy_t^T, dstate0 = G_0.
+    S_{t-1} comes from a forward pass that keeps every state."""
+    B, T, H, N = r.shape
+    r, k, v, w, dy = (a.float() for a in (r, k, v, w, dy))
+    u = u.float()
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    prev = []
+    for t in range(T):
+        prev.append(S)
+        S = w[:, t, :, :, None] * S + k[:, t, :, :, None] * v[:, t, :, None]
+    G = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.float())
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros((H, N), dtype=torch.float32, device=r.device)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dyt = (a[:, t] for a in (r, k, v, w, dy))
+        vdy = (vt * dyt).sum(-1, keepdim=True)  # (B,H,1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", prev[t], dyt) + u * kt * vdy
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + u * rt * vdy
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", G, kt)
+                    + (u * rt * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, t] = (G * prev[t]).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du, G
 
 
 def to_model_layout(x: torch.Tensor) -> torch.Tensor:

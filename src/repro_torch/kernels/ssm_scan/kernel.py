@@ -31,6 +31,15 @@ at the first launch (``kernels/_build``, which also hashes the
 ``*.cuh`` headers beside the sources and the common ``kernels/csrc/
 tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
 library up front.
+
+``ssm_scan_backward`` is the recurrence's gradient, a library of its own
+(``csrc/ssm_backward.cu``, one kernel, ``bwd``): the JAX package has no
+kernel for it (XLA differentiates its scan).  It keeps no state from the
+forward: one launch runs the recurrence forward again, keeping the state
+every ``BWD_CHUNK`` steps in a scratch it allocates, then walks the chunks
+backward (``ref.selective_scan_bwd_ref`` is its function).  It counts its
+launches as the forward does, in ``.launches`` and
+``.launches_by_kernel``.
 """
 from __future__ import annotations
 
@@ -47,8 +56,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "ssm_scan.cu"
 CHUNKED_SOURCE = CSRC / "ssm_chunked.cu"
 DECODE_SOURCE = CSRC / "ssm_decode.cu"
+BWD_SOURCE = CSRC / "ssm_backward.cu"
 # every library of this package: name -> its sources
-LIBRARIES = {"ssm_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE]}
+LIBRARIES = {"ssm_scan": [SOURCE, CHUNKED_SOURCE, DECODE_SOURCE],
+             "ssm_backward": [BWD_SOURCE]}
 # the largest head dim and state dim the kernels take
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 64
@@ -59,6 +70,9 @@ CHUNK = 64
 DECODE_MAX_T = 8
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"chunked": 0, "decode_rows": 1}
+# the backward's one kernel; the steps between two of its boundary states
+BWD_KERNELS = ("bwd",)
+BWD_CHUNK = 16
 
 
 def kernel_for(T: int) -> str:
@@ -78,6 +92,52 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_library() -> ctypes.CDLL:
+    """The backward's library, built (or loaded) at the first call."""
+    lib = _build.load_library("ssm_backward", LIBRARIES["ssm_backward"])
+    lib.ssm_scan_backward.argtypes = (
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.ssm_scan_backward.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, x, b, c, dt, a, d, states, extra=()):
+    """The forward's and the backward's checks: x (and ``extra``, each
+    (label, tensor) of x's shape) (B,T,H,P), b, c (B,T,N), dt (B,T,H), a,
+    d (H,), ``states`` each (label, tensor or None) (B,H,P,N); float32,
+    contiguous, one CUDA device.  Returns (B, T, H, P, N)."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected x (B,T,H,P), got x "
+                         f"{tuple(x.shape)}")
+    B, T, H, P = x.shape
+    N = b.shape[-1] if b.dim() == 3 else -1
+    shapes = {"b": (b, (B, T, N)), "c": (c, (B, T, N)), "dt": (dt, (B, T, H)),
+              "a": (a, (H,)), "d": (d, (H,)),
+              **{label: (t, (B, H, P, N)) for label, t in states},
+              **{label: (t, (B, T, H, P)) for label, t in extra}}
+    for label, (t, want) in shapes.items():
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name}: {label} must be {want} for x "
+                             f"{tuple(x.shape)} and N = {N}, got "
+                             f"{tuple(t.shape)}")
+    if (not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE_DIM
+            or not 1 <= B <= MAX_GRID or not 1 <= H <= MAX_GRID):
+        raise ValueError(f"{name}: need 1 <= P <= {MAX_HEAD_DIM}, 1 <= N <= "
+                         f"{MAX_STATE_DIM} and 1 <= B, H <= {MAX_GRID}, got "
+                         f"B={B}, H={H}, P={P}, N={N}")
+    tensors = [x] + [t for t, _ in shapes.values() if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: inputs must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return B, T, H, P, N
+
+
 def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
              state0: Optional[torch.Tensor] = None, *,
@@ -91,33 +151,8 @@ def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     and may be ``state0`` itself.  Returns (y (B,T,H,P), final state).
     Raises on anything else, and when the launch fails."""
     name = "ssm_scan"
-    if x.dim() != 4:
-        raise ValueError(f"{name}: expected x (B,T,H,P), got x "
-                         f"{tuple(x.shape)}")
-    B, T, H, P = x.shape
-    N = b.shape[-1] if b.dim() == 3 else -1
-    shapes = {"b": (b, (B, T, N)), "c": (c, (B, T, N)), "dt": (dt, (B, T, H)),
-              "a": (a, (H,)), "d": (d, (H,)), "state0": (state0, (B, H, P, N)),
-              "out": (out, (B, H, P, N))}
-    for label, (t, want) in shapes.items():
-        if t is not None and tuple(t.shape) != want:
-            raise ValueError(f"{name}: {label} must be {want} for x "
-                             f"{tuple(x.shape)} and N = {N}, got "
-                             f"{tuple(t.shape)}")
-    if (not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE_DIM
-            or not 1 <= B <= MAX_GRID or not 1 <= H <= MAX_GRID):
-        raise ValueError(f"{name}: need 1 <= P <= {MAX_HEAD_DIM}, 1 <= N <= "
-                         f"{MAX_STATE_DIM} and 1 <= B, H <= {MAX_GRID}, got "
-                         f"B={B}, H={H}, P={P}, N={N}")
-    tensors = [t for t in (x, b, c, dt, a, d, state0, out) if t is not None]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name}: inputs must be float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError(f"{name}: all inputs must lie on one CUDA device, "
-                         f"got {[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
+    B, T, H, P, N = _check(name, x, b, c, dt, a, d,
+                           (("state0", state0), ("out", out)))
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32,
                         device=x.device) if out is None else out
@@ -147,3 +182,65 @@ def ssm_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 # launch counts
 ssm_scan.launches = 0
 ssm_scan.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def ssm_scan_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                      state0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dstate: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``ssm_scan(x, b, c, dt, a, d, state0)`` for the
+    output's gradient ``dy`` and the final state's ``dstate`` (None: zero):
+    one launch of ``csrc/ssm_backward.cu`` on the current CUDA stream.
+
+    Takes the forward's inputs as ``ssm_scan`` does, dy (B,T,H,P) and
+    dstate (B,H,P,N), float32 and contiguous on x's device.  Returns (dx
+    (B,T,H,P), db, dc (B,T,N), ddt (B,T,H), da, dd (H,), dstate0
+    (B,H,P,N), None when state0 is None), float32;
+    ``ref.selective_scan_bwd_ref`` is its function.  The kernel writes each
+    block's share of the sums over heads (db, dc) and over batch rows (da,
+    dd), summed here in a fixed order, and its boundary states every
+    ``BWD_CHUNK`` steps into a scratch of B H ceil(T / BWD_CHUNK) 4096
+    floats.  Raises on anything else, and when the launch fails.  At T = 0
+    nothing launches: dstate0 is dstate."""
+    name = "ssm_scan_backward"
+    B, T, H, P, N = _check(name, x, b, c, dt, a, d,
+                           (("state0", state0), ("dstate", dstate)),
+                           (("dy", dy),))
+    dx = torch.empty_like(x)
+    dstate0 = None if state0 is None else torch.empty_like(state0)
+    if T == 0:  # nothing to launch, nothing counted
+        if dstate0 is not None and dstate is None:
+            dstate0.zero_()
+        elif dstate0 is not None:
+            dstate0.copy_(dstate)
+        return (dx, torch.zeros_like(b), torch.zeros_like(c),
+                torch.empty_like(dt), torch.zeros_like(a),
+                torch.zeros_like(d), dstate0)
+    db_part, dc_part = (torch.empty((B, T, H, N), dtype=torch.float32,
+                                    device=x.device) for _ in range(2))
+    ddt = torch.empty_like(dt)
+    da_part, dd_part = (torch.empty((B, H), dtype=torch.float32,
+                                    device=x.device) for _ in range(2))
+    chunks = -(-T // BWD_CHUNK)
+    bounds = torch.empty(B * H * chunks * 4096, dtype=torch.float32,
+                         device=x.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        x, b, c, dt, a, d, state0, dy, dstate, dx, db_part, dc_part, ddt,
+        da_part, dd_part, dstate0, bounds)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = bwd_library().ssm_scan_backward(*ptrs, B, T, H, P, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
+                           f"(B={B}, T={T}, H={H}, P={P}, N={N})")
+    ssm_scan_backward.launches += 1
+    ssm_scan_backward.launches_by_kernel["bwd"] += 1
+    return (dx, db_part.sum(2), dc_part.sum(2), ddt, da_part.sum(0),
+            dd_part.sum(0), dstate0)
+
+
+# launches since the last reset, in all and by kernel; only a successful
+# launch counts
+ssm_scan_backward.launches = 0
+ssm_scan_backward.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)

@@ -8,6 +8,15 @@ as the Mamba2 mixer needs from prefill to every decode step, and hands b
 and c (B,T,N) to the kernel as they are.  A tensor on a CUDA device
 launches the kernel (``kernel.ssm_scan``) or raises; a tensor on the CPU
 takes its plain version (``ref.selective_scan_ref``).  Nothing falls back.
+
+Under grad (grad mode on and an input requiring it) the call goes through
+``SelectiveScan``, a ``torch.autograd.Function``: its forward is the same
+single launch, and it saves the inputs; its backward launches the backward
+kernel on the card (``kernel.ssm_scan_backward``) and takes the plain
+reverse recurrence (``ref.selective_scan_bwd_ref``) on the CPU.  Without
+grad nothing is saved.  ``out=`` is refused under grad: the kernel would
+write the final state into the caller's tensor where autograd cannot see
+it.
 """
 from __future__ import annotations
 
@@ -18,15 +27,9 @@ import torch
 from repro_torch.kernels.ssm_scan import kernel, ref
 
 
-def selective_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                   dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-                   state0: Optional[torch.Tensor] = None, *,
-                   out: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,T,H,P) float32; b, c (B,T,N); dt (B,T,H); a, d (H,); state0
-    (B,H,P,N) float32 or None (zero) -> (y (B,T,H,P), state (B,H,P,N)
-    float32), y_t = h_t c_t + d x_t.  The final state lands in ``out``
-    when it is given."""
+def _forward(x, b, c, dt, a, d, state0, out=None):
+    """The forward on x's device: the kernel on CUDA, the oracle on the
+    CPU."""
     if x.device.type == "cuda":
         return kernel.ssm_scan(
             *(t.contiguous() for t in (x, b, c, dt, a, d)),
@@ -35,3 +38,55 @@ def selective_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         y, state = ref.selective_scan_ref(x, b, c, dt, a, d, state0)
         return y, state if out is None else out.copy_(state)
     raise ValueError(f"selective_scan: unsupported device {x.device}")
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan with its gradient: x (B,T,H,P), b, c (B,T,N), dt
+    (B,T,H), a, d (H,) and state0 (B,H,P,N) or None, float32 (contiguous
+    on CUDA), in; (y, final state) out."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a, d, state0):
+        y, state = _forward(x, b, c, dt, a, d, state0)
+        ctx.save_for_backward(x, b, c, dt, a, d, state0)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, b, c, dt, a, d, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cuda":
+            return kernel.ssm_scan_backward(
+                x, b, c, dt, a, d, state0, dy.contiguous(),
+                None if dstate is None else dstate.contiguous())
+        *grads, dstate0 = ref.selective_scan_bwd_ref(x, b, c, dt, a, d,
+                                                     state0, dy, dstate)
+        return (*grads, None if state0 is None else dstate0)
+
+
+def selective_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                   state0: Optional[torch.Tensor] = None, *,
+                   out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,T,H,P) float32; b, c (B,T,N); dt (B,T,H); a, d (H,); state0
+    (B,H,P,N) float32 or None (zero) -> (y (B,T,H,P), state (B,H,P,N)
+    float32), y_t = h_t c_t + d x_t.  The final state lands in ``out``
+    when it is given.  Under grad the call goes through ``SelectiveScan``
+    (module docstring)."""
+    inputs = [t for t in (x, b, c, dt, a, d, state0) if t is not None]
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in inputs)):
+        return _forward(x, b, c, dt, a, d, state0, out)
+    if out is not None:
+        raise ValueError("selective_scan: out= has no gradient; under grad "
+                         "the final state comes back as a fresh tensor "
+                         "(out=None)")
+    if x.device.type == "cuda":
+        # views after the splits and reshapes are copied once, here; the
+        # copies' gradients flow back to the views
+        x, b, c, dt, a, d = (t.contiguous() for t in (x, b, c, dt, a, d))
+        state0 = None if state0 is None else state0.contiguous()
+    return SelectiveScan.apply(x, b, c, dt, a, d, state0)

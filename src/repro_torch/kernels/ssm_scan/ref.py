@@ -15,6 +15,11 @@ and c (BH,T,N), dt (BH,T), a and d (BH,), each row one head of its own
 batch row.  Both step through time one token at a time in float32 and
 return y in x's dtype and the final state in float32.
 
+``selective_scan_bwd_ref`` is the gradient of ``selective_scan_ref``,
+the reverse recurrence in float32: the CPU path of
+``ops.SelectiveScan``'s backward and the function the backward kernel
+(``csrc/ssm_backward.cu``) is held to on the card.
+
 ``ssd_chunked_ref`` and ``ssm_decode_rows_ref`` are the two Hopper
 kernels' algorithms (``csrc/ssm_chunked.cu``, ``csrc/ssm_decode.cu``) in
 the model layout, step for step: the chunked SSD form with its float64
@@ -64,6 +69,59 @@ def selective_scan_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
          if state0 is None else state0.float())
     y, h = _scan(*(t.float() for t in (x, b, c, dt, a, d)), h)
     return y.to(x.dtype), h
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, dt: torch.Tensor,
+                           a: torch.Tensor, d: torch.Tensor,
+                           state0: Optional[torch.Tensor], dy: torch.Tensor,
+                           dstate: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``selective_scan_ref``: x, dy (B,T,H,P); b, c
+    (B,T,N); dt (B,T,H); a, d (H,); state0 and the final state's gradient
+    ``dstate`` (B,H,P,N) or None (zero) -> (dx (B,T,H,P), db, dc (B,T,N),
+    ddt (B,T,H), da, dd (H,), dstate0 (B,H,P,N)), all float32.
+
+    The reverse recurrence, per (batch, head), with e_t = exp(dt_t a) and
+    G_t = dL/dh_t = dy_t c_t^T + e_{t+1} G_{t+1} (G_T also gets dstate):
+    dx_t = dt_t G_t b_t + d dy_t, db_t = sum_h dt_t G_t^T x_t,
+    dc_t = sum_h h_t^T dy_t, ddt_t = sum G_t (a e_t h_{t-1} + x_t b_t^T),
+    da = sum_{b,t} dt_t e_t sum G_t h_{t-1}, dd = sum_{b,t,p} dy x,
+    dstate0 = e_1 G_1.  h_{t-1} comes from a forward pass that keeps every
+    state."""
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    x, b, c, dt, a, d, dy = (t.float() for t in (x, b, c, dt, a, d, dy))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state0 is None else state0.float())
+    e = torch.exp(dt * a)  # (B,T,H)
+    u = dt[..., None] * x  # (B,T,H,P)
+    prev = []
+    for t in range(T):
+        prev.append(h)
+        h = (e[:, t, :, None, None] * h
+             + u[:, t, :, :, None] * b[:, t, None, None, :])
+    G = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if dstate is None else dstate.float())
+    dx = torch.empty_like(x)
+    db, dc = (torch.empty((B, T, N), dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    ddt = torch.empty_like(dt)
+    da = torch.zeros_like(a)
+    for t in reversed(range(T)):
+        et = e[:, t, :, None, None]
+        G = G + dy[:, t, :, :, None] * c[:, t, None, None, :]
+        ht = et * prev[t] + u[:, t, :, :, None] * b[:, t, None, None, :]
+        gb = torch.einsum("bhpn,bn->bhp", G, b[:, t])
+        gh = (G * prev[t]).sum((-1, -2))  # (B,H)
+        dx[:, t] = dt[:, t, :, None] * gb + d[:, None] * dy[:, t]
+        db[:, t] = torch.einsum("bhpn,bhp->bn", G, u[:, t])
+        dc[:, t] = torch.einsum("bhpn,bhp->bn", ht, dy[:, t])
+        ddt[:, t] = a * e[:, t] * gh + (x[:, t] * gb).sum(-1)
+        da += (dt[:, t] * e[:, t] * gh).sum(0)
+        G = et * G
+    dd = (dy * x).sum((0, 1, 3))
+    return dx, db, dc, ddt, da, dd, G
 
 
 def ssm_scan_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

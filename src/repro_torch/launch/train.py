@@ -9,10 +9,11 @@ tokens on the card, the reference's ``launch/train.py --local``.
 ``--local`` trains ``cfg.reduced()`` for ``--steps`` steps with
 ``adamw(warmup_cosine(lr, warmup=max(steps // 10, 1), total=steps))``
 through ``make_train_step``: the params from ``model.init`` and every
-batch from one ``torch.Generator`` seeded 0 on the device.  The
-transformer families (``dense``, ``moe``, ``vlm``) and the
-encoder-decoder (``audio``) train; RWKV6 and the Zamba2 hybrid raise,
-naming the slice that brings their losses.  The reference's other mode,
+batch from one ``torch.Generator`` seeded 0 on the device.  Every family
+of the zoo trains: the transformers (``dense``, ``moe``, ``vlm``), the
+encoder-decoder (``audio``), RWKV6 (``ssm``) and the Zamba2 hybrid
+(``hybrid``), each scan's gradient in its backward kernel on the card.
+The reference's other mode,
 the production mesh, delegates to its dry run (lower and compile on a
 TPU mesh), which the port does not have: without ``--local`` the launcher
 refuses.  ``--device cpu`` runs the plain versions on the CPU.

@@ -13,16 +13,24 @@ the reference scans over super-layers and layers, the port loops in
 Python over the stacked params.  On the card every Mamba scan is the CUDA
 selective-scan kernel (``kernels/ssm_scan``) and every shared-block
 attention the flash kernel (through ``attention.attend``).  ``forward``
-returns a fresh SSM cache, never writing the one it is given: the kernel
-writes each layer's final state straight into its slice of the new state
-stack.  ``decode_step`` writes the step's K/V rows and positions into the
-given cache in place, as the dense transformer's does.
+returns a fresh SSM cache, never writing the one it is given: without grad
+the kernel writes each layer's final state straight into its slice of the
+new state stack.  ``decode_step`` writes the step's K/V rows and positions
+into the given cache in place, as the dense transformer's does.
+
+``loss_fn`` trains it, as the reference's: under grad every Mamba scan's
+gradient is the selective scan's backward kernel on the card
+(``ops.SelectiveScan``) and every shared-block attention's the flash
+backward (``ops.FlashAttend``); ``cfg.remat == "block"`` recomputes each
+Mamba block in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` of its group scan's step.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -30,9 +38,6 @@ from repro_torch.models import blocks, nn, ssm
 from repro_torch.models.attention import attend
 
 Params = Dict[str, Any]
-
-# the slice that brings this family's training
-_LATER = "zoo step 6b, the recurrent families' training"
 
 
 def _split(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -66,15 +71,33 @@ def _mamba_group_scan(cfg: ModelConfig, stack: Params, start: int, n: int,
                       ) -> torch.Tensor:
     """Run the ``n`` mamba blocks from layer ``start`` (residual each) from
     ``cache``'s states (``h`` None: zero), writing their new states into
-    ``new``."""
+    ``new``.  Under grad each block's new state comes back fresh and is
+    copied, and ``cfg.remat == "block"`` checkpoints each block."""
+    grad = torch.is_grad_enabled()
     for i in range(start, start + n):
         lp = {name: v[i] for name, v in stack.items()}
         h = None if cache["h"] is None else cache["h"][i]
-        o, conv, _ = ssm.apply_block(cfg, lp, x, cache["conv"][i], h,
-                                     out=new["h"][i])
+        args = (cfg, lp, x, cache["conv"][i], h)
+        if not grad:
+            x, conv, _ = _mamba_step(*args, out=new["h"][i])
+        else:
+            if cfg.remat == "block":
+                x, conv, hs = torch_checkpoint.checkpoint(
+                    _mamba_step, *args, use_reentrant=False)
+            else:
+                x, conv, hs = _mamba_step(*args)
+            new["h"][i] = hs
         new["conv"][i] = conv
-        x = x + o
     return x
+
+
+def _mamba_step(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                conv: torch.Tensor, h: Optional[torch.Tensor],
+                out: Optional[torch.Tensor] = None):
+    """One mamba block with its residual: (x + out, new conv, new h); the
+    new h lands in ``out`` when it is given."""
+    o, conv, h = ssm.apply_block(cfg, lp, x, conv, h, out=out)
+    return x + o, conv, h
 
 
 def _shared_block_seq(cfg: ModelConfig, sp: Params, x, embed0, positions):
@@ -163,9 +186,12 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
-    raise NotImplementedError(
-        f"the Zamba2 hybrid's training loss is not ported yet: it comes "
-        f"with {_LATER}, the selective scan's backward kernel with it")
+    """(xent, {"xent"}) over the batch's ``targets`` (and ``mask``), the
+    reference's ``loss_fn``."""
+    h, _ = forward(cfg, p, batch)
+    logits = blocks.logits_fn(cfg, p, h)
+    loss = blocks.token_xent(logits, batch["targets"], batch.get("mask"))
+    return loss, {"xent": loss}
 
 
 def prefill(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],

@@ -15,12 +15,20 @@ time-mix output's group norm approximated by RMS, as the reference does.
 
 The counterpart of the reference's ``models/rwkv.py``, function for
 function, with its casts.  Layers are stacked (a leading L dim) and looped
-over in Python where the reference scans.  On the card every WKV
-recurrence runs in the CUDA kernel (``kernels/rwkv6_scan``); on the CPU
-``time_mix_scan`` takes the reference's path, per step or chunked as
-``cfg.scan_chunked`` says.  ``forward`` returns a fresh cache tree, as the
-reference's does: the kernel writes each layer's final state straight into
-its slice of the new state stack.
+over in Python where the reference scans.  Every WKV recurrence goes
+through ``kernels.rwkv6_scan.ops.wkv``: the CUDA kernel on the card, the
+per-step plain version on the CPU, except that the CPU takes the
+reference's chunked form when ``cfg.scan_chunked`` says so.  ``forward``
+returns a fresh cache tree, as the reference's does: without grad the
+kernel writes each layer's final state straight into its slice of the new
+state stack.
+
+``loss_fn`` trains it, as the reference's: under grad every recurrence
+goes through ``ops.WKV``, whose backward is the WKV backward kernel on the
+card (``kernel.rwkv6_scan_backward``) and the plain reverse recurrence on
+the CPU; ``cfg.remat == "block"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of its
+scan step.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -38,9 +47,6 @@ Params = Dict[str, Any]
 
 N_MIX = 5  # r, k, v, g, w
 MIX_LORA = 32  # rank of the ddlerp LoRA
-
-# the slice that brings this family's training
-_LATER = "zoo step 6b, the recurrent families' training"
 
 
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:
@@ -125,9 +131,9 @@ def _ddlerp(lp: Params, x: torch.Tensor, x_prev: torch.Tensor):
 
 
 def wkv_stepwise(r, k, v, w, u, state):
-    """Per-timestep WKV scan (the reference's baseline path, the CPU path
-    here): the kernel's plain version.  r/k/v/w: (B,T,H,N) f32; u: (H,N);
-    state: (B,H,N,N) f32.  Returns (y (B,T,H,N), state)."""
+    """Per-timestep WKV scan (the reference's baseline path): the kernel's
+    plain version, which ``ops.wkv`` takes on the CPU.  r/k/v/w: (B,T,H,N)
+    f32; u: (H,N); state: (B,H,N,N) f32.  Returns (y (B,T,H,N), state)."""
     return ref.wkv_ref(r, k, v, w, u, state)
 
 
@@ -181,7 +187,8 @@ def time_mix_scan(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sequence form.  x: (B,T,d); x_last: (B,d) shift state;
     state: (B,H,N,N) f32.  Returns (out, new_x_last, new_state); the new
-    state lands in ``out`` when it is given."""
+    state lands in ``out`` when it is given (never under grad: ``ops.wkv``
+    refuses it there)."""
     B, T, d = x.shape
     H, N = _heads(cfg)
     x_prev = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
@@ -197,16 +204,13 @@ def time_mix_scan(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     u = lp["bonus"].float()  # (H, N)
 
     rf, kf, vf = (a.float() for a in (r, k, v))
-    if x.device.type == "cuda":
-        ys, state = ops.wkv(rf, kf, vf, w, u, state, out=out)
-    else:
-        if cfg.scan_chunked and T > 1:
-            ys, state = wkv_chunked(rf, kf, vf, w, u, state,
-                                    chunk=cfg.scan_chunk)
-        else:
-            ys, state = wkv_stepwise(rf, kf, vf, w, u, state)
+    if x.device.type == "cpu" and cfg.scan_chunked and T > 1:
+        ys, state = wkv_chunked(rf, kf, vf, w, u, state,
+                                chunk=cfg.scan_chunk)
         if out is not None:
             state = out.copy_(state)
+    else:
+        ys, state = ops.wkv(rf, kf, vf, w, u, state, out=out)
     y = ys.reshape(B, T, d).to(x.dtype)
     # per-head RMS (group-norm stand-in), then gate and output proj
     y = nn.rms_norm(y, lp["ln_x"], cfg.norm_eps)
@@ -235,34 +239,57 @@ def channel_mix(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+           shift_tm: torch.Tensor, shift_cm: torch.Tensor,
+           state: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """One layer: time-mix then channel-mix, each residual.  Returns (x,
+    new shift_tm, new shift_cm, new state); the new state lands in ``out``
+    when it is given."""
+    h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    o, shift_tm, state = time_mix_scan(cfg, lp, h, shift_tm, state, out=out)
+    x = x + o
+    h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    o, shift_cm = channel_mix(cfg, lp, h, shift_cm)
+    return x + o, shift_tm, shift_cm, state
+
+
 def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
             cache: Optional[Params] = None):
     """Full-sequence forward; returns (hidden, aux=0, new_cache).  The
-    cache given is read, never written."""
+    cache given is read, never written.  Under grad each layer's new state
+    comes back fresh and is copied into the new cache, and
+    ``cfg.remat == "block"`` checkpoints each layer."""
     x = blocks.embed_tokens(cfg, p, batch["tokens"])
     B = x.shape[0]
     if cache is None:
         cache = init_cache(cfg, B, 0, x.device)
     new = {name: torch.empty_like(t) for name, t in cache.items()}
+    grad = torch.is_grad_enabled()
     for i in range(p["layers"]["attn_norm"].shape[0]):
-        lp = _layer(p["layers"], i)
-        h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        o, shift, _ = time_mix_scan(cfg, lp, h, cache["shift_tm"][i],
-                                    cache["state"][i], out=new["state"][i])
-        new["shift_tm"][i] = shift
-        x = x + o
-        h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        o, shift = channel_mix(cfg, lp, h, cache["shift_cm"][i])
-        new["shift_cm"][i] = shift
-        x = x + o
+        args = (cfg, _layer(p["layers"], i), x, cache["shift_tm"][i],
+                cache["shift_cm"][i], cache["state"][i])
+        if not grad:
+            x, shift_tm, shift_cm, _ = _block(*args, out=new["state"][i])
+        else:
+            if cfg.remat == "block":
+                x, shift_tm, shift_cm, state = torch_checkpoint.checkpoint(
+                    _block, *args, use_reentrant=False)
+            else:
+                x, shift_tm, shift_cm, state = _block(*args)
+            new["state"][i] = state
+        new["shift_tm"][i] = shift_tm
+        new["shift_cm"][i] = shift_cm
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new
 
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]):
-    raise NotImplementedError(
-        f"RWKV6's training loss is not ported yet: it comes with {_LATER}, "
-        "the WKV scan's backward kernel with it")
+    """(xent, {"xent", "aux"}) over the batch's ``targets`` (and ``mask``),
+    the reference's ``loss_fn``; aux is 0."""
+    h, aux, _ = forward(cfg, p, batch)
+    logits = blocks.logits_fn(cfg, p, h)
+    loss = blocks.token_xent(logits, batch["targets"], batch.get("mask"))
+    return loss, {"xent": loss, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,

@@ -15,7 +15,11 @@ function, with its casts.  Every scan goes through
 prefill through the chunked SSD form on the tensor cores, a decode step
 through the step-by-step kernel), the per-step plain version on the CPU,
 all with the skip ``D`` inside the scan where the reference adds it after
-(the same sum, taken in one place).  The reference's switch between its
+(the same sum, taken in one place).  Under grad the scan goes through
+``ops.SelectiveScan``, whose backward is the selective scan's backward
+kernel on the card (``kernel.ssm_scan_backward``) and the plain reverse
+recurrence on the CPU; the conv, the softplus and the projections around
+it are plain autograd.  The reference's switch between its
 two XLA forms (``cfg.scan_chunked``) is not ported: nothing sets it for
 the hybrid, and the port's hybrid ignores it on every device.
 """
@@ -89,7 +93,8 @@ def apply_block(
     out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Mamba2 block.  Returns (out (B,T,d), new conv state, new h
-    state); the new h state lands in ``out`` when it is given."""
+    state); the new h state lands in ``out`` when it is given (never under
+    grad: ``ops.selective_scan`` refuses it there)."""
     s = cfg.ssm
     B, T, _ = x.shape
     d_inner, H, xbc_dim, _ = dims(cfg)

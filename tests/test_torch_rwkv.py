@@ -326,15 +326,16 @@ def test_rwkv_tree_crosses_convert_bit_for_bit():
 
 
 def test_unported_parts_raise_naming_their_slice():
-    """RWKV6's training loss still raises, naming the slice that brings it
-    with the WKV scan's backward (zoo step 6b); the VLM and the
-    encoder-decoder, which used to, serve and train now."""
+    """Nothing of RWKV6 raises any more: its training loss, which used to
+    name zoo step 6b, trains (``tests/test_torch_rwkv_train.py`` holds it
+    to the reference); the VLM and the encoder-decoder, which used to
+    raise, serve and train too."""
     _, cfg = _configs()
     p = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match="zoo step 6b.*the WKV scan's backward"):
-        get_model(cfg).loss_fn(p, batch)
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
+             "targets": torch.ones((1, 4), dtype=torch.int32)}
+    loss, metrics = get_model(cfg).loss_fn(p, batch)
+    assert bool(torch.isfinite(loss)) and sorted(metrics) == ["aux", "xent"]
     assert get_config("paligemma-3b").family == "vlm"
     assert get_model(cfg.replace(family="vlm")).prefill is not None
     assert get_model(get_config("seamless-m4t-medium").reduced()).forward

@@ -173,6 +173,7 @@ def test_kernel_wrapper_checks_its_inputs():
     assert kernel.rwkv6_scan.launches_by_kernel == {"chunked": 0,
                                                     "decode_rows": 0}
     sources = [kernel.SOURCE, kernel.CHUNKED_SOURCE, kernel.DECODE_SOURCE]
-    assert kernel.LIBRARIES == {"rwkv6_scan": sources}
-    assert all(src.is_file() for src in sources)
+    assert kernel.LIBRARIES == {"rwkv6_scan": sources,
+                                "rwkv6_backward": [kernel.BWD_SOURCE]}
+    assert all(src.is_file() for src in [*sources, kernel.BWD_SOURCE])
     assert (kernel.CSRC / "cp_async.cuh").is_file()

@@ -230,5 +230,7 @@ def test_kernel_wrapper_checks_its_inputs():
         ops.selective_scan(*(t.to("meta") for t in (x, bc, bc, dt, a, a)))
     assert kernel.ssm_scan.launches == 0
     assert kernel.LIBRARIES == {"ssm_scan": [
-        kernel.SOURCE, kernel.CHUNKED_SOURCE, kernel.DECODE_SOURCE]}
-    assert all(src.is_file() for src in kernel.LIBRARIES["ssm_scan"])
+        kernel.SOURCE, kernel.CHUNKED_SOURCE, kernel.DECODE_SOURCE],
+        "ssm_backward": [kernel.BWD_SOURCE]}
+    assert all(src.is_file() for srcs in kernel.LIBRARIES.values()
+               for src in srcs)

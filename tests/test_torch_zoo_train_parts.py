@@ -184,8 +184,16 @@ def test_train_local_draws_and_launcher_on_the_cpu(tmp_path, capsys):
     assert "done: first_loss=" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="zoo step 7"):
         train.main(["--arch", "tinyllama-1.1b"])
-    with pytest.raises(NotImplementedError, match="zoo step 6b"):
-        train.train_local("rwkv6-3b", 1, 1, 4, 1e-3, device="cpu")
+    # the recurrent families train too: two steps on one batch, the loss
+    # finite and falling
+    for arch in ("rwkv6-3b", "zamba2-1.2b"):
+        cfg = get_config_ref(arch).reduced()
+        b = {k: v.numpy() for k, v in train.synthetic_batch(
+            cfg, 2, 8, torch.Generator().manual_seed(1)).items()}
+        res = train.train_local(arch, 2, 2, 8, 1e-3, log_every=0,
+                                device="cpu", batches=[b, b])
+        assert np.isfinite(res["losses"]).all(), arch
+        assert res["losses"][1] < res["losses"][0], arch
 
 
 def test_train_entry_points_raise_without_cuda(monkeypatch, tmp_path):

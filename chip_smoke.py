@@ -12,7 +12,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    prints ``-Xptxas -v``'s registers and spills of every kernel: #6's
    three and its backward's four, the LSTM sequence kernels' (#1, #2,
    #3), the one-step cell's (#5), #4's, and #7's and #8's two and their
-   backwards' one each;
+   backwards' two each;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes and a few edge shapes (the training pair also
    against the plain versions of its own algorithms, ``ref.*_tiled_ref``,
@@ -200,8 +200,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and none of the SIMT pair; (d) ``train_local`` of every
    transformer-family arch reduced, both kernels of its route launched;
 20. the recurrent families' training (``recurrent_train_phase``): (a), in
-   phase 3, the backward of #7 and of #8 (one kernel each, the JAX
-   package has none) at ``WKV_BWD_CASES`` and ``SSM_BWD_CASES``: the
+   phase 3, the backward of #7 and of #8 (two kernels each, a boundary
+   pass and a chunk pass, the chunked forms on 3xTF32 tensor cores; the
+   JAX package has none) at ``WKV_BWD_CASES`` and ``SSM_BWD_CASES``: the
    training shapes, a ragged T, with and without state0 and a final
    state's gradient, decays that round to 0, against
    ``ref.wkv_bwd_ref`` / ``ref.selective_scan_bwd_ref``, three runs bit
@@ -619,7 +620,8 @@ LOCAL_TRAIN = (3, 2, 32, 3e-4)
 # plain versions (ref.wkv_bwd_ref, ref.selective_scan_bwd_ref): label ->
 # (shape, from a state0, with a final state's gradient).  Each gradient
 # within RECURRENT_BWD_TOL of its largest |value|: both sides float32, the
-# kernel's sums in another order through up to 512 steps
+# kernel's sums in another order through up to 512 steps.  Sizes that are
+# no multiple of 4 take the kernels' 4-byte copies and scalar stores
 RECURRENT_BWD_TOL = 1e-4
 # the training shapes at BF16_TRAIN_BATCH: rwkv6-3b's (B, T, H, N) and
 # zamba2-1.2b's (B, T, H, P, N)
@@ -633,7 +635,8 @@ WKV_BWD_CASES = {"train": (WKV_TRAIN_SHAPE, False, False),
                  "T=1": ((3, 1, 4, 64), True, True),
                  "T=16": ((2, 16, 3, 64), False, True),
                  "T=17 N=24": ((2, 17, 3, 24), True, False),
-                 "reduced N=32": ((2, 40, 8, 32), False, False)}
+                 "reduced N=32": ((2, 40, 8, 32), False, False),
+                 "N=10 (4-byte copies)": ((2, 21, 3, 10), True, True)}
 SSM_BWD_CASES = {"train": (SSM_TRAIN_SHAPE, False, False),
                  "train, state0 and dh_T": (SSM_TRAIN_SHAPE, True, True),
                  "ragged T=77": ((2, 77, 4, 64, 64), True, True),
@@ -641,10 +644,15 @@ SSM_BWD_CASES = {"train": (SSM_TRAIN_SHAPE, False, False),
                  "dt x 40 (e = 0)": ((2, 50, 4, 64, 64), True, True),
                  "T=1": ((3, 1, 4, 64, 64), True, True),
                  "T=16 P=24": ((2, 16, 3, 24, 64), False, True),
-                 "reduced T=33 N=16": ((2, 33, 8, 64, 16), True, False)}
-# the two backward kernels by a substring of the profiler's name
-WKV_BWD_KERNEL = "rwkv6_bwd_kernel"
-SSM_BWD_KERNEL = "ssm_bwd_kernel"
+                 "reduced T=33 N=16": ((2, 33, 8, 64, 16), True, False),
+                 "P=10 N=6 (4-byte copies)": ((2, 37, 3, 10, 6), True,
+                                              True)}
+# each backward's two kernels, by the wrapper's name and by a substring of
+# the profiler's: a call's device time is the sum over both
+WKV_BWD_KERNELS = {"bounds": "rwkv6_bwd_bounds_kernel",
+                   "chunk": "rwkv6_bwd_chunk_kernel"}
+SSM_BWD_KERNELS = {"bounds": "ssm_bwd_bounds_kernel",
+                   "chunk": "ssm_bwd_chunk_kernel"}
 # (b) float32 training at full width against the reference's, as phase 19
 # (b), from fixtures written by tests/test_torch_rwkv_train.py and
 # tests/test_torch_zamba2_train.py as scripts: arch -> (fixture, its
@@ -2752,6 +2760,16 @@ def _bound(nbytes: float, flops: float,
                                        else "operations")
 
 
+def _tc_bound(nbytes: float, tf32_flops: float, f32_flops: float):
+    """``_bound`` for work split between the tensor cores, ``tf32_flops``
+    at the TF32 rate, and the CUDA cores, ``f32_flops`` at the float32
+    rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = tf32_flops / PEAK_TF32_FLOP_PER_S + f32_flops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def _forward_flops(B, T, F, H):
     """The forward's products: x @ wx at every step, h @ wh at the T-1
     steps after the first (h is zero at t=0)."""
@@ -3835,11 +3853,7 @@ def _wkv_bound(B, T, H, N, state_in, chunk=None):
     products = 2 * B * H * chunks * (2 * chunk * N * N + chunk * chunk * N)
     pairwise = B * H * chunks * (chunk * (chunk - 1) // 2 * 3 * N
                                  + 4 * chunk * N)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = (3 * products / PEAK_TF32_FLOP_PER_S
-             + pairwise / PEAK_F32_FLOP_PER_S)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    return _tc_bound(nbytes, 3 * products, pairwise)
 
 
 def wkv_kernel_phase() -> dict:
@@ -6722,33 +6736,105 @@ def zoo_train_phase(flash, bwd, plain: dict) -> dict:
     return out
 
 
-def _wkv_bwd_bound(B, T, H, N, state_in, dstate_in):
-    """Bound of one WKV backward at (B,T,H,N), float32: r, k, v, w, dy read
-    and dr, dk, dv, dw written once, u read and du written once, state0
-    read and dstate0 written when a state is given, dstate read when
-    given.  Operations: 14 a state element and step at the float32 rate
-    (the recurrence run again, a multiply and an FMA; the row sums S dy,
-    G v and G . S and the column sum G^T k, an FMA each; G's update, a
-    multiply and an FMA)."""
-    nbytes = 4 * (9 * B * T * H * N + 2 * H * N
-                  + (2 if state_in else 0) * B * H * N * N
-                  + (1 if dstate_in else 0) * B * H * N * N)
-    return _bound(nbytes, 14 * B * T * H * N * N)
+def _split_bound(nbytes, tc, f32, own_bytes, design_bytes, part):
+    """The bound of a call whose work ``_tc_bound`` prices from
+    ``nbytes`` (each of its inputs read once, each output written once)
+    and its kernels' products ``tc`` (once; three times over in 3xTF32)
+    and CUDA-core operations ``f32``, by kernel.  ``part`` None gives the
+    call's; a kernel's is the call's bound split by the call's limiting
+    side: by ``own_bytes[part]``, the call's inputs and outputs that the
+    kernel is charged with, when bytes bound the call, else by its own
+    operations' time, so that the kernels' bounds add up to the call's.
+    ``part`` "design:<kernel>" gives that kernel's own floor, with the
+    boundary-state scratch it writes or reads (``design_bytes``), which
+    the function does not need."""
+    call_ms, by = _tc_bound(nbytes, 3 * sum(tc.values()), sum(f32.values()))
+    if part is None:
+        return call_ms, by
+    if part.startswith("design:"):
+        k = part.split(":", 1)[1]
+        return _tc_bound(design_bytes[k], 3 * tc[k], f32[k])
+    if by == "bytes":
+        return call_ms * own_bytes[part] / nbytes, by
+
+    def ops_s(k):
+        return 3 * tc[k] / PEAK_TF32_FLOP_PER_S + f32[k] / PEAK_F32_FLOP_PER_S
+
+    return call_ms * ops_s(part) / sum(ops_s(k) for k in tc), by
 
 
-def _ssm_bwd_bound(B, T, H, P, N, state_in, dstate_in):
-    """Bound of one selective-scan backward at (B,T,H,P,N), float32: x, dy
-    read and dx written, b, c read and db, dc written, dt read and ddt
-    written once, a, d read and da, dd written once, state0 read and
-    dstate0 written when a state is given, dstate read when given.
-    Operations: 17 a state element and step at the float32 rate (the
-    recurrence run again and h_t again, a multiply and an FMA each; G's
-    update by dy c^T, an FMA; the row sums G b and G . h and the column
-    sums G^T x and h^T dy, two each; G's decay, a multiply)."""
-    nbytes = 4 * (3 * B * T * H * P + 4 * B * T * N + 2 * B * T * H + 4 * H
-                  + (2 if state_in else 0) * B * H * P * N
-                  + (1 if dstate_in else 0) * B * H * P * N)
-    return _bound(nbytes, 17 * B * T * H * P * N)
+def _wkv_bwd_bound(B, T, H, N, state_in, dstate_in, part=None, chunk=16):
+    """Bound of one WKV backward at (B,T,H,N), float32, by the kernels'
+    chunked form in chunks of ``chunk`` steps (``_split_bound``: the call,
+    a kernel's share of it, or a kernel's own floor).  Bytes: the call
+    reads r, k, v, w, dy and writes dr, dk, dv, dw once, u and du once,
+    state0 and dstate0 when a state is given, dstate when given; "bounds"
+    is charged with r, k, v, w, dy, the states and dstate0, "chunk" with
+    u, dr, dk, dv, dw and du.  Its own floor adds the boundary states and
+    gradients (2 B H chunks N^2) that "bounds" writes and "chunk" reads,
+    and "chunk"'s second read of r, k, v, w, dy and its du a chunk.
+    Operations: the products, three times over (3xTF32) at the TF32 rate
+    ("bounds": k~^T V and r~^T dY, C N^2 a chunk each; "chunk": dY S_b^T,
+    V G_e^T and k~ G_e, C N^2 each, dY V^T and A^T dY, C^2 N each); on the
+    CUDA cores at the float32 rate the decays and carries ("bounds": 4 C N
+    + 4 N^2 a chunk) and the pairs s < t ("chunk": 14 a pair and column,
+    A's running products and the recurrences of dr, dk and dw, 16 C N for
+    the steps' own terms, 2 N^2 for rowsum(G_e . S_b))."""
+    chunks = -(-T // chunk)
+    bhc = B * H * chunks
+    steps, state = B * T * H * N, B * H * N * N
+    states = (2 * state if state_in else 0) + (state if dstate_in else 0)
+    scratch = 2 * bhc * N * N
+    pairs = chunk * (chunk - 1) // 2
+    tc = {"bounds": 2 * 2 * bhc * chunk * N * N,
+          "chunk": 2 * bhc * (3 * chunk * N * N + 2 * chunk * chunk * N)}
+    f32 = {"bounds": bhc * (4 * chunk * N + 4 * N * N),
+           "chunk": bhc * (14 * pairs * N + 16 * chunk * N + 2 * N * N)}
+    own = {"bounds": 4 * (5 * steps + states),
+           "chunk": 4 * (4 * steps + 2 * H * N)}
+    design = {"bounds": own["bounds"] + 4 * scratch,
+              "chunk": 4 * (5 * steps + H * N + scratch + 4 * steps
+                            + B * chunks * H * N)}
+    return _split_bound(sum(own.values()), tc, f32, own, design, part)
+
+
+def _ssm_bwd_bound(B, T, H, P, N, state_in, dstate_in, part=None,
+                   chunk=64):
+    """Bound of one selective-scan backward at (B,T,H,P,N), float32, by
+    the kernels' chunked SSD form in chunks of ``chunk`` steps
+    (``_split_bound``).  Bytes: the call reads x, dy, b, c, dt, a, d and
+    writes dx, db, dc, ddt, da, dd once, state0 and dstate0 when a state
+    is given, dstate when given; "bounds" is charged with x, dy, b, c, dt,
+    a, the states and dstate0, "chunk" with d, dx, db, dc, ddt, da and
+    dd.  Its own floor adds the boundary states and gradients (2 B H
+    chunks P N) that "bounds" writes and "chunk" reads, "chunk"'s second
+    read of x, dy, b, c, dt, a, and each head's db and dc (2 B T H N) and
+    da, dd a chunk that it writes.  Operations: the products, three times
+    over (3xTF32) at the TF32 rate ("bounds": (w X)^T B and (e dY)^T C, C
+    P N a chunk each; "chunk": C B^T, dG B and dG^T C on the C(C+1)/2
+    pairs s <= t, N each, dY X^T and M^T dY, P each; (w B) dh_e^T, (e dY)
+    h_b and X dh_e, C P N each); on the CUDA cores at the float32 rate the
+    decays and carries ("bounds": 2 C P + 2 P N a chunk) and the pairs
+    ("chunk": 10 a pair s <= t for M, dG, Q and their sums, 4 P N for
+    <dh_e, h_b> and dy . x)."""
+    chunks = -(-T // chunk)
+    bhc = B * H * chunks
+    lower = chunk * (chunk + 1) // 2
+    rows, state = B * T * H * P, B * H * P * N
+    states = (2 * state if state_in else 0) + (state if dstate_in else 0)
+    scratch = 2 * bhc * P * N
+    tc = {"bounds": 2 * 2 * bhc * chunk * P * N,
+          "chunk": 2 * bhc * (lower * (3 * N + 2 * P) + 3 * chunk * P * N)}
+    f32 = {"bounds": bhc * (2 * chunk * P + 2 * P * N),
+           "chunk": bhc * (10 * lower + 4 * P * N)}
+    own = {"bounds": 4 * (2 * rows + 2 * B * T * N + B * T * H + H
+                          + states),
+           "chunk": 4 * (rows + 2 * B * T * N + B * T * H + 3 * H)}
+    design = {"bounds": own["bounds"] + 4 * scratch,
+              "chunk": 4 * (2 * rows + 2 * B * T * N + B * T * H + 2 * H
+                            + scratch + rows + 2 * B * T * H * N + B * T * H
+                            + 2 * B * chunks * H)}
+    return _split_bound(sum(own.values()), tc, f32, own, design, part)
 
 
 def _wkv_bwd_case(shape, seed, state, dstate, dw=None):
@@ -6794,9 +6880,12 @@ def recurrent_backward_phase() -> dict:
     ``RECURRENT_BWD_TOL`` of its largest |value|, dstate0 None exactly
     when state0 is; each case run three times, bit for bit.  Then each
     timed at its training shape from a zero state (the model's): CUDA
-    events, the profiler's device time by kernel name, the plain version,
-    the bound; no single PyTorch call computes either.  Returns each
-    kernel's row."""
+    events for the call, the profiler's device time of each of its two
+    kernels and their sum, the plain version, the bound of the call, its
+    split between the two kernels and each kernel's own floor with the
+    boundary states it writes or reads; no single PyTorch call computes
+    either.  Returns each
+    call's row, with its kernels' numbers by name."""
     import torch
 
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
@@ -6808,14 +6897,14 @@ def recurrent_backward_phase() -> dict:
         ("rwkv6_scan_backward", WKV_BWD_CASES, WKV_TRAIN_SHAPE,
          ("dr", "dk", "dv", "dw", "du", "dstate0"),
          wkv_kernel.rwkv6_scan_backward, wkv_ref.wkv_bwd_ref,
-         _wkv_bwd_bound, WKV_BWD_KERNEL,
+         _wkv_bwd_bound, WKV_BWD_KERNELS,
          lambda shape, seed, st, ds, label: _wkv_bwd_case(
              shape, seed, st, ds, dw=(-6.0, 5.0) if "w = 0" in label
              else None)),
         ("ssm_scan_backward", SSM_BWD_CASES, SSM_TRAIN_SHAPE,
          ("dx", "db", "dc", "ddt", "da", "dd", "dstate0"),
          ssm_kernel.ssm_scan_backward, ssm_ref.selective_scan_bwd_ref,
-         _ssm_bwd_bound, SSM_BWD_KERNEL,
+         _ssm_bwd_bound, SSM_BWD_KERNELS,
          lambda shape, seed, st, ds, label: _ssm_bwd_case(
              shape, seed, st, ds, dt_scale=40.0 if "e = 0" in label
              else 1.0)))
@@ -6858,20 +6947,32 @@ def recurrent_backward_phase() -> dict:
             del runs, want, args
         args = make(train_shape, 1999, False, False, "train")
         bound_ms, bound_by = bound(*train_shape, False, False)
+        device = _kernel_device_ms(lambda: kern(*args), list(prof.values()),
+                                   calls=10)
         numbers = {
             "max_abs_err": max_err, "worst_gate": worst_gate,
             "cases": readings, "shape": train_shape,
             "ms": _median_ms(lambda: kern(*args), n=30, warmup=3),
-            "device_ms": _kernel_device_ms(lambda: kern(*args), [prof],
-                                           calls=10)[prof],
+            "device_ms": (None if None in device.values()
+                          else sum(device.values())),
+            "device_ms_by_kernel": {k: device[n] for k, n in prof.items()},
+            "bound_by_kernel": {k: bound(*train_shape, False, False, part=k)
+                                for k in prof},
+            "design_bound_by_kernel": {
+                k: bound(*train_shape, False, False, part=f"design:{k}")
+                for k in prof},
             "plain_ms": _median_ms(lambda: plain(*args), n=3, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        print(f"timing {name} [{prof}] at {train_shape} float32 from a zero "
-              f"state (median, CUDA events): kernel {numbers['ms']:.6f} ms "
-              f"(device {numbers['device_ms']} ms, profiler median of 10), "
-              f"plain {numbers['plain_ms']:.6f} ms, bound "
-              f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call "
-              f"computes it", flush=True)
+        print(f"timing {name} at {train_shape} float32 from a zero state "
+              f"(median, CUDA events): kernels {numbers['ms']:.6f} ms "
+              f"(device {numbers['device_ms']} ms: "
+              + " + ".join(f"{n} {device[n]}" for n in prof.values())
+              + f", profiler median of 10), plain "
+              f"{numbers['plain_ms']:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}; split by kernel {numbers['bound_by_kernel']}; "
+              f"each kernel's own floor with the boundary states "
+              f"{numbers['design_bound_by_kernel']}); no "
+              f"single PyTorch call computes it", flush=True)
         rows[name] = numbers
         del args
         torch.cuda.empty_cache()
@@ -6888,8 +6989,9 @@ def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
     the last below the first, each step's launches by kernel of
     ``wrappers`` exactly ``want`` and no plain version ``plain`` names.
     Then a step's wall (median over steps 2..), the device's busy time and
-    idle share over a profiled step, the new backward kernels' and the
-    scans' forward device time in it, and the peak memory."""
+    idle share over a profiled step, the scans' backward kernels' (both
+    of each) and the scans' forward device time in it, and the peak
+    memory."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6944,7 +7046,7 @@ def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
         return sum(ms for n, ms in by_name.items()
                    if any(k in n for k in names))
 
-    bwd_ms = device_ms(WKV_BWD_KERNEL, SSM_BWD_KERNEL)
+    bwd_ms = device_ms(*WKV_BWD_KERNELS.values(), *SSM_BWD_KERNELS.values())
     out = {"layers": cfg.n_layers, "losses": losses, "step_walls_s": walls,
            "step_wall_s": statistics.median(walls[1:]),
            "launches_per_step": per_step[0], "peak_memory_gib": peak_gb,
@@ -6975,9 +7077,10 @@ def recurrent_train_phase(wrappers: tuple, plain: dict) -> dict:
     (``recurrent_backward_phase``); (b) each of ``RECURRENT_TRAIN`` at full
     width and its fixture's depth in float32 against the fixture
     (``run_train_parity``, ``check_train_parity``): every WKV or Mamba
-    layer's scan in #7's or #8's chunked forward and its backward kernel
-    once a step, every application of Zamba2's shared block in #6's SIMT
-    forward and backward pair, nothing else of them and no plain version;
+    layer's scan in #7's or #8's chunked forward and each of its
+    backward's two kernels once a step, every application of Zamba2's
+    shared block in #6's SIMT forward and backward pair, nothing else of
+    them and no plain version;
     (c) ``recurrent_bf16_run`` of each; (d) ``train_local`` of each
     reduced, every kernel of its path launched.  Returns the numbers."""
     import torch
@@ -6991,19 +7094,21 @@ def recurrent_train_phase(wrappers: tuple, plain: dict) -> dict:
 
     def launches(arch, L, steps, flash_route):
         """The launches by kernel of ``steps`` steps of ``arch`` at ``L``
-        layers: each scan's chunked forward and backward once a layer,
-        #6 and its backward's ``flash_route`` once a shared block."""
+        layers: each scan's chunked forward and each of its backward's two
+        kernels once a layer, #6 and its backward's ``flash_route`` once a
+        shared block."""
         cfg = get_config(arch).replace(n_layers=L)
         want = _by_kernel(wrappers)
         for counts in want.values():
             counts.update(dict.fromkeys(counts, 0))
+        scan, scan_bwd = (wkv, wkv_bwd) if arch == RWKV_ARCH else (ssm,
+                                                                   ssm_bwd)
+        want[scan.__name__]["chunked"] = steps * L
+        want[scan_bwd.__name__].update(dict.fromkeys(
+            want[scan_bwd.__name__], steps * L))
         if arch == RWKV_ARCH:
-            want[wkv.__name__]["chunked"] = want[wkv_bwd.__name__]["bwd"] = (
-                steps * L)
             return want
         n_super = hybrid_arch._split(cfg)[1]
-        want[ssm.__name__]["chunked"] = want[ssm_bwd.__name__]["bwd"] = (
-            steps * L)
         fwd, (dq, dkdv) = flash_route
         want[flash.__name__][fwd] = steps * n_super
         want[flash_bwd.__name__][dq] = want[flash_bwd.__name__][dkdv] = (
@@ -7220,9 +7325,10 @@ def main() -> int:
     cell_ptxas = {n: info for n, info in _ptxas_lines(
         _build.LOGS.get("lstm_cell", "")).items() if CELL_KERNEL in n}
     scan_bwd_ptxas = {lib: {n: info for n, info in _ptxas_lines(
-        _build.LOGS.get(lib, "")).items() if kname in n}
-        for lib, kname in (("rwkv6_backward", WKV_BWD_KERNEL),
-                           ("ssm_backward", SSM_BWD_KERNEL))}
+        _build.LOGS.get(lib, "")).items()
+        if any(k in n for k in knames.values())}
+        for lib, knames in (("rwkv6_backward", WKV_BWD_KERNELS),
+                            ("ssm_backward", SSM_BWD_KERNELS))}
     for n, info in {**ptxas, **bwd_ptxas, **train_ptxas, **ssm_ptxas,
                     **wkv_ptxas, **int8_ptxas, **cell_ptxas,
                     **scan_bwd_ptxas["rwkv6_backward"],
@@ -7644,30 +7750,53 @@ def main() -> int:
                                   if k != "bound_by_kernel"}
                           for label, c in bwd_row["cases"].items()
                           if c["route"] == route}})
-    # #7's and #8's backward: one kernel each, on each arch's training path;
-    # the main path is phase 20 (c)'s bf16 step at full depth
+    # #7's and #8's backward: two kernels each, both launched once a call,
+    # on each arch's training path; the main path is phase 20 (c)'s bf16
+    # step at full depth.  A kernel's time is its device time by the
+    # profiler, its bound its share of the call's (the two add up to
+    # ``call_bound_ms``), ``design_bound_ms`` its floor with the boundary
+    # states; the plain version covers both, and the call's event time
+    # and cases stand on the "chunk" entry only
     scan_bwd_meta = {
-        wkv_bwd.__name__: (RWKV_ARCH,
+        wkv_bwd.__name__: (RWKV_ARCH, WKV_BWD_KERNELS,
                            "src/repro_torch/kernels/rwkv6_scan/csrc/"
                            "rwkv6_backward.cu",
                            "src/repro/kernels/rwkv6_scan/kernel.py:60"),
-        ssm_bwd.__name__: (ZAMBA_ARCH,
+        ssm_bwd.__name__: (ZAMBA_ARCH, SSM_BWD_KERNELS,
                            "src/repro_torch/kernels/ssm_scan/csrc/"
                            "ssm_backward.cu",
                            "src/repro/kernels/ssm_scan/kernel.py:59")}
-    for kname, (arch, source, repl) in scan_bwd_meta.items():
-        row = rows[kname]
-        by_path = {
-            "float32_parity": recurrent["parity"][arch]["launches"][kname][
-                "bwd"],
-            "bf16_step": recurrent["bf16"][arch]["launches_per_step"][kname][
-                "bwd"],
-            "train_local": recurrent["local"][arch]["launches"][kname]["bwd"]}
-        kernels.append({
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": repl, "launches": by_path["bf16_step"],
-            "launches_by_path": by_path, **row,
-            "kernel_ms": row["ms"]})
+    for call, (arch, names, source, repl) in scan_bwd_meta.items():
+        row = rows[call]
+        for kname, prof_name in names.items():
+            by_path = {
+                "float32_parity": recurrent["parity"][arch]["launches"][call][
+                    kname],
+                "bf16_step": recurrent["bf16"][arch]["launches_per_step"][
+                    call][kname],
+                "train_local": recurrent["local"][arch]["launches"][call][
+                    kname]}
+            bound_ms, bound_by = row["bound_by_kernel"][kname]
+            entry = {
+                "name": prof_name, "route": "cuda", "source": source,
+                "replaces": repl, "wrapper": call,
+                "launches": by_path["bf16_step"],
+                "launches_by_path": by_path,
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["device_ms_by_kernel"][kname],
+                "device_ms": row["device_ms_by_kernel"][kname],
+                "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "call_bound_ms": row["bound_ms"],
+                "design_bound_ms": row["design_bound_by_kernel"][kname][0],
+                "shape": row["shape"],
+                "ptxas": {n: info for n, info in row["ptxas"].items()
+                          if prof_name in n}}
+            if kname == "chunk":
+                entry.update(worst_gate=row["worst_gate"], call_ms=row["ms"],
+                             call_device_ms=row["device_ms"],
+                             cases=row["cases"])
+            kernels.append(entry)
     print(json.dumps({"zoo_train": zoo_train}, default=str))
     print(json.dumps({"recurrent_train": recurrent}, default=str))
     print(json.dumps({"scan": scan}))

@@ -39,11 +39,12 @@
 // stores y and forms S = diag(D) S + k~^T V from them, into the other of
 // two state buffers.  In the preparation threads 0..63 form D and r~ (a
 // column each, forward), threads 64..127 k~ (backward), and warp w rows
-// 4w..4w+3 of A (4w+3 pairs at most, a trip count of its own): a row's 8
-// lanes each hold 8 of the N terms, walk s from t-1 down to 0 multiplying
-// their r_t,n by w_{s+1},n before each step, and the row's 16 sums (15
-// pairs and the bonus) are added over the 8 lanes by recursive halving (3
-// xor steps, 14 shuffles).  r, k and w arrive by cp.async two chunks ahead
+// 4w..4w+3 of A (wkv_pairs.cuh, shared with the backward; 4w+3 pairs at
+// most, a trip count of its own): a row's 8 lanes each hold 8 of the N
+// terms, walk s from t-1 down to 0 multiplying their r_t,n by w_{s+1},n
+// before each step, and the row's 16 sums (15 pairs and the bonus) are
+// added over the 8 lanes by recursive halving (3 xor steps, 14
+// shuffles).  r, k and w arrive by cp.async two chunks ahead
 // of their products and v one chunk ahead; with them, the preparation and
 // the state double-buffered, a step needs one barrier.  Every loop has a
 // fixed trip count (the head size padded to 64 with zeros, a ragged last
@@ -63,6 +64,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "wkv_pairs.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -79,7 +81,8 @@ constexpr int kAS = kC + 4;
 static_assert(kThreads == 2 * kNP, "a thread per column for D and for k~");
 static_assert(kWarps * 16 == kNP && kWarps * 8 == kCols,
               "a warp per 16 state rows and per 8 columns of y");
-static_assert(kWarps * 4 == kC, "a warp per 4 rows of A");
+static_assert(kWarps * 4 == kC && kC == wkv::kPairC,
+              "a warp per 4 rows of A");
 
 // The A fragment at rows (g, g+8), columns (q, q+4), split for 3xTF32.
 __device__ __forceinline__ tf32x3::FragA fragment_a(const float* base,
@@ -113,95 +116,6 @@ struct ChunkSmem {
 };
 static_assert(sizeof(ChunkSmem) % 16 == 0, "zeroed as float4");
 
-// warp w's four rows of A, t = 4w .. 4w+3, with MT = 4w + 3 pairs at most
-template <int MT>
-__device__ __forceinline__ void a_rows(const Raw& raw, const float* u,
-                                       Prep& out, int warp, int lane) {
-  // row t = 4 warp + lane / 8; lane l8 holds n = 4 l8 .. +3, 32 + 4 l8 .. +3
-  const int t = 4 * warp + (lane >> 3);
-  const int l8 = lane & 7;
-  const int na = 4 * l8, nb = 32 + 4 * l8;
-  float qv[8];
-  float sums[kC];  // sums[m]: the pair (t, t-1-m); sums[kC-1]: the bonus
-  {
-    const float4 ra = *reinterpret_cast<const float4*>(&raw.r[t][na]);
-    const float4 rb = *reinterpret_cast<const float4*>(&raw.r[t][nb]);
-    const float4 ka = *reinterpret_cast<const float4*>(&raw.k[t][na]);
-    const float4 kb = *reinterpret_cast<const float4*>(&raw.k[t][nb]);
-    const float4 ua = *reinterpret_cast<const float4*>(&u[na]);
-    const float4 ub = *reinterpret_cast<const float4*>(&u[nb]);
-    const float rr[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
-    const float kk[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-    const float uu[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
-    float bonus = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      qv[i] = rr[i];
-      bonus = fmaf(rr[i] * uu[i], kk[i], bonus);
-    }
-    sums[kC - 1] = bonus;
-  }
-  // every row of the warp walks the warp's MT pairs (rows with fewer clamp
-  // their indices and drop the sums): straight-line code
-#pragma unroll
-  for (int m = MT; m < kC - 1; ++m) sums[m] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int s = t - 1 - m;
-    if (m > 0) {
-      const int sw = max(s + 1, 0);
-      const float4 wa = *reinterpret_cast<const float4*>(&raw.w[sw][na]);
-      const float4 wb = *reinterpret_cast<const float4*>(&raw.w[sw][nb]);
-      qv[0] *= wa.x;
-      qv[1] *= wa.y;
-      qv[2] *= wa.z;
-      qv[3] *= wa.w;
-      qv[4] *= wb.x;
-      qv[5] *= wb.y;
-      qv[6] *= wb.z;
-      qv[7] *= wb.w;
-    }
-    const int sk = max(s, 0);
-    const float4 ka = *reinterpret_cast<const float4*>(&raw.k[sk][na]);
-    const float4 kb = *reinterpret_cast<const float4*>(&raw.k[sk][nb]);
-    float p = qv[0] * ka.x;
-    p = fmaf(qv[1], ka.y, p);
-    p = fmaf(qv[2], ka.z, p);
-    p = fmaf(qv[3], ka.w, p);
-    p = fmaf(qv[4], kb.x, p);
-    p = fmaf(qv[5], kb.y, p);
-    p = fmaf(qv[6], kb.z, p);
-    sums[m] = fmaf(qv[7], kb.w, p);
-  }
-  // the 8 lanes' partials of the 16 sums added by recursive halving: at
-  // each xor step a lane keeps half its sums and adds its partner's half
-  const bool b2 = l8 & 4, b1 = l8 & 2, b0 = l8 & 1;
-  float h8[8], h4[4], h2[2];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    h8[i] = (b2 ? sums[8 + i] : sums[i]) +
-            __shfl_xor_sync(0xffffffffu, b2 ? sums[i] : sums[8 + i], 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h4[i] = (b1 ? h8[4 + i] : h8[i]) +
-            __shfl_xor_sync(0xffffffffu, b1 ? h8[i] : h8[4 + i], 2);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    h2[i] = (b0 ? h4[2 + i] : h4[i]) +
-            __shfl_xor_sync(0xffffffffu, b0 ? h4[i] : h4[2 + i], 1);
-  // the lane now holds the sums m = 2 l8 and 2 l8 + 1
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = 2 * l8 + i;
-    if (m == kC - 1) {
-      out.a[t][t] = h2[i];
-    } else if (t - 1 - m >= 0) {
-      out.a[t][t - 1 - m] = h2[i];
-    }
-  }
-  for (int s = t + 1 + l8; s < kC; s += 8) out.a[t][s] = 0.0f;
-}
-
 // D, r~ and the chunk's decay (threads 0..63, a column each, forward), k~
 // (threads 64..127, backward), and warp w's four rows of A
 __device__ __forceinline__ void prepare(const Raw& raw, const float* u,
@@ -230,19 +144,7 @@ __device__ __forceinline__ void prepare(const Raw& raw, const float* u,
     }
   }
 
-  switch (warp) {  // the warp's last row, t = 4w + 3, has 4w + 3 pairs
-    case 0:
-      a_rows<3>(raw, u, out, warp, lane);
-      break;
-    case 1:
-      a_rows<7>(raw, u, out, warp, lane);
-      break;
-    case 2:
-      a_rows<11>(raw, u, out, warp, lane);
-      break;
-    default:
-      a_rows<15>(raw, u, out, warp, lane);
-  }
+  wkv::a_rows_of_warp(raw.r, raw.k, raw.w, u, out.a, warp, lane);
 }
 
 __global__ void __launch_bounds__(kThreads, 3)
@@ -297,9 +199,9 @@ rwkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
           const size_t at =
               ((row0 + min(t, steps - 1)) * H + hh) * N + n4;
           const int bytes = t < steps ? 16 : 0;
-          wkv::cp_async16(&dst.r[t][n4], r + at, bytes);
-          wkv::cp_async16(&dst.k[t][n4], k + at, bytes);
-          wkv::cp_async16(&dst.w[t][n4], w + at, bytes);
+          async_copy::cp_async16(&dst.r[t][n4], r + at, bytes);
+          async_copy::cp_async16(&dst.k[t][n4], k + at, bytes);
+          async_copy::cp_async16(&dst.w[t][n4], w + at, bytes);
         }
       }
     } else {
@@ -325,7 +227,7 @@ rwkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
         if (c4 < ncols) {
           const size_t at =
               ((row0 + min(t, steps - 1)) * H + hh) * N + j0 + c4;
-          wkv::cp_async16(&dst[t][c4], v + at, t < steps ? 16 : 0);
+          async_copy::cp_async16(&dst[t][c4], v + at, t < steps ? 16 : 0);
         }
       }
     } else {
@@ -345,15 +247,15 @@ rwkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
   stage_rkw(sm.raw[0], 0);
   stage_v(sm.v[0], 0);
   if (nchunks > 1) stage_rkw(sm.raw[1], kC);
-  wkv::cp_async_commit();
-  wkv::cp_async_wait<0>();
+  async_copy::cp_async_commit();
+  async_copy::cp_async_wait<0>();
   __syncthreads();
   prepare(sm.raw[0], sm.u, sm.prep[0], min(kC, T), tid, warp, lane);
 
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * kC;
     const int steps = min(kC, T - t0);
-    wkv::cp_async_wait<0>();  // chunk c+1's r, k, w and chunk c's v
+    async_copy::cp_async_wait<0>();  // chunk c+1's r, k, w and chunk c's v
     // the one barrier of a step: chunk c prepared and the state at its
     // start in place, and every read of the buffers refilled below done
     __syncthreads();
@@ -361,7 +263,7 @@ rwkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
     // preparation) and chunk c+1's v over chunk c-1's
     if (c + 2 < nchunks) stage_rkw(sm.raw[c & 1], t0 + 2 * kC);
     if (c + 1 < nchunks) stage_v(sm.v[(c + 1) & 1], t0 + kC);
-    wkv::cp_async_commit();
+    async_copy::cp_async_commit();
     const Prep& pc = sm.prep[c & 1];
     const float (&hc)[kNP][kVS] = sm.h[c & 1];
     const float (&vc)[kC][kVS] = sm.v[c & 1];

@@ -33,12 +33,16 @@ tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
 library up front.
 
 ``rwkv6_scan_backward`` is the recurrence's gradient, a library of its own
-(``csrc/rwkv6_backward.cu``, one kernel, ``bwd``): the JAX package has no
-kernel for it (XLA differentiates its scan).  It keeps no state from the
-forward: one launch runs the recurrence forward again, keeping the state
-every ``BWD_CHUNK`` steps in a scratch it allocates, then walks the chunks
-backward (``ref.wkv_bwd_ref`` is its function).  It counts its launches
-as the forward does, in ``.launches`` and ``.launches_by_kernel``.
+(``csrc/rwkv6_backward.cu``): the JAX package has no kernel for it (XLA
+differentiates its scan).  The chunked form in chunks of ``CHUNK`` steps,
+its products on the tensor cores in 3xTF32, division-free, two launches a
+call, in ``BWD_KERNELS``' order: ``bounds`` walks the chunks forward for
+the state at each chunk's start and backward for the state's gradient at
+each chunk's end, into a scratch the wrapper allocates; ``chunk`` takes
+every chunk's gradients in parallel (``ref.wkv_bwd_ref`` is its function,
+``ref.wkv_bwd_chunked_ref(..., chunk=CHUNK, operand_rounding="tf32x3")``
+its algorithm).  It keeps no state from the forward.  It counts each
+launch as the forward does, in ``.launches`` and ``.launches_by_kernel``.
 """
 from __future__ import annotations
 
@@ -70,9 +74,9 @@ COLS = 32
 DECODE_MAX_T = 8
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"chunked": 0, "decode_rows": 1}
-# the backward's one kernel; the steps between two of its boundary states
-BWD_KERNELS = ("bwd",)
-BWD_CHUNK = 16
+# the backward's two kernels by name, as the C entry point numbers them,
+# in launch order; its chunks are the forward's CHUNK steps
+BWD_KERNELS = {"bounds": 0, "chunk": 1}
 
 
 def kernel_for(T: int) -> str:
@@ -97,7 +101,7 @@ def bwd_library() -> ctypes.CDLL:
     """The backward's library, built (or loaded) at the first call."""
     lib = _build.load_library("rwkv6_backward", LIBRARIES["rwkv6_backward"])
     lib.rwkv6_scan_backward.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.rwkv6_scan_backward.restype = ctypes.c_int
     return lib
 
@@ -194,16 +198,16 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, ...]:
     """The gradients of ``rwkv6_scan(r, k, v, w, u, state0)`` for the
     output's gradient ``dy`` and the final state's ``dstate`` (None: zero):
-    one launch of ``csrc/rwkv6_backward.cu`` on the current CUDA stream.
+    the launches of ``BWD_KERNELS`` in order on the current CUDA stream.
 
     Takes the forward's inputs as ``rwkv6_scan`` does, dy (B,T,H,N) and
     dstate (B,H,N,N), float32 and contiguous on r's device.  Returns (dr,
     dk, dv, dw (B,T,H,N), du (H,N), dstate0 (B,H,N,N), None when state0
-    is None), float32; ``ref.wkv_bwd_ref`` is its function.  The kernel
-    writes each block's du, summed here over B in a fixed order, and its
-    boundary states every ``BWD_CHUNK`` steps into a scratch of
-    B H ceil(T / BWD_CHUNK) 4096 floats.  Raises on anything else, and when
-    the launch fails.  At T = 0 nothing launches: dstate0 is dstate."""
+    is None), float32; ``ref.wkv_bwd_ref`` is its function.  The kernels
+    write each chunk's du, summed here over B and the chunks in a fixed
+    order, and the boundary states and gradients into a scratch of
+    2 B H ceil(T / CHUNK) N^2 floats.  Raises on anything else, and when a
+    launch fails.  At T = 0 nothing launches: dstate0 is dstate."""
     name = "rwkv6_scan_backward"
     B, T, H, N = _check(name, r, k, v, w, u,
                         (("state0", state0), ("dstate", dstate)),
@@ -217,22 +221,27 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif dstate0 is not None:
             dstate0.copy_(dstate)
         return dr, dk, dv, dw, du, dstate0
-    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
-    chunks = -(-T // BWD_CHUNK)
-    bounds = torch.empty(B * H * chunks * 4096, dtype=torch.float32,
-                         device=r.device)
+    chunks = -(-T // CHUNK)
+    du_part = torch.empty((B, chunks, H, N), dtype=torch.float32,
+                          device=r.device)
+    s_bounds, g_bounds = (torch.empty((B, H, chunks, N, N),
+                                      dtype=torch.float32, device=r.device)
+                          for _ in range(2))
     ptrs = [None if t is None else t.data_ptr() for t in (
         r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, du_part, dstate0,
-        bounds)]
+        s_bounds, g_bounds)]
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = bwd_library().rwkv6_scan_backward(*ptrs, B, T, H, N, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           f"(B={B}, T={T}, H={H}, N={N})")
-    rwkv6_scan_backward.launches += 1
-    rwkv6_scan_backward.launches_by_kernel["bwd"] += 1
-    return dr, dk, dv, dw, du_part.sum(0), dstate0
+        for which, number in BWD_KERNELS.items():
+            err = bwd_library().rwkv6_scan_backward(*ptrs, B, T, H, N,
+                                                    number, stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch of {which} failed with "
+                                   f"CUDA error {err} (B={B}, T={T}, H={H}, "
+                                   f"N={N})")
+            rwkv6_scan_backward.launches += 1
+            rwkv6_scan_backward.launches_by_kernel[which] += 1
+    return dr, dk, dv, dw, du_part.sum((0, 1)), dstate0
 
 
 # launches since the last reset, in all and by kernel; only a successful

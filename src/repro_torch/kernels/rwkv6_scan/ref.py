@@ -14,7 +14,9 @@ in float32 and return y in r's dtype and the final state in float32.
 
 ``wkv_bwd_ref`` is the gradient of ``wkv_ref``, the reverse recurrence in
 float32: the CPU path of ``ops.WKV``'s backward and the function the
-backward kernel (``csrc/rwkv6_backward.cu``) is held to on the card.
+backward kernels (``csrc/rwkv6_backward.cu``) are held to on the card;
+``wkv_bwd_chunked_ref`` is those kernels' algorithm, the chunked form
+with dw division-free, exact or in their 3xTF32 rounding.
 
 ``wkv_chunked_ref`` and ``wkv_decode_rows_ref`` are the two Hopper
 kernels' algorithms (``csrc/rwkv6_chunked.cu``, ``csrc/rwkv6_decode.cu``)
@@ -216,3 +218,129 @@ def wkv_decode_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = (torch.stack(ys, 1) if ys else
          torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
     return y, S
+
+
+def _chunks(a: torch.Tensor, chunk: int, fill: float) -> torch.Tensor:
+    """(B,T,H,N) -> (B,H,T/chunk,chunk,N), T padded with ``fill``."""
+    B, T, H, N = a.shape
+    n = -(-T // chunk)
+    a = a.permute(0, 2, 1, 3)
+    a = torch.cat([a, a.new_full((B, H, n * chunk - T, N), fill)], 2)
+    return a.reshape(B, H, n, chunk, N)
+
+
+def wkv_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor] = None, *,
+                        chunk: int = 16,
+                        operand_rounding: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' algorithm (``csrc/rwkv6_backward.cu``):
+    ``wkv_bwd_ref``'s function (same arguments and results) by the chunked
+    form, division-free.
+
+    T is cut into chunks of ``chunk`` steps, the last padded with the
+    identity step (w = 1, r = k = v = dy = 0).  In a chunk, every decay a
+    running product of its w's in step order: D_t = prod_{q<t} w_q,
+    E_t = prod_{t<q<C} w_q, P(s,t) = prod_{s<q<t} w_q; r~ = r D, k~ = k E.
+    (1) The state S_b at each chunk's start, walking forward:
+    S <- diag(D_C) S + k~^T V.  (2) The state's gradient G_e at each
+    chunk's end, walking backward: G <- diag(D_C) G + r~^T dY (dstate0 the
+    last).  (3) Every chunk alone, with Y2 = dY S_b^T, X = V G_e^T,
+    B2 = dY V^T and A the forward's (running products, the bonus on the
+    diagonal):  dv = k~ G_e + A^T dY;  per column i, walking t down with
+    R_s(t) = sum_{s'>t} P(t,s') r_s' B2[s',s]:
+    dr_t = D_t Y2_t + sum_{s<t} P(s,t) k_s B2[t,s] + u k_t B2[t,t],
+    dk_t = E_t X_t + R_t(t) + u r_t B2[t,t], du += r_t k_t B2[t,t], and
+    dw_t = rowsum(G_t S_{t-1}) in four terms: E_t Z_t (Z_0 = rowsum(G_e
+    S_b), Z_{t+1} = w_t Z_t + k_t X_t: the term D_t E_t rowsum(G_e S_b)
+    and the G_e-V cross term), D_t W_t (W = sum_{s'>t} P(t,s') r_s' Y2_s',
+    the S_b-dY cross term) and sum_{s<t} P(s,t) k_s R_s(t) (the pairs
+    s < t < s').  ``operand_rounding`` rounds the products' operands as
+    ``_fp.matmul`` says ("tf32x3" is the kernels')."""
+    B, T, H, N = r.shape
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    r, k, v, w, dy = (a.float() for a in (r, k, v, w, dy))
+    u = u.float()
+    dev = r.device
+    C = chunk
+    rc, kc, vc, dyc = (_chunks(a, C, 0.0) for a in (r, k, v, dy))
+    wc = _chunks(w, C, 1.0)
+    n = rc.shape[2]
+    D = [torch.ones_like(wc[:, :, :, 0])]
+    for t in range(C):
+        D.append(D[-1] * wc[:, :, :, t])
+    E = [torch.ones_like(D[0])]
+    for t in reversed(range(1, C)):
+        E.insert(0, E[0] * wc[:, :, :, t])
+    D, dc = torch.stack(D[:C], 3), D[C]  # (B,H,n,C,N), (B,H,n,N)
+    E = torch.stack(E, 3)
+    rt, kt = rc * D, kc * E
+
+    def mm(a, b):
+        return matmul(a, b, operand_rounding)
+
+    # (1) and (2): the boundary states and gradients
+    zeros = torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
+    S = zeros if state0 is None else state0.float()
+    Sb = []
+    for c in range(n):
+        Sb.append(S)
+        S = dc[:, :, c, :, None] * S + mm(kt[:, :, c].transpose(-1, -2),
+                                          vc[:, :, c])
+    G = zeros if dstate is None else dstate.float()
+    Ge = [None] * n
+    for c in reversed(range(n)):
+        Ge[c] = G
+        G = dc[:, :, c, :, None] * G + mm(rt[:, :, c].transpose(-1, -2),
+                                          dyc[:, :, c])
+    Sb, Ge = torch.stack(Sb, 2), torch.stack(Ge, 2)  # (B,H,n,N,N)
+    # (3): every chunk's products
+    Y2 = mm(dyc, Sb.transpose(-1, -2))  # (t, i)
+    X = mm(vc, Ge.transpose(-1, -2))  # (s, i)
+    B2 = mm(dyc, vc.transpose(-1, -2))  # (t, s)
+    A = torch.zeros((B, H, n, C, C), dtype=torch.float32, device=dev)
+    A[..., range(C), range(C)] = (rc * u[None, :, None, None] * kc).sum(-1)
+    for t in range(C):
+        q = rc[:, :, :, t]
+        for s in reversed(range(t)):
+            A[..., t, s] = (q * kc[:, :, :, s]).sum(-1)
+            q = q * wc[:, :, :, s]
+    dv = mm(kt, Ge) + mm(A.transpose(-1, -2), dyc)
+    # per column i: the recurrences over t and the pairs
+    uu = u[None, :, None]
+    Z = (Ge * Sb).sum(-1)
+    EZ = []
+    for t in range(C):
+        EZ.append(E[:, :, :, t] * Z)
+        Z = wc[:, :, :, t] * Z + kc[:, :, :, t] * X[:, :, :, t]
+    R = [torch.zeros_like(Z) for _ in range(C)]
+    W = torch.zeros_like(Z)
+    du = torch.zeros_like(Z)
+    dr, dk, dw = (torch.empty_like(rc) for _ in range(3))
+    for t in reversed(range(C)):
+        rt_, kt_, wt_ = rc[:, :, :, t], kc[:, :, :, t], wc[:, :, :, t]
+        q = torch.ones_like(Z)
+        acc_r, acc_w = torch.zeros_like(Z), torch.zeros_like(Z)
+        for s in reversed(range(t)):
+            kq = kc[:, :, :, s] * q
+            acc_r = acc_r + B2[..., t, s, None] * kq
+            acc_w = acc_w + R[s] * kq
+            q = q * wc[:, :, :, s]
+        bonus = B2[..., t, t, None]
+        Dt, Et = D[:, :, :, t], E[:, :, :, t]
+        dr[:, :, :, t] = Dt * Y2[:, :, :, t] + acc_r + uu * kt_ * bonus
+        dk[:, :, :, t] = Et * X[:, :, :, t] + R[t] + uu * rt_ * bonus
+        dw[:, :, :, t] = EZ[t] + Dt * W + acc_w
+        du = du + rt_ * kt_ * bonus
+        W = wt_ * W + rt_ * Y2[:, :, :, t]
+        for s in range(t):
+            R[s] = wt_ * R[s] + rt_ * B2[..., t, s, None]
+
+    def model_layout(a):  # (B,H,n,C,N) -> (B,T,H,N)
+        return a.reshape(B, H, n * C, -1)[:, :, :T].permute(0, 2, 1, 3)
+
+    return (*(model_layout(a).contiguous() for a in (dr, dk, dv, dw)),
+            du.sum((0, 2)), G)

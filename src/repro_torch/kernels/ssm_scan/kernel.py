@@ -33,13 +33,17 @@ tf32_mma.cuh``); ``LIBRARIES`` names it for a caller that builds every
 library up front.
 
 ``ssm_scan_backward`` is the recurrence's gradient, a library of its own
-(``csrc/ssm_backward.cu``, one kernel, ``bwd``): the JAX package has no
-kernel for it (XLA differentiates its scan).  It keeps no state from the
-forward: one launch runs the recurrence forward again, keeping the state
-every ``BWD_CHUNK`` steps in a scratch it allocates, then walks the chunks
-backward (``ref.selective_scan_bwd_ref`` is its function).  It counts its
-launches as the forward does, in ``.launches`` and
-``.launches_by_kernel``.
+(``csrc/ssm_backward.cu``): the JAX package has no kernel for it (XLA
+differentiates its scan).  Mamba2's chunked SSD form in chunks of
+``CHUNK`` steps, its products on the tensor cores in 3xTF32, its segment
+sums in float64, division-free, two launches a call, in ``BWD_KERNELS``'
+order: ``bounds`` walks the chunks forward for the state at each chunk's
+start and backward for the state's gradient at each chunk's end, into a
+scratch the wrapper allocates; ``chunk`` takes every chunk's gradients in
+parallel (``ref.selective_scan_bwd_ref`` is its function,
+``ref.ssd_bwd_chunked_ref(..., chunk=CHUNK, operand_rounding="tf32x3")``
+its algorithm).  It keeps no state from the forward.  It counts each
+launch as the forward does, in ``.launches`` and ``.launches_by_kernel``.
 """
 from __future__ import annotations
 
@@ -70,9 +74,9 @@ CHUNK = 64
 DECODE_MAX_T = 8
 # the kernels by name, as the C entry point numbers them
 KERNELS = {"chunked": 0, "decode_rows": 1}
-# the backward's one kernel; the steps between two of its boundary states
-BWD_KERNELS = ("bwd",)
-BWD_CHUNK = 16
+# the backward's two kernels by name, as the C entry point numbers them,
+# in launch order; its chunks are the forward's CHUNK steps
+BWD_KERNELS = {"bounds": 0, "chunk": 1}
 
 
 def kernel_for(T: int) -> str:
@@ -97,7 +101,7 @@ def bwd_library() -> ctypes.CDLL:
     """The backward's library, built (or loaded) at the first call."""
     lib = _build.load_library("ssm_backward", LIBRARIES["ssm_backward"])
     lib.ssm_scan_backward.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.ssm_scan_backward.restype = ctypes.c_int
     return lib
 
@@ -191,18 +195,18 @@ def ssm_scan_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                       ) -> Tuple[torch.Tensor, ...]:
     """The gradients of ``ssm_scan(x, b, c, dt, a, d, state0)`` for the
     output's gradient ``dy`` and the final state's ``dstate`` (None: zero):
-    one launch of ``csrc/ssm_backward.cu`` on the current CUDA stream.
+    the launches of ``BWD_KERNELS`` in order on the current CUDA stream.
 
     Takes the forward's inputs as ``ssm_scan`` does, dy (B,T,H,P) and
     dstate (B,H,P,N), float32 and contiguous on x's device.  Returns (dx
     (B,T,H,P), db, dc (B,T,N), ddt (B,T,H), da, dd (H,), dstate0
     (B,H,P,N), None when state0 is None), float32;
-    ``ref.selective_scan_bwd_ref`` is its function.  The kernel writes each
-    block's share of the sums over heads (db, dc) and over batch rows (da,
-    dd), summed here in a fixed order, and its boundary states every
-    ``BWD_CHUNK`` steps into a scratch of B H ceil(T / BWD_CHUNK) 4096
-    floats.  Raises on anything else, and when the launch fails.  At T = 0
-    nothing launches: dstate0 is dstate."""
+    ``ref.selective_scan_bwd_ref`` is its function.  The kernels write
+    each head's share of the sums over heads (db, dc) and each chunk's of
+    the sums over batch rows and steps (da, dd), summed here in a fixed
+    order, and the boundary states and gradients into a scratch of
+    2 B H ceil(T / CHUNK) P N floats.  Raises on anything else, and when a
+    launch fails.  At T = 0 nothing launches: dstate0 is dstate."""
     name = "ssm_scan_backward"
     B, T, H, P, N = _check(name, x, b, c, dt, a, d,
                            (("state0", state0), ("dstate", dstate)),
@@ -217,27 +221,31 @@ def ssm_scan_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return (dx, torch.zeros_like(b), torch.zeros_like(c),
                 torch.empty_like(dt), torch.zeros_like(a),
                 torch.zeros_like(d), dstate0)
+    chunks = -(-T // CHUNK)
     db_part, dc_part = (torch.empty((B, T, H, N), dtype=torch.float32,
                                     device=x.device) for _ in range(2))
     ddt = torch.empty_like(dt)
-    da_part, dd_part = (torch.empty((B, H), dtype=torch.float32,
+    da_part, dd_part = (torch.empty((B, chunks, H), dtype=torch.float32,
                                     device=x.device) for _ in range(2))
-    chunks = -(-T // BWD_CHUNK)
-    bounds = torch.empty(B * H * chunks * 4096, dtype=torch.float32,
-                         device=x.device)
+    s_bounds, g_bounds = (torch.empty((B, H, chunks, P, N),
+                                      dtype=torch.float32, device=x.device)
+                          for _ in range(2))
     ptrs = [None if t is None else t.data_ptr() for t in (
         x, b, c, dt, a, d, state0, dy, dstate, dx, db_part, dc_part, ddt,
-        da_part, dd_part, dstate0, bounds)]
+        da_part, dd_part, dstate0, s_bounds, g_bounds)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = bwd_library().ssm_scan_backward(*ptrs, B, T, H, P, N, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           f"(B={B}, T={T}, H={H}, P={P}, N={N})")
-    ssm_scan_backward.launches += 1
-    ssm_scan_backward.launches_by_kernel["bwd"] += 1
-    return (dx, db_part.sum(2), dc_part.sum(2), ddt, da_part.sum(0),
-            dd_part.sum(0), dstate0)
+        for which, number in BWD_KERNELS.items():
+            err = bwd_library().ssm_scan_backward(*ptrs, B, T, H, P, N,
+                                                  number, stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch of {which} failed with "
+                                   f"CUDA error {err} (B={B}, T={T}, H={H}, "
+                                   f"P={P}, N={N})")
+            ssm_scan_backward.launches += 1
+            ssm_scan_backward.launches_by_kernel[which] += 1
+    return (dx, db_part.sum(2), dc_part.sum(2), ddt, da_part.sum((0, 1)),
+            dd_part.sum((0, 1)), dstate0)
 
 
 # launches since the last reset, in all and by kernel; only a successful

@@ -17,8 +17,10 @@ return y in x's dtype and the final state in float32.
 
 ``selective_scan_bwd_ref`` is the gradient of ``selective_scan_ref``,
 the reverse recurrence in float32: the CPU path of
-``ops.SelectiveScan``'s backward and the function the backward kernel
-(``csrc/ssm_backward.cu``) is held to on the card.
+``ops.SelectiveScan``'s backward and the function the backward kernels
+(``csrc/ssm_backward.cu``) are held to on the card;
+``ssd_bwd_chunked_ref`` is those kernels' algorithm, the chunked SSD form
+with its float64 segment sums, exact or in their 3xTF32 rounding.
 
 ``ssd_chunked_ref`` and ``ssm_decode_rows_ref`` are the two Hopper
 kernels' algorithms (``csrc/ssm_chunked.cu``, ``csrc/ssm_decode.cu``) in
@@ -232,3 +234,116 @@ def ssm_decode_rows_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     y = (torch.stack(ys, 1) if ys else
          torch.zeros((B, 0, H, P), dtype=torch.float32, device=x.device))
     return y, h
+
+
+def ssd_bwd_chunked_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                        state0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor] = None, *,
+                        chunk: int = 64,
+                        operand_rounding: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' algorithm (``csrc/ssm_backward.cu``):
+    ``selective_scan_bwd_ref``'s function (same arguments and results) by
+    the chunked SSD form, division-free.
+
+    T is cut into chunks of ``chunk`` steps, the last padded with dt = 0
+    (the identity step).  In a chunk, la = dt a (float32), its prefix sums
+    pfx in float64 from the chunk's start, every difference of them taken
+    in float64 and rounded to float32 only in front of exp: e_t =
+    exp(pfx_t), the chunk's decay exp(pfx_L), w_s = exp(pfx_L - pfx_s)
+    dt_s, L[t,s] = exp(pfx_t - pfx_s) dt_s (s <= t).  (1) The state h_b at
+    each chunk's start, walking forward: h <- exp(pfx_L) h + (diag(w) X)^T
+    B.  (2) The state's gradient dh_e at each chunk's end, walking
+    backward: dh <- exp(pfx_L) dh + (diag(e) dY)^T C (dstate0 the last).
+    (3) Every chunk and head alone, with G = C B^T, M = L G, dM = dY X^T
+    (s <= t), dG = dM L:  dx = M^T dY + (diag(w) B) dh_e^T + d dY;
+    db = diag(w) X dh_e + dG^T C and dc = (diag(e) dY) h_b + dG B, each
+    head's share, summed over heads in order;  the gradient of la_q,
+    sum_{t>=q, s<q} (dM M)[t,s] + sum_{t>=q} I_t + exp(pfx_L) <dh_e, h_b>
+    + sum_{s<q} w_s J_s (I_t = c_t . (e dY h_b)_t, J_s = b_s . (X dh_e)_s:
+    the gradients through the segment sums, e and the state's decays),
+    taken as one exclusive prefix sum in float64, gives ddt_q = a dla_q +
+    sum_t (dM G exp(pfx_t - pfx_q))[t,q] + J_q exp(pfx_L - pfx_q) and da =
+    sum dt dla over chunks, then batch rows, in order.
+    ``operand_rounding`` rounds the products' operands as ``_matmul`` says
+    ("tf32x3" is the kernels')."""
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    x, b, c, dt, a, d, dy = (t.float() for t in (x, b, c, dt, a, d, dy))
+    dev = x.device
+    C = chunk
+    n = -(-T // C)
+
+    def pieces(v):  # (B,T,...) -> (B,n,C,...), T zero-padded
+        v = torch.cat([v, v.new_zeros((B, n * C - T, *v.shape[2:]))], 1)
+        return v.reshape(B, n, C, *v.shape[2:])
+
+    # heads first: x, dy (B,H,n,C,P); dt (B,H,n,C); b, c (B,1,n,C,N)
+    xc, dyc = (pieces(v).permute(0, 3, 1, 2, 4) for v in (x, dy))
+    dtc = pieces(dt).permute(0, 3, 1, 2)
+    bc, cc = (pieces(v)[:, None] for v in (b, c))
+    pfx = torch.cumsum((dtc * a[None, :, None, None]).double(), -1)
+    total = pfx[..., -1:]
+    e = torch.exp(pfx.float())
+    wts = torch.exp((total - pfx).float()) * dtc
+    decay = torch.exp(total.float())[..., None]  # (B,H,n,1,1)
+
+    def mm(p, q):
+        return _matmul(p, q, operand_rounding)
+
+    # (1) and (2): the boundary states and gradients
+    zeros = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
+    h = zeros if state0 is None else state0.float()
+    hb = []
+    for i in range(n):
+        hb.append(h)
+        h = decay[:, :, i] * h + mm((xc[:, :, i] * wts[:, :, i, :, None])
+                                    .transpose(-1, -2), bc[:, :, i])
+    g = zeros if dstate is None else dstate.float()
+    dhe = [None] * n
+    for i in reversed(range(n)):
+        dhe[i] = g
+        g = decay[:, :, i] * g + mm((dyc[:, :, i] * e[:, :, i, :, None])
+                                    .transpose(-1, -2), cc[:, :, i])
+    hb, dhe = torch.stack(hb, 2), torch.stack(dhe, 2)  # (B,H,n,P,N)
+    # (3): every chunk and head
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev))
+    ex = torch.exp((pfx[..., :, None] - pfx[..., None, :]).float())
+    L = torch.where(mask, ex * dtc[..., None, :], 0.0)  # (t, s)
+    Gm = mm(cc, bc.transpose(-1, -2))
+    M = L * Gm
+    dM = torch.where(mask, mm(dyc, xc.transpose(-1, -2)), 0.0)
+    dG = dM * L
+    ydh = mm(dyc * e[..., None], hb)  # (t, n), e_t (dY h_b)
+    xdh = mm(xc, dhe)  # (s, n)
+    dx = (mm(M.transpose(-1, -2), dyc)
+          + mm(bc * wts[..., None], dhe.transpose(-1, -2))
+          + d[None, :, None, None, None] * dyc)
+    dc = ydh + mm(dG, bc)
+    db = wts[..., None] * xdh + mm(dG.transpose(-1, -2), cc)
+    # the gradient of la through the segment sums, e and the decays: one
+    # exclusive prefix sum in float64 of colsum(Q) - rowsum(Q) + w J - I,
+    # Q = dM M strictly below the diagonal, from sum_t I_t + exp(pfx_L)
+    # <dh_e, h_b>
+    Q = torch.tril(dM * M, -1)
+    I = (cc * ydh).sum(-1)  # (B,H,n,C)
+    J = (bc * xdh).sum(-1)
+    term = (Q.sum(-2).double() - Q.sum(-1).double()
+            + (wts * J).double() - I.double())
+    dla = ((torch.cumsum(term, -1) - term) + I.double().sum(-1, True)
+           + (decay[..., 0] * (dhe * hb).sum((-1, -2))[..., None]).double())
+    ddt = (a[None, :, None, None].double() * dla
+           + torch.where(mask, dM * Gm * ex, 0.0).sum(-2).double()
+           + (J * torch.exp((total - pfx).float())).double()).float()
+    da = (dtc.double() * dla).sum(-1).float()
+
+    def model_layout(v):  # (B,H,n,C,...) -> (B,T,H,...)
+        v = v.reshape(B, H, n * C, *v.shape[4:])[:, :, :T]
+        return v.permute(0, 2, 1, *range(3, v.dim())).contiguous()
+
+    return (model_layout(dx), model_layout(db).sum(2),
+            model_layout(dc).sum(2), model_layout(ddt), da.sum((0, 2)),
+            (dy * x).sum((0, 1, 3)), g)

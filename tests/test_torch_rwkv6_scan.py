@@ -176,4 +176,4 @@ def test_kernel_wrapper_checks_its_inputs():
     assert kernel.LIBRARIES == {"rwkv6_scan": sources,
                                 "rwkv6_backward": [kernel.BWD_SOURCE]}
     assert all(src.is_file() for src in [*sources, kernel.BWD_SOURCE])
-    assert (kernel.CSRC / "cp_async.cuh").is_file()
+    assert (kernel.CSRC.parent.parent / "csrc" / "cp_async.cuh").is_file()

@@ -304,7 +304,10 @@ def test_wrappers_refuse_what_has_no_gradient():
     with pytest.raises(ValueError, match="dstate must be"):
         kernel.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds[..., :1])
     assert kernel.rwkv6_scan_backward.launches == 0
-    assert kernel.rwkv6_scan_backward.launches_by_kernel == {"bwd": 0}
+    # two kernels a call, in this order: the boundary pass, the chunks
+    assert list(kernel.BWD_KERNELS) == ["bounds", "chunk"]
+    assert kernel.rwkv6_scan_backward.launches_by_kernel == {"bounds": 0,
+                                                             "chunk": 0}
     assert kernel.BWD_SOURCE.is_file()
     assert kernel.LIBRARIES["rwkv6_backward"] == [kernel.BWD_SOURCE]
 

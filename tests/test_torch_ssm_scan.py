@@ -234,3 +234,8 @@ def test_kernel_wrapper_checks_its_inputs():
         "ssm_backward": [kernel.BWD_SOURCE]}
     assert all(src.is_file() for srcs in kernel.LIBRARIES.values()
                for src in srcs)
+    # the backward's source holds its two kernels, chunked on 3xTF32
+    # tensor cores; the earlier one-block-per-(b, h) kernel is gone
+    bwd = kernel.BWD_SOURCE.read_text()
+    assert all(f"ssm_bwd_{k}_kernel(" in bwd for k in kernel.BWD_KERNELS)
+    assert "ssm_bwd_kernel" not in bwd and "mma_3xtf32" in bwd

@@ -214,7 +214,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    AdamW steps at 4 x 512: step wall, busy device time, idle share, the
    scans' backward share of it, peak memory; (d) ``train_local`` of each
    reduced.  Phases 4-18 launch no backward kernel (checked after phases
-   10 and 18).
+   10 and 18);
+21. the dry run against the card (``dryrun_phase``): the bf16 steps of
+   phases 19 (c) and 20 (c) are not run again; each arch's step is traced
+   on ``meta`` tensors through ``launch/dryrun.py: run_one`` at
+   ``InputShape(..., 512, 4, "train")`` and held to what those steps
+   measured: (a) the trace's params and AdamW state bytes equal to the
+   bytes the run's tensors requested from the caching allocator, and
+   ``torch.cuda.memory_allocated``'s growth within the allocator's
+   rounding (``alloc_rounding``); (b) the trace's FLOPs
+   outside the port's kernels against ``FlopCounterMode``'s count of the
+   run's first step on the card, exactly (the card's kernels, launched
+   through ``ctypes``, are invisible to the counter); printed without a
+   gate: (c) the trace's peak over ``torch.cuda.max_memory_allocated``,
+   (d) ``model_flops`` over the busy device time at 989e12 FLOP/s, beside
+   ``nvidia-smi``'s name and power limit.
 
 Every kernel is built in phase 2 and held to its plain version in phase 3
 (#6 also at the served shapes of phases 16-18: their GQA ratios, MHA,
@@ -668,6 +682,11 @@ RECURRENT_TRAIN = {
 # adamw(warmup_cosine(*BF16_SCHEDULE)) on one batch of BF16_TRAIN_BATCH;
 # (d) train_local of each, reduced, LOCAL_TRAIN
 RECURRENT_ARCHS = (RWKV_ARCH, ZAMBA_ARCH)
+# phase 21 (a): the CUDA caching allocator rounds every block up to a
+# multiple of ALLOC_ROUND bytes, and splits a free block for a request
+# over ALLOC_SMALL only when more than ALLOC_SMALL would be left
+ALLOC_ROUND = 512
+ALLOC_SMALL = 1 << 20
 # kernel #6's three kernels, by a substring of the profiler's name
 # the LSTM sequence kernels, by a substring of the profiler's name: #1, #2,
 # and #3's two launches a call
@@ -6545,6 +6564,7 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
     the device's busy time and idle share over a profiled step, #6's
     backward device time summed over it, and the peak memory."""
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
@@ -6555,30 +6575,37 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
 
     cfg = get_config(ZOO_ARCH)
     L = cfg.n_layers
-    params = nn.tree_cast(params_from_numpy(numpy_params(
-        zoo_parity_config(cfg), ZOO_SEED, DRAW_CHUNK), "cuda"),
-        getattr(torch, cfg.param_dtype))
+    grown = MemoryGrowth()
+    with grown:
+        params = nn.tree_cast(params_from_numpy(numpy_params(
+            zoo_parity_config(cfg), ZOO_SEED, DRAW_CHUNK), "cuda"),
+            getattr(torch, cfg.param_dtype))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in train_batch(
         cfg, TRAIN_SEED, BF16_TRAIN_BATCH).items()}
     model = get_model(cfg)
     opt = adamw(warmup_cosine(*BF16_SCHEDULE),
                 moment_dtype=cfg.opt_moment_dtype)
-    state = opt.init(params)
+    with grown:
+        state = opt.init(params)
     step = make_train_step(model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls, per_step = [], [], []
+    counter = FlopCounterMode(display=False)
     with counting_calls(plain) as plain_calls:
-        for _ in range(BF16_TRAIN_STEPS):
+        for i in range(BF16_TRAIN_STEPS):
             _reset_launches(flash, bwd)
             t0 = time.perf_counter()
-            params, state, m = step(params, state, batch)
+            # phase 21 (b): the first step's FLOPs as the card ran it
+            with counter if i == 0 else contextlib.nullcontext():
+                params, state, m = step(params, state, batch)
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             per_step.append({**dict(flash.launches_by_kernel),
                              **dict(bwd.launches_by_kernel)})
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 2**30
     # a bf16 step's backward takes the tensor-core pair, and no SIMT kernel
     want = {"simt": 0, "prefill_wgmma": L, "decode_split": 0, "bwd_dq": 0,
             "bwd_dkdv": 0, "bwd_dq_wgmma": L, "bwd_dkdv_wgmma": L}
@@ -6609,7 +6636,8 @@ def bf16_train_run(flash, bwd, plain: dict) -> dict:
            "busy_ms": busy["busy_ms"], "idle_share": busy["idle_share"],
            "profiled_wall_s": busy["wall_s"],
            "flash_bwd_device_ms_per_step": bwd_ms,
-           "flash_fwd_device_ms_per_step": fwd_ms}
+           "flash_fwd_device_ms_per_step": fwd_ms,
+           **dryrun_readings(grown, counter, peak_bytes)}
     print(f"phase 19 (c): step wall {out['step_wall_s']:.6f} s (median of "
           f"steps 2-{BF16_TRAIN_STEPS}); profiled step busy "
           f"{busy['busy_ms']} ms, idle share {busy['idle_share']}; #6's "
@@ -6993,6 +7021,7 @@ def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
     of each) and the scans' forward device time in it, and the peak
     memory."""
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import get_model
@@ -7001,27 +7030,34 @@ def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
 
     cfg = get_config(arch)
     model = get_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(
-        TRAIN_SEED), "cuda")
+    grown = MemoryGrowth()
+    with grown:
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            TRAIN_SEED), "cuda")
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in train_batch(
         cfg, TRAIN_SEED, BF16_TRAIN_BATCH).items()}
     opt = adamw(warmup_cosine(*BF16_SCHEDULE),
                 moment_dtype=cfg.opt_moment_dtype)
-    state = opt.init(params)
+    with grown:
+        state = opt.init(params)
     step = make_train_step(model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls, per_step = [], [], []
+    counter = FlopCounterMode(display=False)
     with counting_calls(plain) as plain_calls:
-        for _ in range(BF16_TRAIN_STEPS):
+        for i in range(BF16_TRAIN_STEPS):
             _reset_launches(*wrappers)
             t0 = time.perf_counter()
-            params, state, m = step(params, state, batch)
+            # phase 21 (b): the first step's FLOPs as the card ran it
+            with counter if i == 0 else contextlib.nullcontext():
+                params, state, m = step(params, state, batch)
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             per_step.append(_by_kernel(wrappers))
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 2**30
     print(f"phase 20 (c) {arch} bf16 train (B, S) = {BF16_TRAIN_BATCH}, "
           f"{cfg.n_layers} layers: losses {losses}; step walls "
           f"{[round(w, 6) for w in walls]} s; launches a step "
@@ -7058,7 +7094,8 @@ def recurrent_bf16_run(arch: str, wrappers: tuple, plain: dict,
            "flash_device_ms_per_step": device_ms(
                *FLASH_KERNELS.values(), *FLASH_BWD_KERNELS.values()),
            "scan_bwd_share_of_busy": (bwd_ms / busy["busy_ms"]
-                                      if busy["busy_ms"] else None)}
+                                      if busy["busy_ms"] else None),
+           **dryrun_readings(grown, counter, peak_bytes)}
     print(f"phase 20 (c) {arch}: step wall {out['step_wall_s']:.6f} s "
           f"(median of steps 2-{BF16_TRAIN_STEPS}); profiled step busy "
           f"{busy['busy_ms']} ms, idle share {busy['idle_share']}; the scan "
@@ -7174,6 +7211,134 @@ def recurrent_train_phase(wrappers: tuple, plain: dict) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 20 (recurrent training): {out['wall_s']:.3f} s",
           flush=True)
+    return out
+
+
+class MemoryGrowth:
+    """The caching allocator's growth summed over the blocks run under it
+    (phase 21 (a): the params and the optimizer's state as the card holds
+    them): ``allocated``, ``memory_allocated``'s (blocks, rounded), and
+    ``requested``, the bytes the tensors asked for."""
+
+    def __init__(self):
+        self.allocated = self.requested = 0
+
+    @staticmethod
+    def _now():
+        import torch
+
+        # the stats are empty until the allocator's first allocation
+        return (torch.cuda.memory_allocated(), torch.cuda.memory_stats().get(
+            "requested_bytes.all.current", 0))
+
+    def __enter__(self):
+        self._start = self._now()
+        return self
+
+    def __exit__(self, *exc):
+        end = self._now()
+        self.allocated += end[0] - self._start[0]
+        self.requested += end[1] - self._start[1]
+        return False
+
+
+def alloc_rounding(tensors) -> int:
+    """The most the caching allocator adds to these tensors' bytes in
+    ``memory_allocated``: each block rounded up to ``ALLOC_ROUND``, and a
+    block over ``ALLOC_SMALL`` taking the rest of its segment when that rest
+    is ``ALLOC_SMALL`` or less (the allocator splits only a larger rest)."""
+    return sum(ALLOC_ROUND + (ALLOC_SMALL if t.nbytes > ALLOC_SMALL else 0)
+               for t in tensors)
+
+
+def dryrun_readings(grown: MemoryGrowth, counter, peak_bytes: int) -> dict:
+    """What phase 21 holds the dry run to, from a bf16 run: the params'
+    and AdamW state's bytes on the card (allocated and requested), the
+    first step's FLOPs by ``FlopCounterMode`` and the run's peak
+    memory."""
+    return {"param_opt_bytes": grown.allocated,
+            "param_opt_requested_bytes": grown.requested,
+            "step1_flops": int(counter.get_total_flops()),
+            "peak_memory_bytes": int(peak_bytes)}
+
+
+def dryrun_phase(bf16_runs: dict, smi: str) -> dict:
+    """Phase 21: each arch of ``bf16_runs`` (phases 19 (c) and 20 (c):
+    arch -> its run's numbers) traced on meta by ``dryrun.run_one`` at its
+    ``BF16_TRAIN_BATCH`` step, without running the step again.  (a) the
+    trace's params and optimizer state bytes equal the bytes the card's
+    tensors requested from the caching allocator, and its
+    ``memory_allocated`` growth up to the allocator's rounding
+    (``alloc_rounding``); (b) the trace's FLOPs outside the port's
+    kernels equal ``FlopCounterMode``'s count of the card's first step.
+    Printed, no gate: (c) the trace's peak over the run's
+    ``max_memory_allocated``; (d) ``model_flops`` over the busy device
+    time at ``H100.peak_flops_bf16``, beside ``smi``."""
+    import torch
+
+    from repro_torch.configs import H100, InputShape, get_config
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.steps import param_opt_specs
+
+    t_phase = time.perf_counter()
+    B, S = BF16_TRAIN_BATCH
+    shape = InputShape(f"train_{B}x{S}", S, B, "train")
+    out = {}
+    for arch, run in bf16_runs.items():
+        cfg = get_config(arch)
+        rec = run_one(arch, shape, remat=cfg.remat)
+        mem, summ = rec["memory"], rec["step_summary"]
+        meta_bytes = mem["params_bytes"] + mem["opt_state_bytes"]
+        params, opt_state, _ = param_opt_specs(cfg)
+        tensors = [t for t in torch.utils._pytree.tree_leaves(
+            (params, opt_state)) if isinstance(t, torch.Tensor)]
+        rounding = alloc_rounding(tensors)
+        slack = run["param_opt_bytes"] - meta_bytes
+        mfu = rec["roofline"]["model_flops"] / (
+            run["busy_ms"] / 1e3 * H100.peak_flops_bf16)
+        got = {"param_opt_bytes_meta": meta_bytes,
+               "param_opt_bytes_card": run["param_opt_bytes"],
+               "param_opt_requested_bytes_card": run[
+                   "param_opt_requested_bytes"],
+               "rounding_bytes": slack, "rounding_bound_bytes": rounding,
+               "tensors": len(tensors),
+               "aten_flops_meta": summ["aten_flops"],
+               "kernel_flops_meta": summ["kernel_flops"],
+               "flops_card": run["step1_flops"],
+               "peak_bytes_meta": mem["peak_bytes"],
+               "peak_bytes_card": run["peak_memory_bytes"],
+               "peak_ratio": mem["peak_bytes"] / run["peak_memory_bytes"],
+               "model_flops": rec["roofline"]["model_flops"],
+               "busy_ms": run["busy_ms"], "mfu": mfu,
+               "roofline": rec["roofline"], "t_trace_s": rec["t_trace_s"]}
+        out[arch] = got
+        print(f"phase 21 {arch} {shape.name}: (a) params + AdamW "
+              f"{meta_bytes} B traced, {run['param_opt_requested_bytes']} B "
+              f"requested and {run['param_opt_bytes']} B allocated on the "
+              f"card ({slack} B of rounding over {len(tensors)} tensors, "
+              f"at most {rounding}); (b) FLOPs outside the kernels "
+              f"{summ['aten_flops']:.6e} traced, {run['step1_flops']:.6e} "
+              f"counted on the card (the kernels' {summ['kernel_flops']:.6e}"
+              f" by their formulas); (c) peak {mem['peak_bytes']} B traced "
+              f"/ {run['peak_memory_bytes']} B max_memory_allocated = "
+              f"{got['peak_ratio']:.4f}; (d) model_flops "
+              f"{got['model_flops']:.6e} / ({run['busy_ms']:.3f} ms busy x "
+              f"{H100.peak_flops_bf16:.3e}) = {mfu:.4f} on {smi}; traced in "
+              f"{rec['t_trace_s']:.3f} s", flush=True)
+        if (run["param_opt_requested_bytes"] != meta_bytes
+                or not 0 <= slack < rounding):
+            raise AssertionError(f"{arch}: the dry run's params and AdamW "
+                                 f"state ({meta_bytes} B) miss the card's "
+                                 f"{run['param_opt_requested_bytes']} B "
+                                 f"requested, {run['param_opt_bytes']} B "
+                                 f"allocated")
+        if summ["aten_flops"] != run["step1_flops"]:
+            raise AssertionError(f"{arch}: the dry run counts "
+                                 f"{summ['aten_flops']} FLOPs outside the "
+                                 f"kernels, the card's step "
+                                 f"{run['step1_flops']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 21 (dry run): {out['wall_s']:.3f} s", flush=True)
     return out
 
 
@@ -7630,6 +7795,11 @@ def main() -> int:
     recurrent = recurrent_train_phase(
         (wkv, wkv_bwd, ssm, ssm_bwd, flash, flash_bwd), recurrent_plain())
 
+    # phase 21: the dry run on meta held to the bf16 steps of phases 19 (c)
+    # and 20 (c), which it does not run again
+    dryrun = dryrun_phase({ZOO_ARCH: zoo_train["bf16"],
+                           **recurrent["bf16"]}, smi)
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -7799,6 +7969,7 @@ def main() -> int:
             kernels.append(entry)
     print(json.dumps({"zoo_train": zoo_train}, default=str))
     print(json.dumps({"recurrent_train": recurrent}, default=str))
+    print(json.dumps({"dryrun": dryrun}, default=str))
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))

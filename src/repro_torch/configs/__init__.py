@@ -7,11 +7,13 @@ assigned archs of the reference's zoo: the dense transformers
 the paper's forecaster."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import (EncDecConfig, FrontendStub,
-                                      HybridConfig, LSTMConfig, ModelConfig,
-                                      MoEConfig, RWKVConfig, SSMConfig)
+from repro_torch.configs.base import (H100, SHAPES, EncDecConfig,
+                                      FrontendStub, HardwareModel,
+                                      HybridConfig, InputShape, LSTMConfig,
+                                      ModelConfig, MoEConfig, RWKVConfig,
+                                      SSMConfig, shape_applicable)
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.grok_1_314b import CONFIG as _grok
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
@@ -24,10 +26,13 @@ from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2
 
-REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_lstm_paper, _paligemma, _danube, _codeqwen,
-                        _nemotron, _grok, _kimi, _tinyllama, _rwkv6, _zamba2,
-                        _seamless)}
+# the ten assigned architectures, in the reference's assignment order
+ASSIGNED: List[ModelConfig] = [_paligemma, _danube, _codeqwen, _nemotron,
+                               _grok, _kimi, _tinyllama, _rwkv6, _zamba2,
+                               _seamless]
+
+REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in ASSIGNED}
+REGISTRY[_lstm_paper.name] = _lstm_paper
 
 
 def get_config(name: str) -> ModelConfig:
@@ -38,6 +43,13 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["REGISTRY", "get_config", "EncDecConfig", "FrontendStub",
-           "HybridConfig", "LSTMConfig", "ModelConfig", "MoEConfig",
-           "RWKVConfig", "SSMConfig"]
+def get_shape(name: str) -> InputShape:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ASSIGNED", "REGISTRY", "SHAPES", "H100", "get_config",
+           "get_shape", "shape_applicable", "EncDecConfig", "FrontendStub",
+           "HardwareModel", "HybridConfig", "InputShape", "LSTMConfig",
+           "ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig"]

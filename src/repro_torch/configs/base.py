@@ -4,16 +4,17 @@ backbone, shared attention block), the encoder-decoder and the VLM's
 modality frontend.
 
 ``ModelConfig`` keeps the reference's names for the fields every family
-reads, with the reference's defaults; the input shapes and the TPU
-hardware model, which only the reference's dry run reads, are not
-carried.  The transformer fields default to 0 so the LSTM configs
-construct as before.
+reads, with the reference's defaults.  The transformer fields default to
+0 so the LSTM configs construct as before.  The dry run's input shapes
+(``InputShape``, ``SHAPES``, ``shape_applicable``) are the reference's;
+its ``HardwareModel`` describes one H100 (``H100``), not the reference's
+TPU.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -172,6 +173,11 @@ class ModelConfig:
             return True
         return self.attention == "swa"
 
+    @property
+    def has_decoder(self) -> bool:
+        """Everything here decodes (enc-dec includes a text decoder)."""
+        return self.family != "lstm"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -223,3 +229,60 @@ class ModelConfig:
                 self.frontend, n_prefix_tokens=8, embed_dim=64
             )
         return self.replace(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a live dry-run combo; else reason for the skip."""
+    if shape.kind in ("decode", "prefill") and not cfg.has_decoder:
+        return False, "architecture has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_decode:
+        return False, (
+            "full quadratic attention; no sliding-window/block-sparse variant "
+            "configured (see DESIGN.md long_500k skips)"
+        )
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Hardware model for the roofline analysis
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HardwareModel:
+    """A chip's data-sheet rates, the reference's fields.  The default is
+    one NVIDIA H100 SXM (H100 80GB HBM3 at its 700 W power limit): dense
+    bf16 tensor-core FLOP/s, HBM bytes/s and capacity, shared memory an
+    SM in ``vmem_bytes``.  One card has no interconnect to other chips, so
+    its collective bandwidth is 0 and the roofline's collective term is 0."""
+
+    name: str = "h100-sxm"
+    peak_flops_bf16: float = 989e12  # FLOP/s per chip
+    hbm_bw: float = 3.35e12  # B/s per chip
+    ici_bw: float = 0.0  # B/s per link: one card, no collectives
+    hbm_bytes: float = 80e9  # capacity per chip
+    vmem_bytes: float = 228 * 1024  # shared memory per SM
+
+
+H100 = HardwareModel()

@@ -16,14 +16,46 @@ backward launches the two backward kernels on the card
 (``ref.flash_attend_bwd_ref``) on the CPU.  Without grad nothing is
 saved.  p stays in float32 under grad: ``p_dtype`` bfloat16 has no
 backward and raises there.
+
+A tensor on the ``meta`` device (the dry run's trace) takes
+``torch.ops.repro_torch.flash_attention`` and, in the backward,
+``flash_attention_backward`` (``kernels/_meta.py``): the kernels' output
+shapes, and the FLOPs of ``ref.attend_full_ref`` (q Kᵀ and P V over every
+(query, key) pair, 4 B Sq Sk Hq D) and of ``ref.flash_attend_bwd_ref`` (the
+scores again, dP, dQ, dK and dV: 10 B Sq Sk Hq D).  Causal or windowed, the
+plain versions compute every pair and mask after, so the formulas do too.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels._meta import meta_kernel
 from repro_torch.kernels.flash_attention import kernel, ref
+
+
+def _pairs(q, k) -> int:
+    """B Sq Sk Hq D: one product over every (query, key) pair."""
+    return math.prod(q) * k[1]
+
+
+@meta_kernel("flash_attention(Tensor q, Tensor k, Tensor v, Tensor q_pos, "
+             "Tensor kv_pos) -> Tensor",
+             lambda q, k, v, q_pos, kv_pos, out_shape=None:
+             4 * _pairs(q, k))
+def _flash_meta(q, k, v, q_pos, kv_pos):
+    return torch.empty_like(q)
+
+
+@meta_kernel("flash_attention_backward(Tensor q, Tensor k, Tensor v, "
+             "Tensor o, Tensor do, Tensor q_pos, Tensor kv_pos) -> "
+             "(Tensor, Tensor, Tensor)",
+             lambda q, k, v, o, do, q_pos, kv_pos, out_shape=None:
+             10 * _pairs(q, k))
+def _flash_backward_meta(q, k, v, o, do, q_pos, kv_pos):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _forward(q, k, v, q_pos, kv_pos, causal, window, scale, p_bf16):
@@ -39,6 +71,8 @@ def _forward(q, k, v, q_pos, kv_pos, causal, window, scale, p_bf16):
         return ref.attend_full_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                    window=window, scale=scale,
                                    p_dtype=torch.bfloat16 if p_bf16 else None)
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, q_pos, kv_pos)
     raise ValueError(f"flash_attend: unsupported device {q.device}")
 
 
@@ -61,6 +95,8 @@ class FlashAttend(torch.autograd.Function):
             grads = kernel.flash_attention_backward(
                 q, k, v, o, do.contiguous(), q_pos, kv_pos, causal=causal,
                 window=window, scale=scale)
+        elif q.device.type == "meta":
+            grads = _flash_backward_meta(q, k, v, o, do, q_pos, kv_pos)
         else:
             grads = ref.flash_attend_bwd_ref(q, k, v, o, do, q_pos, kv_pos,
                                              causal=causal, window=window,

@@ -3,14 +3,27 @@
 ``repro_torch.models.lstm._forward_int8`` rides it, the edge's inference on
 an int8-synced speed model.  A tensor on a CUDA device launches the kernel
 (``kernel.int8_matmul``) or raises; a tensor on the CPU takes its plain
-version (``ref``).  Nothing falls back.
+version (``ref``).  Nothing falls back.  A tensor on the ``meta`` device
+(the dry run's trace) takes ``torch.ops.repro_torch.int8_matmul``
+(``kernels/_meta.py``): the kernel's output shape, and the plain version's
+2 M K N FLOPs.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels._meta import meta_kernel
 from repro_torch.kernels.int8_matmul import kernel, ref
 from repro_torch.serving.quantize import QTensor
+
+
+@meta_kernel("int8_matmul(Tensor x, Tensor q, Tensor scale) -> Tensor",
+             lambda x, q, scale, out_shape=None:
+             2 * math.prod(x) * q[-1])
+def _int8_meta(x, q, scale):
+    return x.new_empty((*x.shape[:-1], q.shape[-1]))
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -31,6 +44,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         y = kernel.int8_matmul(x2, qt.q, scale)
     elif x.device.type == "cpu":
         y = ref.int8_matmul_ref(x2, qt.q, scale)
+    elif x.device.type == "meta":
+        y = _int8_meta(x2, qt.q, scale)
     else:
         raise ValueError(f"qmatmul: unsupported device {x.device}")
     return y.reshape(*lead, -1)

@@ -22,13 +22,66 @@ Both are forward-only on every device, as the reference's are (reverse-mode
 AD does not go through its ``pallas_call``): a call that needs a gradient
 raises, on the CPU as on the card.
 
-A CUDA tensor launches the kernels or raises; nothing falls back.
+A CUDA tensor launches the kernels or raises; nothing falls back.  A
+tensor on the ``meta`` device (the dry run's trace) takes
+``torch.ops.repro_torch.lstm_sequence``, ``lstm_sequence_fwd_train``,
+``lstm_sequence_bwd`` and ``lstm_cell`` (``kernels/_meta.py``) where the card
+launches #1, #2, #3 and #5: the kernels' output shapes, and the FLOPs of
+their plain versions' matrix products, 8 B H (F + H) a step forward and
+16 B H (F + H) a step backward, times the streams.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels._meta import meta_kernel
 from repro_torch.kernels.lstm_cell import kernel, ref
+
+
+def _step_flops(x, wh, per_step: int) -> int:
+    """``per_step`` B H (F + H) for every row and step of x (..., F), wh
+    (..., H, 4H)."""
+    return per_step * math.prod(x[:-1]) * wh[-2] * (x[-1] + wh[-2])
+
+
+@meta_kernel("lstm_sequence(Tensor x, Tensor wx, Tensor wh, Tensor b) -> "
+             "Tensor",
+             lambda x, wx, wh, b, out_shape=None: _step_flops(x, wh, 8))
+def _sequence_meta(x, wx, wh, b):
+    return x.new_empty((*x.shape[:-2], wh.shape[-2]))
+
+
+@meta_kernel("lstm_sequence_fwd_train(Tensor x, Tensor wx, Tensor wh, "
+             "Tensor b) -> (Tensor, Tensor, Tensor)",
+             lambda x, wx, wh, b, out_shape=None: _step_flops(x, wh, 8))
+def _fwd_train_meta(x, wx, wh, b):
+    H = wh.shape[-2]
+    lead = x.shape[:-1]
+    return (x.new_empty((*lead, 4 * H), dtype=torch.float32),
+            x.new_empty((*lead, H), dtype=torch.float32),
+            x.new_empty((*lead, H), dtype=torch.float32))
+
+
+@meta_kernel("lstm_sequence_bwd(Tensor x, Tensor gates, Tensor c_seq, "
+             "Tensor h_seq, Tensor wx, Tensor wh, Tensor dh, Tensor dc) -> "
+             "(Tensor, Tensor, Tensor, Tensor)",
+             lambda x, gates, c_seq, h_seq, wx, wh, dh, dc, out_shape=None:
+             _step_flops(x, wh, 16))
+def _bwd_meta(x, gates, c_seq, h_seq, wx, wh, dh, dc):
+    f32 = torch.float32
+    return (torch.empty_like(x, dtype=f32), torch.empty_like(wx, dtype=f32),
+            torch.empty_like(wh, dtype=f32),
+            wh.new_empty((*wh.shape[:-2], wh.shape[-1]), dtype=f32))
+
+
+@meta_kernel("lstm_cell(Tensor x, Tensor h, Tensor c, Tensor wx, "
+             "Tensor wh, Tensor b) -> (Tensor, Tensor)",
+             lambda x, h, c, wx, wh, b, out_shape=None:
+             _step_flops(x, wh, 8))
+def _cell_meta(x, h, c, wx, wh, b):
+    return torch.empty_like(h), torch.empty_like(c)
 
 
 class _LSTMSequence(torch.autograd.Function):
@@ -44,6 +97,8 @@ class _LSTMSequence(torch.autograd.Function):
         wx, wh, b = kernel.f32_weights(wx, wh, b)
         if x.device.type == "cuda":
             gates, c_seq, h_seq = kernel.lstm_sequence_fwd_train(x, wx, wh, b)
+        elif x.device.type == "meta":
+            gates, c_seq, h_seq = _fwd_train_meta(x, wx, wh, b)
         else:
             gates, c_seq, h_seq = ref.lstm_sequence_fwd_train_ref(x, wx, wh, b)
         ctx.save_for_backward(x, gates, c_seq, h_seq, wx, wh)
@@ -54,8 +109,8 @@ class _LSTMSequence(torch.autograd.Function):
         x, gates, c_seq, h_seq, wx, wh = ctx.saved_tensors
         dh = dh.float().contiguous()
         dc = torch.zeros_like(dh)  # only the final h is an output
-        bwd = (kernel.lstm_sequence_bwd if x.device.type == "cuda"
-               else ref.lstm_sequence_bwd_ref)
+        bwd = {"cuda": kernel.lstm_sequence_bwd, "meta": _bwd_meta}.get(
+            x.device.type, ref.lstm_sequence_bwd_ref)
         dx, dwx, dwh, db = bwd(x, gates, c_seq, h_seq, wx, wh, dh, dc)
         grads = (dx.to(x.dtype), *(g.to(dt) for g, dt in zip(
             (dwx, dwh, db), ctx.weight_dtypes)))
@@ -64,7 +119,7 @@ class _LSTMSequence(torch.autograd.Function):
 
 
 def _check_device(name: str, x: torch.Tensor) -> None:
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
@@ -81,6 +136,8 @@ def lstm_sequence(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     if x.device.type == "cuda":
         h, _ = kernel.lstm_sequence_fused(x, wx, wh, b)
         return h
+    if x.device.type == "meta":
+        return _sequence_meta(x, wx, wh, b)
     return ref.lstm_sequence_ref(x, wx, wh, b)
 
 
@@ -100,6 +157,8 @@ def lstm_step(x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     _forward_only("lstm_step", x_t, h, c, wx, wh, b)
     if x_t.device.type == "cuda":
         return kernel.lstm_cell(x_t, h, c, wx, wh, b)
+    if x_t.device.type == "meta":
+        return _cell_meta(x_t, h, c, wx, wh, b)
     return ref.lstm_cell_ref(x_t, h, c, wx, wh, b)
 
 
@@ -114,10 +173,11 @@ def lstm_sequence_scan(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     if x.device.type == "cpu":
         return ref.lstm_sequence_scan_ref(x, wx, wh, b)
     B, H = x.shape[0], wh.shape[0]
+    cell = _cell_meta if x.device.type == "meta" else kernel.lstm_cell
     wx, wh, b = kernel.f32_weights(wx, wh, b)  # once, not at every step
     h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
     c = torch.zeros_like(h)
     # one copy to (T,B,F), so that every step's slice is contiguous
     for x_t in x.transpose(0, 1).contiguous():
-        h, c = kernel.lstm_cell(x_t, h, c, wx, wh, b)
+        h, c = cell(x_t, h, c, wx, wh, b)
     return h

@@ -13,14 +13,45 @@ on the card (``kernel.rwkv6_scan_backward``) and takes the plain reverse
 recurrence (``ref.wkv_bwd_ref``) on the CPU.  Without grad nothing is
 saved.  ``out=`` is refused under grad: the kernel would write the final
 state into the caller's tensor where autograd cannot see it.
+
+A tensor on the ``meta`` device (the dry run's trace) takes
+``torch.ops.repro_torch.wkv`` and, in the backward, ``wkv_backward``
+(``kernels/_meta.py``): the kernels' output shapes, and the FLOPs of
+``ref.wkv_ref`` (r_t against the state, 2 B T H N^2) and of
+``ref.wkv_bwd_ref`` (three state products a step, 6 B T H N^2).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._meta import meta_kernel
 from repro_torch.kernels.rwkv6_scan import kernel, ref
+
+
+@meta_kernel("wkv(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+             "Tensor? state0) -> (Tensor, Tensor)",
+             lambda r, k, v, w, u, state0, out_shape=None:
+             2 * math.prod(r) * r[-1])
+def _wkv_meta(r, k, v, w, u, state0):
+    B, _, H, N = r.shape
+    return (torch.empty_like(r),
+            r.new_empty((B, H, N, N), dtype=torch.float32))
+
+
+@meta_kernel("wkv_backward(Tensor r, Tensor k, Tensor v, Tensor w, "
+             "Tensor u, Tensor? state0, Tensor dy, Tensor? dstate) -> "
+             "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+             lambda r, k, v, w, u, state0, dy, dstate, out_shape=None:
+             6 * math.prod(r) * r[-1])
+def _wkv_backward_meta(r, k, v, w, u, state0, dy, dstate):
+    B, _, H, N = r.shape
+    f32 = torch.float32
+    return (*(torch.empty_like(r, dtype=f32) for _ in range(4)),
+            torch.empty_like(u, dtype=f32),
+            r.new_empty((B, H, N, N), dtype=f32))
 
 
 def _forward(r, k, v, w, u, state0, out=None):
@@ -33,6 +64,9 @@ def _forward(r, k, v, w, u, state0, out=None):
     if r.device.type == "cpu":
         y, state = ref.wkv_ref(r, k, v, w, u, state0)
         return y, state if out is None else out.copy_(state)
+    if r.device.type == "meta":
+        y, state = _wkv_meta(r, k, v, w, u, state0)
+        return y, state if out is None else out
     raise ValueError(f"wkv: unsupported device {r.device}")
 
 
@@ -57,7 +91,9 @@ class WKV(torch.autograd.Function):
             return kernel.rwkv6_scan_backward(
                 r, k, v, w, u, state0, dy.contiguous(),
                 None if dstate is None else dstate.contiguous())
-        *grads, dstate0 = ref.wkv_bwd_ref(r, k, v, w, u, state0, dy, dstate)
+        bwd = (_wkv_backward_meta if r.device.type == "meta"
+               else ref.wkv_bwd_ref)
+        *grads, dstate0 = bwd(r, k, v, w, u, state0, dy, dstate)
         return (*grads, None if state0 is None else dstate0)
 
 

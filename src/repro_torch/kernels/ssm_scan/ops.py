@@ -17,14 +17,46 @@ reverse recurrence (``ref.selective_scan_bwd_ref``) on the CPU.  Without
 grad nothing is saved.  ``out=`` is refused under grad: the kernel would
 write the final state into the caller's tensor where autograd cannot see
 it.
+
+A tensor on the ``meta`` device (the dry run's trace) takes
+``torch.ops.repro_torch.selective_scan`` and, in the backward,
+``selective_scan_backward`` (``kernels/_meta.py``): the kernels' output
+shapes, and the FLOPs of ``ref.selective_scan_ref`` (the state against
+c_t, 2 B T H P N) and of ``ref.selective_scan_bwd_ref`` (three state
+products a step, 6 B T H P N).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._meta import meta_kernel
 from repro_torch.kernels.ssm_scan import kernel, ref
+
+
+@meta_kernel("selective_scan(Tensor x, Tensor b, Tensor c, Tensor dt, "
+             "Tensor a, Tensor d, Tensor? state0) -> (Tensor, Tensor)",
+             lambda x, b, c, dt, a, d, state0, out_shape=None:
+             2 * math.prod(x) * b[-1])
+def _scan_meta(x, b, c, dt, a, d, state0):
+    B, _, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((B, H, P, b.shape[-1]), dtype=torch.float32))
+
+
+@meta_kernel("selective_scan_backward(Tensor x, Tensor b, Tensor c, "
+             "Tensor dt, Tensor a, Tensor d, Tensor? state0, Tensor dy, "
+             "Tensor? dstate) -> (Tensor, Tensor, Tensor, Tensor, Tensor, "
+             "Tensor, Tensor)",
+             lambda x, b, c, dt, a, d, state0, dy, dstate, out_shape=None:
+             6 * math.prod(x) * b[-1])
+def _scan_backward_meta(x, b, c, dt, a, d, state0, dy, dstate):
+    B, _, H, P = x.shape
+    f32 = torch.float32
+    return (*(torch.empty_like(t, dtype=f32) for t in (x, b, c, dt, a, d)),
+            x.new_empty((B, H, P, b.shape[-1]), dtype=f32))
 
 
 def _forward(x, b, c, dt, a, d, state0, out=None):
@@ -37,6 +69,9 @@ def _forward(x, b, c, dt, a, d, state0, out=None):
     if x.device.type == "cpu":
         y, state = ref.selective_scan_ref(x, b, c, dt, a, d, state0)
         return y, state if out is None else out.copy_(state)
+    if x.device.type == "meta":
+        y, state = _scan_meta(x, b, c, dt, a, d, state0)
+        return y, state if out is None else out
     raise ValueError(f"selective_scan: unsupported device {x.device}")
 
 
@@ -61,8 +96,9 @@ class SelectiveScan(torch.autograd.Function):
             return kernel.ssm_scan_backward(
                 x, b, c, dt, a, d, state0, dy.contiguous(),
                 None if dstate is None else dstate.contiguous())
-        *grads, dstate0 = ref.selective_scan_bwd_ref(x, b, c, dt, a, d,
-                                                     state0, dy, dstate)
+        bwd = (_scan_backward_meta if x.device.type == "meta"
+               else ref.selective_scan_bwd_ref)
+        *grads, dstate0 = bwd(x, b, c, dt, a, d, state0, dy, dstate)
         return (*grads, None if state0 is None else dstate0)
 
 

@@ -14,9 +14,10 @@ of the zoo trains: the transformers (``dense``, ``moe``, ``vlm``), the
 encoder-decoder (``audio``), RWKV6 (``ssm``) and the Zamba2 hybrid
 (``hybrid``), each scan's gradient in its backward kernel on the card.
 The reference's other mode,
-the production mesh, delegates to its dry run (lower and compile on a
-TPU mesh), which the port does not have: without ``--local`` the launcher
-refuses.  ``--device cpu`` runs the plain versions on the CPU.
+the production mesh, delegates to its dry run; so does the port's: without
+``--local`` the launcher prints how to run ``repro_torch.launch.dryrun``
+(the step traced on ``meta`` against one H100) and exits.  ``--device
+cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -115,11 +116,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not args.local:
-        raise SystemExit(
-            "production-mesh training delegates to the reference's dry run "
-            "(launch/dryrun.py: lower and compile on a TPU mesh), which is "
-            "not ported: it comes with zoo step 7, the analysis tools; run "
-            f"with --local to train --arch {args.arch} reduced on one card")
+        print("production-mesh mode delegates to repro_torch.launch.dryrun "
+              "(the step traced on meta against one H100); run: python -m "
+              f"repro_torch.launch.dryrun --arch {args.arch} --shape "
+              "train_4k")
+        return
     res = train_local(args.arch, args.steps, args.batch, args.seq, args.lr,
                       args.ckpt, device=args.device)
     print(f"done: first_loss={res['first_loss']:.4f} "

@@ -60,8 +60,9 @@ def attend(
     kernels; p_dtype bfloat16 has no backward and raises there.  Without
     grad it is the single forward launch and saves nothing.  On the CPU:
     the chunked scan, ``chunk`` keys a step, differentiated by autograd as
-    the reference's scan is by XLA."""
-    if q.device.type == "cuda":
+    the reference's scan is by XLA.  On the ``meta`` device: the card's
+    path, through ``flash_ops``' meta branch."""
+    if q.device.type in ("cuda", "meta"):
         return flash_ops.flash_attend(q, k, v, q_pos, kv_pos, causal=causal,
                                       window=window, scale=scale,
                                       p_dtype=p_dtype)

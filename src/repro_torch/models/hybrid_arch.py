@@ -182,6 +182,9 @@ def forward(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
         x = _mamba_group_scan(cfg, p["mamba"], n_super * k, rem, x, cache,
                               new)
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if not ks:  # fewer layers than attn_every: no shared block ran
+        empty = x.new_empty((0, B, S, cfg.n_kv_heads, cfg.resolved_head_dim))
+        return x, (new["conv"], new["h"], empty, empty)
     return x, (new["conv"], new["h"], torch.stack(ks), torch.stack(vs))
 
 

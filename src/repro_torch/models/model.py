@@ -12,15 +12,20 @@ RWKV6 (the ``ssm`` family), the Zamba2 hybrid and the encoder-decoder
     prefill(params, batch, max_len)   -> (last_logits, cache)   (the zoo)
     decode_step(params, batch, cache) -> (logits, cache)        (the zoo)
     init_cache(batch, max_len, device)-> cache                  (the zoo)
+
+``input_specs(cfg, shape)`` gives the step's inputs of an ``InputShape`` as
+tensors on the ``meta`` device: shapes and dtypes, no storage.  It is the
+counterpart of the reference's ``ShapeDtypeStruct`` specs, which the dry
+run (``launch/steps.py``) traces the step on.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
@@ -76,3 +81,54 @@ def get_model(cfg: ModelConfig) -> Model:
         )
     raise ValueError(f"unknown family {cfg.family!r}; the port has 'lstm', "
                      "'dense', 'moe', 'vlm', 'ssm', 'hybrid' and 'audio'")
+
+
+# ---------------------------------------------------------------------------
+# meta input specs (the dry-run pattern)
+# ---------------------------------------------------------------------------
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Meta stand-ins for the step function of this input shape, with the
+    reference's keys, shapes and dtypes.
+
+    train   -> kwargs of loss/train step: {"batch": {...}}
+    prefill -> kwargs of prefill step:    {"batch": {...}}
+    decode  -> kwargs of decode step:     {"batch": {...}, "cache": {...}}
+    """
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "lstm":
+        c = cfg.lstm
+        return {"batch": {"x": _spec((B, c.lag, c.n_features), cfg.dtype),
+                          "y": _spec((B, c.out_dim), cfg.dtype)}}
+
+    def token_batch(seq_len):
+        b: Dict[str, Any] = {"tokens": _spec((B, seq_len), torch.int32)}
+        if cfg.frontend is not None:
+            fe = cfg.frontend
+            b["prefix_embed"] = _spec((B, fe.n_prefix_tokens, fe.embed_dim),
+                                      cfg.dtype)
+        return b
+
+    # the VLM prefix counts toward the sequence budget
+    text_len = S - (cfg.frontend.n_prefix_tokens
+                    if cfg.family == "vlm" and cfg.frontend else 0)
+    if shape.kind == "train":
+        b = token_batch(text_len)
+        b["targets"] = _spec((B, text_len), torch.int32)
+        return {"batch": b}
+    if shape.kind == "prefill":
+        return {"batch": token_batch(text_len)}
+    if shape.kind == "decode":
+        # the encoder-decoder's cross K/V and memory positions live in the
+        # cache already
+        return {"batch": {"token": _spec((B, 1), torch.int32),
+                          "pos": _spec((B,), torch.int32)},
+                "cache": get_model(cfg).init_cache(B, S, device="meta")}
+    raise ValueError(shape.kind)

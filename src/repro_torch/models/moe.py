@@ -21,7 +21,9 @@ weighted expert outputs in float32 (``index_add_``; a token's k experts
 are distinct, so no row is added twice in one call).  So a no-drop
 prefill computes the tokens it routes, not the worst case's capacity, and
 a decode step reads only the weights of the experts its tokens chose.  One
-host sync a call reads how many slots each expert got.
+host sync a call reads how many slots each expert got.  On the ``meta``
+device (the dry run's trace) there are no counts to read, and every
+expert runs its full capacity.
 
 Routing is float32 whatever the model's dtype, as the reference's: softmax
 over the router's logits, then the top k by a stable descending sort, so a
@@ -58,6 +60,8 @@ def _normal(generator: torch.Generator, lead: Sequence[int],
     experts would not fit beside the model on the card."""
     std = shape[0] ** -0.5
     out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    if nn.is_meta(device):
+        return out
     for idx in itertools.product(*(range(n) for n in lead)):
         out[idx] = (nn._trunc_normal(generator, shape) * std).to(
             device=device, dtype=dtype)
@@ -176,7 +180,13 @@ def dispatch(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # dropped slots sort after every expert's: key E
     key = torch.where(keep, top_idx.reshape(-1), E)
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=E + 1)[:E].tolist()
+    if x.device.type == "meta":
+        # a meta tensor has no counts to read: every expert runs its full
+        # capacity, the work the reference's one-hot dispatch compiles
+        counts = [B * n_groups * cap] * E
+        order = order.new_empty((E * counts[0],))
+    else:
+        counts = torch.bincount(key, minlength=E + 1)[:E].tolist()
     token = order // k
     weight = top_p.reshape(-1)[order]
     xf = x.reshape(B * S, d)

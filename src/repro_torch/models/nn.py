@@ -4,9 +4,12 @@ Randomness comes from an explicit ``torch.Generator``.  The reference's
 per-path ``fold_in`` of ``jax.random`` keys is not reproduced (torch cannot
 reproduce those streams): parity with the reference comes from carrying its
 weights, or the initial params its fits started from, over
-(``repro_torch.convert``), not from the init.  Norms and rotary embeddings
-compute in float32 and cast back to the input's dtype, as the reference's
-do.
+(``repro_torch.convert``), not from the init.  On the ``meta`` device every
+initialiser returns an empty tensor of the leaf's shape and dtype and
+leaves the generator untouched: the dry run's params (``launch/steps.py``),
+the counterpart of the reference's ``jax.eval_shape(model.init, key)``.
+Norms and rotary embeddings compute in float32 and cast back to the
+input's dtype, as the reference's do.
 """
 from __future__ import annotations
 
@@ -14,6 +17,11 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+def is_meta(device: Optional[torch.device]) -> bool:
+    """Whether ``device`` names the ``meta`` device (shapes, no values)."""
+    return device is not None and torch.device(device).type == "meta"
 
 
 def _trunc_normal(generator: torch.Generator, shape: Sequence[int]
@@ -30,6 +38,8 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
                device: Optional[torch.device] = None) -> torch.Tensor:
     """Truncated-normal fan-in init on [-2, 2] standard deviations, drawn on
     the generator's device and moved to ``device``."""
+    if is_meta(device):
+        return torch.empty((in_dim, out_dim), dtype=dtype, device=device)
     std = scale if scale is not None else in_dim**-0.5
     w = _trunc_normal(generator, (in_dim, out_dim))
     return (w * std).to(device=device, dtype=dtype)
@@ -40,17 +50,29 @@ def stacked_dense_init(generator: torch.Generator, n: int, in_dim: int,
                        scale: Optional[float] = None,
                        device: Optional[torch.device] = None) -> torch.Tensor:
     """(n, in, out) stacked weights, one slice per layer."""
+    if is_meta(device):
+        return torch.empty((n, in_dim, out_dim), dtype=dtype, device=device)
     std = scale if scale is not None else in_dim**-0.5
     w = _trunc_normal(generator, (n, in_dim, out_dim))
     return (w * std).to(device=device, dtype=dtype)
 
 
+def normal_init(generator: torch.Generator, shape: Sequence[int],
+                scale: float, dtype: torch.dtype,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """Standard normal times ``scale``, drawn in float32 on the generator's
+    device and moved to ``device``."""
+    if is_meta(device):
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    w = torch.randn(tuple(shape), dtype=torch.float32,
+                    device=generator.device, generator=generator)
+    return (w * scale).to(device=device, dtype=dtype)
+
+
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
                dtype: torch.dtype,
                device: Optional[torch.device] = None) -> torch.Tensor:
-    w = torch.randn((vocab, dim), dtype=torch.float32,
-                    device=generator.device, generator=generator)
-    return (w * dim**-0.5).to(device=device, dtype=dtype)
+    return normal_init(generator, (vocab, dim), dim**-0.5, dtype, device)
 
 
 def zeros(shape: Sequence[int], dtype: torch.dtype,

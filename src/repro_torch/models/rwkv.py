@@ -74,8 +74,8 @@ def init_layer_stack(generator: torch.Generator, cfg: ModelConfig, n: int,
     def mk(i, o):
         return nn.stacked_dense_init(generator, n, i, o, dt, device=device)
 
-    mix_lora_b = torch.randn((n, N_MIX, MIX_LORA, d), dtype=torch.float32,
-                             device=generator.device, generator=generator)
+    mix_lora_b = nn.normal_init(generator, (n, N_MIX, MIX_LORA, d), 0.01, dt,
+                                device)
     return {
         "attn_norm": nn.ones((n, d), dt, device),
         "mlp_norm": nn.ones((n, d), dt, device),
@@ -88,7 +88,7 @@ def init_layer_stack(generator: torch.Generator, cfg: ModelConfig, n: int,
         # ddlerp token-shift mixing
         "mix_base": nn.zeros((n, N_MIX + 1, d), dt, device),
         "mix_lora_a": mk(d, N_MIX * MIX_LORA),
-        "mix_lora_b": (mix_lora_b * 0.01).to(device=device, dtype=dt),
+        "mix_lora_b": mix_lora_b,
         # data-dependent decay
         "decay_base": nn.zeros((n, d), dt, device),
         "decay_lora_a": mk(d, r),

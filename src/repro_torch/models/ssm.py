@@ -55,11 +55,11 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, n: int,
     def mk(i, o):
         return nn.stacked_dense_init(generator, n, i, o, dt_, device=device)
 
-    conv_w = torch.randn((n, s.conv_dim, xbc_dim), dtype=torch.float32,
-                         device=generator.device, generator=generator)
+    conv_w = nn.normal_init(generator, (n, s.conv_dim, xbc_dim),
+                            s.conv_dim**-0.5, dt_, device)
     return {
         "in_proj": mk(cfg.d_model, d_in_proj),
-        "conv_w": (conv_w * s.conv_dim**-0.5).to(device=device, dtype=dt_),
+        "conv_w": conv_w,
         "conv_b": nn.zeros((n, xbc_dim), dt_, device),
         "A_log": nn.zeros((n, H), torch.float32, device),
         "D": nn.ones((n, H), torch.float32, device),

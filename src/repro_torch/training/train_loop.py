@@ -38,8 +38,12 @@ def make_train_step(model: Model, opt: Optimizer, stacked: bool = False):
             # graph so the caller's tensors never require grad
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
             loss, metrics = model.loss_fn(live, batch)
+            # a leaf the loss does not reach gets a zero gradient, as
+            # jax.grad gives it (zamba2 with fewer layers than attn_every
+            # runs no shared block)
             grads = torch.autograd.grad(loss.sum() if stacked else loss,
-                                        tree_leaves(live))
+                                        tree_leaves(live),
+                                        materialize_grads=True)
         params, opt_state, opt_metrics = opt.update(
             tree_unflatten(live, grads), opt_state, params, stacked=stacked)
         metrics = {k: v.detach() for k, v in metrics.items()}

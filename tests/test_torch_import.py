@@ -82,6 +82,11 @@ ZOO_TRAIN_MODULES = {"repro_torch.training.checkpoint",
                      "repro_torch.training.metrics",
                      "repro_torch.launch.train",
                      "repro_torch.core.weighting"}
+# the zoo's analysis tools: the dry run on meta and the kernels' meta ops
+ANALYSIS_MODULES = {"repro_torch.launch.analysis",
+                    "repro_torch.launch.dryrun",
+                    "repro_torch.launch.mesh", "repro_torch.launch.steps",
+                    "repro_torch.kernels._meta"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -101,6 +106,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert ZOO_REST_MODULES <= names
     assert ENCDEC_VLM_MODULES <= names
     assert ZOO_TRAIN_MODULES <= names
+    assert ANALYSIS_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):

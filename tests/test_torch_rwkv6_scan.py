@@ -166,9 +166,12 @@ def test_kernel_wrapper_checks_its_inputs():
         kernel.rwkv6_scan(h, h, h, h, u)
     with pytest.raises(TypeError, match="float32"):
         kernel.rwkv6_scan(x, x, x, x, u, s0.double())
-    with pytest.raises(ValueError, match="unsupported device"):
-        m = x.to("meta")
-        ops.wkv(m, m, m, m, u.to("meta"))
+    # on meta (the dry run's trace) the meta operator stands in: the
+    # kernel's shapes, no launch
+    m = x.to("meta")
+    y, state = ops.wkv(m, m, m, m, u.to("meta"))
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert state.shape == s0.shape and state.dtype == torch.float32
     assert kernel.rwkv6_scan.launches == 0
     assert kernel.rwkv6_scan.launches_by_kernel == {"chunked": 0,
                                                     "decode_rows": 0}

@@ -182,8 +182,11 @@ def test_train_local_draws_and_launcher_on_the_cpu(tmp_path, capsys):
     train.main(["--arch", "tinyllama-1.1b", "--local", "--steps", "2",
                 "--batch", "2", "--seq", "8", "--device", "cpu"])
     assert "done: first_loss=" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="zoo step 7"):
-        train.main(["--arch", "tinyllama-1.1b"])
+    # without --local the launcher points to the dry run and exits 0, as
+    # the reference's points to its own
+    train.main(["--arch", "tinyllama-1.1b"])
+    assert ("python -m repro_torch.launch.dryrun --arch tinyllama-1.1b "
+            "--shape train_4k") in capsys.readouterr().out
     # the recurrent families train too: two steps on one batch, the loss
     # finite and falling
     for arch in ("rwkv6-3b", "zamba2-1.2b"):

@@ -228,7 +228,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    through ``ctypes``, are invisible to the counter); printed without a
    gate: (c) the trace's peak over ``torch.cuda.max_memory_allocated``,
    (d) ``model_flops`` over the busy device time at 989e12 FLOP/s, beside
-   ``nvidia-smi``'s name and power limit.
+   ``nvidia-smi``'s name and power limit;
+22. the launcher's default mode and the legacy trainer
+   (``calibrated_phase``): (a) the calibrated Table-3 simulation as the
+   README gives it, ``edge_cloud.run_calibrated`` of ``--deployment all
+   --windows 25`` (the speed fit's 100 epochs) and of ``--fast --quantized
+   --static``, each calibrating on the card: one launch of #1 a predict
+   (six) and two at the compiled fit's first mask check, #2 and #3 once a
+   step of its two fits (2 x epochs x 4), no other kernel; every publish
+   of the reference's bytes (model 44,000 B, 11,256 int8; window 5,000;
+   result 1,000), edge-centric failing every window, the paper's
+   orderings; then ``launch.calibrate`` once more for one ``CostModel``:
+   the reference's constants, every measured time above 0, two
+   simulations of it equal, dynamic weighting dearer than static; (b) the
+   legacy ``training.train_loop.fit`` loop from the reference's draws
+   (``tests/data/torch_parity_legacy_fit.npz``: the calibration's window
+   min-max scaled, 100 epochs of 64, 64, 64 and a ragged 58), the trained params within
+   ``LEGACY_ATOL`` of the reference's, #2 and #3 launched 400 times each
+   at those rows, then its wall beside a compiled fit's of the same
+   window, and both's busy device time and idle share over their first
+   ``PROFILED_EPOCHS`` epochs.
 
 Every kernel is built in phase 2 and held to its plain version in phase 3
 (#6 also at the served shapes of phases 16-18: their GQA ratios, MHA,
@@ -334,10 +353,13 @@ KERNEL_ATOL = 1e-5
 # x (read from global memory instead) and #3 runs one row and one step a
 # block; last the LoadForecaster's fit (16 rows, T = 4, F = 1, H = 8) and
 # one row of it
-TRAIN_SHAPES = ((64, 5, 5, 40), (256, 5, 5, 40))
+# the speed fit's and the pretrain's step shapes, and the legacy fit's
+# ragged last minibatch of 250 examples in batches of 64 (phase 22)
+TRAIN_SHAPES = ((64, 5, 5, 40), (256, 5, 5, 40), (58, 5, 5, 40))
 TRAIN_CASES = [
     (*TRAIN_SHAPES[0], "float32"),
     (*TRAIN_SHAPES[1], "float32"),
+    (*TRAIN_SHAPES[2], "float32"),
     (33, 7, 3, 16, "float32"),
     (1, 1, 2, 8, "float32"),
     (130, 12, 4, 24, "float32"),
@@ -391,6 +413,29 @@ INT8_MODEL_NBYTES = 9_644
 # int8 speed predictions on the bus against the reference's (its forward
 # through qmatmul in interpret mode)
 INT8_PRED_ATOL = 1e-5
+# phase 22: the launcher's calibrated mode as the README runs it, then with
+# the other flags; the reference's non-timing constants of
+# benchmarks/calibrate.py at 250 records a window (model_nbytes its 44,000
+# B, not the 31,124 B a float publish moves; --quantized 44,000 / 4 + 256)
+CALIBRATED_WINDOWS = 25
+CALIBRATED_RUNS = {
+    "default": ["--deployment", "all", "--windows", "25"],
+    "fast_quantized_static": ["--deployment", "all", "--windows", "25",
+                              "--fast", "--quantized", "--static"]}
+CALIBRATED_RPW = 250
+CALIBRATED_CONSTANTS = {"ingest_s": 250 / 7.0 * 0.45,
+                        "model_nbytes": 44_000.0, "window_nbytes": 5_000,
+                        "result_nbytes": 1_000}
+CALIBRATED_INT8_NBYTES = 11_256.0
+# the Table-3 rows whose computation is a measured time
+ROWS_COMPUTED = ("batch_inference", "speed_inference", "hybrid_inference",
+                 "speed_training")
+# the legacy per-minibatch fit from the reference's draws (calibrate's
+# window, min-max scaled: 250 examples, 100 epochs of 64, 64, 64, 58)
+LEGACY_FIXTURE = ROOT / "tests" / "data" / "torch_parity_legacy_fit.npz"
+LEGACY_ATOL = 1e-4
+# the epochs of each fit the phase profiles (busy time, idle share)
+PROFILED_EPOCHS = 10
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores, at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -1092,6 +1137,157 @@ def check_params(want: dict, got: dict, atol: float, what: str) -> float:
                                    err_msg=f"{what}/{k}")
         worst = max(worst, float(np.max(np.abs(g - v))))
     return worst
+
+
+def legacy_window(setup: dict, scaled: bool = True) -> dict:
+    """The legacy fixture's window from the port's own sources: the first
+    ``n_records`` of the turbine series, the window ``launch.calibrate``
+    times, min-max scaled over themselves (unless not ``scaled``) and made
+    supervised."""
+    _import_port()
+    from repro_torch.core.windows import make_supervised
+    from repro_torch.streams.normalize import MinMaxScaler
+    from repro_torch.streams.sources import wind_turbine_series
+
+    series = wind_turbine_series(int(setup["series_len"]),
+                                 seed=int(setup["series_seed"]))
+    series = series[:int(setup["n_records"])]
+    if scaled:
+        series = MinMaxScaler.fit(series).transform(series)
+    return make_supervised(series, int(setup["lag"]), 0)
+
+
+def legacy_batch_rows(n: int, batch_size: int, epochs: int) -> list:
+    """The rows of every minibatch of the legacy fit, in order: each epoch
+    every example once, the last minibatch ragged."""
+    return [min(batch_size, n - i) for i in range(0, n, batch_size)] * epochs
+
+
+def run_legacy_fit(fx: dict, device, epochs: Optional[int] = None):
+    """The port's legacy ``fit`` loop (``train_loop.fit_loop``) on
+    ``device`` from the fixture's draws: the reference's init params and
+    its epochs' permutations (the first ``epochs`` of them when given).
+    Returns the ``FitResult``."""
+    import torch
+
+    _import_port()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import get_model
+    from repro_torch.training.train_loop import fit_loop
+
+    setup = unflatten(fx, "setup")
+    return fit_loop(get_model(get_config("lstm-paper")),
+                    {"x": fx["x"], "y": fx["y"]},
+                    params_from_numpy(unflatten(fx, "init"), device),
+                    torch.as_tensor(fx["perms"][:epochs].astype(np.int64)),
+                    batch_size=int(setup["batch_size"]),
+                    lr=float(setup["lr"]), device=device)
+
+
+def check_legacy_fit(fx: dict, res, atol: float) -> float:
+    """Hold a legacy fit to the reference's: its steps, every trained leaf
+    to ``atol`` and its last loss to ``atol`` relative.  Returns the largest
+    |dparam|."""
+    setup = unflatten(fx, "setup")
+    steps = len(legacy_batch_rows(len(fx["x"]), int(setup["batch_size"]),
+                                  int(setup["epochs"])))
+    if res.steps != steps:
+        raise AssertionError(f"legacy fit: {res.steps} steps, the reference "
+                             f"took {steps}")
+    worst = check_params(unflatten(fx, "trained"), res.params, atol,
+                         "legacy fit")
+    np.testing.assert_allclose(res.history[-1]["loss"], float(fx["loss"]),
+                               rtol=atol, err_msg="legacy fit: last loss")
+    return worst
+
+
+@contextlib.contextmanager
+def recording_rows(kernel_mod, names):
+    """Record the rows (B of x (..., B, T, F)) of every call of the named
+    kernel wrappers of ``kernel_mod`` while the block runs; each wrapper's
+    launch counter counts on (a wrapper bumps the counter its module name
+    resolves to)."""
+    rows = {n: [] for n in names}
+    originals = {n: getattr(kernel_mod, n) for n in names}
+    for n, orig in originals.items():
+        def record(x, *args, _orig=orig, _rows=rows[n], **kw):
+            _rows.append(int(x.shape[-3]))
+            return _orig(x, *args, **kw)
+        record.launches = orig.launches
+        setattr(kernel_mod, n, record)
+    try:
+        yield rows
+    finally:
+        for n, orig in originals.items():
+            orig.launches = getattr(kernel_mod, n).launches
+            setattr(kernel_mod, n, orig)
+
+
+def expected_calibration_launches(epochs: int, rpw: int = CALIBRATED_RPW,
+                                  batch_size: int = 64) -> dict:
+    """Launches of one ``launch.calibrate`` on the card: its compiled
+    forecaster's two fits, each ``epochs`` x the bucket's steps of #2 and
+    #3, the first with the bucket's mask check (two no-grad forwards, #1)
+    when the window needs padding; one warm-up and five timed predicts
+    (#1)."""
+    _import_port()
+    from repro_torch.training.compiled import bucket_examples
+
+    n = rpw  # make_supervised of rpw + lag records
+    nb = bucket_examples(n, batch_size)
+    steps = 2 * epochs * (nb // batch_size)
+    return {"lstm_sequence_fused": 6 + (2 if nb != n else 0),
+            "lstm_sequence_fwd_train": steps, "lstm_sequence_bwd": steps,
+            "int8_matmul": 0}
+
+
+def check_calibrated_runs(runs: dict, quantized: bool, n_windows: int
+                          ) -> None:
+    """The launcher's calibrated runs: the three deployments, every bus
+    message of the reference's bytes, edge-centric failing every window
+    and training nowhere else failing, every measured time above 0, and
+    the paper's Table-3 orderings."""
+    _import_port()
+    from repro_torch.runtime.modules import T_BATCH, T_MODEL, T_STREAM
+
+    if set(runs) != set(BUS_DEPLOYMENTS):
+        raise AssertionError(f"calibrated runs of {sorted(runs)}")
+    want = {T_MODEL: CALIBRATED_INT8_NBYTES if quantized
+            else CALIBRATED_CONSTANTS["model_nbytes"],
+            T_STREAM: CALIBRATED_CONSTANTS["window_nbytes"],
+            T_BATCH: CALIBRATED_CONSTANTS["result_nbytes"]}
+    for dep, res in runs.items():
+        for topic, nbytes in want.items():
+            got = {m.nbytes for m in messages(res, topic)}
+            if got and got != {nbytes}:
+                raise AssertionError(f"{dep}: {topic} carried {got} B, the "
+                                     f"reference's {nbytes}")
+        table = res.table3()
+        if any(table[m]["computation"] <= 0 for m in ROWS_COMPUTED
+               if m in table):
+            raise AssertionError(f"{dep}: a computation time not above 0: "
+                                 f"{table}")
+    if len(runs["edge-centric"].failures) != n_windows:
+        raise AssertionError(f"edge-centric: "
+                             f"{len(runs['edge-centric'].failures)} failures "
+                             f"in {n_windows} windows")
+    if "speed_training" in runs["edge-centric"].table3():
+        raise AssertionError("edge-centric trained a speed model")
+    for dep in ("cloud-centric", "edge-cloud-integrated"):
+        if runs[dep].failures or len(messages(runs[dep], T_MODEL)) != \
+                n_windows:
+            raise AssertionError(f"{dep}: failures {runs[dep].failures}")
+    cloud = runs["cloud-centric"].table3()
+    integ = runs["edge-cloud-integrated"].table3()
+    for mod in ("batch_inference", "speed_inference"):
+        if not cloud[mod]["communication"] > integ[mod]["communication"]:
+            raise AssertionError(f"{mod}: cloud-centric communication "
+                                 "does not exceed integrated's")
+    if not integ["batch_inference"]["computation"] > \
+            cloud["batch_inference"]["computation"]:
+        raise AssertionError("integrated batch_inference computation does "
+                             "not exceed cloud-centric's")
 
 
 def check_training_path(fx: dict, run: dict, rtol: float, atol: float
@@ -2951,9 +3147,10 @@ def train_kernel_phase() -> dict:
     (``ref.lstm_sequence_fwd_train_tiled_ref``, and
     ``ref.lstm_sequence_bwd_tiled_ref`` at the tiling the backward reports),
     both run on the card; each kernel rerun bit for bit.  Then both timed at
-    the speed fit's and the pretrain's step shapes beside their plain
-    versions and cuDNN (CUDA events, and the profiler's device time of
-    cuDNN's calls).  Returns the numbers of their rows."""
+    the speed fit's, the pretrain's and the legacy fit's ragged step shapes
+    (``TRAIN_SHAPES``) beside their plain versions and cuDNN (CUDA events,
+    and the profiler's device time of cuDNN's calls).  Returns the numbers
+    of their rows."""
     import torch
 
     from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
@@ -4572,7 +4769,7 @@ def _busy(fn, label: str, calls: int = 1, cpu: bool = True) -> dict:
 def profile_phase(fx: dict) -> dict:
     """Where the time goes, from ``torch.profiler``: each kernel's own
     device time per call (the serving kernel at the serving shape, the
-    training pair at both step shapes), the device's busy time over a warm
+    training pair at its step shapes), the device's busy time over a warm
     drive of the serving path, over one warm speed fit and over one warm
     pretrain; the flash kernel at the served prefill and decode shapes.
     Measures only; where the profiler sees no device events it reports
@@ -7394,6 +7591,192 @@ def recurrent_alone() -> dict:
             "train": recurrent_train_phase(wrappers, recurrent_plain())}
 
 
+def calibrated_phase(wrappers: tuple, others: tuple, smi: str) -> dict:
+    """Phase 22: (a) the launcher's calibrated mode (``CALIBRATED_RUNS``)
+    and one ``launch.calibrate`` of its own, (b) the legacy fit from the
+    reference's draws, then its wall, busy device time and idle share
+    beside a compiled fit of the same window.  ``wrappers`` are the LSTM
+    kernels #1-#4, whose launches each run is held to; ``others`` may not
+    launch at all.  Returns the launches by run and the readings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lstm_forecaster
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.launch import calibrate as calibrate_mod
+    from repro_torch.launch import edge_cloud
+    from repro_torch.runtime import (
+        ALL_DEPLOYMENTS,
+        EdgeCloudSimulation,
+        paper_topology,
+    )
+
+    def counted(label: str, want: dict) -> dict:
+        launches = {w.__name__: w.launches for w in wrappers}
+        stray = {w.__name__: w.launches for w in others if w.launches}
+        print(f"calibrated phase, {label}: launches {launches}, expected "
+              f"{want}", flush=True)
+        if launches != want or stray:
+            raise AssertionError(f"{label}: launches {launches} and {stray}"
+                                 f", expected {want} and no other kernel")
+        return launches
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "runs": {}}
+    # (a) the launcher's default mode, each run calibrating on the card
+    for label, flags in CALIBRATED_RUNS.items():
+        args = edge_cloud.parse_args(flags)
+        _reset_launches(*wrappers, *others)
+        t0 = time.perf_counter()
+        runs = edge_cloud.run_calibrated(args, device="cuda")
+        wall = time.perf_counter() - t0
+        out["launches"][f"calibrated_{label}"] = counted(
+            f"run_calibrated {' '.join(flags)}",
+            expected_calibration_launches(10 if args.fast else 100))
+        check_calibrated_runs(runs, args.quantized, args.windows)
+        out["runs"][label] = {
+            "wall_s": wall, "failures": {d: len(r.failures)
+                                         for d, r in runs.items()},
+            "table3": {d: r.table3() for d, r in runs.items()}}
+        print(f"calibrated phase, {label}: 3 deployments in {wall:.3f} s, "
+              f"edge-centric {len(runs['edge-centric'].failures)} OOM "
+              f"failures, every message of the reference's bytes, the "
+              f"Table-3 orderings hold", flush=True)
+
+    # one CostModel: the reference's constants, two simulations of it equal
+    _reset_launches(*wrappers, *others)
+    cal = calibrate_mod.calibrate(fast=True, device="cuda")
+    out["launches"]["calibrate_fast"] = counted(
+        "calibrate(fast=True)", expected_calibration_launches(10))
+    cost = cal.cost
+    got = {k: getattr(cost, k) for k in CALIBRATED_CONSTANTS}
+    if got != CALIBRATED_CONSTANTS:
+        raise AssertionError(f"calibrated constants {got}, the reference's "
+                             f"{CALIBRATED_CONSTANTS}")
+    times = {k: cal.details[k] for k in ("t_train_s", "t_infer_s", "t_dwa_s")}
+    measured = {k: getattr(cost, k) for k in (
+        "batch_infer_s", "speed_infer_s", "hybrid_combine_s",
+        "weight_solve_s", "speed_train_s")}
+    print(f"calibrated phase: calibrate(fast=True) on {smi}: {times}; "
+          f"cost {measured}", flush=True)
+    if min(*times.values(), *measured.values()) <= 0:
+        raise AssertionError(f"a calibrated time is not above 0: {times}, "
+                             f"{measured}")
+
+    def simulate(name: str, dynamic: bool = True):
+        return EdgeCloudSimulation(
+            ALL_DEPLOYMENTS[name](), paper_topology(), cost,
+            dynamic_weighting=dynamic).run(CALIBRATED_WINDOWS)
+
+    for name in ALL_DEPLOYMENTS:
+        a, b = simulate(name), simulate(name)
+        logs = bus_columns(a.message_log), bus_columns(b.message_log)
+        if a.table3() != b.table3() or a.failures != b.failures or not all(
+                np.array_equal(logs[0][k], logs[1][k]) for k in logs[0]):
+            raise AssertionError(f"{name}: two simulations of one CostModel "
+                                 "differ")
+    dyn, stat = (simulate("edge-cloud-integrated", d).table3()[
+        "hybrid_inference"]["computation"] for d in (True, False))
+    print(f"calibrated phase: two simulations of one CostModel equal in "
+          f"every deployment; integrated hybrid_inference computation "
+          f"dynamic {dyn:.6g} s > static {stat:.6g} s", flush=True)
+    if not dyn > stat:
+        raise AssertionError("dynamic weighting is not dearer than static")
+    out["calibration"] = {"details": cal.details, "cost": measured,
+                          "hybrid_inference_dynamic_s": dyn,
+                          "hybrid_inference_static_s": stat}
+
+    # (b) the legacy fit from the reference's draws
+    fx = load_fixture(LEGACY_FIXTURE)
+    setup = unflatten(fx, "setup")
+    batch_size, epochs = int(setup["batch_size"]), int(setup["epochs"])
+    want_rows = legacy_batch_rows(len(fx["x"]), batch_size, epochs)
+    _reset_launches(*wrappers, *others)
+    names = ("lstm_sequence_fwd_train", "lstm_sequence_bwd")
+    with recording_rows(lstm_kernel, names) as rows:
+        res = run_legacy_fit(fx, "cuda")
+    out["launches"]["legacy_fit"] = counted("legacy fit", {
+        "lstm_sequence_fused": 0, "lstm_sequence_fwd_train": len(want_rows),
+        "lstm_sequence_bwd": len(want_rows), "int8_matmul": 0})
+    if any(rows[n] != want_rows for n in names):
+        raise AssertionError(f"legacy fit: rows a launch "
+                             f"{ {n: sorted(set(r)) for n, r in rows.items()} }"
+                             f", expected {sorted(set(want_rows))} in order")
+    worst = check_legacy_fit(fx, res, LEGACY_ATOL)
+    print(f"calibrated phase: legacy fit from the reference's draws, "
+          f"{res.steps} steps (rows {sorted(set(want_rows))}, "
+          f"{want_rows.count(min(want_rows))} at {min(want_rows)}), params "
+          f"within {worst:.3g} of the reference's (<= {LEGACY_ATOL}), last "
+          f"loss {res.history[-1]['loss']:.6g} (reference "
+          f"{float(fx['loss']):.6g}); its own wall {res.wall_time_s:.6f} s",
+          flush=True)
+    # the full fits' walls unprofiled; the profiles cover the first
+    # PROFILED_EPOCHS epochs of each (~8,000 device events, the host's
+    # operators not traced): 100 epochs took ~56 s of profiling
+    eng = lstm_forecaster(get_config("lstm-paper"), epochs=epochs,
+                          batch_size=batch_size, device="cuda").engine
+    data = {"x": fx["x"], "y": fx["y"]}
+    eng.train(data, None, 0)  # warm: the bucket's mask check
+    _, compiled_wall = eng.train(data, None, 0)
+    t0 = time.perf_counter()
+    legacy = _busy(lambda: run_legacy_fit(fx, "cuda", PROFILED_EPOCHS),
+                   f"legacy fit, its first {PROFILED_EPOCHS} epochs",
+                   cpu=False)
+    eng = lstm_forecaster(get_config("lstm-paper"), epochs=PROFILED_EPOCHS,
+                          batch_size=batch_size, device="cuda").engine
+    eng.train(data, None, 0)
+    compiled = _busy(lambda: eng.train(data, None, 0),
+                     f"compiled fit of the same window, {PROFILED_EPOCHS} "
+                     "epochs (context only)", cpu=False)
+    torch.cuda.synchronize()
+    print(f"calibrated phase: {epochs} epochs' wall, legacy "
+          f"{res.wall_time_s:.6f} s, compiled {compiled_wall:.6f} s; "
+          f"{PROFILED_EPOCHS} epochs profiled in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out["legacy_fit"] = {
+        "max_abs_err": worst, "steps": res.steps,
+        "rows": sorted(set(want_rows)), "wall_s": res.wall_time_s,
+        "compiled_wall_s": compiled_wall, "profiled_epochs": PROFILED_EPOCHS,
+        "profiled": {k: v for k, v in legacy.items()
+                     if k != "device_ms_by_name"},
+        "compiled_profiled": {k: v for k, v in compiled.items()
+                              if k != "device_ms_by_name"}}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"calibrated phase: {out['seconds']:.3f} s", flush=True)
+    return out
+
+
+def calibrated_alone() -> dict:
+    """Phase 22 on its own, for a run on the card that needs nothing else:
+    builds the LSTM and int8 libraries, then ``calibrated_phase``."""
+    import torch
+
+    _import_port()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.int8_matmul import kernel as int8_kernel
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    print(_build.build_all({**lstm_kernel.LIBRARIES,
+                            **int8_kernel.LIBRARIES}), flush=True)
+    wrappers = (lstm_kernel.lstm_sequence_fused,
+                lstm_kernel.lstm_sequence_fwd_train,
+                lstm_kernel.lstm_sequence_bwd, int8_kernel.int8_matmul)
+    others = (lstm_kernel.lstm_cell, flash_kernel.flash_attention,
+              flash_kernel.flash_attention_backward, wkv_kernel.rwkv6_scan,
+              wkv_kernel.rwkv6_scan_backward, ssm_kernel.ssm_scan,
+              ssm_kernel.ssm_scan_backward)
+    return calibrated_phase(wrappers, others, smi)
+
+
 def _by_kernel(wrappers) -> dict:
     """Launches by kernel of each wrapper that counts them (flash
     attention's three, the selective scan's two)."""
@@ -7800,6 +8183,11 @@ def main() -> int:
     dryrun = dryrun_phase({ZOO_ARCH: zoo_train["bf16"],
                            **recurrent["bf16"]}, smi)
 
+    # phase 22: the launcher's calibrated mode and the legacy fit, #1-#3
+    # on their paths (each launch count read over its own run)
+    calibrated = calibrated_phase(wrappers, (cell, flash, flash_bwd, wkv,
+                                             wkv_bwd, ssm, ssm_bwd), smi)
+
     sources = "src/repro_torch/kernels/lstm_cell/csrc/"
     replaces = "src/repro/kernels/lstm_cell/kernel.py:"
     meta = {
@@ -7852,7 +8240,9 @@ def main() -> int:
                           for path, counts in fleet["launches"].items()},
                        **{path: counts.get(kname, 0)
                           for plane in (request, placement, chaos)
-                          for path, counts in plane["launches"].items()}}
+                          for path, counts in plane["launches"].items()},
+                       **{path: counts.get(kname, 0) for path, counts
+                          in calibrated["launches"].items()}}
             row["fleet"] = fleet_rows[kname] if kname in fleet_rows \
                 else None
             row["planes"] = plane_rows.get(kname)
@@ -7970,6 +8360,8 @@ def main() -> int:
     print(json.dumps({"zoo_train": zoo_train}, default=str))
     print(json.dumps({"recurrent_train": recurrent}, default=str))
     print(json.dumps({"dryrun": dryrun}, default=str))
+    print(json.dumps({"calibrated": {k: v for k, v in calibrated.items()
+                                     if k != "launches"}}, default=str))
     print(json.dumps({"scan": scan}))
     print(json.dumps({"fleet": {k: v for k, v in fleet.items()
                                 if k != "launcher"}}, default=str))

@@ -11,7 +11,8 @@ Per time window t (paper Fig. 4):
 
 ``lstm_forecaster`` builds the paper's setup on the card: it predicts
 through the LSTM serving kernel and trains through the LSTM training
-kernels (``repro_torch.training.compiled.CompiledForecaster``).  A caller
+kernels (``repro_torch.training.compiled.CompiledForecaster``; with
+``compiled=False`` the legacy per-minibatch ``training.train_loop.fit``).  A caller
 may replace ``train`` (``dataclasses.replace(forecaster, train=...)``): with
 a trainer that installs speed models published elsewhere, the edge's view of
 the paper's edge-cloud deployment, or with one that hands the engine draws
@@ -37,6 +38,7 @@ from repro_torch.core.windows import WindowedStream
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models.model import get_model
 from repro_torch.training.compiled import CompiledForecaster, FleetForecaster
+from repro_torch.training.train_loop import fit
 
 Params = Any
 
@@ -57,19 +59,32 @@ class Forecaster:
 
 def lstm_forecaster(cfg: ModelConfig, *, epochs: int, batch_size: int,
                     lr: float = 1e-3, warm_start: bool = False,
+                    compiled: bool = True,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Forecaster:
     """The paper's LSTM forecaster on ``device`` (the current CUDA device by
     default).  ``predict`` takes params on that device and host inputs, and
-    returns host predictions.  ``train`` runs ``CompiledForecaster``:
-    windows padded to a fixed shape bucket, the epoch permutations drawn up
-    front, no host sync inside the step loop."""
+    returns host predictions.  ``compiled=True`` (default): ``train`` runs
+    ``CompiledForecaster``: windows padded to a fixed shape bucket, the
+    epoch permutations drawn up front, no host sync inside the step loop.
+    ``compiled=False`` keeps the legacy per-call ``fit`` (one step a
+    minibatch, the ragged last batch unpadded; no ``engine``), the baseline
+    the compiled path is measured against."""
     dev = resolve_device(device)
-    eng = CompiledForecaster(get_model(cfg), epochs=epochs,
-                             batch_size=batch_size, lr=lr,
-                             warm_start=warm_start,
-                             predict_fn=_host_predict(cfg, dev), device=dev)
-    return Forecaster(train=eng.train, predict=eng.predict, engine=eng)
+    model = get_model(cfg)
+    predict = _host_predict(cfg, dev)
+    if compiled:
+        eng = CompiledForecaster(model, epochs=epochs, batch_size=batch_size,
+                                 lr=lr, warm_start=warm_start,
+                                 predict_fn=predict, device=dev)
+        return Forecaster(train=eng.train, predict=eng.predict, engine=eng)
+
+    def train(data, params, key):
+        res = fit(model, data, epochs=epochs, batch_size=batch_size, lr=lr,
+                  params=params if warm_start else None, key=key, device=dev)
+        return res.params, res.wall_time_s
+
+    return Forecaster(train=train, predict=predict)
 
 
 def _host_predict(cfg: ModelConfig, dev: torch.device

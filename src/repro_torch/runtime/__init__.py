@@ -4,7 +4,8 @@ its fault specs), the health plane (``HealthPlane``, signed model sync), the
 elastic placement plane (``PlacementController`` and its
 ``LoadForecaster``), and the executors (the synchronous loop and the
 bus-driven ``BusExecutor``, and their fleet counterparts
-``InProcessFleetExecutor`` and ``FleetBusExecutor``)."""
+``InProcessFleetExecutor`` and ``FleetBusExecutor``), and the calibrated
+Table-3 simulation (``EdgeCloudSimulation``)."""
 from repro_torch.runtime.bus import (  # noqa: F401
     CapacityError,
     DeadLetter,
@@ -65,3 +66,4 @@ from repro_torch.runtime.executor import (  # noqa: F401
     window_seeds,
 )
 from repro_torch.runtime.latency import CostModel, LatencyLedger  # noqa: F401
+from repro_torch.runtime.modules import EdgeCloudSimulation, SimulationResult  # noqa: F401

@@ -1,13 +1,60 @@
 """Data-injection module (paper Sec. 3 / 5.2): a transfer station that
-throttles the continuous stream into per-time-window payloads, here the
-bus-side injector that publishes each window onto the stream topic.  The
-reference's throttle buffer (``ThrottleConfig``, ``DataInjection``) and
-``stream_windows`` come with the slice that ports the calibrated launcher
-mode.
+throttles the continuous stream into per-time-window payloads.
+
+The buffer queue "avoids the receiver from the crash when absorbing the peaks
+of incoming data", modeled here as a bounded deque with drop accounting
+(``ThrottleConfig``, ``DataInjection``).  The paper throttles >= 200 records
+per 30 s window at ~7 records/s Kafka bandwidth.  ``BusInjector`` is the
+bus-side injector that publishes each window onto the stream topic, and
+``stream_windows`` the offline chop of a series into fixed-size windows.
+Numpy only, copied from the reference.
 """
 from __future__ import annotations
 
-from typing import Optional
+from collections import deque
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+
+@dataclass
+class ThrottleConfig:
+    window_seconds: float = 30.0
+    min_records: int = 200
+    max_buffer: int = 10_000
+    ingest_rate_hz: float = 7.0  # paper's measured Kafka bandwidth
+
+
+@dataclass
+class DataInjection:
+    cfg: ThrottleConfig = field(default_factory=ThrottleConfig)
+    _buffer: deque = field(default_factory=deque)
+    dropped: int = 0
+    emitted_windows: int = 0
+
+    def push(self, records: np.ndarray) -> None:
+        for r in np.atleast_2d(records):
+            if len(self._buffer) >= self.cfg.max_buffer:
+                self._buffer.popleft()
+                self.dropped += 1
+            self._buffer.append(r)
+
+    def ready(self) -> bool:
+        return len(self._buffer) >= self.cfg.min_records
+
+    def emit(self) -> Optional[np.ndarray]:
+        """Emit one time-window payload (all buffered records, >= min)."""
+        if not self.ready():
+            return None
+        out = np.stack(list(self._buffer))
+        self._buffer.clear()
+        self.emitted_windows += 1
+        return out
+
+    def ingest_seconds(self, n_records: int) -> float:
+        """Time to ingest n records at the configured bandwidth."""
+        return n_records / self.cfg.ingest_rate_hz
 
 
 class BusInjector:
@@ -78,3 +125,12 @@ class BusInjector:
                     self.topic, payload, nbytes, self.site))
         self.injected += 1
         return t
+
+
+def stream_windows(series: np.ndarray, records_per_window: int) -> List[np.ndarray]:
+    """Offline equivalent: chop a series into fixed-size time windows."""
+    n = (len(series) // records_per_window) * records_per_window
+    return [
+        series[i : i + records_per_window]
+        for i in range(0, n, records_per_window)
+    ]

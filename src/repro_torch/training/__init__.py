@@ -1,6 +1,7 @@
 """Training of the port: the optimizers, the train and eval steps, the
-checkpoints, and the speed layer's trainers, the single-stream
-``CompiledForecaster`` and the fleet's ``FleetForecaster``."""
+checkpoints, the legacy per-minibatch ``fit``, and the speed layer's
+trainers, the single-stream ``CompiledForecaster`` and the fleet's
+``FleetForecaster``."""
 from repro_torch.training.optimizer import (  # noqa: F401
     Optimizer,
     OptState,
@@ -9,6 +10,7 @@ from repro_torch.training.optimizer import (  # noqa: F401
     warmup_cosine,
 )
 from repro_torch.training.train_loop import (  # noqa: F401
+    fit,
     make_eval_step,
     make_train_step,
 )

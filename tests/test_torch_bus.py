@@ -276,13 +276,30 @@ def test_stage_sync_sees_quantized_leaves():
     (["--real", "--qps", "8"], "--qps requires fleet mode"),
     (["--real", "--elastic"], "--elastic requires fleet mode"),
     (["--chaos", "nope"], "pick from"),
-    ([], "ports the benchmarks"),
+    (["--streams", "3"], "--streams > 1 requires --real"),
 ])
 def test_launcher_refuses_modes_not_ported(flags, slice_, capsys):
     with pytest.raises(SystemExit) as err:
         edge_cloud.parse_args(["--deployment", "all", *flags])
     assert err.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+def test_launcher_default_mode_is_the_calibrated_simulation(monkeypatch):
+    """Without --real the flags parse, and ``main`` hands them to
+    ``run_calibrated``, the launcher's default mode."""
+    args = edge_cloud.parse_args([])
+    assert isinstance(args, argparse.Namespace)
+    assert (args.real, args.deployment, args.windows) == (False, "all", 25)
+    seen = []
+    for name in ("run_real", "run_real_fleet", "run_chaos"):
+        monkeypatch.setattr(edge_cloud, name,
+                            lambda a, name=name: seen.append(name))
+    monkeypatch.setattr(edge_cloud, "run_calibrated",
+                        lambda a: seen.append(("run_calibrated", a.fast)))
+    edge_cloud.main(["--fast"])
+    edge_cloud.main(["--real"])
+    assert seen == [("run_calibrated", True), "run_real"]
 
 
 def test_launcher_runs_all_deployments_on_cpu(single_thread, capsys):

@@ -14,7 +14,7 @@ import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -25,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 assert not loaded, loaded
 print("\n".join(names))
 """
@@ -88,6 +88,12 @@ ANALYSIS_MODULES = {"repro_torch.launch.analysis",
                     "repro_torch.launch.mesh", "repro_torch.launch.steps",
                     "repro_torch.kernels._meta"}
 
+# the launcher's calibrated mode and the legacy trainer
+CALIBRATED_MODULES = {"repro_torch.launch.calibrate",
+                      "repro_torch.streams.csv_source",
+                      "repro_torch.streams.injection",
+                      "repro_torch.runtime.modules"}
+
 
 def test_port_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
@@ -107,6 +113,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert ENCDEC_VLM_MODULES <= names
     assert ZOO_TRAIN_MODULES <= names
     assert ANALYSIS_MODULES <= names
+    assert CALIBRATED_MODULES <= names
 
 
 def test_forecaster_without_device_raises_without_cuda(monkeypatch):
@@ -121,6 +128,38 @@ def test_forecaster_without_device_raises_without_cuda(monkeypatch):
     fc = lstm_forecaster(get_config("lstm-paper"), epochs=1, batch_size=8,
                          device="cpu")
     assert fc.engine.device == torch.device("cpu")
+
+
+def test_calibrated_and_legacy_entry_points_raise_without_cuda(monkeypatch):
+    """``run_calibrated``, ``calibrate``, the legacy ``fit`` and
+    ``lstm_forecaster(compiled=False)`` refuse the CPU unless asked for
+    it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lstm_forecaster
+    from repro_torch.launch import edge_cloud
+    from repro_torch.launch.calibrate import calibrate
+    from repro_torch.models.model import get_model
+    from repro_torch.training import fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("lstm-paper")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        edge_cloud.run_calibrated(edge_cloud.parse_args(["--fast"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate(fast=True)
+    data = {"x": np.zeros((3, 5, 5), np.float32),
+            "y": np.zeros((3, 1), np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(get_model(cfg), data, epochs=1, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lstm_forecaster(cfg, epochs=1, batch_size=2, compiled=False)
+    fc = lstm_forecaster(cfg, epochs=1, batch_size=2, compiled=False,
+                         device="cpu")
+    params, wall = fc.train(data, None, 0)
+    assert params["lstm"]["kernel"].device.type == "cpu" and wall > 0
 
 
 def test_params_and_init_without_device_raise_without_cuda(monkeypatch):
